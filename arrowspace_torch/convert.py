@@ -1,0 +1,64 @@
+"""State carried across from an index built by the JAX package.
+
+``from_jax_state`` takes the arrays of a built index as numpy (the item
+matrix, λ, the graph Laplacian, the τ policy and the clustering fields)
+and returns this package's ArrowIndex on a given device, so an index
+built once can be served here.  It needs nothing of the JAX package: a
+τ policy is anything with ``kind`` and ``value``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import resolve
+from .core import ArrowSpace
+from .graph import GraphLaplacian
+from .index import ArrowIndex
+from .taumode import TauMode
+
+__all__ = ["from_jax_state"]
+
+
+def from_jax_state(data, lambdas, laplacian, taumode, *,
+                   n_clusters: int = 0,
+                   cluster_assignments: Optional[np.ndarray] = None,
+                   cluster_sizes: Optional[np.ndarray] = None,
+                   cluster_radius: float = 0.0,
+                   device=None, dtype=None) -> ArrowIndex:
+    """ArrowIndex over the given state.  ``data`` (N, F), ``lambdas``
+    (N,) and ``laplacian`` (n, n) are array-likes; ``taumode`` is a
+    TauMode of either package."""
+    dev, dt = resolve(device, dtype)
+    rows = np.array(data, dtype=np.float64)       # owned, writable copy
+    lap = np.asarray(laplacian, dtype=np.float64)
+    n_items, n_features = rows.shape
+    mode = TauMode(str(taumode.kind), float(taumode.value))
+    aspace = ArrowSpace(
+        nfeatures=n_features,
+        nitems=n_items,
+        data=torch.as_tensor(rows).to(device=dev, dtype=dt),
+        lambdas=torch.tensor(np.asarray(lambdas, dtype=np.float64)).to(
+            device=dev, dtype=dt),
+        taumode=mode,
+        n_clusters=int(n_clusters),
+        cluster_assignments=np.asarray(
+            cluster_assignments if cluster_assignments is not None else [],
+            dtype=np.int64),
+        cluster_sizes=np.asarray(
+            cluster_sizes if cluster_sizes is not None else [],
+            dtype=np.int64),
+        cluster_radius=float(cluster_radius),
+        host_rows=rows,
+    )
+    gl = GraphLaplacian(
+        init_data=torch.empty((0, n_items), device=dev, dtype=dt),
+        matrix=torch.tensor(lap).to(device=dev, dtype=dt),
+        nnodes=n_items,
+        graph_params=None,
+        structural_nnz=int(np.count_nonzero(lap)),
+    )
+    return ArrowIndex(aspace, gl)

@@ -1,0 +1,317 @@
+// K2: fused τ + λ in one pass over the item rows.
+//
+// Replaces arrowspace_tpu/ops/pallas_taulambda.py fused_taulambda_batch
+// (pallas_call :151, body _kernel :33; τ from pallas_tau._tau_rows :305,
+// bisect layout, _bisect_order_stat :190).
+//
+// What it computes, per item row x (F values) against the graph L (n×n,
+// n <= F), W = max(-L, 0) off the diagonal, W2 = W∘W and their row and
+// column sums d_r, d_c, d2_r, d2_c:
+//   τ  = the exact order statistic of the row's finite values (median,
+//        percentile, mean or fixed), floored at TAU_FLOOR;
+//   E  = xₙᵀLxₙ / xᵀx                     (0 when xᵀx <= 1e-12)
+//   S  = x²·d_r + x²·d_c - 2·xₙᵀWxₙ
+//   G  = clamp((x⁴·d2_r + x⁴·d2_c + 6·x²ᵀW2x² - 4·xᵀW2x³ - 4·x³ᵀW2x)/S², 0, 1)
+//   λ  = τ·E/(E+τ) + (1-τ)·G
+//
+// What bounds it on an H100: the five quadratic forms, 5·n² FMAs per row
+// (82 GFMA at 1M×128), on the fp32 CUDA cores; L, W and W2 together are
+// 192 KB at n=128, too much to keep beside an item tile in one block's
+// shared memory.  What the design does about it: a CTA stages 128 item
+// rows once and streams the three matrices through shared memory in
+// 32-column panels, so each panel feeds all 128 rows; each thread holds a
+// 4-row × 4-column register tile of the five matrix-vector products (12
+// shared loads for 80 FMAs a step).  τ is a warp-per-row bisection over
+// the sortable-int value range (32 ballot passes), exact like the sort,
+// so the median and percentile equal select_tau_batch bitwise.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 128;       // item rows per CTA
+constexpr int kPanel = 32;       // graph columns per staged panel
+constexpr int kMaxLane = 8;      // row values per lane: F <= 256
+constexpr float kTauFloor = 1e-10f;
+constexpr float kDenomEps = 1e-12f;
+
+__device__ __forceinline__ int to_sortable(float v) {
+  const int i = __float_as_int(v);
+  return i < 0 ? i ^ 0x7FFFFFFF : i;
+}
+
+__device__ __forceinline__ float from_sortable(int y) {
+  return __int_as_float(y < 0 ? y ^ 0x7FFFFFFF : y);
+}
+
+__device__ __forceinline__ int warp_count_le(const int (&y)[kMaxLane],
+                                             int nv, int mid) {
+  int cnt = 0;
+#pragma unroll
+  for (int m = 0; m < kMaxLane; ++m)
+    if (m < nv) cnt += __popc(__ballot_sync(ASP_FULL_MASK, y[m] <= mid));
+  return cnt;
+}
+
+// Smallest sortable value v with count(y <= v) >= rank1: the rank1-th
+// smallest element (lanes past F hold INT_MAX and never count short).
+__device__ int bisect_order_stat(const int (&y)[kMaxLane], int nv,
+                                 int rank1) {
+  int lo = INT32_MIN, hi = INT32_MAX;
+  for (int it = 0; it < 32; ++it) {
+    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+    if (warp_count_le(y, nv, mid) >= rank1)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(ASP_FULL_MASK, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    taulambda_kernel(const float* __restrict__ x, const float* __restrict__ L,
+                     const float* __restrict__ W, const float* __restrict__ W2,
+                     const float* __restrict__ d_r,
+                     const float* __restrict__ d_c,
+                     const float* __restrict__ d2_r,
+                     const float* __restrict__ d2_c, int N, int F, int n,
+                     int kind, float pct, float fixed,
+                     float* __restrict__ lam_out,
+                     float* __restrict__ tau_out) {
+  extern __shared__ float smem[];
+  const int xstride = F + 1;
+  float* xs = smem;                                // [kRows][F + 1]
+  float* lp = xs + kRows * xstride;                // [n][kPanel + 1]
+  float* wp = lp + n * (kPanel + 1);
+  float* w2p = wp + n * (kPanel + 1);
+  float* r_tau = w2p + n * (kPanel + 1);           // per-row scalars
+  float* r_den = r_tau + kRows;
+  float* r_s = r_den + kRows;                      // x²·d_r + x²·d_c
+  float* r_ta = r_s + kRows;                       // x⁴·d2_r + x⁴·d2_c
+  float* r_num = r_ta + kRows;                     // xₙᵀLxₙ
+  float* r_xwx = r_num + kRows;                    // xₙᵀWxₙ
+  float* r_tb = r_xwx + kRows;                     // x²ᵀW2x²
+  float* r_tc = r_tb + kRows;                      // xᵀW2x³
+  float* r_td = r_tc + kRows;                      // x³ᵀW2x
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int64_t row0 = (int64_t)blockIdx.x * kRows;
+
+  for (int idx = tid; idx < kRows * F; idx += kThreads) {
+    const int r = idx / F, f = idx % F;
+    const int64_t g = row0 + r;
+    xs[r * xstride + f] = g < N ? x[g * F + f] : 0.0f;
+  }
+  __syncthreads();
+
+  // ---- τ and the O(F) row sums: one warp per row ----
+  const int nv = (F + 31) / 32;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    int y[kMaxLane];
+    float v[kMaxLane];
+    int m_count = 0;
+    float den = 0.0f, sr = 0.0f, sc = 0.0f, tar = 0.0f, tac = 0.0f,
+          fsum = 0.0f;
+#pragma unroll
+    for (int m = 0; m < kMaxLane; ++m) {
+      const int f = m * 32 + lane;
+      const bool in = m < nv && f < F;
+      v[m] = in ? xs[r * xstride + f] : 0.0f;
+      const bool fin = in && isfinite(v[m]);
+      y[m] = in ? to_sortable(fin ? v[m] : __int_as_float(0x7F800000))
+                : INT32_MAX;
+      if (m < nv) m_count += __popc(__ballot_sync(ASP_FULL_MASK, fin));
+      if (fin) fsum += v[m];
+      if (in) {
+        const float x2 = v[m] * v[m];
+        den += x2;
+        if (f < n) {
+          const float x4 = x2 * x2;
+          sr += x2 * d_r[f];
+          sc += x2 * d_c[f];
+          tar += x4 * d2_r[f];
+          tac += x4 * d2_c[f];
+        }
+      }
+    }
+    den = warp_sum(den);
+    const float s_part = warp_sum(sr) + warp_sum(sc);
+    const float ta_part = warp_sum(tar) + warp_sum(tac);
+
+    float tau;
+    if (kind == 3) {
+      tau = fixed;
+    } else if (kind == 2) {
+      const float s = warp_sum(fsum);
+      tau = m_count > 0 ? s / (float)max(m_count, 1) : 0.0f;
+      tau = fmaxf(tau, kTauFloor);
+    } else if (kind == 1) {
+      const float pos = __fadd_rn(__fmul_rn((float)(m_count - 1), pct), 0.5f);
+      int idx = (int)floorf(pos);
+      idx = min(max(idx, 0), F - 1);
+      const int vsel = bisect_order_stat(y, nv, idx + 1);
+      tau = m_count > 0 ? from_sortable(vsel) : kTauFloor;
+      tau = fmaxf(tau, kTauFloor);
+    } else {
+      const int m1 = max(m_count, 1);
+      const int lo_r = min(max((m1 - 1) / 2, 0), F - 1);
+      const int hi_r = min(max(m1 / 2, 0), F - 1);
+      const int v_lo = bisect_order_stat(y, nv, lo_r + 1);
+      const int cnt_lo = warp_count_le(y, nv, v_lo);
+      int nxt = INT32_MAX;
+#pragma unroll
+      for (int m = 0; m < kMaxLane; ++m)
+        if (m < nv && y[m] > v_lo) nxt = min(nxt, y[m]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        nxt = min(nxt, __shfl_xor_sync(ASP_FULL_MASK, nxt, off));
+      const int v_hi = cnt_lo < hi_r + 1 ? nxt : v_lo;
+      const float med = __fmul_rn(
+          0.5f, __fadd_rn(from_sortable(v_lo), from_sortable(v_hi)));
+      tau = m_count > 0 ? med : kTauFloor;
+      tau = fmaxf(tau, kTauFloor);
+    }
+    if (lane == 0) {
+      r_tau[r] = tau;
+      r_den[r] = den;
+      r_s[r] = s_part;
+      r_ta[r] = ta_part;
+    }
+  }
+
+  // ---- the five matrix-vector products, panel by panel ----
+  const int tr = tid / 8;          // rows tr*4 .. tr*4+3
+  const int tc = tid % 8;          // panel columns tc*4 .. tc*4+3
+  float pn[4] = {0, 0, 0, 0}, pw[4] = {0, 0, 0, 0}, pb[4] = {0, 0, 0, 0},
+        pc[4] = {0, 0, 0, 0}, pd[4] = {0, 0, 0, 0};
+  for (int i0 = 0; i0 < n; i0 += kPanel) {
+    __syncthreads();
+    for (int idx = tid; idx < n * kPanel; idx += kThreads) {
+      const int ii = idx / n, j = idx % n;
+      const int i = i0 + ii;
+      const bool ok = i < n;
+      lp[j * (kPanel + 1) + ii] = ok ? L[(int64_t)i * n + j] : 0.0f;
+      wp[j * (kPanel + 1) + ii] = ok ? W[(int64_t)i * n + j] : 0.0f;
+      w2p[j * (kPanel + 1) + ii] = ok ? W2[(int64_t)i * n + j] : 0.0f;
+    }
+    __syncthreads();
+    float aL[4][4], aW[4][4], aA[4][4], aB[4][4], aC[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        aL[a][c] = aW[a][c] = aA[a][c] = aB[a][c] = aC[a][c] = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      float x1[4], x2[4], x3[4], lv[4], wv[4], w2v[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        x1[a] = xs[(tr * 4 + a) * xstride + j];
+        x2[a] = x1[a] * x1[a];
+        x3[a] = x2[a] * x1[a];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lv[c] = lp[j * (kPanel + 1) + tc * 4 + c];
+        wv[c] = wp[j * (kPanel + 1) + tc * 4 + c];
+        w2v[c] = w2p[j * (kPanel + 1) + tc * 4 + c];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          aL[a][c] = fmaf(lv[c], x1[a], aL[a][c]);   // (L x)_i
+          aW[a][c] = fmaf(wv[c], x1[a], aW[a][c]);   // (W x)_i
+          aA[a][c] = fmaf(w2v[c], x2[a], aA[a][c]);  // (W2 x²)_i
+          aB[a][c] = fmaf(w2v[c], x3[a], aB[a][c]);  // (W2 x³)_i
+          aC[a][c] = fmaf(w2v[c], x1[a], aC[a][c]);  // (W2 x)_i
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i0 + tc * 4 + c;
+        if (i < n) {
+          const float xi = xs[(tr * 4 + a) * xstride + i];
+          const float xi2 = xi * xi;
+          pn[a] = fmaf(xi, aL[a][c], pn[a]);
+          pw[a] = fmaf(xi, aW[a][c], pw[a]);
+          pb[a] = fmaf(xi2, aA[a][c], pb[a]);
+          pc[a] = fmaf(xi, aB[a][c], pc[a]);
+          pd[a] = fmaf(xi2 * xi, aC[a][c], pd[a]);
+        }
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) {
+      pn[a] += __shfl_xor_sync(ASP_FULL_MASK, pn[a], off);
+      pw[a] += __shfl_xor_sync(ASP_FULL_MASK, pw[a], off);
+      pb[a] += __shfl_xor_sync(ASP_FULL_MASK, pb[a], off);
+      pc[a] += __shfl_xor_sync(ASP_FULL_MASK, pc[a], off);
+      pd[a] += __shfl_xor_sync(ASP_FULL_MASK, pd[a], off);
+    }
+  if (tc == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = tr * 4 + a;
+      r_num[r] = pn[a];
+      r_xwx[r] = pw[a];
+      r_tb[r] = pb[a];
+      r_tc[r] = pc[a];
+      r_td[r] = pd[a];
+    }
+  }
+  __syncthreads();
+
+  // ---- λ per row ----
+  if (tid < kRows && row0 + tid < N) {
+    const int r = tid;
+    const float tau = r_tau[r];
+    const float den = r_den[r];
+    const float e_raw = den > kDenomEps ? r_num[r] / fmaxf(den, kDenomEps)
+                                        : 0.0f;
+    const float s = r_s[r] - 2.0f * r_xwx[r];
+    const float g_num =
+        r_ta[r] + 6.0f * r_tb[r] - 4.0f * r_tc[r] - 4.0f * r_td[r];
+    float g = s > 0.0f ? g_num / fmaxf(s * s, kDenomEps) : 0.0f;
+    g = fminf(fmaxf(g, 0.0f), 1.0f);
+    lam_out[row0 + r] = tau * (e_raw / (e_raw + tau)) + (1.0f - tau) * g;
+    tau_out[row0 + r] = tau;
+  }
+}
+
+}  // namespace
+
+extern "C" int asp_taulambda(const void* x, const void* L, const void* W,
+                             const void* W2, const void* d_r, const void* d_c,
+                             const void* d2_r, const void* d2_c, int N, int F,
+                             int n, int kind, float pct, float fixed,
+                             void* lam_out, void* tau_out, void* stream) {
+  if (F > kMaxLane * 32 || n > F || n < 1) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  const size_t smem =
+      (size_t)(kRows * (F + 1) + 3 * n * (kPanel + 1) + 9 * kRows) * 4;
+  cudaError_t err = asp_allow_smem(taulambda_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (N + kRows - 1) / kRows;
+  taulambda_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(L),
+      static_cast<const float*>(W), static_cast<const float*>(W2),
+      static_cast<const float*>(d_r), static_cast<const float*>(d_c),
+      static_cast<const float*>(d2_r), static_cast<const float*>(d2_c), N, F,
+      n, kind, pct, fixed, static_cast<float*>(lam_out),
+      static_cast<float*>(tau_out));
+  return (int)cudaGetLastError();
+}

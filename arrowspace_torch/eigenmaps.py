@@ -1,0 +1,91 @@
+"""EigenMaps: the staged build pipeline as explicit, composable stages.
+
+PyTorch counterpart of ``arrowspace_tpu.eigenmaps`` (reference:
+eigenmaps.rs:93-456):
+
+1. start_clustering — optimal-K heuristic + incremental clustering (host);
+2. eigenmaps        — feature-graph Laplacian from the centroids;
+3. compute_taumode  — batched λτ on the index device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import clustering
+from .core import ArrowSpace
+from .graph import GraphFactory, GraphLaplacian
+from .sampling import SamplerType
+from .taumode import compute_taumode_lambdas
+from .utils.log import get_logger
+
+logger = get_logger("arrowspace.eigenmaps")
+
+__all__ = ["ClusteredOutput", "start_clustering", "eigenmaps",
+           "compute_taumode"]
+
+
+@dataclass
+class ClusteredOutput:
+    """Output of the clustering stage (reference: eigenmaps.rs:75-87)."""
+    aspace: ArrowSpace
+    centroids: np.ndarray    # X × F
+
+
+def start_clustering(builder, rows) -> ClusteredOutput:
+    """Stage 1 (reference: eigenmaps.rs:175-290)."""
+    rows_arr = np.asarray(rows, dtype=np.float64)
+    n_items, n_features = rows_arr.shape
+    logger.info("EigenMaps::start_clustering: N=%d items, F=%d features",
+                n_items, n_features)
+
+    aspace = ArrowSpace.new(rows_arr, builder.synthesis,
+                            device=builder.device, dtype=builder.dtype)
+    # seeded builds thread the clustering seed through the sampler
+    sampler_type = builder.sampling if builder.sampling is not None \
+        else SamplerType.simple(1.0)
+    sampler = sampler_type.make(seed=builder.clustering_seed)
+
+    k_opt, radius, intrinsic_dim = clustering.compute_optimal_k(
+        rows_arr, n_items, n_features, builder.clustering_seed)
+    logger.debug("Optimal clustering: K=%d, radius=%.6f, intrinsic_dim=%d",
+                 k_opt, radius, intrinsic_dim)
+    builder.cluster_max_clusters = k_opt
+    builder.cluster_radius = radius
+
+    centroids, assignments, sizes = \
+        clustering.run_incremental_clustering_with_sampling(
+            builder, rows_arr, n_features, k_opt, radius, sampler)
+    assign_arr = np.asarray([-1 if a is None else a for a in assignments],
+                            dtype=np.int64)
+    logger.info("Clustering complete: %d centroids, %d items assigned",
+                centroids.shape[0], int((assign_arr >= 0).sum()))
+
+    aspace.n_clusters = centroids.shape[0]
+    aspace.cluster_assignments = assign_arr
+    aspace.cluster_sizes = np.asarray(sizes, dtype=np.int64)
+    aspace.cluster_radius = radius
+    return ClusteredOutput(aspace=aspace, centroids=centroids)
+
+
+def eigenmaps(aspace: ArrowSpace, builder, centroids,
+              n_items: int) -> GraphLaplacian:
+    """Stage 2: feature-graph Laplacian from the clustered centroids
+    (reference: eigenmaps.rs:292-356)."""
+    n_centroids, n_features = np.shape(centroids)
+    logger.info("EigenMaps::eigenmaps: %d centroids x %d features",
+                n_centroids, n_features)
+    return GraphFactory.build_laplacian_matrix_from_k_cluster(
+        centroids, builder.lambda_eps, builder.lambda_k,
+        builder.lambda_topk, builder.lambda_p, builder.lambda_sigma,
+        builder.normalise, builder.sparsity_check, n_items,
+        device=aspace.device, dtype=aspace.dtype)
+
+
+def compute_taumode(aspace: ArrowSpace, gl: GraphLaplacian) -> None:
+    """Stage 3: batched λτ (reference: eigenmaps.rs:358-383)."""
+    aspace.lambdas = compute_taumode_lambdas(
+        aspace.data, gl.matrix, aspace.taumode,
+        pad_items=aspace.pad_tall_graphs)

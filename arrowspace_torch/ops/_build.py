@@ -1,0 +1,114 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, at first use, into
+``arrowspace_torch/_build/`` (git-ignored).  The library name carries a
+hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is reused.  Python binds it with ``ctypes``: every pointer
+and the stream are ``c_void_p``, and every entry point returns
+``cudaGetLastError()`` after its launch, which ``check`` turns into an
+exception.
+
+Nothing here runs at import: the CPU tests import every module and this
+machine need not have ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+__all__ = ["build", "lib", "check", "stream_of"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu")
+HEADERS = ("common.cuh",)
+# -Xptxas -v reports each kernel's registers, shared memory and spills
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth, n_chunks,
+    # tiles_per_chunk, pool_s, pool_i, det, stream
+    "asp_bintopk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P),
+    # qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks, rows_per_chunk,
+    # out_s, out_i, stream
+    "asp_merge_topk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P),
+    # x, L, W, W2, d_r, d_c, d2_r, d2_c, N, F, n, kind, pct, fixed,
+    # lam_out, tau_out, stream
+    "asp_taulambda": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _F, _F, _P, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _library_path() -> pathlib.Path:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"libarrowspace_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the kernels unless an up-to-date library exists.
+    Returns (library path, compiler output; empty when reused)."""
+    out = _library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return handle
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current stream of t's device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

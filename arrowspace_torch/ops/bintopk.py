@@ -1,0 +1,250 @@
+"""K1: bin-accumulator streaming λ-aware top-k (csrc/bintopk.cu).
+
+Replaces ``arrowspace_tpu.ops.pallas_bintopk.binned_lambda_topk``
+(pallas_call at pallas_bintopk.py:667; body ``_kernel`` :387,
+``_fold_subtiles`` :464, ``_fold_tile`` :359).
+
+Contract kept from the TPU kernel (bin_repair.py:12-33): corpus row g
+belongs to bin ``g mod bins``; the pool holds, per (query, bin), at
+least the top-``depth`` scores by (-score, lowest id); and ``det[q, b]``
+bounds every score of bin b that is not in the pool (NEG_INF when none
+is missing).  The flush then takes the exact two-key top-k of the pool
+and flags a query when some bin's det reaches its kth score, so
+unflagged rows are exact and flagged rows are repaired exactly by
+rescoring only their fired bins (ops/bin_repair).
+
+The CUDA kernel splits the corpus into chunks, one CTA per (query block,
+chunk), and writes a top-``depth`` pool and a det per (query, chunk,
+bin); the flush merges the chunks.  A row dropped by its chunk is below
+that chunk's det, and the strided repair rescans the whole bin, so the
+per-chunk pools keep the contract.  ``binned_topk_pool_plain`` is the
+same computation in plain PyTorch.
+
+Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
+dot product is α·cos, and c1 is added back after the flush.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import check, lib, stream_of
+from .search import (INT_MAX, NEG_INF, dot_plane, lambda_term,
+                     prepare_query, safe_unit, two_key_topk)
+
+__all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
+           "bintopk_fits", "binned_topk_pool", "binned_topk_pool_plain",
+           "flush_pool", "binned_lambda_topk"]
+
+# Prepared corpora are zero-padded to a multiple of the widest bin count,
+# so one prepared copy serves every k.
+CORPUS_ALIGN = 512
+KERNEL_BINS = (128, 256, 512)
+KERNEL_DEPTHS = (2, 3, 4)
+_THREADS = 256
+_SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block can use
+
+
+def binned_topk_depth_for(k: int) -> int:
+    """Bin depth D for a requested k (pallas_bintopk.py:61-73): deep
+    enough that a >D collision is rare, shallow enough to keep the
+    insertion network cheap."""
+    if k <= 4:
+        return 2
+    if k <= 48:
+        return 3
+    return 4
+
+
+def bins_target(k: int) -> int:
+    """Bins per query (pallas_bintopk.py:114-148): 128 up to k=12, then
+    wider pools as the collision rate ~C(k, D+1)/bins^D grows."""
+    if k <= 12:
+        return 128
+    if k <= 32:
+        return 256
+    return 512
+
+
+def query_block(bins: int) -> int:
+    """Queries per CTA of the CUDA kernel: 256 threads, each holding a
+    4-query × 4-bin tile of the running state."""
+    return _THREADS * 16 // bins
+
+
+def bintopk_fits(f: int, bins: int = 128) -> bool:
+    """Whether the CUDA kernel's shared memory (the query block's rows,
+    padded to whole float4s, and two buffers of one feature slice of a
+    corpus tile) fits a block."""
+    qs_stride = -(-f // 4) * 4 + 4
+    slice_stride = (32 if bins >= 512 else 64) + 4  # csrc slice_stride()
+    smem = (query_block(bins) * qs_stride + 2 * bins * slice_stride) * 4
+    return f >= 1 and smem <= _SMEM_LIMIT
+
+
+def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
+    """Unit-normalised corpus and its λ, zero-padded to a multiple of
+    CORPUS_ALIGN rows: float32 on CUDA (what the kernel reads), the
+    corpus dtype on the CPU.  Sessions do this once."""
+    dt = torch.float32 if items.is_cuda else items.dtype
+    n = items.shape[0]
+    pad = (-n) % CORPUS_ALIGN
+    xhat = torch.nn.functional.pad(safe_unit(items).to(dt), (0, 0, 0, pad))
+    xlam = torch.nn.functional.pad(item_lambdas.to(dt), (0, pad))
+    return xhat.contiguous(), xlam.contiguous()
+
+
+def _default_chunks(bsz: int, bins: int, n_tiles: int, device) -> int:
+    """Corpus chunks per query block.  The kernel's registers leave room
+    for one resident CTA per SM, so the grid should fill the SMs in whole
+    waves: the fewest chunks (at most 64, at most one per tile) whose
+    last wave is at least 90 % full, else the fullest.  Fewer chunks also
+    keep the pool the flush sorts small."""
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    else:
+        sms = 1
+    q_blocks = -(-bsz // query_block(bins))
+    best, best_fill = 1, 0.0
+    for c in range(1, max(1, min(n_tiles, 64)) + 1):
+        ctas = q_blocks * c
+        fill = ctas / (-(-ctas // sms) * sms)
+        if fill >= 0.9:
+            return c
+        if fill > best_fill:
+            best, best_fill = c, fill
+    return best
+
+
+def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
+                     depth: int, bins: int, chunks: int):
+    """Per-(query, chunk, bin) top-``depth`` pool and det.
+
+    qhat (B, F) α-prescaled unit queries, qlam (B,), xhat/xlam the
+    prepared corpus (at least ceil(n/bins)·bins rows), c1 = 1-α.
+    Returns pool_s (B, chunks, depth, bins), pool_i (same, int32 global
+    row ids, INT_MAX in empty slots) and det (B, chunks, bins).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    if qhat.device.type == "cpu":
+        return binned_topk_pool_plain(qhat, qlam, xhat, xlam, c1, n,
+                                      depth=depth, bins=bins, chunks=chunks)
+    bsz, f = qhat.shape
+    n_tiles = -(-n // bins)
+    for t in (qhat, qlam, xhat, xlam):
+        if not (t.is_cuda and t.dtype == torch.float32
+                and t.is_contiguous()):
+            raise ValueError("binned_topk_pool: CUDA float32 contiguous "
+                             "tensors required")
+    if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
+        raise ValueError(f"binned_topk_pool: unsupported bins={bins} "
+                         f"depth={depth}")
+    if not bintopk_fits(f, bins):
+        raise ValueError(f"binned_topk_pool: F={f} exceeds the kernel's "
+                         "shared-memory budget")
+    if xhat.shape[0] < n_tiles * bins or xhat.shape[1] != f:
+        raise ValueError("binned_topk_pool: corpus not padded to whole "
+                         "bin tiles")
+    tiles_per_chunk = -(-n_tiles // chunks)
+    chunks = -(-n_tiles // tiles_per_chunk)
+    pool_s = torch.empty((bsz, chunks, depth, bins), device=qhat.device,
+                         dtype=torch.float32)
+    pool_i = torch.empty((bsz, chunks, depth, bins), device=qhat.device,
+                         dtype=torch.int32)
+    det = torch.empty((bsz, chunks, bins), device=qhat.device,
+                      dtype=torch.float32)
+    if bsz == 0 or n <= 0:
+        return pool_s, pool_i, det
+    rc = lib().asp_bintopk(
+        qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(), xlam.data_ptr(),
+        c1, n, bsz, f, bins, depth, chunks, tiles_per_chunk,
+        pool_s.data_ptr(), pool_i.data_ptr(), det.data_ptr(),
+        stream_of(qhat))
+    check(rc, "asp_bintopk")
+    binned_topk_pool.launches += 1
+    return pool_s, pool_i, det
+
+
+binned_topk_pool.launches = 0
+
+
+def binned_topk_pool_plain(qhat, qlam, xhat, xlam, c1: float, n: int, *,
+                           depth: int, bins: int, chunks: int):
+    """Plain PyTorch version of the K1 kernel, same outputs and layout.
+
+    Rows are viewed as (chunk, tile, bin); a stable descending sort over
+    each chunk's tiles keeps the earliest (lowest-id) row first among
+    equal scores, which is what the kernel's strict-> insertion keeps.
+    The (depth+1)-th entry is the chunk's det."""
+    bsz = qhat.shape[0]
+    n_tiles = -(-n // bins)
+    tiles_per_chunk = -(-n_tiles // chunks)
+    chunks = -(-n_tiles // tiles_per_chunk)
+    span = chunks * tiles_per_chunk * bins
+    ids = torch.arange(span, device=qhat.device)
+    ids = ids.reshape(chunks, tiles_per_chunk, bins)
+    x_n, l_n = xhat[:n], xlam[:n]
+    take = min(depth + 1, tiles_per_chunk)
+    rows = max(1, (1 << 26) // max(1, span))
+    out_s, out_i, out_d = [], [], []
+    for b0 in range(0, bsz, rows):
+        q, ql = qhat[b0:b0 + rows], qlam[b0:b0 + rows]
+        plane = dot_plane(q, x_n) - lambda_term(ql, l_n, c1)
+        full = plane.new_full((q.shape[0], span), NEG_INF)
+        full[:, :n] = plane
+        full = full.reshape(-1, chunks, tiles_per_chunk, bins)
+        s, order = torch.sort(full, dim=2, descending=True, stable=True)
+        s = s[:, :, :take]
+        g = ids[None].expand(q.shape[0], -1, -1, -1).gather(
+            2, order[:, :, :take])
+        g = torch.where(s > NEG_INF, g, torch.full_like(g, INT_MAX))
+        if take < depth + 1:           # fewer tiles than depth + 1
+            pad = depth + 1 - take
+            s = torch.nn.functional.pad(s, (0, 0, 0, pad), value=NEG_INF)
+            g = torch.nn.functional.pad(g, (0, 0, 0, pad), value=INT_MAX)
+        out_s.append(s[:, :, :depth])
+        out_i.append(g[:, :, :depth].to(torch.int32))
+        out_d.append(s[:, :, depth])
+    return torch.cat(out_s), torch.cat(out_i), torch.cat(out_d)
+
+
+def flush_pool(pool_s, pool_i, det, k: int, shift: float):
+    """Exact top-k over the pool plus the miss flags
+    (pallas_bintopk.py:959-997): a two-key (-score, id) sort, the kth
+    score, and flag = any bin whose det (max over chunks) reaches it.
+    The shift c1 is added back to scores and det after the compare.
+    Returns (scores (B,k), ids (B,k) int64, flags (B,) bool,
+    det (B, bins))."""
+    bsz = pool_s.shape[0]
+    s, i = two_key_topk(pool_s.reshape(bsz, -1),
+                        pool_i.reshape(bsz, -1).long(), k)
+    det_b = det.amax(dim=1)
+    kth = s[:, k - 1]
+    flags = ((det_b >= kth[:, None]) & (det_b > NEG_INF)).any(dim=1)
+    return s + shift, i, flags, det_b + shift
+
+
+def binned_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
+                       *, k: int, prepared: bool = False, n_items: int = 0):
+    """Binned λ-aware top-k: (scores (B,k), ids (B,k), flags (B,),
+    det (B, bins)).  Flagged rows may miss a top-k element to a deep bin
+    collision and must be repaired by the caller (ops/bin_repair);
+    unflagged rows are exact.
+
+    ``prepared=True`` takes items/item_lambdas from prepare_binned_corpus
+    and the true row count from n_items."""
+    if not prepared:
+        n_items = items.shape[0]
+        items, item_lambdas = prepare_binned_corpus(items, item_lambdas)
+    n = n_items
+    depth, bins = binned_topk_depth_for(k), bins_target(k)
+    dt = items.dtype
+    qhat, c1 = prepare_query(queries, alpha, dtype=dt)
+    qlam = query_lambdas.to(dt).contiguous()
+    chunks = _default_chunks(qhat.shape[0], bins, -(-n // bins), qhat.device)
+    pool_s, pool_i, det = binned_topk_pool(qhat, qlam, items, item_lambdas,
+                                           c1, n, depth=depth, bins=bins,
+                                           chunks=chunks)
+    return flush_pool(pool_s, pool_i, det, k, c1)
+

@@ -1,0 +1,113 @@
+"""K2: fused τ + λ in one pass over the items (csrc/taulambda.cu).
+
+Replaces ``arrowspace_tpu.ops.pallas_taulambda.fused_taulambda_batch``
+(pallas_call at pallas_taulambda.py:151; body ``_kernel`` :33, τ from
+``pallas_tau._tau_rows`` :305 with the ``bisect`` layout,
+``_bisect_order_stat`` :190).
+
+Per item row x (F values) against a graph L (n×n, n <= F):
+- τ, the exact order statistic of the row's finite values (median,
+  percentile, mean or fixed; TAU_FLOOR applied), equal bitwise to
+  taumode.select_tau_batch for median and percentile;
+- E = xₙᵀLxₙ / xᵀx, S = x²·d_r + x²·d_c - 2xₙᵀWxₙ,
+  G = clamp((x⁴·d2_r + x⁴·d2_c + 6x²ᵀW²x² - 4x³ᵀW²x - 4xᵀW²x³) / S², 0, 1),
+  λ = τ·E/(E+τ) + (1-τ)·G, with W = max(-L, 0) off the diagonal.
+
+``taulambda_fits`` is the kernel's shared-memory gate; above it the
+caller runs select_tau_batch + synthetic_lambda_batch.
+``taulambda_plain`` is the same computation in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import DENOM_EPS
+from ..taumode import graph_weights, select_tau_batch
+from ._build import check, lib, stream_of
+
+__all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain"]
+
+_ROWS = 128                # item rows per CTA
+_PANEL = 32                # graph columns staged per step
+_SMEM_LIMIT = 227 * 1024
+_KINDS = {"median": 0, "percentile": 1, "mean": 2, "fixed": 3}
+
+
+def taulambda_fits(f: int, n: int) -> bool:
+    """Shared memory of one CTA: the item tile, three graph panels and
+    the per-row partial sums; F is capped by the per-lane row registers
+    of the τ selection (8 values a lane)."""
+    smem = (_ROWS * (f + 1) + 3 * n * (_PANEL + 1) + 9 * _ROWS) * 4
+    return 1 <= n <= f <= 256 and smem <= _SMEM_LIMIT
+
+
+def _graph_operands(laplacian: torch.Tensor, dtype):
+    lap = laplacian.to(dtype)
+    w = graph_weights(lap)
+    w2 = w * w
+    return (lap.contiguous(), w.contiguous(), w2.contiguous(),
+            w.sum(dim=1), w.sum(dim=0), w2.sum(dim=1), w2.sum(dim=0))
+
+
+def fused_taulambda(items: torch.Tensor, laplacian: torch.Tensor, mode):
+    """(λ (N,), τ (N,)) for every item row.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    if items.device.type == "cpu":
+        return taulambda_plain(items, laplacian, mode)
+    n_items, f = items.shape
+    n = laplacian.shape[0]
+    if not (items.is_cuda and items.dtype == torch.float32
+            and items.is_contiguous()):
+        raise ValueError("fused_taulambda: CUDA float32 contiguous items "
+                         "required")
+    if not taulambda_fits(f, n):
+        raise ValueError(f"fused_taulambda: F={f}, n={n} outside the "
+                         "kernel's gate")
+    ops = [t.to(items.device).contiguous()
+           for t in _graph_operands(laplacian, torch.float32)]
+    pct = min(max(mode.value, 0.0), 1.0) if mode.kind == "percentile" \
+        else 0.5
+    fixed = mode.fixed_tau() if mode.kind == "fixed" else 0.0
+    lam = torch.empty((n_items,), device=items.device, dtype=torch.float32)
+    tau = torch.empty_like(lam)
+    if n_items:
+        rc = lib().asp_taulambda(
+            items.data_ptr(), *[t.data_ptr() for t in ops], n_items, f, n,
+            _KINDS[mode.kind], pct, fixed, lam.data_ptr(), tau.data_ptr(),
+            stream_of(items))
+        check(rc, "asp_taulambda")
+        fused_taulambda.launches += 1
+    return lam, tau
+
+
+fused_taulambda.launches = 0
+
+
+def taulambda_plain(items: torch.Tensor, laplacian: torch.Tensor, mode):
+    """Plain PyTorch version of the K2 kernel: (λ, τ) in items' dtype."""
+    tau = select_tau_batch(items, mode)
+    n = laplacian.shape[0]
+    lap, w, w2, d_r, d_c, d2_r, d2_c = [
+        t.to(items.device) for t in _graph_operands(laplacian, items.dtype)]
+    xn = items[:, :n]
+
+    def rs(a, m, b):                  # rowsum((a @ mᵀ) * b)
+        return ((a @ m.T) * b).sum(dim=1)
+
+    numerator = rs(xn, lap, xn)
+    denom = (items * items).sum(dim=1)
+    zero = torch.zeros((), dtype=items.dtype, device=items.device)
+    e_raw = torch.where(denom > DENOM_EPS,
+                        numerator / denom.clamp_min(DENOM_EPS), zero)
+    x2 = xn * xn
+    x3, x4 = x2 * xn, x2 * x2
+    s = (x2 * d_r).sum(dim=1) + (x2 * d_c).sum(dim=1) - 2.0 * rs(xn, w, xn)
+    t_a = (x4 * d2_r).sum(dim=1) + (x4 * d2_c).sum(dim=1)
+    g_num = (t_a + 6.0 * rs(x2, w2, x2) - 4.0 * rs(x3, w2, xn)
+             - 4.0 * rs(xn, w2, x3))
+    g = torch.where(s > 0.0, g_num / (s * s).clamp_min(DENOM_EPS), zero)
+    g = g.clamp(0.0, 1.0)
+    return tau * (e_raw / (e_raw + tau)) + (1.0 - tau) * g, tau

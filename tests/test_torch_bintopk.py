@@ -1,0 +1,266 @@
+"""K1 (binned top-k), K3 (merge top-k) and the strided repair of
+arrowspace_torch against the JAX package's Pallas kernels run in
+interpret mode, the plain full scan, and a per-bin numpy reference.
+
+Ids must match exactly; float32 scores agree to 1e-6 (one dot product,
+summed in a different order)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from arrowspace_tpu.ops.pallas_bintopk import binned_lambda_topk as j_binned
+from arrowspace_tpu.ops.pallas_topk import fused_lambda_topk as j_merge
+from arrowspace_tpu.ops.search import batched_lambda_aware_topk as j_plain
+from arrowspace_torch.ops import bin_repair as br
+from arrowspace_torch.ops import bintopk as bt
+from arrowspace_torch.ops import topk as tk
+from arrowspace_torch.ops.search import (INT_MAX, NEG_INF,
+                                         batched_lambda_aware_topk,
+                                         binned_topk_with_repair,
+                                         prepare_query, two_key_topk)
+
+
+def _data(n, f, b, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.1, 1.0, (b, f)).astype(np.float32),
+            rng.uniform(0, 1, (b,)).astype(np.float32),
+            rng.uniform(0.1, 1.0, (n, f)).astype(np.float32),
+            rng.uniform(0, 1, (n,)).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _pool_reference(plane, n, depth, bins, tiles_per_chunk):
+    """Per (query, chunk, bin): the top-depth of the bin's rows by
+    (-score, id) and the (depth+1)-th score, in numpy."""
+    bsz = plane.shape[0]
+    chunk_rows = tiles_per_chunk * bins
+    chunks = -(-n // chunk_rows)
+    top_s = np.full((bsz, chunks, depth, bins), NEG_INF)
+    top_i = np.full((bsz, chunks, depth, bins), INT_MAX, dtype=np.int64)
+    det = np.full((bsz, chunks, bins), NEG_INF)
+    for c in range(chunks):
+        for b in range(bins):
+            g = np.arange(c * chunk_rows + b, min(n, (c + 1) * chunk_rows),
+                          bins)
+            for q in range(bsz):
+                order = np.lexsort((g, -plane[q, g]))
+                m = min(depth, g.size)
+                top_s[q, c, :m, b] = plane[q, g[order[:m]]]
+                top_i[q, c, :m, b] = g[order[:m]]
+                if g.size > depth:
+                    det[q, c, b] = plane[q, g[order[depth]]]
+    return top_s, top_i, det
+
+
+@pytest.mark.parametrize("n,bins,depth,chunks", [(1000, 128, 3, 1),
+                                                 (1000, 128, 3, 3),
+                                                 (2000, 256, 2, 2),
+                                                 (777, 512, 4, 1)])
+def test_k1_plain_pool_and_det_contract(n, bins, depth, chunks):
+    q, ql, x, xl = _t(*_data(n, 16, 3, seed=n))
+    q, ql, x, xl = q.double(), ql.double(), x.double(), xl.double()
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.8)
+    ps, pi, det = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
+                                            depth=depth, bins=bins,
+                                            chunks=chunks)
+    plane = (qh.numpy() @ xh[:n].numpy().T
+             - c1 * np.minimum(np.abs(ql.numpy()[:, None]
+                                      - xlh[:n].numpy()[None, :]), 1.0))
+    n_tiles = -(-n // bins)
+    want_s, want_i, want_det = _pool_reference(plane, n, depth, bins,
+                                               -(-n_tiles // chunks))
+    np.testing.assert_array_equal(pi.numpy(), want_i)
+    np.testing.assert_allclose(ps.numpy(), want_s, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(det.numpy(), want_det, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("n,k", [(1000, 8), (2048, 10), (777, 5),
+                                 (4096, 64)])
+def test_k1_flush_matches_jax_kernel_and_plain_scan(n, k):
+    q, ql, x, xl = _data(n, 32, 4, seed=k)
+    js, ji, jf = j_binned(*_j(q, ql, x, xl), 0.9, k=k, tile=512,
+                          interpret=True, block_b=4)
+    ps, pi = j_plain(*_j(q, ql, x, xl), jnp.float32(0.9), k=k)
+    s, i, flags, det = bt.binned_lambda_topk(*_t(q, ql, x, xl), 0.9, k=k)
+    assert not np.asarray(jf).any() and not flags.any()
+    assert det.shape == (4, bt.bins_target(k))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ps), atol=1e-6)
+
+
+def test_k1_duplicate_tie_order_across_bins():
+    """Copies of the query at consecutive ids (distinct bins) come back
+    in id order, unflagged."""
+    q, ql, x, xl = _data(2000, 32, 1, seed=11)
+    xl[:] = 0.5
+    ql[:] = 0.5
+    for j in range(4):
+        x[700 + j] = q[0]
+    s, i, flags, _ = bt.binned_lambda_topk(*_t(q, ql, x, xl), 1.0, k=6)
+    assert i[0, :4].tolist() == [700, 701, 702, 703]
+    assert not flags.any()
+    ps, pi = j_plain(*_j(q, ql, x, xl), jnp.float32(1.0), k=6)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(pi))
+
+
+def _deep_collision(copies_per_bin, bin_positions, seed=5):
+    """The fixture of test_pallas_kernels.py (deep collision): > depth
+    copies of query 0 in the same bin, for each listed bin position."""
+    rng = np.random.default_rng(seed)
+    n, f, tile, k = 3000, 48, 256, 8
+    q = rng.uniform(0.1, 1.0, (2, f)).astype(np.float32)
+    ql = rng.uniform(0, 1, (2,)).astype(np.float32)
+    x = rng.uniform(0.1, 1.0, (n, f)).astype(np.float32)
+    xl = rng.uniform(0, 1, (n,)).astype(np.float32)
+    for binpos in bin_positions:
+        for j in range(copies_per_bin):
+            x[j * tile + binpos] = q[0]
+    return q, ql, x, xl, k
+
+
+def test_deep_collision_flagged_and_strided_repair_exact():
+    q, ql, x, xl, k = _deep_collision(6, [37])       # one fired bin
+    jf = np.asarray(j_binned(*_j(q, ql, x, xl), 1.0, k=k, tile=256,
+                             interpret=True, block_b=2)[2])
+    assert jf[0] == 1
+    s, i, flags, det = bt.binned_lambda_topk(*_t(q, ql, x, xl), 1.0, k=k)
+    assert bool(flags[0]), "deep collision must be flagged"
+    calls, k3 = br.strided_lambda_repair.calls, tk.merge_topk_partial.launches
+    rs, ri = binned_topk_with_repair(*_t(q, ql, x, xl), 1.0, k=k)
+    assert br.strided_lambda_repair.calls == calls + 1
+    assert tk.merge_topk_partial.launches == k3        # CPU: plain version
+    ps, pi = j_plain(*_j(q, ql, x, xl), jnp.float32(1.0), k=k)
+    np.testing.assert_array_equal(ri.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(rs.numpy(), np.asarray(ps), atol=1e-6)
+
+
+def test_repair_overflow_falls_back_to_merge_topk():
+    """More than MAX_FIRED fired bins: the repair hands the row to its
+    fallback (K3 through fused_lambda_topk) and the result is exact."""
+    q, ql, x, xl, k = _deep_collision(4, [37, 61, 90])
+    s, i, flags, det = bt.binned_lambda_topk(*_t(q, ql, x, xl), 1.0, k=k)
+    fired, ok = br.fired_bins_host(det.numpy(), s[:, k - 1].numpy())
+    assert bool(flags[0]) and not ok[0]
+    used = []
+
+    def fallback(rows):
+        used.extend(rows.tolist())
+        tq, tql, tx, txl = _t(q, ql, x, xl)
+        rs, ri = tk.fused_lambda_topk(tq[rows], tql[rows], tx, txl, 1.0, k=k)
+        return rs.numpy(), ri.numpy()
+
+    tq, tql, tx, txl = _t(q, ql, x, xl)
+    rows = np.nonzero(flags.numpy())[0]
+    rs, ri = br.strided_lambda_repair(
+        tq[rows], tql[rows], det.numpy()[rows], s.numpy()[rows, k - 1],
+        i.numpy()[rows], tx, txl, 1.0, k=k, n=x.shape[0], prepared=False,
+        fallback=fallback, cur_scores=s.numpy()[rows])
+    assert used == [0]
+    ps, pi = j_plain(*_j(q, ql, x, xl), jnp.float32(1.0), k=k)
+    np.testing.assert_array_equal(ri, np.asarray(pi)[rows])
+    np.testing.assert_allclose(rs, np.asarray(ps)[rows], atol=1e-6)
+    # the same row through the engine's own repair (repair_flagged)
+    calls = br.strided_lambda_repair.calls
+    ws, wi = binned_topk_with_repair(tq, tql, tx, txl, 1.0, k=k)
+    assert br.strided_lambda_repair.calls == calls + 1
+    np.testing.assert_array_equal(wi.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(ws.numpy(), np.asarray(ps), atol=1e-6)
+
+
+def test_engine_repairs_flagged_rows_in_stream(monkeypatch):
+    """The session's pieces, BinnedTopK.step and .repair driven by
+    stream_search: query 0 collides in three bins (its repair falls back
+    to K3), query 1 in one bin (the strided repair alone); both come back
+    equal to the full scan."""
+    from arrowspace_torch.index import stream_search
+    q, ql, x, xl, k = _deep_collision(4, [37, 61, 90])
+    x[1000 + 128 * np.arange(5)] = q[1]
+    tq, tql, tx, txl = _t(q, ql, x, xl)
+    eng = br.BinnedTopK(tx, txl, 1.0, k)
+    merged, plain = [], tk.merge_topk_partial_plain
+    monkeypatch.setattr(tk, "merge_topk_partial_plain",
+                        lambda *a, **kw: merged.append(1) or plain(*a, **kw))
+
+    def step(qb):
+        s, i, flags, det = eng.step(qb, tql)
+        assert flags.all()
+        return s, i, flags, tql, det
+
+    calls = br.strided_lambda_repair.calls
+    (s, i), = list(stream_search(step, [q], 2, 1, "cpu", torch.float32,
+                                 repair=eng.repair))
+    assert br.strided_lambda_repair.calls == calls + 1 and merged
+    ps, pi = j_plain(*_j(q, ql, x, xl), jnp.float32(1.0), k=k)
+    np.testing.assert_array_equal(i, np.asarray(pi))
+    np.testing.assert_allclose(s, np.asarray(ps), atol=1e-6)
+
+
+@pytest.mark.parametrize("n,k,rows_per_chunk", [(1000, 8, 256),
+                                                (2048, 8, 512),
+                                                (777, 8, 128),
+                                                (300, 20, 64)])
+def test_k3_plain_matches_jax_kernel_interpret(n, k, rows_per_chunk):
+    q, ql, x, xl = _data(n, 32, 4)
+    js, ji = j_merge(*_j(q, ql, x, xl), 0.9, k=k, tile=256, interpret=True)
+    s, i = tk.fused_lambda_topk(*_t(q, ql, x, xl), 0.9, k=k,
+                                rows_per_chunk=rows_per_chunk)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-6)
+
+
+def test_wrappers_on_cpu_take_plain_versions():
+    q, ql, x, xl = _t(*_data(900, 16, 3, seed=2))
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.7)
+    k1, k3 = bt.binned_topk_pool.launches, tk.merge_topk_partial.launches
+    a = bt.binned_topk_pool(qh, ql, xh, xlh, c1, 900, depth=3, bins=128,
+                            chunks=2)
+    b = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, 900, depth=3,
+                                  bins=128, chunks=2)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    c = tk.merge_topk_partial(qh, ql, xh, xlh, c1, 900, k=5,
+                              rows_per_chunk=256)
+    d = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, 900, k=5,
+                                    rows_per_chunk=256)
+    assert all(torch.equal(u, v) for u, v in zip(c, d))
+    assert (bt.binned_topk_pool.launches, tk.merge_topk_partial.launches) \
+        == (k1, k3)
+
+
+def test_two_key_topk_ties_to_lowest_id():
+    s = torch.tensor([[0.5, 0.9, 0.5, 0.9, 0.1]], dtype=torch.float64)
+    ids = torch.tensor([[40, 7, 3, 2, 0]])
+    out_s, out_i = two_key_topk(s, ids, 4)
+    assert out_i.tolist() == [[2, 7, 3, 40]]
+    assert out_s.tolist() == [[0.9, 0.9, 0.5, 0.5]]
+
+
+def test_plain_scan_matches_jax_f64():
+    rng = np.random.default_rng(8)
+    q, ql = rng.normal(size=(5, 12)), rng.uniform(0, 1, 5)
+    x, xl = rng.normal(size=(400, 12)), rng.uniform(0, 1, 400)
+    x[17] = x[3]                               # exact duplicate rows
+    s, i = batched_lambda_aware_topk(*_t(q, ql, x, xl), 0.8, k=9)
+    js, ji = j_plain(*_j(q, ql, x, xl), jnp.float64(0.8), k=9)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-12)
+
+
+def test_repair_helpers():
+    det = np.array([[0.1, 0.9, NEG_INF], [0.95, 0.96, 0.97]], np.float32)
+    fired, ok = br.fired_bins_host(det, np.array([0.5, 0.5], np.float32))
+    assert fired[0].tolist() == [1, -1] and ok.tolist() == [True, False]
+    assert bt.binned_topk_depth_for(10) == 3 and bt.bins_target(64) == 512
