@@ -4,7 +4,7 @@ PyTorch counterpart of ``arrowspace_tpu.builder`` (reference:
 builder.rs:20-455): the same method names, defaults (builder.rs:59-91),
 define_result_k heuristic (builder.rs:225-233) and stage order.  The
 builder also carries the device and dtype the index is built on.
-Persistence and dimensionality reduction are not ported yet.
+Persistence is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ class ArrowSpaceBuilder:
         self.cluster_radius = 1.0
         self.clustering_seed: Optional[int] = None
         self.deterministic_clustering = False
+        self.use_dims_reduction = False
+        self.rp_eps = 0.3
         # wall seconds of the last build, per stage
         self.stage_seconds: Dict[str, float] = {}
 
@@ -73,10 +75,11 @@ class ArrowSpaceBuilder:
     def with_dims_reduction(self, enable: bool,
                             eps: Optional[float] = None
                             ) -> "ArrowSpaceBuilder":
-        if enable:
-            raise NotImplementedError(
-                "dimensionality reduction (JL projection) is not ported "
-                "yet (ROADMAP.md queue 1, reduction.py)")
+        """JL projection of the centroids before the graph build
+        (eigenmaps.start_clustering); eps defaults to 0.5
+        (builder.rs:183)."""
+        self.use_dims_reduction = enable
+        self.rp_eps = eps if eps is not None else 0.5
         return self
 
     def with_persistence(self, path, name: str) -> "ArrowSpaceBuilder":

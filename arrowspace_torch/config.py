@@ -23,6 +23,11 @@ DENOM_EPS = 1e-12
 # the λ pass stays one window's worth next to the corpus.
 TAUMODE_WINDOW_BYTES = 2 << 30
 
+# Float32 batches of at least this many values select τ (median or
+# percentile) with the K4 kernel (ops/select_tau.py), as the JAX package
+# takes its Pallas τ kernel from PALLAS_TAU_MIN_ELEMS (config.py:45).
+SELECT_TAU_KERNEL_MIN_ELEMS = 1 << 22
+
 DEFAULT_DTYPE = torch.float32
 DEFAULT_DEVICE = "cuda"
 

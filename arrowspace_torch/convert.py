@@ -1,10 +1,11 @@
 """State carried across from an index built by the JAX package.
 
 ``from_jax_state`` takes the arrays of a built index as numpy (the item
-matrix, λ, the graph Laplacian, the τ policy and the clustering fields)
-and returns this package's ArrowIndex on a given device, so an index
-built once can be served here.  It needs nothing of the JAX package: a
-τ policy is anything with ``kind`` and ``value``.
+matrix, λ, the graph Laplacian, the τ policy, the clustering fields and,
+for a dims-reduced or energy build, the F×r projection matrix and the
+tall-graph flag) and returns this package's ArrowIndex on a given
+device, so an index built once can be served here.  It needs nothing of
+the JAX package: a τ policy is anything with ``kind`` and ``value``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .config import resolve
 from .core import ArrowSpace
 from .graph import GraphLaplacian
 from .index import ArrowIndex
+from .reduction import ImplicitProjection
 from .taumode import TauMode
 
 __all__ = ["from_jax_state"]
@@ -28,10 +30,14 @@ def from_jax_state(data, lambdas, laplacian, taumode, *,
                    cluster_assignments: Optional[np.ndarray] = None,
                    cluster_sizes: Optional[np.ndarray] = None,
                    cluster_radius: float = 0.0,
+                   projection: Optional[np.ndarray] = None,
+                   pad_tall_graphs: bool = False,
                    device=None, dtype=None) -> ArrowIndex:
     """ArrowIndex over the given state.  ``data`` (N, F), ``lambdas``
     (N,) and ``laplacian`` (n, n) are array-likes; ``taumode`` is a
-    TauMode of either package."""
+    TauMode of either package; ``projection`` the (F, r) matrix of a
+    projected build (the JAX package's
+    ``aspace.projection_matrix.matrix()``), held as it is."""
     dev, dt = resolve(device, dtype)
     rows = np.array(data, dtype=np.float64)       # owned, writable copy
     lap = np.asarray(laplacian, dtype=np.float64)
@@ -53,7 +59,11 @@ def from_jax_state(data, lambdas, laplacian, taumode, *,
             dtype=np.int64),
         cluster_radius=float(cluster_radius),
         host_rows=rows,
+        pad_tall_graphs=bool(pad_tall_graphs),
     )
+    if projection is not None:
+        aspace.projection_matrix = ImplicitProjection.from_matrix(projection)
+        aspace.reduced_dim = aspace.projection_matrix.reduced_dim
     gl = GraphLaplacian(
         init_data=torch.empty((0, n_items), device=dev, dtype=dt),
         matrix=torch.tensor(lap).to(device=dev, dtype=dt),

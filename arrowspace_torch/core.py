@@ -19,6 +19,7 @@ import torch
 from .config import resolve
 from .ops.bintopk import bintopk_fits, bins_target
 from .ops.search import batched_lambda_aware_topk, binned_topk_with_repair
+from .reduction import ImplicitProjection
 from .taumode import (TAUDEFAULT, TauMode, select_tau, select_tau_batch,
                       synthetic_lambda_batch, synthetic_lambda_single)
 from .utils.log import get_logger
@@ -92,11 +93,16 @@ class ArrowSpace:
     cluster_sizes: Optional[np.ndarray] = None
     cluster_radius: float = 0.0
 
-    # Dimensionality reduction is not ported yet; always None.
-    projection_matrix: None = None
+    # JL projection of a dims-reduced build (eigenmaps.start_clustering)
+    projection_matrix: Optional[ImplicitProjection] = None
+    reduced_dim: Optional[int] = None
     # Host float64 rows the index was built from (f64_rescore search).
     host_rows: Optional[np.ndarray] = None
+    # True for energy builds with EnergyParams.allow_tall_graphs: λ
+    # zero-pads items to graphs with more nodes than item coordinates
+    # instead of raising the reference's error (taumode.rs:574).
     pad_tall_graphs: bool = False
+    _projected_cache: Optional[torch.Tensor] = None
 
     @staticmethod
     def new(items: Sequence[Sequence[float]], taumode: TauMode = TAUDEFAULT,
@@ -135,11 +141,37 @@ class ArrowSpace:
             "Query item contains invalid values (NaN or infinity). "
             "All values must be finite.")
 
+    def project_query(self, query) -> np.ndarray:
+        """The query in the index space: projected when the build used a
+        projection (reference: core.rs:509-529), float64 on the host."""
+        query = np.asarray(query, dtype=np.float64)
+        assert query.shape[0] == self.nfeatures, (
+            f"Query dimension {query.shape[0]} doesn't match index original "
+            f"dimension {self.nfeatures}")
+        if self.projection_matrix is not None:
+            return self.projection_matrix.project(query)
+        return query
+
+    def projected_items(self) -> torch.Tensor:
+        """The (N, r) projected item matrix on the index device, cached;
+        the items themselves when no projection is active."""
+        if self.projection_matrix is None:
+            return self.data
+        if self._projected_cache is None or \
+                self._projected_cache.shape[0] != self.nitems:
+            self._projected_cache = \
+                self.projection_matrix.project_device(self.data)
+        return self._projected_cache
+
     def prepare_query_items_batch(self, items, gl) -> torch.Tensor:
         """Batched query-λ preparation: (B, F) -> (B,) on the index
-        device (the batched form of core.rs:533-549)."""
+        device (the batched form of core.rs:533-549).  A projected build
+        prepares λ from the projected query (core.rs:193-194 of the JAX
+        package), while corpus λ came from the raw rows."""
         items = np.asarray(items, dtype=np.float64)
         self._check_query(items)
+        if self.projection_matrix is not None:
+            items = self.projection_matrix.project_batch_host(items)
         lap = gl.matrix.to(device=self.device, dtype=self.dtype)
         q = torch.as_tensor(items).to(device=self.device, dtype=self.dtype)
         taus = select_tau_batch(q, self.taumode)
@@ -151,6 +183,8 @@ class ArrowSpace:
         query's coordinates on the host, then λ against the graph."""
         item = np.asarray(item, dtype=np.float64)
         self._check_query(item)
+        if self.projection_matrix is not None:
+            item = self.project_query(item)
         tau = select_tau(item, self.taumode)
         return synthetic_lambda_single(item, gl.matrix, tau,
                                        pad_items=self.pad_tall_graphs)

@@ -32,41 +32,7 @@ constexpr int kThreads = 256;
 constexpr int kRows = 128;       // item rows per CTA
 constexpr int kPanel = 32;       // graph columns per staged panel
 constexpr int kMaxLane = 8;      // row values per lane: F <= 256
-constexpr float kTauFloor = 1e-10f;
 constexpr float kDenomEps = 1e-12f;
-
-__device__ __forceinline__ int to_sortable(float v) {
-  const int i = __float_as_int(v);
-  return i < 0 ? i ^ 0x7FFFFFFF : i;
-}
-
-__device__ __forceinline__ float from_sortable(int y) {
-  return __int_as_float(y < 0 ? y ^ 0x7FFFFFFF : y);
-}
-
-__device__ __forceinline__ int warp_count_le(const int (&y)[kMaxLane],
-                                             int nv, int mid) {
-  int cnt = 0;
-#pragma unroll
-  for (int m = 0; m < kMaxLane; ++m)
-    if (m < nv) cnt += __popc(__ballot_sync(ASP_FULL_MASK, y[m] <= mid));
-  return cnt;
-}
-
-// Smallest sortable value v with count(y <= v) >= rank1: the rank1-th
-// smallest element (lanes past F hold INT_MAX and never count short).
-__device__ int bisect_order_stat(const int (&y)[kMaxLane], int nv,
-                                 int rank1) {
-  int lo = INT32_MIN, hi = INT32_MAX;
-  for (int it = 0; it < 32; ++it) {
-    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
-    if (warp_count_le(y, nv, mid) >= rank1)
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  return lo;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -127,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool in = m < nv && f < F;
       v[m] = in ? xs[r * xstride + f] : 0.0f;
       const bool fin = in && isfinite(v[m]);
-      y[m] = in ? to_sortable(fin ? v[m] : __int_as_float(0x7F800000))
+      y[m] = in ? asp_to_sortable(fin ? v[m] : __int_as_float(0x7F800000))
                 : INT32_MAX;
       if (m < nv) m_count += __popc(__ballot_sync(ASP_FULL_MASK, fin));
       if (fin) fsum += v[m];
@@ -153,32 +119,9 @@ __global__ void __launch_bounds__(kThreads)
     } else if (kind == 2) {
       const float s = warp_sum(fsum);
       tau = m_count > 0 ? s / (float)max(m_count, 1) : 0.0f;
-      tau = fmaxf(tau, kTauFloor);
-    } else if (kind == 1) {
-      const float pos = __fadd_rn(__fmul_rn((float)(m_count - 1), pct), 0.5f);
-      int idx = (int)floorf(pos);
-      idx = min(max(idx, 0), F - 1);
-      const int vsel = bisect_order_stat(y, nv, idx + 1);
-      tau = m_count > 0 ? from_sortable(vsel) : kTauFloor;
-      tau = fmaxf(tau, kTauFloor);
+      tau = fmaxf(tau, ASP_TAU_FLOOR);
     } else {
-      const int m1 = max(m_count, 1);
-      const int lo_r = min(max((m1 - 1) / 2, 0), F - 1);
-      const int hi_r = min(max(m1 / 2, 0), F - 1);
-      const int v_lo = bisect_order_stat(y, nv, lo_r + 1);
-      const int cnt_lo = warp_count_le(y, nv, v_lo);
-      int nxt = INT32_MAX;
-#pragma unroll
-      for (int m = 0; m < kMaxLane; ++m)
-        if (m < nv && y[m] > v_lo) nxt = min(nxt, y[m]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        nxt = min(nxt, __shfl_xor_sync(ASP_FULL_MASK, nxt, off));
-      const int v_hi = cnt_lo < hi_r + 1 ? nxt : v_lo;
-      const float med = __fmul_rn(
-          0.5f, __fadd_rn(from_sortable(v_lo), from_sortable(v_hi)));
-      tau = m_count > 0 ? med : kTauFloor;
-      tau = fmaxf(tau, kTauFloor);
+      tau = asp_warp_order_tau<kMaxLane>(y, nv, m_count, F, kind, pct);
     }
     if (lane == 0) {
       r_tau[r] = tau;

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``arrowspace_tpu.eigenmaps`` (reference:
 eigenmaps.rs:93-456):
 
-1. start_clustering — optimal-K heuristic + incremental clustering (host);
+1. start_clustering — optimal-K heuristic + incremental clustering (host)
+   + optional JL projection of the centroids;
 2. eigenmaps        — feature-graph Laplacian from the centroids;
 3. compute_taumode  — batched λτ on the index device.
 """
@@ -14,9 +15,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch
+
 from . import clustering
 from .core import ArrowSpace
 from .graph import GraphFactory, GraphLaplacian
+from .reduction import ImplicitProjection, compute_jl_dimension
 from .sampling import SamplerType
 from .taumode import compute_taumode_lambdas
 from .utils.log import get_logger
@@ -31,7 +35,8 @@ __all__ = ["ClusteredOutput", "start_clustering", "eigenmaps",
 class ClusteredOutput:
     """Output of the clustering stage (reference: eigenmaps.rs:75-87)."""
     aspace: ArrowSpace
-    centroids: np.ndarray    # X × F
+    centroids: np.ndarray    # X × F′ (F′ = reduced_dim when projected)
+    reduced_dim: int
 
 
 def start_clustering(builder, rows) -> ClusteredOutput:
@@ -67,7 +72,30 @@ def start_clustering(builder, rows) -> ClusteredOutput:
     aspace.cluster_assignments = assign_arr
     aspace.cluster_sizes = np.asarray(sizes, dtype=np.int64)
     aspace.cluster_radius = radius
-    return ClusteredOutput(aspace=aspace, centroids=centroids)
+
+    # Optional JL projection (eigenmaps.rs:248-280): enabled and F > 64,
+    # target = min(jl_dim, F/2).  The centroids are projected in the
+    # index dtype on the index device, as the JAX package does.
+    reduced_dim = n_features
+    if builder.use_dims_reduction and n_features > 64:
+        jl_dim = compute_jl_dimension(centroids.shape[0], builder.rp_eps)
+        target_dim = min(jl_dim, n_features // 2)
+        if target_dim < n_features:
+            logger.info("Applying JL projection: %d features -> %d dims "
+                        "(eps=%.2f)", n_features, target_dim,
+                        builder.rp_eps)
+            proj = ImplicitProjection(
+                n_features, target_dim,
+                **({"seed": builder.clustering_seed}
+                   if builder.clustering_seed is not None else {}))
+            cent = torch.as_tensor(np.asarray(centroids)).to(
+                device=aspace.device, dtype=aspace.dtype)
+            centroids = proj.project_device(cent).double().cpu().numpy()
+            aspace.projection_matrix = proj
+            aspace.reduced_dim = target_dim
+            reduced_dim = target_dim
+    return ClusteredOutput(aspace=aspace, centroids=centroids,
+                           reduced_dim=reduced_dim)
 
 
 def eigenmaps(aspace: ArrowSpace, builder, centroids,

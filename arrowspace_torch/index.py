@@ -8,6 +8,10 @@ PyTorch counterpart of ``arrowspace_tpu.index``:
     session.warmup()
     for scores, ids in session.search_stream(batches): ...
 
+    energy = ArrowIndex.build_energy(rows, EnergyParams(
+        allow_tall_graphs=True), seed=11, device="cuda")
+    session = energy.make_energy_session(batch_size=2048, k=10)
+
 A serving step is query-λ preparation (τ selection + synthetic λ on the
 device) followed by the scoring + top-k kernel chosen by
 session_kernel_kind: the binned kernel (K1) with exact strided repair of
@@ -27,7 +31,7 @@ import torch
 from .builder import ArrowSpaceBuilder
 from .core import ArrowItem, ArrowSpace, binned_fits
 from .graph import GraphLaplacian
-from .ops.bin_repair import BinnedTopK
+from .ops.bin_repair import BinnedEnergyTopK, BinnedTopK
 from .ops.bintopk import bins_target
 from .ops.search import batched_lambda_aware_topk, rescore_topk_f64
 from .sampling import SamplerType
@@ -36,8 +40,8 @@ from .utils.log import get_logger
 
 logger = get_logger("arrowspace.index")
 
-__all__ = ["ArrowIndex", "SearchSession", "session_kernel_kind",
-           "stream_search"]
+__all__ = ["ArrowIndex", "SearchSession", "EnergySearchSession",
+           "session_kernel_kind", "energy_session_config", "stream_search"]
 
 
 def session_kernel_kind(nitems: int, k: int, f: int) -> str:
@@ -107,6 +111,29 @@ def stream_search(step, batches, batch_size: int, depth: int, device,
         yield finish(*pending.popleft())
 
 
+def _query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
+    """The sessions' query preparation on the index device, as two
+    functions: ``project`` maps q (B, F) to the index space (q @ P when
+    the build projected, else q), and ``prepare`` returns (project(q),
+    λ (B,)) with λ from the projected query (the session step of the JAX
+    package, index.py:79-84)."""
+    lap = gl.matrix.to(device=aspace.device, dtype=aspace.dtype)
+    taumode, pad_tall = aspace.taumode, aspace.pad_tall_graphs
+    proj = None if aspace.projection_matrix is None else \
+        aspace.projection_matrix.matrix(dtype=aspace.dtype,
+                                        device=aspace.device)
+
+    def project(q):
+        return q if proj is None else q @ proj
+
+    def prepare(q):
+        q_prep = project(q)
+        taus = select_tau_batch(q_prep, taumode)
+        return q_prep, synthetic_lambda_batch(q_prep, lap, taus,
+                                              pad_items=pad_tall)
+    return project, prepare
+
+
 class SearchSession:
     """Pipelined streaming search for serving.
 
@@ -127,15 +154,13 @@ class SearchSession:
         self.kernel = session_kernel_kind(index.nitems, self.k,
                                           aspace.nfeatures)
         k_eff, alpha_f = self.k, self.alpha
-        lap = gl.matrix.to(device=self.device, dtype=self.dtype)
-        taumode, pad_tall = aspace.taumode, aspace.pad_tall_graphs
+        _, prepare = _query_prep(aspace, gl)
         data, lambdas = aspace.data, aspace.lambdas
         engine = BinnedTopK(data, lambdas, alpha_f, k_eff) \
             if self.kernel == "binned" else None
 
         def step(q):
-            taus = select_tau_batch(q, taumode)
-            qlam = synthetic_lambda_batch(q, lap, taus, pad_items=pad_tall)
+            _, qlam = prepare(q)
             if engine is not None:
                 s, i, flags, det = engine.step(q, qlam)
                 return s, i, flags, qlam, det
@@ -173,6 +198,102 @@ class SearchSession:
                              dim=self._dim, repair=self._repair)
 
 
+def energy_session_config(nitems: int, k: int, z_width: int) -> str:
+    """The energy serving step's engine, keyed on size, never on the
+    device: "binned" (K6 plus exact repair, or K7 with approx) where
+    energymaps.energy_binned_fits admits the size (N > 65536, k <= 128,
+    a z-width within the kernels' shared memory), else "chunked" (the
+    plain chunked scan)."""
+    from .energymaps import energy_binned_fits
+    return "binned" if energy_binned_fits(nitems, k, z_width) \
+        else "chunked"
+
+
+class EnergySearchSession:
+    """Pipelined streaming ENERGY search for serving (indices built with
+    build_energy).
+
+    One step per batch: query-λ preparation, the z-projection of the
+    queries, then the binned energy engine (K6; K7 with ``approx``) or,
+    below its gate, the plain chunked scan.  Flagged rows are repaired
+    exactly when their batch is yielded: K6's deep-collision rows through
+    the strided repair (the chunked scan for rows whose fired bins
+    overflow), K7's uncertified rows through K6 on a padded block.
+    ``approx=True`` needs the binned engine and raises otherwise
+    (index.py:592-597 of the JAX package).  Results are exact either
+    way."""
+
+    def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
+                 w_lambda: float = 1.0, w_dirichlet: float = 0.5,
+                 depth: int = 2, approx: bool = False):
+        from .ops.energy_bintopk import energy_topk_chunked
+
+        aspace, gl = index.aspace, index.gl
+        self.batch_size = int(batch_size)
+        self.k = min(int(k), index.nitems)
+        self.depth = max(1, int(depth))
+        self.device, self.dtype = aspace.device, aspace.dtype
+        self._dim = aspace.nfeatures
+        z_items = aspace.projected_items()
+        lambdas = aspace.lambdas
+        kernel = energy_session_config(index.nitems, self.k,
+                                       z_items.shape[1])
+        if approx and kernel != "binned":
+            raise ValueError(
+                "approx=True needs the binned energy engine (more than "
+                "65536 rows, k <= 128, a z-width the kernels admit); this "
+                f"session resolved kernel={kernel!r}")
+        self.kernel = "binned_approx" if approx else kernel
+        # prepare(q) -> (z_q, λ) of a raw (B, F) batch on the device
+        project, self.prepare = _query_prep(aspace, gl)
+        engine = BinnedEnergyTopK(z_items, lambdas, w_lambda, w_dirichlet,
+                                  self.k, approx=approx, project=project) \
+            if kernel == "binned" else None
+        k_eff = self.k
+
+        def step(q):
+            z_q, qlam = self.prepare(q)
+            if engine is not None:
+                s, i, flags, det = engine.step(z_q, qlam)
+                return s, i, flags, qlam, det
+            s, i = energy_topk_chunked(z_q, qlam, z_items, lambdas, w_lambda,
+                                       w_dirichlet, k=k_eff)
+            return s, i, None, qlam, None
+
+        self._step = step
+        self.engine = engine
+        self._repair = engine.repair if engine is not None else None
+
+    def warmup(self) -> None:
+        """Run one full batch through the stream loop and one synthetic
+        repair of a flagged row (the strided repair, or with approx the
+        exact K6 block), so that kernel builds and first-call costs land
+        here and not on the first real batch."""
+        ones = np.ones((self.batch_size, self._dim))
+        list(self.search_stream([ones]))
+        if self.engine is not None:
+            k = self.k
+            det = None
+            if not self.engine.approx:
+                det = torch.full((1, bins_target(k)), -1.0,
+                                 device=self.device, dtype=self.dtype)
+                det[0, 0] = 1.0              # one fired bin
+            self._repair(ones[:1], torch.zeros(1, device=self.device,
+                                               dtype=self.dtype), det,
+                         np.zeros((1, k)), np.arange(k)[None, :],
+                         np.ones(1, dtype=bool))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def search_stream(self, batches: Iterable
+                      ) -> Iterable[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (scores, ids) per input batch, ``depth`` batches in
+        flight (see stream_search)."""
+        return stream_search(self._step, batches, self.batch_size,
+                             self.depth, self.device, self.dtype,
+                             dim=self._dim, repair=self._repair)
+
+
 class ArrowIndex:
     """Built index = ArrowSpace + GraphLaplacian + builder config."""
 
@@ -188,16 +309,40 @@ class ArrowIndex:
               taumode: TauMode = TauMode.median(),
               normalise: bool = False,
               sampling: Optional[SamplerType] = SamplerType.simple(0.6),
+              dims_reduction: bool = False, rp_eps: Optional[float] = None,
               seed: Optional[int] = None, device=None,
               dtype=None) -> "ArrowIndex":
         b = (ArrowSpaceBuilder(device=device, dtype=dtype)
              .with_lambda_graph(eps, k, topk, p, sigma)
              .with_synthesis(taumode)
              .with_normalisation(normalise)
-             .with_inline_sampling(sampling))
+             .with_inline_sampling(sampling)
+             .with_dims_reduction(dims_reduction, rp_eps))
         if seed is not None:
             b = b.with_seed(seed)
         aspace, gl = b.build(rows)
+        return cls(aspace, gl, b)
+
+    @classmethod
+    def build_energy(cls, rows, energy_params=None, *,
+                     seed: Optional[int] = None, device=None, dtype=None,
+                     **kwargs) -> "ArrowIndex":
+        """Energy build (energymaps.build_energy) with dims reduction on
+        (rp_eps from kwargs, default 0.5) and, when ``eps`` is given, the
+        λ-graph parameters eps/k/topk/p/sigma from kwargs (index.py:744-760
+        of the JAX package).  A corpus whose sub-centroid graph outgrows
+        its feature count needs EnergyParams(allow_tall_graphs=True)."""
+        from .energymaps import EnergyParams, build_energy
+        b = ArrowSpaceBuilder(device=device, dtype=dtype) \
+            .with_dims_reduction(True, kwargs.get("rp_eps", 0.5))
+        if "eps" in kwargs:
+            b = b.with_lambda_graph(kwargs["eps"], kwargs.get("k", 6),
+                                    kwargs.get("topk", 3),
+                                    kwargs.get("p", 2.0),
+                                    kwargs.get("sigma"))
+        if seed is not None:
+            b = b.with_seed(seed)
+        aspace, gl = build_energy(b, rows, energy_params or EnergyParams())
         return cls(aspace, gl, b)
 
     def search(self, queries, k: int = 10, alpha: float = 0.9,
@@ -234,6 +379,25 @@ class ArrowIndex:
                             depth: int = 2) -> SearchSession:
         """Streaming search for serving, ``depth`` batches in flight."""
         return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth)
+
+    def search_energy(self, queries, k: int = 10, w_lambda: float = 1.0,
+                      w_dirichlet: float = 0.5):
+        """Batched energy-only ranking (indices built with build_energy):
+        (B, F) -> host (scores (B, k), ids (B, k))."""
+        from .energymaps import search_energy_batch
+        return search_energy_batch(self.aspace, queries, self.gl, k,
+                                   w_lambda, w_dirichlet)
+
+    def make_energy_session(self, batch_size: int, k: int = 10,
+                            w_lambda: float = 1.0, w_dirichlet: float = 0.5,
+                            depth: int = 2,
+                            approx: bool = False) -> EnergySearchSession:
+        """Streaming energy search for serving, ``depth`` batches in
+        flight; approx=True serves through the certified chord-surrogate
+        kernel (K7), whose uncertified rows re-run exactly."""
+        return EnergySearchSession(self, batch_size, k=k, w_lambda=w_lambda,
+                                   w_dirichlet=w_dirichlet, depth=depth,
+                                   approx=approx)
 
     @property
     def lambdas(self) -> np.ndarray:

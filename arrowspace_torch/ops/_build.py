@@ -2,7 +2,8 @@
 
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at first use, into
-``arrowspace_torch/_build/`` (git-ignored).  The library name carries a
+``arrowspace_torch/_build/`` (git-ignored): one ``nvcc -c`` per source,
+all started together, then one link.  The library name carries a
 hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  Python binds it with ``ctypes``: every pointer
 and the stream are ``c_void_p``, and every entry point returns
@@ -30,13 +31,15 @@ __all__ = ["build", "lib", "check", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu", "select_tau.cu",
+           "energy_bintopk.cu", "energy_chord.cu")
+HEADERS = ("common.cuh", "binned_fold.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 SIGNATURES = {
     # qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth, n_chunks,
     # tiles_per_chunk, pool_s, pool_i, det, stream
@@ -50,6 +53,18 @@ SIGNATURES = {
     # lam_out, tau_out, stream
     "asp_taulambda": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _F, _P, _P, _P),
+    # x, N, F, kind, pct, tau_out, stream
+    "asp_select_tau": (_P, _L, _I, _I, _F, _P, _P),
+    # zq, qn, qlam, zx, xn, xlam, wl, wd, n, B, G, bins, depth, n_chunks,
+    # tiles_per_chunk, pool_s, pool_i, det, stream
+    "asp_energy_bintopk": (_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _P, _P),
+    # x, out, n, stream
+    "asp_rsqrt_probe": (_P, _P, _L, _P),
+    # zq, qn, qlam, ca, cb, zx, xn, xlam, wl, n, B, G, bins, depth,
+    # n_chunks, tiles_per_chunk, pool_s, pool_i, pool_d, det, stream
+    "asp_energy_chord": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                         _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 
@@ -73,23 +88,38 @@ def _library_path() -> pathlib.Path:
 
 
 def build() -> tuple:
-    """Compile the kernels unless an up-to-date library exists.
+    """Compile the kernels unless an up-to-date library exists: one
+    ``nvcc -c`` per source, all running at once, then one link.
     Returns (library path, compiler output; empty when reused)."""
     out = _library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src + ".o") for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+             str(CSRC / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            text, _ = proc.communicate()
+            logs.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)
+    return out, "".join(logs) + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,8 +17,10 @@ Current top-k entries whose bin fired are dropped (the strided block
 rescores them).  Rows with more than MAX_FIRED fired bins go to the
 caller's fallback, the exact merge kernel (K3).
 
-Counterpart of ``arrowspace_tpu.ops.bin_repair`` (bin_repair.py:78-431)
-for a single device.
+The energy kernels (K6, and K7's exact fallback) keep the same bins and
+det, so ``strided_energy_repair`` is the same argument with the energy
+score.  Counterpart of ``arrowspace_tpu.ops.bin_repair``
+(bin_repair.py:78-492) for a single device.
 """
 
 from __future__ import annotations
@@ -27,10 +29,16 @@ import numpy as np
 import torch
 
 from .bintopk import binned_lambda_topk, prepare_binned_corpus
+from .energy_approx import (binned_energy_topk_approx,
+                            prepare_energy_chord_sample)
+from .energy_bintopk import (binned_energy_topk, dtype_scalar, energy_u,
+                             energy_topk_chunked,
+                             prepare_binned_energy_corpus)
 from .search import INT_MAX, NEG_INF, prepare_query, safe_unit, two_key_topk
 
-__all__ = ["strided_lambda_repair", "repair_flagged", "fired_bins_host",
-           "MAX_FIRED", "BinnedTopK"]
+__all__ = ["strided_lambda_repair", "strided_energy_repair",
+           "repair_flagged", "fired_bins_host", "MAX_FIRED", "BinnedTopK",
+           "BinnedEnergyTopK"]
 
 # Rows with more fired bins than this fall back to the full exact repair.
 MAX_FIRED = 2
@@ -59,12 +67,12 @@ def fired_bins_host(det_rows: np.ndarray, kth: np.ndarray):
     return fired, ok
 
 
-def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins):
-    """Rescore one chunk of flagged rows: candidates are the fired bins'
-    rows (g = b + j·bins < n) followed by the current top-k ids that no
-    fired bin covers.  Returns shifted scores and ids of the exact
-    top-k."""
-    dev = xhat.device
+def _candidates(fired, out_idx, n, k, bins):
+    """Candidate ids of one repair chunk: the fired bins' rows
+    (g = b + j·bins < n) followed by the current top-k ids that no fired
+    bin covers (and no earlier slot repeats).  Returns (cand (R, C),
+    valid (R, C), safe (R, C): cand with invalid slots at row 0)."""
+    dev = out_idx.device
     r, n_fired = fired.shape
     m = -(-n // bins)
     j = torch.arange(m, device=dev)
@@ -79,17 +87,82 @@ def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins):
     valid_o = ~in_fired & ~rep & (out_i >= 0) & (out_i < n)
     cand = torch.cat([gidx.reshape(r, n_fired * m), out_i], dim=1)
     valid = torch.cat([valid_g.reshape(r, n_fired * m), valid_o], dim=1)
-    safe = torch.where(valid, cand, torch.zeros_like(cand))
-    rows = xhat[safe]                                  # (R, C, F)
-    if dev.type == "cpu":                              # per-row uniform
-        acos = (rows * qhat[:, None, :]).sum(dim=-1)   # rounding (dot_plane)
-    else:
-        acos = torch.bmm(rows, qhat[:, :, None])[:, :, 0]
-    dl = (qlam[:, None] - xlam[safe]).abs().clamp_max(1.0)
-    scores = acos - c1 * dl
+    return cand, valid, torch.where(valid, cand, torch.zeros_like(cand))
+
+
+def _row_dots(q, rows):
+    """(R, C) dots of each query row with its (R, C, F) candidate rows:
+    a product-sum on the CPU (per-row uniform rounding, as dot_plane), a
+    batched product on CUDA."""
+    if q.device.type == "cpu":
+        return (rows * q[:, None, :]).sum(dim=-1)
+    return torch.bmm(rows, q[:, :, None])[:, :, 0]
+
+
+def _merge(scores, cand, valid, k):
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     ids = torch.where(valid, cand, torch.full_like(cand, INT_MAX))
     return two_key_topk(scores, ids, k)
+
+
+def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins):
+    """Rescore one chunk of flagged λ-aware rows over their candidates.
+    Returns shifted scores and ids of the exact top-k."""
+    cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
+    acos = _row_dots(qhat, xhat[safe])
+    dl = (qlam[:, None] - xlam[safe]).abs().clamp_max(1.0)
+    return _merge(acos - c1 * dl, cand, valid, k)
+
+
+def _energy_repair_chunk(zq, qlam, fired, out_idx, zx, xlam, xn, wl, wd, n,
+                         k, bins):
+    """Rescore one chunk of flagged energy rows over their candidates
+    with K6's shifted score (bin_repair.py:245-274 of the JAX package).
+    Returns shifted scores and ids of the exact top-k."""
+    cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
+    qn = (zq * zq).sum(dim=1)
+    d2 = (qn[:, None] + xn[safe]) - 2.0 * _row_dots(zq, zx[safe])
+    scores = energy_u(d2, wd) - wl * (qlam[:, None] - xlam[safe]).abs()
+    return _merge(scores, cand, valid, k)
+
+
+def _strided_repair(det_rows, kth, out_idx_rows, cur_scores, fallback,
+                    np_dtype, k, rescore, per_row_bytes):
+    """The repair's row triage, shared by the λ-aware and energy repairs:
+    rows whose fired-bin count overflows MAX_FIRED go to ``fallback``,
+    zero-fired rows with ``cur_scores`` pass through untouched, and the
+    rest are rescored by ``rescore(run_rows, fired)`` in chunks that keep
+    the gathered candidates within _GATHER_BUDGET.  Returns host
+    (scores (R, k), ids (R, k) int64)."""
+    det_rows = np.asarray(det_rows)
+    fired, ok = fired_bins_host(det_rows, np.asarray(kth))
+    r_total = det_rows.shape[0]
+    out_s = np.empty((r_total, k), dtype=np_dtype)
+    out_i = np.empty((r_total, k), dtype=np.int64)
+    zero_fired = (fired < 0).all(axis=1)
+    can_pass = zero_fired & ok if cur_scores is not None \
+        else np.zeros_like(ok)
+    run = np.nonzero(ok & ~can_pass)[0]
+    r_cap = max(1, _GATHER_BUDGET // per_row_bytes)
+    for lo in range(0, run.size, r_cap):
+        rows = run[lo:lo + r_cap]
+        s, i = rescore(rows, fired[rows])
+        out_s[rows] = s.cpu().numpy()
+        out_i[rows] = i.cpu().numpy()
+    pass_rows = np.nonzero(can_pass)[0]
+    if pass_rows.size:
+        out_s[pass_rows] = np.asarray(cur_scores)[pass_rows]
+        out_i[pass_rows] = np.asarray(out_idx_rows)[pass_rows]
+    bad_rows = np.nonzero(~ok)[0]
+    if bad_rows.size:
+        if fallback is None:
+            raise RuntimeError(
+                f"{bad_rows.size} flagged rows exceed MAX_FIRED={MAX_FIRED} "
+                "fired bins and no fallback repair was provided")
+        s, i = fallback(bad_rows)
+        out_s[bad_rows] = np.asarray(s)
+        out_i[bad_rows] = np.asarray(i)
+    return out_s, out_i
 
 
 def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
@@ -107,55 +180,66 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     rows pass through untouched.  Returns host (scores (R, k),
     ids (R, k) int64)."""
     strided_lambda_repair.calls += 1
-    det_rows = np.asarray(det_rows)
-    bins = det_rows.shape[1]
-    fired, ok = fired_bins_host(det_rows, np.asarray(kth))
-    r_total = det_rows.shape[0]
+    bins = np.shape(det_rows)[1]
     dev, dt = items.device, items.dtype
     xhat = items if prepared else safe_unit(items)
     xlam = item_lambdas.to(dt)
-    out_s = np.empty((r_total, k), dtype=torch.empty((), dtype=dt)
-                     .numpy().dtype)
-    out_i = np.empty((r_total, k), dtype=np.int64)
+    oi_all = np.asarray(out_idx_rows)
 
-    zero_fired = (fired < 0).all(axis=1)
-    can_pass = zero_fired & ok if cur_scores is not None \
-        else np.zeros_like(ok)
-    run = np.nonzero(ok & ~can_pass)[0]
-    if run.size:
-        run_t = torch.as_tensor(run)
-        q = torch.as_tensor(q_rows)[run_t].to(dev)
+    def rescore(rows, fired):
+        rt = torch.as_tensor(rows)
+        q = torch.as_tensor(q_rows)[rt].to(dev)
         qhat, c1 = prepare_query(q, alpha, dtype=dt)
-        qlam = torch.as_tensor(qlam_rows)[run_t].to(device=dev, dtype=dt)
-        fired_t = torch.as_tensor(fired[run], device=dev)
-        oi = torch.as_tensor(np.asarray(out_idx_rows)[run], device=dev)
-        m = -(-n // bins)
-        per_row = (MAX_FIRED * m + k) * xhat.shape[1] * xhat.element_size()
-        r_cap = max(1, _GATHER_BUDGET // per_row)
-        for lo in range(0, run.size, r_cap):
-            hi = min(run.size, lo + r_cap)
-            s, i = _repair_chunk(qhat[lo:hi], qlam[lo:hi], fired_t[lo:hi],
-                                 oi[lo:hi], xhat, xlam, c1, n, k, bins)
-            out_s[run[lo:hi]] = (s + c1).cpu().numpy()
-            out_i[run[lo:hi]] = i.cpu().numpy()
+        qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
+        s, i = _repair_chunk(qhat, qlam, torch.as_tensor(fired, device=dev),
+                             torch.as_tensor(oi_all[rows], device=dev),
+                             xhat, xlam, c1, n, k, bins)
+        return s + c1, i
 
-    pass_rows = np.nonzero(can_pass)[0]
-    if pass_rows.size:
-        out_s[pass_rows] = np.asarray(cur_scores)[pass_rows]
-        out_i[pass_rows] = np.asarray(out_idx_rows)[pass_rows]
-    bad_rows = np.nonzero(~ok)[0]
-    if bad_rows.size:
-        if fallback is None:
-            raise RuntimeError(
-                f"{bad_rows.size} flagged rows exceed MAX_FIRED={MAX_FIRED} "
-                "fired bins and no fallback repair was provided")
-        s, i = fallback(bad_rows)
-        out_s[bad_rows] = np.asarray(s)
-        out_i[bad_rows] = np.asarray(i)
-    return out_s, out_i
+    per_row = (MAX_FIRED * -(-n // bins) + k) * xhat.shape[1] \
+        * xhat.element_size()
+    return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
+                           fallback, _np_dtype(dt), k, rescore, per_row)
 
 
 strided_lambda_repair.calls = 0
+
+
+def strided_energy_repair(zq_rows, qlam_rows, det_rows, kth, out_idx_rows,
+                          zx, xlam, xn, wl: float, wd: float, *, k: int,
+                          n: int, fallback=None, cur_scores=None):
+    """Exact repair of flagged energy queries through their fired bins
+    (bin_repair.py:434-492 of the JAX package), over a prepared corpus
+    (ops/energy_bintopk.prepare_binned_energy_corpus).  zq_rows (R, G)
+    are the flagged queries in z-space; the rest as in
+    strided_lambda_repair, with scores on the true scale.  Returns host
+    (scores (R, k), ids (R, k) int64)."""
+    strided_energy_repair.calls += 1
+    bins = np.shape(det_rows)[1]
+    dev, dt = zx.device, zx.dtype
+    oi_all = np.asarray(out_idx_rows)
+
+    def rescore(rows, fired):
+        rt = torch.as_tensor(rows)
+        zq = torch.as_tensor(zq_rows)[rt].to(device=dev, dtype=dt)
+        qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
+        s, i = _energy_repair_chunk(
+            zq, qlam, torch.as_tensor(fired, device=dev),
+            torch.as_tensor(oi_all[rows], device=dev), zx, xlam, xn, wl, wd,
+            n, k, bins)
+        return s - wd, i
+
+    per_row = (MAX_FIRED * -(-n // bins) + k) * zx.shape[1] \
+        * zx.element_size()
+    return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
+                           fallback, _np_dtype(dt), k, rescore, per_row)
+
+
+strided_energy_repair.calls = 0
+
+
+def _np_dtype(dt):
+    return torch.empty((), dtype=dt).numpy().dtype
 
 
 def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,
@@ -227,3 +311,108 @@ class BinnedTopK:
                              fl)
         return torch.as_tensor(rs).to(s.device), torch.as_tensor(ri).to(
             i.device)
+
+
+class BinnedEnergyTopK:
+    """The binned energy engine over one prepared copy of a z-plane:
+    ``step`` is K6 plus its flush (or, with ``approx``, K7 plus its
+    rescore and certification), ``repair`` the exact repair of the
+    flagged rows.  Shared by EnergySearchSession and
+    energymaps.search_energy_batch, as BinnedTopK is by the cosine path.
+
+    ``project`` maps the rows handed to ``repair`` to z-space (the
+    session hands it raw query rows); None when they already are z.
+    ``flagged_rows`` counts the rows ``repair`` has re-run: K6's
+    deep-collision rows, or with ``approx`` K7's uncertified rows."""
+
+    # flagged rows re-run through K6 in blocks of this many rows
+    FALLBACK_BLOCK = 128
+
+    def __init__(self, z_items, item_lambdas, w_lambda: float,
+                 w_dirichlet: float, k: int, *, approx: bool = False,
+                 project=None):
+        self.n, self.k, self.approx = z_items.shape[0], int(k), approx
+        self.zx, self.xlam, self.xn = prepare_binned_energy_corpus(
+            z_items, item_lambdas)
+        self.wl = dtype_scalar(w_lambda, self.zx.dtype)
+        self.wd = dtype_scalar(w_dirichlet, self.zx.dtype)
+        self.project = project
+        self.flagged_rows = 0
+        if approx:
+            self.z_samp, self.xn_samp = prepare_energy_chord_sample(
+                self.zx, self.xn, self.n)
+
+    def step(self, z_q, qlam):
+        """(scores (B,k), ids (B,k), flags (B,), det (B, bins) or None),
+        on the device, of queries z_q (B, G) in z-space and their λ.
+        With ``approx`` the flags mark uncertified rows and det is None."""
+        if self.approx:
+            s, i, flags = binned_energy_topk_approx(
+                z_q, qlam, self.zx, self.xlam, self.xn, self.z_samp,
+                self.xn_samp, self.wl, self.wd, k=self.k, n=self.n)
+            return s, i, flags, None
+        return binned_energy_topk(z_q, qlam, self.zx, self.xlam, self.xn,
+                                  self.wl, self.wd, k=self.k, n=self.n)
+
+    def chunked(self, z_rows, qlam_rows):
+        """Host exact top-k of rows by the plain chunked scan."""
+        s, i = energy_topk_chunked(z_rows, qlam_rows, self.zx[:self.n],
+                                   self.xlam[:self.n], self.wl, self.wd,
+                                   k=self.k)
+        return s.cpu().numpy(), i.cpu().numpy()
+
+    def exact_rows(self, z_rows, qlam_rows):
+        """Host exact top-k of rows through K6 on blocks of
+        FALLBACK_BLOCK rows (zero rows pad the last block), with the
+        chunked scan for the rows K6 flags (index.py:635-659 of the JAX
+        package): the fallback of K7's uncertified rows."""
+        m = z_rows.shape[0]
+        pad = (-m) % self.FALLBACK_BLOCK
+        zs = torch.nn.functional.pad(z_rows, (0, 0, 0, pad))
+        qls = torch.nn.functional.pad(qlam_rows, (0, pad))
+        s, i, fl, _det = binned_energy_topk(
+            zs, qls, self.zx, self.xlam, self.xn, self.wl, self.wd,
+            k=self.k, n=self.n)
+        s, i = s[:m].cpu().numpy(), i[:m].cpu().numpy()
+        bad = np.nonzero(fl[:m].cpu().numpy())[0]
+        if bad.size:
+            bt = torch.as_tensor(bad, device=z_rows.device)
+            s[bad], i[bad] = self.chunked(z_rows[bt], qlam_rows[bt])
+        return s, i
+
+    def repair(self, q, qlam, det, scores, ids, flags):
+        """Host (scores, ids) with every flagged row's exact top-k.  q is
+        the (B, ·) batch (array or tensor) that ``project`` maps to
+        z-space, qlam and det the step's device tensors, scores / ids /
+        flags host arrays of the step's results."""
+        rows = np.nonzero(flags)[0]
+        if not rows.size:
+            return scores, ids
+        self.flagged_rows += rows.size
+        dev, dt = self.zx.device, self.zx.dtype
+        rt = torch.as_tensor(rows, device=dev)
+        q_rows = (q[rt.to(q.device)] if torch.is_tensor(q)
+                  else torch.as_tensor(q[rows])).to(device=dev, dtype=dt)
+        z = q_rows if self.project is None else self.project(q_rows)
+        ql = qlam[rt].to(self.zx.dtype)
+        scores, ids = scores.copy(), ids.copy()
+        if self.approx:
+            scores[rows], ids[rows] = self.exact_rows(z, ql)
+            return scores, ids
+
+        def fallback(rel_rows):
+            rel = torch.as_tensor(rel_rows, device=z.device)
+            return self.chunked(z[rel], ql[rel])
+
+        scores[rows], ids[rows] = strided_energy_repair(
+            z, ql, det[rt].cpu().numpy(), scores[rows, self.k - 1],
+            ids[rows], self.zx, self.xlam, self.xn, self.wl, self.wd,
+            k=self.k, n=self.n, fallback=fallback, cur_scores=scores[rows])
+        return scores, ids
+
+    def __call__(self, z_q, qlam):
+        """Exact top-k of one batch: host (scores (B,k), ids (B,k)).
+        Reading the flags waits for the device."""
+        s, i, flags, det = self.step(z_q, qlam)
+        return self.repair(z_q, qlam, det, s.cpu().numpy(), i.cpu().numpy(),
+                           flags.cpu().numpy())

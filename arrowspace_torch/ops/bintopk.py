@@ -18,7 +18,9 @@ chunk), and writes a top-``depth`` pool and a det per (query, chunk,
 bin); the flush merges the chunks.  A row dropped by its chunk is below
 that chunk's det, and the strided repair rescans the whole bin, so the
 per-chunk pools keep the contract.  ``binned_topk_pool_plain`` is the
-same computation in plain PyTorch.
+same computation in plain PyTorch.  The fold itself
+(csrc/binned_fold.cuh, ``fold_pool_plain`` here) is shared with the
+energy kernels K6 and K7.
 
 Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
 dot product is α·cos, and c1 is added back after the flush.
@@ -34,7 +36,7 @@ from .search import (INT_MAX, NEG_INF, dot_plane, lambda_term,
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
            "bintopk_fits", "binned_topk_pool", "binned_topk_pool_plain",
-           "flush_pool", "binned_lambda_topk"]
+           "fold_pool_plain", "flush_pool", "binned_lambda_topk"]
 
 # Prepared corpora are zero-padded to a multiple of the widest bin count,
 # so one prepared copy serves every k.
@@ -66,19 +68,20 @@ def bins_target(k: int) -> int:
     return 512
 
 
-def query_block(bins: int) -> int:
-    """Queries per CTA of the CUDA kernel: 256 threads, each holding a
-    4-query × 4-bin tile of the running state."""
-    return _THREADS * 16 // bins
+def query_block(bins: int, qt: int = 4) -> int:
+    """Queries per CTA of a binned fold kernel: 256 threads, each holding
+    a qt-query × 4-bin tile of the running state (qt 4 for K1 and K6, 2
+    for K7)."""
+    return _THREADS * 4 * qt // bins
 
 
-def bintopk_fits(f: int, bins: int = 128) -> bool:
-    """Whether the CUDA kernel's shared memory (the query block's rows,
-    padded to whole float4s, and two buffers of one feature slice of a
-    corpus tile) fits a block."""
+def bintopk_fits(f: int, bins: int = 128, qt: int = 4) -> bool:
+    """Whether a binned fold kernel's shared memory (the query block's
+    rows, padded to whole float4s, and two buffers of one feature slice
+    of a corpus tile) fits a block."""
     qs_stride = -(-f // 4) * 4 + 4
     slice_stride = (32 if bins >= 512 else 64) + 4  # csrc slice_stride()
-    smem = (query_block(bins) * qs_stride + 2 * bins * slice_stride) * 4
+    smem = (query_block(bins, qt) * qs_stride + 2 * bins * slice_stride) * 4
     return f >= 1 and smem <= _SMEM_LIMIT
 
 
@@ -94,7 +97,8 @@ def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
     return xhat.contiguous(), xlam.contiguous()
 
 
-def _default_chunks(bsz: int, bins: int, n_tiles: int, device) -> int:
+def _default_chunks(bsz: int, bins: int, n_tiles: int, device,
+                    qt: int = 4) -> int:
     """Corpus chunks per query block.  The kernel's registers leave room
     for one resident CTA per SM, so the grid should fill the SMs in whole
     waves: the fewest chunks (at most 64, at most one per tile) whose
@@ -104,7 +108,7 @@ def _default_chunks(bsz: int, bins: int, n_tiles: int, device) -> int:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     else:
         sms = 1
-    q_blocks = -(-bsz // query_block(bins))
+    q_blocks = -(-bsz // query_block(bins, qt))
     best, best_fill = 1, 0.0
     for c in range(1, max(1, min(n_tiles, 64)) + 1):
         ctas = q_blocks * c
@@ -171,42 +175,68 @@ binned_topk_pool.launches = 0
 
 def binned_topk_pool_plain(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                            depth: int, bins: int, chunks: int):
-    """Plain PyTorch version of the K1 kernel, same outputs and layout.
+    """Plain PyTorch version of the K1 kernel, same outputs and layout."""
+    x_n, l_n = xhat[:n], xlam[:n]
 
-    Rows are viewed as (chunk, tile, bin); a stable descending sort over
-    each chunk's tiles keeps the earliest (lowest-id) row first among
-    equal scores, which is what the kernel's strict-> insertion keeps.
-    The (depth+1)-th entry is the chunk's det."""
-    bsz = qhat.shape[0]
+    def scores(b0, b1):
+        return dot_plane(qhat[b0:b1], x_n) - lambda_term(qlam[b0:b1], l_n,
+                                                         c1), None
+    return fold_pool_plain(scores, qhat.shape[0], n, depth=depth,
+                           bins=bins, chunks=chunks, device=qhat.device)
+
+
+def fold_pool_plain(block_scores, bsz: int, n: int, *, depth: int,
+                    bins: int, chunks: int, device, payload: bool = False):
+    """Plain PyTorch version of the binned fold (csrc/binned_fold.cuh).
+
+    ``block_scores(b0, b1)`` returns the (b1-b0, n) score plane of
+    queries b0..b1-1 and, with ``payload``, the plane of the value each
+    pool entry carries (else None).  Rows are viewed as (chunk, tile,
+    bin); a stable descending sort over each chunk's tiles keeps the
+    earliest (lowest-id) row first among equal scores, which is what the
+    kernel's strict-> insertion keeps.  The (depth+1)-th entry is the
+    chunk's det.  Returns pool_s, pool_i (B, chunks, depth, bins), det
+    (B, chunks, bins) and, with ``payload``, pool_d like pool_s (0 in
+    empty slots)."""
     n_tiles = -(-n // bins)
     tiles_per_chunk = -(-n_tiles // chunks)
     chunks = -(-n_tiles // tiles_per_chunk)
     span = chunks * tiles_per_chunk * bins
-    ids = torch.arange(span, device=qhat.device)
+    ids = torch.arange(span, device=device)
     ids = ids.reshape(chunks, tiles_per_chunk, bins)
-    x_n, l_n = xhat[:n], xlam[:n]
     take = min(depth + 1, tiles_per_chunk)
     rows = max(1, (1 << 26) // max(1, span))
-    out_s, out_i, out_d = [], [], []
+    out_s, out_i, out_det, out_d = [], [], [], []
     for b0 in range(0, bsz, rows):
-        q, ql = qhat[b0:b0 + rows], qlam[b0:b0 + rows]
-        plane = dot_plane(q, x_n) - lambda_term(ql, l_n, c1)
-        full = plane.new_full((q.shape[0], span), NEG_INF)
+        b1 = min(bsz, b0 + rows)
+        plane, pay = block_scores(b0, b1)
+        full = plane.new_full((b1 - b0, span), NEG_INF)
         full[:, :n] = plane
         full = full.reshape(-1, chunks, tiles_per_chunk, bins)
         s, order = torch.sort(full, dim=2, descending=True, stable=True)
-        s = s[:, :, :take]
-        g = ids[None].expand(q.shape[0], -1, -1, -1).gather(
-            2, order[:, :, :take])
-        g = torch.where(s > NEG_INF, g, torch.full_like(g, INT_MAX))
+        s, order = s[:, :, :take], order[:, :, :take]
+        live = s > NEG_INF
+        g = ids[None].expand(b1 - b0, -1, -1, -1).gather(2, order)
+        g = torch.where(live, g, torch.full_like(g, INT_MAX))
+        if payload:
+            pfull = pay.new_zeros((b1 - b0, span))
+            pfull[:, :n] = pay
+            d = pfull.reshape(-1, chunks, tiles_per_chunk, bins).gather(
+                2, order)
+            d = torch.where(live, d, torch.zeros_like(d))
         if take < depth + 1:           # fewer tiles than depth + 1
-            pad = depth + 1 - take
-            s = torch.nn.functional.pad(s, (0, 0, 0, pad), value=NEG_INF)
-            g = torch.nn.functional.pad(g, (0, 0, 0, pad), value=INT_MAX)
+            pad = (0, 0, 0, depth + 1 - take)
+            s = torch.nn.functional.pad(s, pad, value=NEG_INF)
+            g = torch.nn.functional.pad(g, pad, value=INT_MAX)
+            if payload:
+                d = torch.nn.functional.pad(d, pad, value=0.0)
         out_s.append(s[:, :, :depth])
         out_i.append(g[:, :, :depth].to(torch.int32))
-        out_d.append(s[:, :, depth])
-    return torch.cat(out_s), torch.cat(out_i), torch.cat(out_d)
+        out_det.append(s[:, :, depth])
+        if payload:
+            out_d.append(d[:, :, :depth])
+    pool = (torch.cat(out_s), torch.cat(out_i), torch.cat(out_det))
+    return pool + (torch.cat(out_d),) if payload else pool
 
 
 def flush_pool(pool_s, pool_i, det, k: int, shift: float):

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..config import DENOM_EPS
-from ..taumode import graph_weights, select_tau_batch
+from ..taumode import graph_weights, select_tau_sorted
 from ._build import check, lib, stream_of
 
 __all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain"]
@@ -87,8 +87,9 @@ fused_taulambda.launches = 0
 
 
 def taulambda_plain(items: torch.Tensor, laplacian: torch.Tensor, mode):
-    """Plain PyTorch version of the K2 kernel: (λ, τ) in items' dtype."""
-    tau = select_tau_batch(items, mode)
+    """Plain PyTorch version of the K2 kernel: (λ, τ) in items' dtype.
+    τ comes from the sort, never from K4."""
+    tau = select_tau_sorted(items, mode)
     n = laplacian.shape[0]
     lap, w, w2, d_r, d_c, d2_r, d2_c = [
         t.to(items.device) for t in _graph_operands(laplacian, items.dtype)]

@@ -25,13 +25,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .config import DENOM_EPS, TAU_FLOOR, TAUMODE_WINDOW_BYTES
+from .config import (DENOM_EPS, SELECT_TAU_KERNEL_MIN_ELEMS, TAU_FLOOR,
+                     TAUMODE_WINDOW_BYTES)
 from .utils.log import get_logger
 
 logger = get_logger("arrowspace.taumode")
 
 __all__ = ["TauMode", "TAU_FLOOR", "TAUDEFAULT", "select_tau",
-           "select_tau_batch", "synthetic_lambda_batch",
+           "select_tau_batch", "select_tau_sorted", "synthetic_lambda_batch",
            "synthetic_lambda_single", "compute_taumode_lambdas"]
 
 
@@ -102,6 +103,23 @@ def select_tau(energies: Sequence[float], mode: TauMode) -> float:
 def select_tau_batch(x: torch.Tensor, mode: TauMode) -> torch.Tensor:
     """Per-row tau for a batch of item vectors (N, F) -> (N,), in x's
     dtype on x's device.
+
+    A float32 median or percentile batch of at least
+    SELECT_TAU_KERNEL_MIN_ELEMS values, with F within K4's gate, takes
+    the K4 kernel (ops/select_tau.py; its plain version on the CPU); the
+    gate is keyed on size and dtype, never on the device.  Everything
+    else takes select_tau_sorted."""
+    n_rows, f = x.shape
+    if (mode.kind in ("median", "percentile") and x.dtype == torch.float32
+            and n_rows * f >= SELECT_TAU_KERNEL_MIN_ELEMS):
+        from .ops.select_tau import fused_select_tau, select_tau_fits
+        if select_tau_fits(f):
+            return fused_select_tau(x.contiguous(), mode)
+    return select_tau_sorted(x, mode)
+
+
+def select_tau_sorted(x: torch.Tensor, mode: TauMode) -> torch.Tensor:
+    """select_tau_batch by sorting each row, the plain version of K4.
 
     Each row is sorted with non-finite values pushed to the end and the
     order statistic is taken over the finite prefix only, exactly as the
@@ -236,9 +254,11 @@ def compute_taumode_lambdas(items: torch.Tensor, laplacian: torch.Tensor,
     taumode.rs:174-312): tau per item from its own coordinates, then λ.
 
     Corpora above TAUMODE_WINDOW_BYTES run in fixed row windows.  A
-    float32 CUDA batch with a graph no taller than the items takes the
-    fused τ+λ kernel when its feasibility gate admits the shape; every
-    other case runs select_tau_batch + synthetic_lambda_batch."""
+    float32 batch with a graph no taller than the items takes the fused
+    τ+λ kernel K2 when its feasibility gate admits the shape (its plain
+    version on the CPU: the gate is keyed on size and dtype, never on the
+    device); every other case runs select_tau_batch +
+    synthetic_lambda_batch."""
     n_items, n_features = items.shape
     logger.info(
         "Parallel TauMode lambda computation: items=%d features=%d "
@@ -256,8 +276,8 @@ def compute_taumode_lambdas(items: torch.Tensor, laplacian: torch.Tensor,
                 for c0 in range(0, n_items, win)])
 
     n = laplacian.shape[0]
-    if (items.is_cuda and items.dtype == torch.float32
-            and method == "matmul" and n <= n_features):
+    if (items.dtype == torch.float32 and method == "matmul"
+            and n <= n_features):
         from .ops.taulambda import fused_taulambda, taulambda_fits
         if taulambda_fits(n_features, n):
             lam, _tau = fused_taulambda(items, laplacian, taumode)

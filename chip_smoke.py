@@ -5,21 +5,32 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels (nvcc, sm_90a), drives the main
-path once at full width (a seeded ArrowIndex.build of a clustered
-1,000,000 x 128 corpus, then a SearchSession serving batched λ-aware
-top-k at B=2048, k=10, α=0.9), and holds every kernel against its plain
-PyTorch version on the card at the main path's shapes.  The corpus
-carries exact duplicate rows, as real corpora do, placed so that more
-than the binned kernel's depth of them share a bin: the first streamed
-batch then needs the strided repair and its K3 fallback.  Any failed
-check exits non-zero.  Without CUDA, or without the package beside it,
-it exits non-zero and prints no result.
+It builds the hand-written CUDA kernels (nvcc, sm_90a) and drives two
+paths once at full width on one seeded, clustered 1,000,000 x 128
+corpus:
+
+- the cosine path: ArrowIndex.build, then a SearchSession serving
+  batched λ-aware top-k at B=2048, k=10, α=0.9 (kernels K1, K2, K3);
+- the energy path: ArrowIndex.build_energy with
+  EnergyParams(allow_tall_graphs=True), whose JL projection gives a
+  1,000,000 x 64 z-plane, then an exact EnergySearchSession and one with
+  approx=True, both at B=2048, k=10, w_λ=1.0, w_D=0.5 (K4 in the build,
+  K6 and K7 in the sessions).
+
+Each path is run with the launch counters set to 0 just before it and
+read just after it.  Then every kernel is held against its plain PyTorch
+version on the card at the path's shapes, and each session against the
+plain full scan.  The corpus carries exact duplicate rows, as real
+corpora do, placed so that more than the binned kernels' depth of them
+share a bin: the first streamed batch of each session then needs the
+strided repair.  Any failed check exits non-zero.  Without CUDA, or
+without the package beside it, it exits non-zero and prints no result.
 
 Output: progress lines, then the card's name and power limit, then one
-JSON line with each kernel's launches (counted over the main path's run:
-build, session warm-up and stream), error against its plain version and
-mean times, then the last line {"ok": true, "device": {...}}.
+JSON line with each kernel's launches (counted over its path's run),
+error against its plain version, mean times, the bound of its work on
+this card and the time of a PyTorch call computing the same function
+(null where none does), then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -37,8 +48,17 @@ SEED = 11
 # so every λ would be 0 and neither K2 nor the λ term would be tested.
 EPS = 1.0
 BATCH, K, ALPHA, N_BATCHES = 2048, 10, 0.9, 16
+N_PROFILE = 8           # batches of each energy session under the profiler
 TAULAMBDA_ROWS = 262_144
 TOL = 1e-5              # kernel vs plain version, float32 scores and λ
+# The energy path: session weights, and the score tolerance against a
+# reference of another rounding (float64, or cuBLAS's d²): d² = |q|² +
+# |x|² - 2·q·x cancels for near duplicates, and w_D/(1+√d²) magnifies a
+# one-ulp error of d² (≈ 4e-6 at |z|² ≈ 30) by w_D/(2√d²).
+E_WL, E_WD = 1.0, 0.5
+E_TOL = 5e-5
+# Published H100 SXM peaks: float32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -113,6 +133,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(ops: float, n_bytes: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for work
+    of ``ops`` float32 operations that must move ``n_bytes`` (each input
+    read once, each output written once)."""
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def matmul_ms(torch, a, b) -> float:
+    """Time of the one torch.matmul a @ b.T inside a scoring kernel, as
+    context for its time (no kernel of the port calls it)."""
+    return cuda_ms(lambda: torch.matmul(a, b.T), reps=3)
+
+
 def exact_scores(qhat, qlam, xhat, xlam, c1, ids):
     """Float64 shifted scores of the given (B, k) ids, from the prepared
     (α-prescaled unit) queries and the prepared corpus."""
@@ -180,16 +219,25 @@ def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL) -> float:
     return err
 
 
+def reset(counters) -> None:
+    for c in counters.values():
+        if hasattr(c, "launches"):
+            c.launches = 0
+        else:
+            c.calls = 0
+
+
 def main_path(torch, counters, rows, canon, dev):
-    """The main path, through the user entry points: build, session,
-    warm-up, stream.  The kernel counters are read right after the
-    stream, before any check runs a kernel.  Returns the index, the query
-    batches and the launch counts."""
+    """The cosine path, through the user entry points: build, session,
+    warm-up, stream.  The kernel counters are set to 0 just before and
+    read right after the stream, before any check runs a kernel.
+    Returns the index, the query batches and the launch counts."""
     from arrowspace_torch.index import ArrowIndex
     from arrowspace_torch.ops.search import batched_lambda_aware_topk
 
-    log(f"[2] main path: ArrowIndex.build {rows.shape[0]}x{rows.shape[1]} "
+    log(f"[2] cosine path: ArrowIndex.build {rows.shape[0]}x{rows.shape[1]} "
         f"eps={EPS} seed={SEED} on {dev}")
+    reset(counters)
     t0 = time.perf_counter()
     index = ArrowIndex.build(rows, eps=EPS, seed=SEED, device=dev)
     sync(torch, dev)
@@ -216,10 +264,10 @@ def main_path(torch, counters, rows, canon, dev):
                 "taulambda": counters["k2"].launches,
                 "merge_topk": counters["k3"].launches}
     repairs = counters["repair"].calls - repairs_warm
-    log(f"  main-path launches: {launches}; strided repairs in the "
+    log(f"  cosine-path launches: {launches}; strided repairs in the "
         f"stream: {repairs}")
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+          f"a kernel of the cosine path never launched: {launches}")
     check(repairs > 0, "the stream repaired no flagged row")
 
     lam = index.aspace.lambdas
@@ -290,11 +338,16 @@ def kernels_vs_plain(torch, index, batches, dev):
         f"distinct={n_distinct}")
     check(n_distinct >= 1000, "K2 compared on nearly constant λ")
     check(err <= TOL and tau_eq, "K2 disagrees with its plain version")
+    # five n×n quadratic forms a row (csrc/taulambda.cu), 2 flops a FMA
+    nn = lap.shape[0]
+    b_ms, b_by = bound(10.0 * x.shape[0] * nn * nn,
+                       nbytes(x, lap, lam_k, tau_k) + 2 * nbytes(lap))
     rec["taulambda"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: tl.fused_taulambda(x, lap, aspace.taumode)),
         plain_ms=cuda_ms(lambda: tl.taulambda_plain(x, lap,
-                                                    aspace.taumode)))
+                                                    aspace.taumode)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # K1 at k=10 (depth 3, bins 128) and k=64 (depth 4, bins 512)
     k1_err = 0.0
@@ -315,10 +368,17 @@ def kernels_vs_plain(torch, index, batches, dev):
         check(det_err <= TOL, "K1 det disagrees")
         k1_err = max(k1_err, err, det_err)
         if k == K:
+            # per pair: the F-term dot (2F) and the λ term (5)
+            pool = bt.binned_topk_pool(*args, **kw)
+            b_ms, b_by = bound(BATCH * n * (2.0 * qhat.shape[1] + 5),
+                               nbytes(qhat, qlam, xhat[:n], xlam[:n], *pool))
             rec["bintopk"] = dict(
                 ms=cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)),
                 plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
-                    *args, **kw), reps=2))
+                    *args, **kw), reps=2),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"    matmul context (qhat @ xhat.T, {BATCH}x{n}x"
+                f"{qhat.shape[1]}): {matmul_ms(torch, qhat, xhat[:n]):.3f} ms")
         else:
             log(f"    k=64: ms={cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)):.3f}")
     rec["bintopk"]["max_abs_err"] = k1_err
@@ -337,14 +397,292 @@ def kernels_vs_plain(torch, index, batches, dev):
                 exact=exact_scores(qhat.repeat_interleave(chunks, 0),
                                    qlam.repeat_interleave(chunks, 0), xhat,
                                    xlam, c1, i_k.reshape(-1, K).long()))
+    b_ms, b_by = bound(BATCH * n * (2.0 * qhat.shape[1] + 5),
+                       nbytes(qhat, qlam, xhat[:n], xlam[:n], s_k, i_k))
     rec["merge_topk"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ms=cuda_ms(lambda: tk.merge_topk_partial(*args, k=K,
                                                  rows_per_chunk=rows_pc),
                    reps=2),
         plain_ms=cuda_ms(lambda: tk.merge_topk_partial_plain(
             *args, k=K, rows_per_chunk=rows_pc), reps=2))
     return rec
+
+
+def energy_exact(zq, qlam, z, lam, ids):
+    """Float64 energy scores w_D/(1+|z_q - z_g|) - w_λ·|λ_q - λ_g| of the
+    given (B, k) ids, from the float32 z-plane."""
+    d = zq.double()[:, None, :] - z[ids].double()
+    num = (d * d).sum(-1).sqrt()
+    dl = (qlam.double()[:, None] - lam[ids].double()).abs()
+    return E_WD / (1.0 + num) - E_WL * dl - E_WD
+
+
+def energy_stream(torch, session, batches, dev, counters):
+    """Warm-up, then the stream.  Returns (results, ms per batch, and the
+    stream's own counts, warm-up excluded: rows the engine re-ran, K6
+    launches and strided energy repairs)."""
+    session.warmup()
+    before = (session.engine.flagged_rows, counters["k6"].launches,
+              counters["erepair"].calls)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    results = list(session.search_stream(batches))
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    check(all(r[0].shape == (BATCH, K) and np.isfinite(r[0]).all()
+              for r in results), "energy session output shape/finiteness")
+    after = (session.engine.flagged_rows, counters["k6"].launches,
+             counters["erepair"].calls)
+    return results, ms, [b - a for a, b in zip(before, after)]
+
+
+def energy_path(torch, counters, rows, canon, dev):
+    """The energy path, through the user entry points: build_energy, then
+    an exact EnergySearchSession and one with approx=True, each warmed up
+    and fed the same 16 batches.  The counters are set to 0 just before
+    the build with the exact session, and again just before the approx
+    session, and read right after each stream.  Returns the index, the
+    two sessions, the batches, the launch counts and the results."""
+    from arrowspace_torch.energymaps import EnergyParams
+    from arrowspace_torch.index import ArrowIndex
+
+    log(f"[5] energy path: ArrowIndex.build_energy {rows.shape[0]}x"
+        f"{rows.shape[1]} EnergyParams(allow_tall_graphs=True) seed={SEED}")
+    reset(counters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = ArrowIndex.build_energy(rows, EnergyParams(allow_tall_graphs=True),
+                                    seed=SEED, device=dev)
+    sync(torch, dev)
+    t_build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    a, st = index.aspace, index.builder.stage_seconds
+    x_nodes = index.gl.matrix.shape[0]
+    log(f"  build_s={t_build:.3f} " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in st.items()))
+    log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} X={x_nodes} "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    build = {"select_tau": counters["k4"].launches,
+             "taulambda": counters["k2"].launches}
+    log(f"  build launches: {build}")
+    check(build["select_tau"] >= 1, "the energy build never launched K4")
+    check(build["taulambda"] == 0, "the tall energy build launched K2")
+    check(a.reduced_dim is not None and a.reduced_dim < rows.shape[1],
+          "the energy build did not project")
+    check(x_nodes > a.reduced_dim, "the energy graph is not tall")
+    lam_h = a.lambdas.cpu().numpy()
+    check(lam_h.shape == (rows.shape[0],) and bool(np.isfinite(lam_h).all()),
+          "energy λ not finite or wrong shape")
+    n_distinct = int(np.unique(lam_h).size)
+    log(f"  λ: min={lam_h.min():.6g} max={lam_h.max():.6g} "
+        f"distinct={n_distinct}")
+    check(n_distinct >= 1000, "energy λ nearly constant")
+    check(bool((lam_h == lam_h[canon]).all()),
+          "identical rows got different energy λ")
+
+    rng = np.random.default_rng(SEED + 2)
+    picks = [rng.integers(0, rows.shape[0], BATCH) for _ in range(N_BATCHES)]
+    picks[0][:2] = (0, 1)            # the duplicated rows: repair
+    batches = [rows[p] * 1.02 for p in picks]
+
+    exact = index.make_energy_session(batch_size=BATCH, k=K, w_lambda=E_WL,
+                                      w_dirichlet=E_WD)
+    check(exact.kernel == "binned", f"energy session kernel {exact.kernel}")
+    res_e, ms_e, (flagged_e, _, repairs) = energy_stream(
+        torch, exact, batches, dev, counters)
+    launches = {"select_tau": build["select_tau"],
+                "energy_bintopk": counters["k6"].launches}
+    log(f"  exact session: ms_per_batch={ms_e:.3f} queries_per_s="
+        f"{BATCH / ms_e * 1e3:.1f} K6 launches={launches['energy_bintopk']} "
+        f"flagged rows={flagged_e} strided repairs in the stream={repairs}")
+    check(launches["energy_bintopk"] >= N_BATCHES + 1,
+          "K6 did not launch for every batch and the warm-up")
+    check(repairs > 0, "the energy stream repaired no flagged row")
+
+    reset(counters)
+    approx = index.make_energy_session(batch_size=BATCH, k=K, w_lambda=E_WL,
+                                       w_dirichlet=E_WD, approx=True)
+    check(approx.kernel == "binned_approx",
+          f"approx session kernel {approx.kernel}")
+    res_a, ms_a, (flagged_a, fallback, _) = energy_stream(
+        torch, approx, batches, dev, counters)
+    launches["energy_chord"] = counters["k7"].launches
+    cert = 1.0 - flagged_a / (N_BATCHES * BATCH)
+    log(f"  approx session: ms_per_batch={ms_a:.3f} queries_per_s="
+        f"{BATCH / ms_a * 1e3:.1f} K7 launches={launches['energy_chord']} "
+        f"certified={cert:.6f} ({flagged_a} rows re-run exactly); K6 "
+        f"launches as its fallback in the stream={fallback}")
+    check(launches["energy_chord"] >= N_BATCHES + 1,
+          "K7 did not launch for every batch and the warm-up")
+    return index, exact, approx, batches, launches, res_e, res_a
+
+
+def energy_vs_plain_scan(torch, index, exact, res_e, res_a, batches, dev):
+    """Both sessions' first 256 rows of batch 0, the duplicated rows 0 and
+    1 among them, against the plain chunked scan on the session's own
+    prepared queries."""
+    from arrowspace_torch.ops.energy_bintopk import energy_topk_chunked
+    a = index.aspace
+    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
+    zq, qlam = exact.prepare(q)
+    z = a.projected_items()
+    ps, pi = energy_topk_chunked(zq, qlam, z, a.lambdas, E_WL, E_WD, k=K)
+    for name, res in (("exact", res_e), ("approx", res_a)):
+        s0, i0 = res[0][0][:256], res[0][1][:256]
+        agree(f"energy {name} session vs plain chunked scan (256 queries)",
+              s0, i0, ps, pi, tol=E_TOL,
+              exact=energy_exact(zq, qlam, z, a.lambdas,
+                                 torch.as_tensor(i0, device=dev)))
+    log(f"  row 0 top-{K}: {res_e[0][1][0].tolist()}")
+    log(f"  row 1 top-{K}: {res_e[0][1][1].tolist()}")
+
+
+def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
+    """K4, K6 and K7 against their plain versions on the card, at the
+    energy path's shapes; returns the per-kernel records (without
+    launches)."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import energy_approx as ea
+    from arrowspace_torch.ops import energy_bintopk as eb
+    from arrowspace_torch.ops import select_tau as st
+
+    log("[6] energy kernels against their plain versions on the card")
+    a, rec = index.aspace, {}
+
+    # K4 over the corpus, as the build's λ pass calls it
+    x, mode = a.data, a.taumode
+    tau_k = st.fused_select_tau(x, mode)
+    tau_p = st.select_tau_plain(x, mode)
+    tau_eq = bool(torch.equal(tau_k, tau_p))
+    log(f"  K4 select_tau {tuple(x.shape)} {mode.kind}: τ bitwise equal="
+        f"{tau_eq}")
+    check(tau_eq, "K4 disagrees with its plain version")
+    lib = None
+    if mode.kind == "median":        # finite rows: the same order statistic
+        lib_tau = torch.nanquantile(x, 0.5, dim=1)
+        log(f"    torch.nanquantile(x, 0.5, dim=1) vs K4: max_abs_diff="
+            f"{float((lib_tau - tau_k).abs().max()):.3e}")
+        lib = cuda_ms(lambda: torch.nanquantile(x, 0.5, dim=1), reps=3)
+    b_ms, b_by = bound(float(x.numel()), nbytes(x, tau_k))
+    rec["select_tau"] = dict(
+        max_abs_err=float((tau_k - tau_p).abs().max()),
+        ms=cuda_ms(lambda: st.fused_select_tau(x, mode)),
+        plain_ms=cuda_ms(lambda: st.select_tau_plain(x, mode), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+    # K6 and K7 call rsqrtf; their plain versions call torch.rsqrt
+    v = torch.logspace(-37.0, 38.0, 1 << 20, device=dev)
+    rsqrt_eq = bool(torch.equal(eb.rsqrt_probe(v), torch.rsqrt(v)))
+    log(f"  rsqrtf (CUDA) vs torch.rsqrt over 2^20 values in [1e-37, 1e38]: "
+        f"bitwise equal={rsqrt_eq}")
+    check(rsqrt_eq, "rsqrtf and torch.rsqrt differ")
+
+    # K6 and K7 on batch 0, over each session's prepared corpus
+    q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
+    zq, qlam = exact.prepare(q)
+    zq, qlam = zq.contiguous(), qlam.contiguous()
+    qn = (zq * zq).sum(dim=1)
+    eng = exact.engine
+    n, g = eng.n, zq.shape[1]
+    depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
+    z_n = eng.zx[:n]
+    chunks = bt._default_chunks(BATCH, bins, -(-n // bins), dev)
+    args = (zq, qn, qlam, eng.zx, eng.xn, eng.xlam, eng.wl, eng.wd, n)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    pool = eb.binned_energy_pool(*args, **kw)
+    out_k = bt.flush_pool(*pool, K, -eng.wd)
+    out_p = bt.flush_pool(*eb.binned_energy_pool_plain(*args, **kw), K,
+                          -eng.wd)
+    err = agree(f"K6 energy_bintopk k={K} depth={depth} bins={bins} "
+                f"chunks={chunks}", out_k[0], out_k[1], out_p[0], out_p[1],
+                tol=E_TOL, exact=energy_exact(zq, qlam, z_n, eng.xlam,
+                                              out_k[1]))
+    det_err = float((out_k[3] - out_p[3]).abs().max())
+    flags_eq = bool(torch.equal(out_k[2], out_p[2]))
+    log(f"    flags kernel={int(out_k[2].sum())} plain={int(out_p[2].sum())} "
+        f"equal={flags_eq} det max_abs_err={det_err:.3e}")
+    check(det_err <= E_TOL and flags_eq, "K6 det or flags disagree")
+    log(f"    matmul context (zq @ z.T, {BATCH}x{n}x{g}): "
+        f"{matmul_ms(torch, zq, z_n):.3f} ms")
+    # per pair: the G-term dot (2G), d² (3), clamp (2), two rsqrt and
+    # four roundings of the tail (6), the λ term (4)
+    b_ms, b_by = bound(BATCH * n * (2.0 * g + 15),
+                       nbytes(zq, qn, qlam, z_n, eng.xn[:n], eng.xlam[:n],
+                              *pool))
+    rec["energy_bintopk"] = dict(
+        max_abs_err=max(err, det_err),
+        ms=cuda_ms(lambda: eb.binned_energy_pool(*args, **kw)),
+        plain_ms=cuda_ms(lambda: eb.binned_energy_pool_plain(*args, **kw),
+                         reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    ap = approx.engine
+    ca, cb = ea._fit_chords(zq, qn, ap.z_samp, ap.xn_samp, ap.wd)
+    chunks = bt._default_chunks(BATCH, bins, -(-n // bins), dev, ea._QT)
+    args = (zq, qn, qlam, ca, cb, ap.zx, ap.xn, ap.xlam, ap.wl, n)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    pool = ea.binned_energy_approx_pool(*args, **kw)
+    pool_p = ea.binned_energy_approx_pool_plain(*args, **kw)
+    d2_err = float((pool[2] - pool_p[2]).abs().max())
+    out_k = ea._flush_rescore_certify(*pool, qlam, ap.xlam, ap.wl, ap.wd, K)
+    out_p = ea._flush_rescore_certify(*pool_p, qlam, ap.xlam, ap.wl, ap.wd,
+                                      K)
+    err = agree(f"K7 energy_chord k={K} depth={depth} bins={bins} "
+                f"chunks={chunks}", out_k[0], out_k[1], out_p[0], out_p[1],
+                tol=E_TOL, exact=energy_exact(zq, qlam, z_n, ap.xlam,
+                                              out_k[1]))
+    det_err = float((pool[3] - pool_p[3]).abs().max())
+    flags_eq = bool(torch.equal(out_k[2], out_p[2]))
+    log(f"    uncertified kernel={int(out_k[2].sum())} "
+        f"plain={int(out_p[2].sum())} equal={flags_eq} det max_abs_err="
+        f"{det_err:.3e} pooled d² max_abs_err={d2_err:.3e}")
+    check(det_err <= E_TOL and flags_eq, "K7 det or certification disagree")
+    # per pair: the dot (2G), d² (3), two chords and their max (6), the
+    # λ term (4)
+    b_ms, b_by = bound(BATCH * n * (2.0 * g + 13),
+                       nbytes(zq, qn, qlam, ca, cb, z_n, ap.xn[:n],
+                              ap.xlam[:n], *pool))
+    rec["energy_chord"] = dict(
+        max_abs_err=max(err, det_err),
+        ms=cuda_ms(lambda: ea.binned_energy_approx_pool(*args, **kw)),
+        plain_ms=cuda_ms(lambda: ea.binned_energy_approx_pool_plain(
+            *args, **kw), reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rec
+
+
+def where_time_goes(torch, sessions, batches) -> None:
+    """Device time by kernel over the first N_PROFILE batches of each
+    session (torch.profiler), and the device's idle share of that
+    window: 1 - (summed kernel time) / wall time.  A measurement only:
+    where the profiler records no device time it prints so."""
+    from torch.profiler import ProfilerActivity, profile
+    log("[7] where the time goes (torch.profiler)")
+    for name, session in sessions:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            list(session.search_stream(batches[:N_PROFILE]))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA]
+        busy = {e.key: getattr(e, "self_device_time_total", 0.0)
+                for e in kernels}
+        total = sum(busy.values())
+        if total <= 0.0:
+            log(f"  {name}: no device time recorded (not measured)")
+            continue
+        log(f"  {name}: {N_PROFILE} batches, wall {wall_us / 1e3:.3f} ms, "
+            f"device busy {total / 1e3:.3f} ms, idle share "
+            f"{1.0 - total / wall_us:.4f}")
+        for key, us in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {us / 1e3 / N_PROFILE:9.3f} ms/batch  "
+                f"{100.0 * us / total:5.1f} %  {key[:90]}")
 
 
 def small_reference(torch, dev):
@@ -368,6 +706,23 @@ def small_reference(torch, dev):
     agree("small reference search", gs, gi, cs, ci, tol=1e-4)
 
 
+KERNELS = {
+    # name: (source, TPU kernel it replaces)
+    "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
+                "arrowspace_tpu/ops/pallas_bintopk.py:667"),
+    "taulambda": ("arrowspace_torch/csrc/taulambda.cu",
+                  "arrowspace_tpu/ops/pallas_taulambda.py:151"),
+    "merge_topk": ("arrowspace_torch/csrc/merge_topk.cu",
+                   "arrowspace_tpu/ops/pallas_topk.py:263"),
+    "select_tau": ("arrowspace_torch/csrc/select_tau.cu",
+                   "arrowspace_tpu/ops/pallas_tau.py:475"),
+    "energy_bintopk": ("arrowspace_torch/csrc/energy_bintopk.cu",
+                       "arrowspace_tpu/ops/pallas_bintopk.py:934"),
+    "energy_chord": ("arrowspace_torch/csrc/energy_chord.cu",
+                     "arrowspace_tpu/ops/energy_approx.py:404"),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -379,8 +734,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     try:
-        from arrowspace_torch.ops import _build
-        from arrowspace_torch.ops import bin_repair, bintopk, taulambda, topk
+        from arrowspace_torch.ops import (_build, bin_repair, bintopk,
+                                          energy_approx, energy_bintopk,
+                                          select_tau, taulambda, topk)
     except ImportError as exc:
         print(f"FAIL: arrowspace_torch not importable ({exc}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -388,7 +744,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     counters = {"k1": bintopk.binned_topk_pool, "k2": taulambda.fused_taulambda,
                 "k3": topk.merge_topk_partial,
-                "repair": bin_repair.strided_lambda_repair}
+                "k4": select_tau.fused_select_tau,
+                "k6": energy_bintopk.binned_energy_pool,
+                "k7": energy_approx.binned_energy_approx_pool,
+                "repair": bin_repair.strided_lambda_repair,
+                "erepair": bin_repair.strided_energy_repair}
     try:
         card = card_line()
         log(f"[1] card: {card}; torch {torch.__version__} cuda "
@@ -399,33 +759,36 @@ def main() -> int:
         log(f"  kernels built in {time.perf_counter() - t0:.2f}s -> "
             f"{path.name}")
         for line in build_log.splitlines():
-            if "Used" in line:                 # ptxas: registers per kernel
+            if "Used" in line or "spill" in line:  # ptxas, per kernel
                 log(f"  {line.strip()}")
 
         rows = clustered_rows(N_ROWS, N_FEAT, SEED)
         canon = plant_duplicates(rows)
-        for name in ("k1", "k2", "k3"):
-            counters[name].launches = 0
-        counters["repair"].calls = 0
         index, batches, launches = main_path(torch, counters, rows, canon,
                                              dev)
         rec = kernels_vs_plain(torch, index, batches, dev)
         small_reference(torch, dev)
+        del index, batches
+        torch.cuda.empty_cache()
+
+        index, exact, approx, batches, e_launches, res_e, res_a = \
+            energy_path(torch, counters, rows, canon, dev)
+        launches.update(e_launches)
+        energy_vs_plain_scan(torch, index, exact, res_e, res_a, batches, dev)
+        rec.update(energy_kernels_vs_plain(torch, index, exact, approx,
+                                           batches, dev))
+        where_time_goes(torch, (("exact energy session", exact),
+                                ("approx energy session", approx)), batches)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
 
-    meta = {"bintopk": ("arrowspace_torch/csrc/bintopk.cu",
-                        "arrowspace_tpu/ops/pallas_bintopk.py:667"),
-            "taulambda": ("arrowspace_torch/csrc/taulambda.cu",
-                          "arrowspace_tpu/ops/pallas_taulambda.py:151"),
-            "merge_topk": ("arrowspace_torch/csrc/merge_topk.cu",
-                           "arrowspace_tpu/ops/pallas_topk.py:263")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                "max_abs_err": rec[name]["max_abs_err"],
-                "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"]}
-               for name, (src, rep) in meta.items()]
+                **{key: rec[name][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+               for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

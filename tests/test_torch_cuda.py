@@ -1,5 +1,6 @@
 """The arrowspace_torch CUDA kernels (K1 binned top-k, K2 fused τ+λ, K3
-merge top-k) against their plain PyTorch versions on the card, at small
+merge top-k, K4 τ selection, K6 binned energy top-k, K7 chord-surrogate
+energy fold) against their plain PyTorch versions on the card, at small
 edge shapes: ragged corpora and query blocks, F not a multiple of the
 32-feature staging slice, every bin count and depth, non-finite rows.
 
@@ -12,14 +13,20 @@ Tolerances: float32 scores and λ within 1e-5 (the kernel and the card's
 matmul sum the F products in another order); ids equal the plain
 version's wherever scores are not tied within that tolerance, which is
 checked by recomputing every returned id's score in float64; τ of an
-order statistic (median, percentile) or a fixed τ bitwise."""
+order statistic (median, percentile) or a fixed τ bitwise; the d² each
+K7 pool entry carries within 1e-4 of its float64 value (a difference of
+squared norms near 10, rounded in float32)."""
 
 import numpy as np
 import pytest
 import torch
 
+from arrowspace_torch.energymaps import EnergyParams
 from arrowspace_torch.index import ArrowIndex
 from arrowspace_torch.ops import bintopk as bt
+from arrowspace_torch.ops import energy_approx as ea
+from arrowspace_torch.ops import energy_bintopk as eb
+from arrowspace_torch.ops import select_tau as st
 from arrowspace_torch.ops import taulambda as tl
 from arrowspace_torch.ops import topk as tk
 from arrowspace_torch.ops.search import (INT_MAX, batched_lambda_aware_topk,
@@ -196,3 +203,182 @@ def test_cuda_session_matches_cpu_float64_build(dev):
     cs, ci = cpu.search(queries, k=10, alpha=0.9)
     assert float(np.abs(gs - cs).max()) <= 1e-4
     assert float(np.mean(gi == ci)) >= 0.99
+
+
+@pytest.mark.parametrize("f", [128, 64, 7, 300, 1024])
+@pytest.mark.parametrize("mode", [TauMode.median(), TauMode.percentile(0.3),
+                                  TauMode.percentile(0.75)])
+def test_k4_matches_plain(dev, f, mode):
+    rng = np.random.default_rng(f)
+    x = torch.tensor(rng.normal(0.5, 1.0, (3001, f)), dtype=torch.float32,
+                     device=dev)
+    x[5, min(3, f - 1)] = float("nan")
+    x[7, :] = float("inf")
+    x[8, ::2] = float("-inf")
+    x[9, :] = float("nan")
+    x[10, :] = 0.0
+    before = st.fused_select_tau.launches
+    tau = st.fused_select_tau(x, mode)
+    ref = st.select_tau_plain(x, mode)
+    torch.cuda.synchronize()
+    assert st.fused_select_tau.launches == before + 1
+    assert torch.equal(tau, ref)
+
+
+def _energy_inputs(dev, n, g, b, seed):
+    rng = np.random.default_rng(seed)
+    zq, ql, z, xl = [torch.tensor(a, dtype=torch.float32, device=dev)
+                     for a in (rng.uniform(0.1, 1.0, (b, g)),
+                               rng.uniform(0, 1, b),
+                               rng.uniform(0.1, 1.0, (n, g)),
+                               rng.uniform(0, 1, n))]
+    zx, xlam, xn = eb.prepare_binned_energy_corpus(z, xl)
+    return zq, (zq * zq).sum(dim=1), ql, zx, xn, xlam
+
+
+def _f64_energy(zq, ql, zx, xlam, wl, wd, ids):
+    """Float64 shifted energy scores of ids; INT_MAX slots read row 0."""
+    flat = ids.reshape(ids.shape[0], -1).long().clamp_max(zx.shape[0] - 1)
+    d = zq.double()[:, None, :] - zx[flat].double()
+    num = torch.sqrt((d * d).sum(-1))
+    dl = (ql.double()[:, None] - xlam[flat].double()).abs()
+    return (wd / (1.0 + num) - wl * dl).reshape(ids.shape)
+
+
+@pytest.mark.parametrize("g", [64, 40, 7])
+@pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4)])
+def test_k6_pool_matches_plain(dev, g, bins, depth):
+    n, b, wl, wd = 5003, 37, 1.0, 0.5
+    zq, qn, ql, zx, xn, xlam = _energy_inputs(dev, n, g, b, seed=g + bins)
+    kw = dict(depth=depth, bins=bins, chunks=3)
+    before = eb.binned_energy_pool.launches
+    ps, pi, det = eb.binned_energy_pool(zq, qn, ql, zx, xn, xlam, wl, wd, n,
+                                        **kw)
+    rs, ri, rdet = eb.binned_energy_pool_plain(zq, qn, ql, zx, xn, xlam, wl,
+                                               wd, n, **kw)
+    torch.cuda.synchronize()
+    assert eb.binned_energy_pool.launches == before + 1
+    assert ps.shape == rs.shape and det.shape == rdet.shape
+    assert float((ps - rs).abs().max()) <= TOL
+    assert float((det - rdet).abs().max()) <= TOL
+    live = pi != INT_MAX
+    assert torch.equal(live, ri != INT_MAX)
+    exact = _f64_energy(zq, ql, zx, xlam, wl, wd, pi)
+    assert float((exact - ps.double())[live].abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_k6_topk_and_flags_match_plain(dev, k):
+    """The flushed top-k at k=10 and k=64 over a 33-row query block (a
+    partial block of the kernel), with depth+2 copies of query 0 planted
+    in one bin of one corpus chunk (two chunks, so the copies cannot
+    spread over chunks): the same flags as the plain version, query 0
+    among them, and ids equal outside near-ties.  The wrapper, at its own
+    chunk count, equals the plain chunked scan on unflagged rows."""
+    n, g, b = 9000, 64, 33
+    zq, qn, ql, zx, xn, xlam = _energy_inputs(dev, n, g, b, seed=k)
+    bins, depth = bt.bins_target(k), bt.binned_topk_depth_for(k)
+    for j in range(depth + 2):
+        zx[5 + bins * (j + 1)] = zq[0]
+        xlam[5 + bins * (j + 1)] = ql[0]
+    xn = (zx * zx).sum(dim=1)
+    kw = dict(depth=depth, bins=bins, chunks=2)
+    s, i, fl, det = bt.flush_pool(*eb.binned_energy_pool(
+        zq, qn, ql, zx, xn, xlam, 1.0, 0.5, n, **kw), k, -0.5)
+    rs, ri, rfl, rdet = bt.flush_pool(*eb.binned_energy_pool_plain(
+        zq, qn, ql, zx, xn, xlam, 1.0, 0.5, n, **kw), k, -0.5)
+    assert bool(fl[0]) and torch.equal(fl, rfl)
+    assert float((s - rs).abs().max()) <= TOL
+    assert float((det - rdet).abs().max()) <= TOL
+    # an id may differ only where float64 scores tie within 2·TOL
+    diff = (i != ri) & ~fl[:, None]
+    a = _f64_energy(zq, ql, zx, xlam, 1.0, 0.5, i)
+    r = _f64_energy(zq, ql, zx, xlam, 1.0, 0.5, ri)
+    gap = torch.where(diff, (a - r).abs(), torch.zeros_like(a))
+    assert float(gap.max()) <= 2 * TOL
+    ws, wi, wfl, _ = eb.binned_energy_topk(zq, ql, zx, xlam, xn, 1.0, 0.5,
+                                           k=k, n=n)
+    es, ei = eb.energy_topk_chunked(zq, ql, zx[:n], xlam[:n], 1.0, 0.5, k=k)
+    ok = ~wfl
+    assert float((ws - es)[ok].abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("g,k", [(64, 10), (40, 64), (7, 5)])
+def test_k7_pool_matches_plain(dev, g, k):
+    n, b, wl, wd = 5003, 37, 1.0, 0.5
+    zq, qn, ql, zx, xn, xlam = _energy_inputs(dev, n, g, b, seed=g + k)
+    z_s, xn_s = ea.prepare_energy_chord_sample(zx, xn, n)
+    ca, cb = ea._fit_chords(zq, qn, z_s, xn_s, wd)
+    depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
+    kw = dict(depth=depth, bins=bins, chunks=2)
+    before = ea.binned_energy_approx_pool.launches
+    out = ea.binned_energy_approx_pool(zq, qn, ql, ca, cb, zx, xn, xlam, wl,
+                                       n, **kw)
+    ref = ea.binned_energy_approx_pool_plain(zq, qn, ql, ca, cb, zx, xn,
+                                             xlam, wl, n, **kw)
+    torch.cuda.synchronize()
+    assert ea.binned_energy_approx_pool.launches == before + 1
+    (ps, pi, pd, det), (rs, ri, rd, rdet) = out, ref
+    assert float((ps - rs).abs().max()) <= TOL
+    assert float((det - rdet).abs().max()) <= TOL
+    live = pi != INT_MAX
+    assert torch.equal(live, ri != INT_MAX)
+    flat = pi.reshape(b, -1).long().clamp_max(n - 1)
+    d = zq.double()[:, None, :] - zx[flat].double()
+    d2 = (d * d).sum(-1).reshape(pd.shape)
+    assert float((d2 - pd.double())[live].abs().max()) <= 1e-4
+    s, i, fl = ea.binned_energy_topk_approx(zq, ql, zx, xlam, xn, z_s, xn_s,
+                                            wl, wd, k=k, n=n)
+    es, ei = eb.energy_topk_chunked(zq, ql, zx[:n], xlam[:n], wl, wd, k=k)
+    ok = ~fl
+    assert bool(ok.any())
+    assert float((s - es)[ok].abs().max()) <= TOL
+
+
+def test_rsqrt_of_the_kernels_is_torch_rsqrt(dev):
+    """K6 and K7 call rsqrtf; their plain versions call torch.rsqrt."""
+    x = torch.cat([torch.logspace(-37, 38, 200001, device=dev),
+                   torch.rand(100000, device=dev) * 4.0 + 1e-30])
+    assert torch.equal(eb.rsqrt_probe(x), torch.rsqrt(x))
+
+
+def test_cuda_energy_session_matches_cpu_float64(dev):
+    """A seeded 70000 x 96 energy build on the card (K4 in its tall λ
+    pass, never K2) and its exact and approx sessions (K6, K7) against
+    the same index served in float64 on the CPU.  The card's projection,
+    energy Laplacian and λ are carried across (convert.from_jax_state):
+    a float32 and a float64 build pick different neighbours for the
+    energy graph, so two builds would not index the same thing.  λ is
+    held against a float64 λ pass over the card's Laplacian within 1e-5,
+    scores within 1e-4 (float32 query λ and d² against float64), ids in
+    99 % of the slots."""
+    from arrowspace_torch.convert import from_jax_state
+    from arrowspace_torch.taumode import compute_taumode_lambdas
+    rng = np.random.default_rng(5)
+    c = rng.uniform(0.2, 0.8, (24, 96))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05, (70_000, 96))
+    k4, k2 = st.fused_select_tau.launches, tl.fused_taulambda.launches
+    gpu = ArrowIndex.build_energy(rows, EnergyParams(allow_tall_graphs=True),
+                                  seed=5, device=dev)
+    assert st.fused_select_tau.launches > k4
+    assert tl.fused_taulambda.launches == k2
+    lap = gpu.gl.matrix.double().cpu()
+    assert lap.shape[0] > 48                      # a tall graph: X > r
+    cpu = from_jax_state(rows, gpu.lambdas, lap.numpy(), gpu.aspace.taumode,
+                         projection=gpu.aspace.projection_matrix.matrix()
+                         .numpy(), pad_tall_graphs=True, device="cpu",
+                         dtype=torch.float64)
+    lam64 = compute_taumode_lambdas(cpu.aspace.data, lap, cpu.aspace.taumode,
+                                    pad_items=True)
+    assert float(np.abs(gpu.lambdas - lam64.numpy()).max()) <= TOL
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    cs, ci = cpu.search_energy(queries, k=10)
+    for approx in (False, True):
+        counter = ea.binned_energy_approx_pool if approx \
+            else eb.binned_energy_pool
+        before = counter.launches
+        sess = gpu.make_energy_session(batch_size=64, k=10, approx=approx)
+        (gs, gi), = list(sess.search_stream([queries]))
+        assert counter.launches > before
+        assert float(np.abs(gs - cs).max()) <= 1e-4
+        assert float(np.mean(gi == ci)) >= 0.99

@@ -190,8 +190,11 @@ def test_reference_parity_golden(tag):
 
 def test_builder_options_not_ported_raise():
     b = ArrowSpaceBuilder(**CPU64)
-    with pytest.raises(NotImplementedError):
-        b.with_dims_reduction(True)
+    # dims reduction is ported: same flag and default eps as the JAX builder
+    jb = JBuilder().with_dims_reduction(True)
+    b.with_dims_reduction(True)
+    assert (b.use_dims_reduction, b.rp_eps) == (jb.use_dims_reduction,
+                                               jb.rp_eps)
     with pytest.raises(NotImplementedError):
         b.with_persistence("/nonexistent", "x")
     assert JBuilder().lambda_k == b.lambda_k
@@ -202,7 +205,11 @@ def test_package_imports_without_jax():
             "sys.modules['arrowspace_tpu'] = None; "
             "import arrowspace_torch, arrowspace_torch.convert, "
             "arrowspace_torch.eigenmaps, arrowspace_torch.ops.bin_repair, "
-            "arrowspace_torch.ops.topk, arrowspace_torch.ops.taulambda; "
+            "arrowspace_torch.ops.topk, arrowspace_torch.ops.taulambda, "
+            "arrowspace_torch.energymaps, arrowspace_torch.reduction, "
+            "arrowspace_torch.ops.select_tau, "
+            "arrowspace_torch.ops.energy_bintopk, "
+            "arrowspace_torch.ops.energy_approx; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     root = pathlib.Path(__file__).resolve().parent.parent
