@@ -46,8 +46,10 @@ class ArrowSpaceBuilder:
         self.deterministic_clustering = False
         self.use_dims_reduction = False
         self.rp_eps = 0.3
-        # wall seconds of the last build, per stage
+        # wall seconds of the last build, per stage, and of its clustering
+        # stage's two host steps (optimal K, the scan)
         self.stage_seconds: Dict[str, float] = {}
+        self.clustering_seconds: Dict[str, float] = {}
 
     def with_lambda_graph(self, eps: float, k: int, topk: int, p: float,
                           sigma_override: Optional[float]

@@ -2,10 +2,11 @@
 
 PyTorch-package counterpart of ``arrowspace_tpu.clustering`` (reference:
 clustering.rs:30-928), limited to what the seeded build runs.  Optimal-K
-runs on ≤1000 sampled rows and the seeded incremental pass is
-order-dependent, so both stay on the host in NumPy; the downstream
-Laplacian and λτ stages consume the resulting X×F centroid matrix on the
-index's device.
+runs on ≤1000 sampled rows (NumPy) and the seeded incremental pass is
+order-dependent, so both stay on the host: the pass runs in the native
+C++ library (``native``), with the numpy scan as its plain version.  The
+downstream Laplacian and λτ stages consume the resulting X×F centroid
+matrix on the index's device.
 
 Semantics kept from the reference:
 - fixed default seed 128 (clustering.rs:30);
@@ -39,10 +40,29 @@ logger = get_logger("arrowspace.clustering")
 
 CLUSTERING_SEED = 128  # clustering.rs:30
 
-__all__ = ["CLUSTERING_SEED", "compute_optimal_k",
+__all__ = ["CLUSTERING_SEED", "Assignments", "compute_optimal_k",
            "estimate_intrinsic_dimension", "calinski_harabasz_score",
            "compute_threshold_from_pilot", "kmeans_lloyd",
            "run_incremental_clustering_with_sampling"]
+
+
+class Assignments:
+    """Per-row cluster ids with ``None`` for dropped rows, the
+    reference's ``Vec<Option<usize>>`` (clustering.rs:547), over an int64
+    array with a -1 sentinel (``.array``): a 1M-element list of ints
+    would cost a Python object per row."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, array):
+        self.array = np.asarray(array, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return self.array.shape[0]
+
+    def __iter__(self):
+        for v in self.array.tolist():
+            yield None if v < 0 else v
 
 
 def kmeans_lloyd(rows, k: int, max_iter: int, seed: int) -> np.ndarray:
@@ -267,26 +287,45 @@ def compute_optimal_k(rows, n: int, f: int,
 def run_incremental_clustering_with_sampling(
     builder, rows, nfeatures: int, max_clusters: int, radius: float,
     sampler,
-) -> Tuple[np.ndarray, List[Optional[int]], List[int]]:
+) -> Tuple[np.ndarray, Assignments, List[int]]:
     """One-pass incremental clustering (reference: clustering.rs:547-910).
 
     Seeded builds (and unseeded ones below 4096 rows) run the ordered
-    sequential scan.  The unseeded chunked relaxation is not ported yet
-    (ROADMAP.md, queue 1: unseeded chunked clustering and the native
-    scan).  Returns (centroids X×F, assignments with None for dropped
-    rows, sizes)."""
+    sequential scan in the native library (``native``; it raises if it
+    cannot be built or loaded).  The unseeded chunked relaxation is not
+    ported yet (ROADMAP.md, queue 1: unseeded chunked clustering).
+    Returns (centroids X×F, assignments, sizes)."""
     if not builder.deterministic_clustering and len(rows) >= 4096:
         raise NotImplementedError(
             "unseeded clustering of >= 4096 rows takes the chunked "
             "relaxation, which arrowspace_torch does not port yet (see "
-            "ROADMAP.md queue 1, 'unseeded chunked clustering and the "
-            "native scan'); build with seed=... instead")
-    return _incremental_clustering_numpy(
+            "ROADMAP.md queue 1, 'unseeded chunked clustering'); build "
+            "with seed=... instead")
+    from .native import native_incremental_clustering
+    cent, assign, sizes = native_incremental_clustering(
         builder, rows, nfeatures, max_clusters, radius, sampler)
+    if builder.sampling is not None:
+        _check_sampling_ratio(sampler, len(assign))
+    return cent, Assignments(assign), sizes
+
+
+def _check_sampling_ratio(sampler, nrows: int) -> None:
+    """The reference's runtime bound on the kept share of rows
+    (clustering.rs:896-900), off in test mode."""
+    sampled, discarded = sampler.get_stats()
+    ratio = sampled / nrows if nrows else 0.0
+    logger.debug("Inline sampling complete: %d kept (%.2f%%), %d discarded",
+                 sampled, ratio * 100.0, discarded)
+    if not is_test_mode():
+        assert 0.325 < ratio < 0.89, (
+            f"sampling_rate not in the interval 0.325..0.875 but {ratio}")
 
 
 def _incremental_clustering_numpy(builder, rows, nfeatures, max_clusters,
                                   radius, sampler):
+    """The ordered scan in plain NumPy: the native scan's plain version,
+    which the tests hold it against.  Assignments are a list with None
+    for dropped rows."""
     x = np.asarray(rows, dtype=np.float64)
     nrows = x.shape[0]
     logger.info("Starting incremental clustering with inline sampling "
@@ -354,14 +393,5 @@ def _incremental_clustering_numpy(builder, rows, nfeatures, max_clusters,
             f"No clusters created from data, sampling: {sampler_desc}")
 
     if sampling_enabled:
-        sampled, discarded = sampler.get_stats()
-        sampling_ratio = sampled / nrows if nrows else 0.0
-        logger.debug("Inline sampling complete: %d kept (%.2f%%), "
-                     "%d discarded", sampled, sampling_ratio * 100.0,
-                     discarded)
-        if not is_test_mode():
-            assert 0.325 < sampling_ratio < 0.89, (
-                f"sampling_rate not in the interval 0.325..0.875 "
-                f"but {sampling_ratio}")
-
+        _check_sampling_ratio(sampler, nrows)
     return cent[:n_c].copy(), assignments, counts[:n_c].tolist()

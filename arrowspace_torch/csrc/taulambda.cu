@@ -23,7 +23,9 @@
 // 4-row × 4-column register tile of the five matrix-vector products (12
 // shared loads for 80 FMAs a step).  τ is a warp-per-row bisection over
 // the sortable-int value range (32 ballot passes), exact like the sort,
-// so the median and percentile equal select_tau_batch bitwise.
+// so the median and percentile equal select_tau_batch bitwise.  The τ
+// selection and the λ body (panel products, λ formula) live in
+// common.cuh: K4 shares the first, K5 (lambda_batch.cu) the second.
 #include "common.cuh"
 
 namespace {
@@ -32,14 +34,6 @@ constexpr int kThreads = 256;
 constexpr int kRows = 128;       // item rows per CTA
 constexpr int kPanel = 32;       // graph columns per staged panel
 constexpr int kMaxLane = 8;      // row values per lane: F <= 256
-constexpr float kDenomEps = 1e-12f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(ASP_FULL_MASK, v, off);
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
     taulambda_kernel(const float* __restrict__ x, const float* __restrict__ L,
@@ -109,15 +103,15 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    den = warp_sum(den);
-    const float s_part = warp_sum(sr) + warp_sum(sc);
-    const float ta_part = warp_sum(tar) + warp_sum(tac);
+    den = asp_warp_sum(den);
+    const float s_part = asp_warp_sum(sr) + asp_warp_sum(sc);
+    const float ta_part = asp_warp_sum(tar) + asp_warp_sum(tac);
 
     float tau;
     if (kind == 3) {
       tau = fixed;
     } else if (kind == 2) {
-      const float s = warp_sum(fsum);
+      const float s = asp_warp_sum(fsum);
       tau = m_count > 0 ? s / (float)max(m_count, 1) : 0.0f;
       tau = fmaxf(tau, ASP_TAU_FLOOR);
     } else {
@@ -153,57 +147,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         aL[a][c] = aW[a][c] = aA[a][c] = aB[a][c] = aC[a][c] = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      float x1[4], x2[4], x3[4], lv[4], wv[4], w2v[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        x1[a] = xs[(tr * 4 + a) * xstride + j];
-        x2[a] = x1[a] * x1[a];
-        x3[a] = x2[a] * x1[a];
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        lv[c] = lp[j * (kPanel + 1) + tc * 4 + c];
-        wv[c] = wp[j * (kPanel + 1) + tc * 4 + c];
-        w2v[c] = w2p[j * (kPanel + 1) + tc * 4 + c];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          aL[a][c] = fmaf(lv[c], x1[a], aL[a][c]);   // (L x)_i
-          aW[a][c] = fmaf(wv[c], x1[a], aW[a][c]);   // (W x)_i
-          aA[a][c] = fmaf(w2v[c], x2[a], aA[a][c]);  // (W2 x²)_i
-          aB[a][c] = fmaf(w2v[c], x3[a], aB[a][c]);  // (W2 x³)_i
-          aC[a][c] = fmaf(w2v[c], x1[a], aC[a][c]);  // (W2 x)_i
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = i0 + tc * 4 + c;
-        if (i < n) {
-          const float xi = xs[(tr * 4 + a) * xstride + i];
-          const float xi2 = xi * xi;
-          pn[a] = fmaf(xi, aL[a][c], pn[a]);
-          pw[a] = fmaf(xi, aW[a][c], pw[a]);
-          pb[a] = fmaf(xi2, aA[a][c], pb[a]);
-          pc[a] = fmaf(xi, aB[a][c], pc[a]);
-          pd[a] = fmaf(xi2 * xi, aC[a][c], pd[a]);
-        }
-      }
+    const float* xr = xs + tr * 4 * xstride;
+    asp_lambda_accumulate<kPanel>(xr, xstride, lp, wp, w2p, tc, n, aL, aW,
+                                  aA, aB, aC);
+    asp_lambda_fold(xr + i0, xstride, tc, n - i0, aL, aW, aA, aB, aC, pn,
+                    pw, pb, pc, pd);
   }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) {
-      pn[a] += __shfl_xor_sync(ASP_FULL_MASK, pn[a], off);
-      pw[a] += __shfl_xor_sync(ASP_FULL_MASK, pw[a], off);
-      pb[a] += __shfl_xor_sync(ASP_FULL_MASK, pb[a], off);
-      pc[a] += __shfl_xor_sync(ASP_FULL_MASK, pc[a], off);
-      pd[a] += __shfl_xor_sync(ASP_FULL_MASK, pd[a], off);
-    }
+  asp_lambda_reduce(pn, pw, pb, pc, pd);
   if (tc == 0) {
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -220,17 +170,10 @@ __global__ void __launch_bounds__(kThreads)
   // ---- λ per row ----
   if (tid < kRows && row0 + tid < N) {
     const int r = tid;
-    const float tau = r_tau[r];
-    const float den = r_den[r];
-    const float e_raw = den > kDenomEps ? r_num[r] / fmaxf(den, kDenomEps)
-                                        : 0.0f;
-    const float s = r_s[r] - 2.0f * r_xwx[r];
-    const float g_num =
-        r_ta[r] + 6.0f * r_tb[r] - 4.0f * r_tc[r] - 4.0f * r_td[r];
-    float g = s > 0.0f ? g_num / fmaxf(s * s, kDenomEps) : 0.0f;
-    g = fminf(fmaxf(g, 0.0f), 1.0f);
-    lam_out[row0 + r] = tau * (e_raw / (e_raw + tau)) + (1.0f - tau) * g;
-    tau_out[row0 + r] = tau;
+    lam_out[row0 + r] = asp_lambda_of(r_tau[r], r_den[r], r_s[r], r_ta[r],
+                                      r_num[r], r_xwx[r], r_tb[r], r_tc[r],
+                                      r_td[r]);
+    tau_out[row0 + r] = r_tau[r];
   }
 }
 

@@ -3,14 +3,15 @@
 PyTorch counterpart of ``arrowspace_tpu.eigenmaps`` (reference:
 eigenmaps.rs:93-456):
 
-1. start_clustering — optimal-K heuristic + incremental clustering (host)
-   + optional JL projection of the centroids;
+1. start_clustering — optimal-K heuristic + incremental clustering (host,
+   the native scan) + optional JL projection of the centroids;
 2. eigenmaps        — feature-graph Laplacian from the centroids;
 3. compute_taumode  — batched λτ on the index device.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,8 +54,10 @@ def start_clustering(builder, rows) -> ClusteredOutput:
         else SamplerType.simple(1.0)
     sampler = sampler_type.make(seed=builder.clustering_seed)
 
+    t0 = time.perf_counter()
     k_opt, radius, intrinsic_dim = clustering.compute_optimal_k(
         rows_arr, n_items, n_features, builder.clustering_seed)
+    t1 = time.perf_counter()
     logger.debug("Optimal clustering: K=%d, radius=%.6f, intrinsic_dim=%d",
                  k_opt, radius, intrinsic_dim)
     builder.cluster_max_clusters = k_opt
@@ -63,8 +66,10 @@ def start_clustering(builder, rows) -> ClusteredOutput:
     centroids, assignments, sizes = \
         clustering.run_incremental_clustering_with_sampling(
             builder, rows_arr, n_features, k_opt, radius, sampler)
-    assign_arr = np.asarray([-1 if a is None else a for a in assignments],
-                            dtype=np.int64)
+    # host seconds of the two clustering steps, for the build's breakdown
+    builder.clustering_seconds = {"optimal_k": t1 - t0,
+                                  "scan": time.perf_counter() - t1}
+    assign_arr = assignments.array
     logger.info("Clustering complete: %d centroids, %d items assigned",
                 centroids.shape[0], int((assign_arr >= 0).sum()))
 

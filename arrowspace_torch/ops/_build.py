@@ -32,7 +32,7 @@ __all__ = ["build", "lib", "check", "stream_of"]
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu", "select_tau.cu",
-           "energy_bintopk.cu", "energy_chord.cu")
+           "lambda_batch.cu", "energy_bintopk.cu", "energy_chord.cu")
 HEADERS = ("common.cuh", "binned_fold.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +55,9 @@ SIGNATURES = {
                       _F, _F, _P, _P, _P),
     # x, N, F, kind, pct, tau_out, stream
     "asp_select_tau": (_P, _L, _I, _I, _F, _P, _P),
+    # x, L, W, W2, d_r, d_c, d2_r, d2_c, tau, N, F, n, lam_out, stream
+    "asp_lambda_batch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P, _P),
     # zq, qn, qlam, zx, xn, xlam, wl, wd, n, B, G, bins, depth, n_chunks,
     # tiles_per_chunk, pool_s, pool_i, det, stream
     "asp_energy_bintopk": (_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,

@@ -15,16 +15,17 @@ Per item row x (F values) against a graph L (n×n, n <= F):
 
 ``taulambda_fits`` is the kernel's shared-memory gate; above it the
 caller runs select_tau_batch + synthetic_lambda_batch.
-``taulambda_plain`` is the same computation in plain PyTorch.
+``taulambda_plain`` is the same computation in plain PyTorch.  The λ
+body is K5's (ops/lambda_batch.py, csrc/common.cuh).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import DENOM_EPS
-from ..taumode import graph_weights, select_tau_sorted
+from ..taumode import select_tau_sorted
 from ._build import check, lib, stream_of
+from .lambda_batch import graph_operands, lambda_batch_plain
 
 __all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain"]
 
@@ -40,14 +41,6 @@ def taulambda_fits(f: int, n: int) -> bool:
     of the τ selection (8 values a lane)."""
     smem = (_ROWS * (f + 1) + 3 * n * (_PANEL + 1) + 9 * _ROWS) * 4
     return 1 <= n <= f <= 256 and smem <= _SMEM_LIMIT
-
-
-def _graph_operands(laplacian: torch.Tensor, dtype):
-    lap = laplacian.to(dtype)
-    w = graph_weights(lap)
-    w2 = w * w
-    return (lap.contiguous(), w.contiguous(), w2.contiguous(),
-            w.sum(dim=1), w.sum(dim=0), w2.sum(dim=1), w2.sum(dim=0))
 
 
 def fused_taulambda(items: torch.Tensor, laplacian: torch.Tensor, mode):
@@ -67,7 +60,7 @@ def fused_taulambda(items: torch.Tensor, laplacian: torch.Tensor, mode):
         raise ValueError(f"fused_taulambda: F={f}, n={n} outside the "
                          "kernel's gate")
     ops = [t.to(items.device).contiguous()
-           for t in _graph_operands(laplacian, torch.float32)]
+           for t in graph_operands(laplacian, torch.float32)]
     pct = min(max(mode.value, 0.0), 1.0) if mode.kind == "percentile" \
         else 0.5
     fixed = mode.fixed_tau() if mode.kind == "fixed" else 0.0
@@ -88,27 +81,6 @@ fused_taulambda.launches = 0
 
 def taulambda_plain(items: torch.Tensor, laplacian: torch.Tensor, mode):
     """Plain PyTorch version of the K2 kernel: (λ, τ) in items' dtype.
-    τ comes from the sort, never from K4."""
+    τ comes from the sort, never from K4; λ from K5's plain version."""
     tau = select_tau_sorted(items, mode)
-    n = laplacian.shape[0]
-    lap, w, w2, d_r, d_c, d2_r, d2_c = [
-        t.to(items.device) for t in _graph_operands(laplacian, items.dtype)]
-    xn = items[:, :n]
-
-    def rs(a, m, b):                  # rowsum((a @ mᵀ) * b)
-        return ((a @ m.T) * b).sum(dim=1)
-
-    numerator = rs(xn, lap, xn)
-    denom = (items * items).sum(dim=1)
-    zero = torch.zeros((), dtype=items.dtype, device=items.device)
-    e_raw = torch.where(denom > DENOM_EPS,
-                        numerator / denom.clamp_min(DENOM_EPS), zero)
-    x2 = xn * xn
-    x3, x4 = x2 * xn, x2 * x2
-    s = (x2 * d_r).sum(dim=1) + (x2 * d_c).sum(dim=1) - 2.0 * rs(xn, w, xn)
-    t_a = (x4 * d2_r).sum(dim=1) + (x4 * d2_c).sum(dim=1)
-    g_num = (t_a + 6.0 * rs(x2, w2, x2) - 4.0 * rs(x3, w2, xn)
-             - 4.0 * rs(xn, w2, x3))
-    g = torch.where(s > 0.0, g_num / (s * s).clamp_min(DENOM_EPS), zero)
-    g = g.clamp(0.0, 1.0)
-    return tau * (e_raw / (e_raw + tau)) + (1.0 - tau) * g, tau
+    return lambda_batch_plain(items, laplacian, tau), tau

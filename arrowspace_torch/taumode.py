@@ -10,8 +10,10 @@ taumode.rs:75-660).  Per item x against a dense graph matrix L (n×n):
     λ         = tau · E_raw/(E_raw + tau) + (1 - tau) · G
 
 The graph is tiny (F′ ≤ a few hundred nodes), so the batch is a handful
-of (N×n)·(n×n) products.  On CUDA at float32 the fused τ+λ kernel
-(ops/taulambda.py) does the whole batch in one pass over the items.
+of (N×n)·(n×n) products.  At float32 the fused τ+λ kernel
+(ops/taulambda.py, K2) or, for a narrow graph over wide rows, the λ
+kernel (ops/lambda_batch.py, K5) does the batch in one pass over the
+items.
 
 All products here run at IEEE float32 or float64: TF32 is off
 (config.py), so query-λ preparation needs no precision override.
@@ -255,10 +257,13 @@ def compute_taumode_lambdas(items: torch.Tensor, laplacian: torch.Tensor,
 
     Corpora above TAUMODE_WINDOW_BYTES run in fixed row windows.  A
     float32 batch with a graph no taller than the items takes the fused
-    τ+λ kernel K2 when its feasibility gate admits the shape (its plain
-    version on the CPU: the gate is keyed on size and dtype, never on the
-    device); every other case runs select_tau_batch +
-    synthetic_lambda_batch."""
+    τ+λ kernel K2 when its feasibility gate admits the shape; failing
+    that, τ comes from select_tau_batch and a graph at most half as wide
+    as the items (2n <= F) takes the λ kernel K5 when its gate admits
+    it, the order of the JAX package (taumode.py:446-464).  On the CPU
+    both take their plain versions: the gates are keyed on size and
+    dtype, never on the device.  Every other case runs select_tau_batch
+    + synthetic_lambda_batch."""
     n_items, n_features = items.shape
     logger.info(
         "Parallel TauMode lambda computation: items=%d features=%d "
@@ -276,13 +281,19 @@ def compute_taumode_lambdas(items: torch.Tensor, laplacian: torch.Tensor,
                 for c0 in range(0, n_items, win)])
 
     n = laplacian.shape[0]
-    if (items.dtype == torch.float32 and method == "matmul"
-            and n <= n_features):
+    fused = items.dtype == torch.float32 and method == "matmul"
+    if fused and n <= n_features:
         from .ops.taulambda import fused_taulambda, taulambda_fits
         if taulambda_fits(n_features, n):
             lam, _tau = fused_taulambda(items, laplacian, taumode)
             return lam
 
     taus = select_tau_batch(items, taumode)
+    # a narrow graph (JL-projected: 2n <= F) over wide rows: K5 reads
+    # each row once, the product chain once per product
+    if fused and 2 * n <= n_features:
+        from .ops.lambda_batch import fused_lambda_batch, lambda_batch_fits
+        if lambda_batch_fits(n_features, n):
+            return fused_lambda_batch(items.contiguous(), laplacian, taus)
     return synthetic_lambda_batch(items, laplacian, taus, method=method,
                                   pad_items=pad_items)

@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels (nvcc, sm_90a) and drives two
-paths once at full width on one seeded, clustered 1,000,000 x 128
-corpus:
+It builds the hand-written CUDA kernels (nvcc, sm_90a) and drives three
+paths once at full width: two on one seeded, clustered 1,000,000 x 128
+corpus and one on a 1,000,000 x 768 corpus of the same kind:
 
 - the cosine path: ArrowIndex.build, then a SearchSession serving
   batched λ-aware top-k at B=2048, k=10, α=0.9 (kernels K1, K2, K3);
@@ -15,7 +15,15 @@ corpus:
   EnergyParams(allow_tall_graphs=True), whose JL projection gives a
   1,000,000 x 64 z-plane, then an exact EnergySearchSession and one with
   approx=True, both at B=2048, k=10, w_λ=1.0, w_D=0.5 (K4 in the build,
-  K6 and K7 in the sessions).
+  K6 and K7 in the sessions);
+- the wide projected path: ArrowIndex.build with dims_reduction=True on
+  the 768-wide rows, whose JL feature graph has r = min(jl_dim, F/2)
+  nodes, so λ of the raw rows takes K4 and then K5 in each 2 GiB row
+  window; then a SearchSession as on the cosine path (K1, K3).
+
+Every build's clustering scan runs in the native C++ library
+(arrowspace_torch/native), compiled with the host C++ compiler at first
+use; each build prints its optimal-K and scan seconds.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
@@ -43,6 +51,9 @@ import time
 import numpy as np
 
 N_ROWS, N_FEAT, N_CENTRES, NOISE = 1_000_000, 128, 64, 0.05
+# The wide projected path: the JAX package's wide-F configuration
+# (bench.py:691-709, the 100M x 768 target's F) at 1M rows.
+W_ROWS, W_FEAT = 1_000_000, 768
 SEED = 11
 # The default ε (1e-3) leaves this corpus's feature graph without an edge,
 # so every λ would be 0 and neither K2 nor the λ term would be tested.
@@ -219,6 +230,12 @@ def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL) -> float:
     return err
 
 
+def log_clustering(builder) -> None:
+    cs = builder.clustering_seconds
+    log(f"  clustering: optimal_k_s={cs['optimal_k']:.3f} "
+        f"native_scan_s={cs['scan']:.3f}")
+
+
 def reset(counters) -> None:
     for c in counters.values():
         if hasattr(c, "launches"):
@@ -227,13 +244,76 @@ def reset(counters) -> None:
             c.calls = 0
 
 
+def check_lambdas(lam, canon, what) -> None:
+    """λ of a build: finite, one per row, many distinct values, and equal
+    for identical rows."""
+    lam_h = lam.cpu().numpy()
+    check(lam_h.shape == canon.shape and bool(np.isfinite(lam_h).all()),
+          f"{what} λ not finite or wrong shape")
+    n_distinct = int(np.unique(lam_h).size)
+    log(f"  λ: min={lam_h.min():.6g} max={lam_h.max():.6g} "
+        f"distinct={n_distinct}")
+    check(n_distinct >= 1000, f"{what} λ nearly constant")
+    check(bool((lam_h == lam_h[canon]).all()),
+          f"identical rows got different {what} λ")
+
+
+def serve(torch, counters, index, rows, canon, dev, seed, kernels):
+    """A SearchSession of the index, warmed up, then fed 16 batches of
+    perturbed corpus rows (×1.02), batch 0 carrying the duplicated rows
+    0 and 1 (the strided repair and K3).  The launch counts of
+    ``kernels`` ({name: counter key}) are read right after the stream,
+    before any check runs.  Batch 0's first 256 rows are held against
+    the plain full scan (matmul + stable sort) with the session's own
+    query λ.  Returns (launches, self-match rate, batch 0's ids)."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+
+    session = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    check(session.kernel == "binned", f"session kernel {session.kernel}")
+    session.warmup()
+    repairs_warm = counters["repair"].calls
+    rng = np.random.default_rng(seed)
+    picks = [rng.integers(0, rows.shape[0], BATCH) for _ in range(N_BATCHES)]
+    picks[0][:2] = (0, 1)
+    batches = [rows[p] * 1.02 for p in picks]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    results = list(session.search_stream(batches))
+    sync(torch, dev)
+    t_stream = time.perf_counter() - t0
+    launches = {name: counters[key].launches for name, key in kernels.items()}
+    repairs = counters["repair"].calls - repairs_warm
+    log(f"  launches: {launches}; strided repairs in the stream: {repairs}")
+    check(repairs > 0, "the stream repaired no flagged row")
+
+    ms_batch = t_stream / N_BATCHES * 1e3
+    self_hits = np.mean([float(np.mean(canon[r[1][:, 0]] == canon[p]))
+                         for r, p in zip(results, picks)])
+    log(f"  session: {N_BATCHES} batches of {BATCH}, ms_per_batch="
+        f"{ms_batch:.3f}, queries_per_s={BATCH / ms_batch * 1e3:.1f}, "
+        f"self_match_rate={self_hits}")
+    check(all(r[0].shape == (BATCH, K) and np.isfinite(r[0]).all()
+              for r in results), "session output shape/finiteness")
+
+    a = index.aspace
+    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
+    _, qlam = _query_prep(a, index.gl)[1](q)
+    ps, pi = batched_lambda_aware_topk(q, qlam, a.data, a.lambdas, ALPHA,
+                                       k=K)
+    s0, i0 = results[0][0][:256], results[0][1][:256]
+    agree("session vs plain full scan (256 queries)", s0, i0, ps, pi,
+          exact=true_scores(q, qlam, a.data, a.lambdas,
+                            torch.as_tensor(i0, device=dev)))
+    return session, batches, launches, self_hits, i0
+
+
 def main_path(torch, counters, rows, canon, dev):
     """The cosine path, through the user entry points: build, session,
-    warm-up, stream.  The kernel counters are set to 0 just before and
-    read right after the stream, before any check runs a kernel.
-    Returns the index, the query batches and the launch counts."""
+    warm-up, stream.  The kernel counters are set to 0 just before the
+    build and read right after the stream.  Returns the index, the query
+    batches and the launch counts."""
     from arrowspace_torch.index import ArrowIndex
-    from arrowspace_torch.ops.search import batched_lambda_aware_topk
 
     log(f"[2] cosine path: ArrowIndex.build {rows.shape[0]}x{rows.shape[1]} "
         f"eps={EPS} seed={SEED} on {dev}")
@@ -246,61 +326,15 @@ def main_path(torch, counters, rows, canon, dev):
     log(f"  build_s={t_build:.3f} clustering_s={st['clustering']:.3f} "
         f"laplacian_s={st['laplacian']:.3f} taumode_s={st['taumode']:.3f} "
         f"clusters={index.aspace.n_clusters} graph={tuple(index.gl.shape())}")
+    log_clustering(index.builder)
 
-    session = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
-    check(session.kernel == "binned", f"session kernel {session.kernel}")
-    session.warmup()
-    repairs_warm = counters["repair"].calls
-    rng = np.random.default_rng(SEED + 1)
-    picks = [rng.integers(0, rows.shape[0], BATCH) for _ in range(N_BATCHES)]
-    picks[0][:2] = (0, 1)            # the duplicated rows: repair and K3
-    batches = [rows[p] * 1.02 for p in picks]
-    sync(torch, dev)
-    t0 = time.perf_counter()
-    results = list(session.search_stream(batches))
-    sync(torch, dev)
-    t_stream = time.perf_counter() - t0
-    launches = {"bintopk": counters["k1"].launches,
-                "taulambda": counters["k2"].launches,
-                "merge_topk": counters["k3"].launches}
-    repairs = counters["repair"].calls - repairs_warm
-    log(f"  cosine-path launches: {launches}; strided repairs in the "
-        f"stream: {repairs}")
+    _, batches, launches, self_hits, i0 = serve(
+        torch, counters, index, rows, canon, dev, SEED + 1,
+        {"bintopk": "k1", "taulambda": "k2", "merge_topk": "k3"})
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the cosine path never launched: {launches}")
-    check(repairs > 0, "the stream repaired no flagged row")
-
-    lam = index.aspace.lambdas
-    lam_h = lam.cpu().numpy()
-    check(lam.shape == (rows.shape[0],) and bool(np.isfinite(lam_h).all()),
-          "λ not finite or wrong shape")
-    n_distinct = int(np.unique(lam_h).size)
-    log(f"  λ: min={lam_h.min():.6g} max={lam_h.max():.6g} "
-        f"distinct={n_distinct}")
-    check(n_distinct >= 1000, "λ nearly constant")
-    check(bool((lam_h == lam_h[canon]).all()),
-          "identical rows got different λ")
-
-    ms_batch = t_stream / N_BATCHES * 1e3
-    self_hits = np.mean([float(np.mean(canon[r[1][:, 0]] == canon[p]))
-                         for r, p in zip(results, picks)])
-    log(f"  session: {N_BATCHES} batches of {BATCH}, ms_per_batch="
-        f"{ms_batch:.3f}, queries_per_s={BATCH / ms_batch * 1e3:.1f}, "
-        f"self_match_rate={self_hits}")
-    check(all(r[0].shape == (BATCH, K) and np.isfinite(r[0]).all()
-              for r in results), "session output shape/finiteness")
     check(self_hits == 1.0, f"self-match rate {self_hits} != 1.0")
-
-    # 256 queries, the two duplicated rows among them, against the plain
-    # full scan (matmul + stable sort)
-    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
-    qlam = index.aspace.prepare_query_items_batch(batches[0][:256], index.gl)
-    ps, pi = batched_lambda_aware_topk(q, qlam, index.aspace.data, lam,
-                                       ALPHA, k=K)
-    s0, i0 = results[0][0][:256], results[0][1][:256]
-    agree("session vs plain full scan (256 queries)", s0, i0, ps, pi,
-          exact=true_scores(q, qlam, index.aspace.data, lam,
-                            torch.as_tensor(i0, device=dev)))
+    check_lambdas(index.aspace.lambdas, canon, "cosine")
     log(f"  row 0 (3 overflowing bins, K3) top-{K}: {i0[0].tolist()}")
     log(f"  row 1 (1 fired bin, strided repair) top-{K}: {i0[1].tolist()}")
     return index, batches, launches
@@ -464,6 +498,7 @@ def energy_path(torch, counters, rows, canon, dev):
         f"{k}_s={v:.3f}" for k, v in st.items()))
     log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} X={x_nodes} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    log_clustering(index.builder)
     build = {"select_tau": counters["k4"].launches,
              "taulambda": counters["k2"].launches}
     log(f"  build launches: {build}")
@@ -472,15 +507,7 @@ def energy_path(torch, counters, rows, canon, dev):
     check(a.reduced_dim is not None and a.reduced_dim < rows.shape[1],
           "the energy build did not project")
     check(x_nodes > a.reduced_dim, "the energy graph is not tall")
-    lam_h = a.lambdas.cpu().numpy()
-    check(lam_h.shape == (rows.shape[0],) and bool(np.isfinite(lam_h).all()),
-          "energy λ not finite or wrong shape")
-    n_distinct = int(np.unique(lam_h).size)
-    log(f"  λ: min={lam_h.min():.6g} max={lam_h.max():.6g} "
-        f"distinct={n_distinct}")
-    check(n_distinct >= 1000, "energy λ nearly constant")
-    check(bool((lam_h == lam_h[canon]).all()),
-          "identical rows got different energy λ")
+    check_lambdas(a.lambdas, canon, "energy")
 
     rng = np.random.default_rng(SEED + 2)
     picks = [rng.integers(0, rows.shape[0], BATCH) for _ in range(N_BATCHES)]
@@ -653,13 +680,131 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
     return rec
 
 
-def where_time_goes(torch, sessions, batches) -> None:
+def wide_path(torch, counters, dev):
+    """The wide projected path, through the user entry points: a seeded
+    build with dims_reduction=True on 1M x 768 rows, then a SearchSession,
+    warmed up and fed 16 batches.  The counters are set to 0 just before
+    the build and read right after the stream.  Returns the index, the
+    session, the batches and the launch counts."""
+    from arrowspace_torch.index import ArrowIndex
+
+    log(f"[8] wide projected path: ArrowIndex.build {W_ROWS}x{W_FEAT} "
+        f"eps={EPS} dims_reduction=True seed={SEED} on {dev}")
+    t0 = time.perf_counter()
+    rows = clustered_rows(W_ROWS, W_FEAT, SEED)
+    canon = plant_duplicates(rows)
+    log(f"  corpus made in {time.perf_counter() - t0:.3f}s")
+    reset(counters)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = ArrowIndex.build(rows, eps=EPS, dims_reduction=True, seed=SEED,
+                             device=dev)
+    sync(torch, dev)
+    t_build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    a, st = index.aspace, index.builder.stage_seconds
+    lap = index.gl.matrix
+    n = lap.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=lap.device)
+    edges = int(((lap != 0) & ~eye).sum()) // 2
+    log(f"  build_s={t_build:.3f} " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in st.items()))
+    log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} graph="
+        f"{n}x{n} edges={edges} max_memory_allocated="
+        f"{peak / 2**30:.3f} GiB")
+    log_clustering(index.builder)
+    check(a.reduced_dim == n and 2 * n <= W_FEAT,
+          f"the wide build's graph is {n} nodes, not a JL graph of at most "
+          f"F/2 = {W_FEAT // 2}")
+    check(edges > 0, "the wide build's feature graph has no edge")
+
+    session, batches, launches, _, i0 = serve(
+        torch, counters, index, rows, canon, dev, SEED + 3,
+        {"select_tau": "k4", "lambda_batch": "k5", "taulambda": "k2",
+         "bintopk": "k1", "merge_topk": "k3"})
+    check(launches["select_tau"] == 2 and launches["lambda_batch"] == 2,
+          "the wide build did not take K4 and K5 in each of its two windows")
+    check(launches["taulambda"] == 0, "the wide build launched K2")
+    check(launches["bintopk"] == N_BATCHES + 1,
+          "K1 did not launch once for every batch and the warm-up")
+    check(launches["merge_topk"] >= 1, "batch 0's repair never reached K3")
+    check_lambdas(a.lambdas, canon, "wide")
+    log(f"  row 0 top-{K}: {i0[0].tolist()}")
+    return index, session, batches, launches
+
+
+def wide_kernels_vs_plain(torch, index, batches, dev):
+    """K5 against its plain version at the wide build's first row window
+    (the shape the build gives it) and K1 at F = 768 on batch 0; returns
+    K5's record (without launches)."""
+    from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import lambda_batch as lb
+    from arrowspace_torch.ops.search import prepare_query
+    from arrowspace_torch.taumode import select_tau_batch
+
+    log("[9] wide-path kernels against their plain versions on the card")
+    a = index.aspace
+    win = TAUMODE_WINDOW_BYTES // (W_FEAT * 4) >> 14 << 14
+    x = a.data[:win]
+    lap = index.gl.matrix
+    n = lap.shape[0]
+    tau = select_tau_batch(x, a.taumode)
+    lam_k = lb.fused_lambda_batch(x, lap, tau)
+    lam_p = lb.lambda_batch_plain(x, lap, tau)
+    err = float(((lam_k - lam_p).abs() / lam_p.abs().clamp_min(1.0)).max())
+    n_distinct = int(torch.unique(lam_p).numel())
+    log(f"  K5 lambda_batch {win}x{W_FEAT}, n={n}: λ max_abs_err={err:.3e}; "
+        f"plain λ distinct={n_distinct}; K5 λ equals the build's: "
+        f"{bool(torch.equal(lam_k, a.lambdas[:win]))}")
+    check(n_distinct >= 1000, "K5 compared on nearly constant λ")
+    check(err <= TOL, "K5 disagrees with its plain version")
+    # five n×n quadratic forms a row (10·n² flops); the rows, τ and the
+    # graph read once, λ written once
+    b_ms, b_by = bound(10.0 * win * n * n,
+                       nbytes(x, tau, lam_k) + 3 * nbytes(lap))
+    rec = {"lambda_batch": dict(
+        max_abs_err=err, ms=cuda_ms(lambda: lb.fused_lambda_batch(x, lap,
+                                                                  tau)),
+        plain_ms=cuda_ms(lambda: lb.lambda_batch_plain(x, lap, tau), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    xn = x[:, :n].contiguous()
+    ops = lb.graph_operands(lap, torch.float32)[:3]
+    five = (ops[0], ops[1], ops[2], ops[2], ops[2])
+    log(f"    context: the five cuBLAS products of the plain version "
+        f"({win}x{n} @ {n}x{n}): "
+        f"{cuda_ms(lambda: [xn @ m.T for m in five], reps=3):.3f} ms")
+
+    # K1 at F = 768, k=10, on batch 0 against the session's prepared corpus
+    q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
+    xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
+    qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
+    qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
+    rows = a.nitems
+    depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
+    chunks = bt._default_chunks(BATCH, bins, -(-rows // bins), q.device)
+    args = (qhat, qlam.contiguous(), xhat, xlam, c1, rows)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    out_k = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), K, c1)
+    out_p = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw), K, c1)
+    agree(f"K1 bintopk F={W_FEAT} k={K} chunks={chunks}", out_k[0],
+          out_k[1], out_p[0], out_p[1],
+          exact=exact_scores(qhat, qlam, xhat, xlam, c1, out_k[1]) + c1)
+    b1_ms, _ = bound(BATCH * rows * (2.0 * W_FEAT + 5),
+                     nbytes(qhat, qlam, xhat[:rows], xlam[:rows]))
+    k1_ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw), reps=3)
+    log(f"    K1 at F={W_FEAT}: ms={k1_ms:.3f} bound_ms={b1_ms:.3f}")
+    return rec
+
+
+def where_time_goes(torch, sessions, batches, step) -> None:
     """Device time by kernel over the first N_PROFILE batches of each
     session (torch.profiler), and the device's idle share of that
     window: 1 - (summed kernel time) / wall time.  A measurement only:
     where the profiler records no device time it prints so."""
     from torch.profiler import ProfilerActivity, profile
-    log("[7] where the time goes (torch.profiler)")
+    log(f"[{step}] where the time goes (torch.profiler)")
     for name, session in sessions:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -716,6 +861,8 @@ KERNELS = {
                    "arrowspace_tpu/ops/pallas_topk.py:263"),
     "select_tau": ("arrowspace_torch/csrc/select_tau.cu",
                    "arrowspace_tpu/ops/pallas_tau.py:475"),
+    "lambda_batch": ("arrowspace_torch/csrc/lambda_batch.cu",
+                     "arrowspace_tpu/ops/pallas_lambda.py:166"),
     "energy_bintopk": ("arrowspace_torch/csrc/energy_bintopk.cu",
                        "arrowspace_tpu/ops/pallas_bintopk.py:934"),
     "energy_chord": ("arrowspace_torch/csrc/energy_chord.cu",
@@ -736,7 +883,8 @@ def main() -> int:
     try:
         from arrowspace_torch.ops import (_build, bin_repair, bintopk,
                                           energy_approx, energy_bintopk,
-                                          select_tau, taulambda, topk)
+                                          lambda_batch, select_tau,
+                                          taulambda, topk)
     except ImportError as exc:
         print(f"FAIL: arrowspace_torch not importable ({exc}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -745,6 +893,7 @@ def main() -> int:
     counters = {"k1": bintopk.binned_topk_pool, "k2": taulambda.fused_taulambda,
                 "k3": topk.merge_topk_partial,
                 "k4": select_tau.fused_select_tau,
+                "k5": lambda_batch.fused_lambda_batch,
                 "k6": energy_bintopk.binned_energy_pool,
                 "k7": energy_approx.binned_energy_approx_pool,
                 "repair": bin_repair.strided_lambda_repair,
@@ -758,9 +907,14 @@ def main() -> int:
         _build.lib()
         log(f"  kernels built in {time.perf_counter() - t0:.2f}s -> "
             f"{path.name}")
-        for line in build_log.splitlines():
-            if "Used" in line or "spill" in line:  # ptxas, per kernel
+        for line in build_log.splitlines():   # ptxas, per kernel
+            if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"  {line.strip()}")
+        t0 = time.perf_counter()
+        from arrowspace_torch import native
+        native.lib()
+        log(f"  native clustering scan built in "
+            f"{time.perf_counter() - t0:.2f}s -> {native.build().name}")
 
         rows = clustered_rows(N_ROWS, N_FEAT, SEED)
         canon = plant_duplicates(rows)
@@ -778,7 +932,17 @@ def main() -> int:
         rec.update(energy_kernels_vs_plain(torch, index, exact, approx,
                                            batches, dev))
         where_time_goes(torch, (("exact energy session", exact),
-                                ("approx energy session", approx)), batches)
+                                ("approx energy session", approx)), batches,
+                        step=7)
+        del index, exact, approx, batches, res_e, res_a, rows
+        torch.cuda.empty_cache()
+
+        index, session, batches, w_launches = wide_path(torch, counters,
+                                                        dev)
+        launches["lambda_batch"] = w_launches["lambda_batch"]
+        rec.update(wide_kernels_vs_plain(torch, index, batches, dev))
+        where_time_goes(torch, (("wide projected session", session),),
+                        batches, step=10)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1

@@ -1,8 +1,9 @@
 """The arrowspace_torch CUDA kernels (K1 binned top-k, K2 fused τ+λ, K3
-merge top-k, K4 τ selection, K6 binned energy top-k, K7 chord-surrogate
-energy fold) against their plain PyTorch versions on the card, at small
-edge shapes: ragged corpora and query blocks, F not a multiple of the
-32-feature staging slice, every bin count and depth, non-finite rows.
+merge top-k, K4 τ selection, K5 λ given τ, K6 binned energy top-k, K7
+chord-surrogate energy fold) against their plain PyTorch versions on the
+card, at small edge shapes: ragged corpora and query blocks, F not a
+multiple of the 32-feature staging slice, every bin count and depth,
+non-finite rows, and the 768-wide rows of the projected build.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -26,6 +27,7 @@ from arrowspace_torch.index import ArrowIndex
 from arrowspace_torch.ops import bintopk as bt
 from arrowspace_torch.ops import energy_approx as ea
 from arrowspace_torch.ops import energy_bintopk as eb
+from arrowspace_torch.ops import lambda_batch as lb
 from arrowspace_torch.ops import select_tau as st
 from arrowspace_torch.ops import taulambda as tl
 from arrowspace_torch.ops import topk as tk
@@ -73,7 +75,7 @@ def _assert_scored_ids(s, i, ref_s, args):
     assert float((exact - s.double())[live].abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("f", [128, 40, 7])
+@pytest.mark.parametrize("f", [128, 40, 7, 768])
 @pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4),
                                         (128, 2), (512, 3)])
 def test_k1_pool_matches_plain(dev, f, bins, depth):
@@ -137,6 +139,60 @@ def test_k2_matches_plain(dev, f, n, mode):
     assert float(err.max()) <= TOL
 
 
+def test_k3_partial_matches_plain_at_f768(dev):
+    n, b, f, k = 5003, 19, 768, 10
+    args = _inputs(dev, n, f, b, seed=768)
+    s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=1280)
+    rs, ri = tk.merge_topk_partial_plain(*args, n, k=k, rows_per_chunk=1280)
+    torch.cuda.synchronize()
+    _assert_scored_ids(s, i, rs, args)
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
+
+
+def _graph(n, seed, density=0.1):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, (n, n)) * (rng.uniform(0, 1, (n, n)) < density)
+    a = np.maximum(a, a.T)
+    np.fill_diagonal(a, 0.0)
+    return np.diag(a.sum(1)) - a
+
+
+@pytest.mark.parametrize("f,n", [(768, 185), (768, 384), (300, 150),
+                                 (64, 32)])
+def test_k5_matches_plain(dev, f, n):
+    """3001 rows (not a multiple of the CTA's 128), an all-zero row and
+    a row whose graph coordinates are all 0 (S = 0)."""
+    rng = np.random.default_rng(f + n)
+    x = torch.tensor(rng.uniform(0.1, 1.0, (3001, f)), dtype=torch.float32,
+                     device=dev)
+    x[5] = 0.0
+    x[6, :n] = 0.0
+    tau = torch.tensor(rng.uniform(0.01, 1.0, 3001), dtype=torch.float32,
+                       device=dev)
+    lap = torch.tensor(_graph(n, seed=n), dtype=torch.float32, device=dev)
+    before = lb.fused_lambda_batch.launches
+    lam = lb.fused_lambda_batch(x, lap, tau)
+    ref = lb.lambda_batch_plain(x, lap, tau)
+    torch.cuda.synchronize()
+    assert lb.fused_lambda_batch.launches == before + 1
+    assert float(lam[5]) == 0.0 and float(lam[6]) == 0.0
+    err = (lam - ref).abs() / ref.abs().clamp_min(1.0)
+    assert float(err.max()) <= TOL
+    assert int(torch.unique(ref).numel()) > 1000
+
+
+def test_k2_and_k5_share_the_lambda_body(dev):
+    """K5 given K2's τ computes K2's λ."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.uniform(0.1, 1.0, (3001, 200)), dtype=torch.float32,
+                     device=dev)
+    lap = torch.tensor(_graph(100, seed=2), dtype=torch.float32, device=dev)
+    lam2, tau = tl.fused_taulambda(x, lap, TauMode.median())
+    lam5 = lb.fused_lambda_batch(x, lap, tau)
+    torch.cuda.synchronize()
+    assert float((lam2 - lam5).abs().max()) <= TOL
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     qh, ql, xh, xlh, c1 = _inputs(dev, 600, 16, 4, seed=1)
     with pytest.raises(ValueError):
@@ -151,6 +207,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):              # graph taller than F
         tl.fused_taulambda(xh[:, :8].contiguous(), torch.eye(16, device=dev),
                            TauMode.median())
+    tau = torch.ones(xh.shape[0], device=dev)
+    with pytest.raises(ValueError):              # n above the gate
+        lb.fused_lambda_batch(torch.zeros(4, 1024, device=dev),
+                              torch.eye(421, device=dev), tau[:4])
+    with pytest.raises(ValueError):              # one τ per row
+        lb.fused_lambda_batch(xh, torch.eye(8, device=dev), tau[:3])
 
 
 def test_binned_search_with_forced_repair_equals_full_scan(dev):
