@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .config import resolve
-from .ops.bintopk import bintopk_fits, bins_target
+from .ops.bintopk import bintopk_fits
 from .ops.search import batched_lambda_aware_topk, binned_topk_with_repair
 from .reduction import ImplicitProjection
 from .taumode import (TAUDEFAULT, TauMode, select_tau, select_tau_batch,
@@ -42,7 +42,7 @@ def binned_fits(nitems: int, k: int, f: int) -> bool:
     serving session, keyed on size alone: a CPU index runs the same engine
     as a CUDA one, through the kernels' plain versions."""
     return (nitems >= BINNED_MIN_ITEMS and k <= BINNED_MAX_K
-            and bintopk_fits(f, bins_target(k)))
+            and bintopk_fits(f))
 
 
 class ArrowItem:

@@ -45,7 +45,7 @@ from .core import ArrowSpace
 from .graph import GraphLaplacian, GraphParams
 from .laplacian import build_laplacian_matrix
 from .ops.bin_repair import BinnedEnergyTopK
-from .ops.bintopk import bins_target, bintopk_fits
+from .ops.bintopk import bins_target, fold_fits
 from .ops.energy_bintopk import ENERGY_CHUNK, energy_topk_chunked
 from .reduction import ImplicitProjection
 from .utils.log import get_logger
@@ -116,7 +116,7 @@ def energy_binned_fits(nitems: int, k: int, g: int) -> bool:
     shared-memory gate take the binned engine (K6, or K7 with approx) on
     every device; the CPU runs it through the kernels' plain versions."""
     return (nitems > ENERGY_CHUNK and k <= 128
-            and bintopk_fits(g, bins_target(k)))
+            and fold_fits(g, bins_target(k)))
 
 
 def _as_tensor(x, device, dtype) -> torch.Tensor:

@@ -14,13 +14,16 @@ unflagged rows are exact and flagged rows are repaired exactly by
 rescoring only their fired bins (ops/bin_repair).
 
 The CUDA kernel splits the corpus into chunks, one CTA per (query block,
-chunk), and writes a top-``depth`` pool and a det per (query, chunk,
-bin); the flush merges the chunks.  A row dropped by its chunk is below
-that chunk's det, and the strided repair rescans the whole bin, so the
-per-chunk pools keep the contract.  ``binned_topk_pool_plain`` is the
-same computation in plain PyTorch.  The fold itself
-(csrc/binned_fold.cuh, ``fold_pool_plain`` here) is shared with the
-energy kernels K6 and K7.
+chunk, group of bins), and writes a top-``depth`` pool and a det per
+(query, chunk, bin); the flush merges the chunks.  A row dropped by its
+chunk is below that chunk's det, and the strided repair rescans the
+whole bin, so the per-chunk pools keep the contract.  It computes the
+dot products on the tensor cores as 3×TF32 (csrc/bintopk.cu), within
+1e-5 of float32, not bitwise; identical rows still score bitwise alike.
+``binned_topk_pool_plain`` is the same computation in plain PyTorch.
+The fold (``fold_pool_plain`` here) is also the plain version of the
+energy kernels K6 and K7 (csrc/binned_fold.cuh, with its own gate
+``fold_fits``).
 
 Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
 dot product is α·cos, and c1 is added back after the flush.
@@ -35,8 +38,10 @@ from .search import (INT_MAX, NEG_INF, dot_plane, lambda_term,
                      prepare_query, safe_unit, two_key_topk)
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
-           "bintopk_fits", "binned_topk_pool", "binned_topk_pool_plain",
-           "fold_pool_plain", "flush_pool", "binned_lambda_topk"]
+           "bintopk_fits", "query_block", "grid_ctas", "fold_fits",
+           "fold_query_block", "wave_chunks", "binned_topk_pool",
+           "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
+           "binned_lambda_topk"]
 
 # Prepared corpora are zero-padded to a multiple of the widest bin count,
 # so one prepared copy serves every k.
@@ -45,6 +50,9 @@ KERNEL_BINS = (128, 256, 512)
 KERNEL_DEPTHS = (2, 3, 4)
 _THREADS = 256
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block can use
+# K1's CTA holds _PAIRS (query, bin) pairs, 16 a thread, as a block of
+# query_block() queries × _PAIRS / query_block() bins (csrc/bintopk.cu)
+_PAIRS = 4096
 
 
 def binned_topk_depth_for(k: int) -> int:
@@ -68,21 +76,54 @@ def bins_target(k: int) -> int:
     return 512
 
 
-def query_block(bins: int, qt: int = 4) -> int:
-    """Queries per CTA of a binned fold kernel: 256 threads, each holding
-    a qt-query × 4-bin tile of the running state (qt 4 for K1 and K6, 2
-    for K7)."""
+def fold_query_block(bins: int, qt: int) -> int:
+    """Queries per CTA of the shared fold kernels (K6 with qt 4, K7 with
+    qt 2; csrc/binned_fold.cuh): 256 threads, each holding a qt-query ×
+    4-bin tile of the running state."""
     return _THREADS * 4 * qt // bins
 
 
-def bintopk_fits(f: int, bins: int = 128, qt: int = 4) -> bool:
-    """Whether a binned fold kernel's shared memory (the query block's
-    rows, padded to whole float4s, and two buffers of one feature slice
-    of a corpus tile) fits a block."""
+def fold_fits(f: int, bins: int = 128, qt: int = 4) -> bool:
+    """Whether a fold kernel's shared memory (the query block's rows,
+    padded to whole float4s, and two buffers of one feature slice of a
+    corpus tile) fits a block."""
     qs_stride = -(-f // 4) * 4 + 4
     slice_stride = (32 if bins >= 512 else 64) + 4  # csrc slice_stride()
-    smem = (query_block(bins, qt) * qs_stride + 2 * bins * slice_stride) * 4
+    smem = (fold_query_block(bins, qt) * qs_stride
+            + 2 * bins * slice_stride) * 4
     return f >= 1 and smem <= _SMEM_LIMIT
+
+
+def _bintopk_smem(f: int, qb: int) -> int:
+    """K1's shared memory (csrc smem_bytes): the query block's rows,
+    unsplit, padded to whole 8-feature k-steps (row stride FP + 4), and
+    two corpus slices of _PAIRS / qb rows × 64 features at stride 68."""
+    return (qb * (-(-f // 8) * 8 + 4) + 2 * (_PAIRS // qb) * 68) * 4
+
+
+def query_block(f: int, bsz: int) -> int:
+    """Queries per CTA of K1 (csrc query_block, the same rule): the
+    largest of 128, 64 and 32 whose shared memory fits at this F and
+    that the batch, rounded up to a multiple of 32, fills.  A larger
+    block reads each corpus slice once for more queries."""
+    cap = -(-bsz // 32) * 32
+    for qb in (128, 64):
+        if qb <= cap and _bintopk_smem(f, qb) <= _SMEM_LIMIT:
+            return qb
+    return 32
+
+
+def grid_ctas(bsz: int, bins: int, f: int) -> int:
+    """CTAs per corpus chunk of K1: one per query block and group of
+    _PAIRS / query_block bins."""
+    qb = query_block(f, bsz)
+    return -(-bsz // qb) * (bins * qb // _PAIRS)
+
+
+def bintopk_fits(f: int) -> bool:
+    """Whether K1's shared memory fits a block at its smallest query
+    block (32): the same at every bin count."""
+    return f >= 1 and _bintopk_smem(f, 32) <= _SMEM_LIMIT
 
 
 def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
@@ -97,22 +138,26 @@ def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
     return xhat.contiguous(), xlam.contiguous()
 
 
-def _default_chunks(bsz: int, bins: int, n_tiles: int, device,
-                    qt: int = 4) -> int:
-    """Corpus chunks per query block.  The kernel's registers leave room
-    for one resident CTA per SM, so the grid should fill the SMs in whole
-    waves: the fewest chunks (at most 64, at most one per tile) whose
-    last wave is at least 90 % full, else the fullest.  Fewer chunks also
-    keep the pool the flush sorts small."""
+def _default_chunks(ctas: int, n_tiles: int, device) -> int:
+    """Corpus chunks for a grid of ``ctas`` CTAs per chunk (grid_ctas for
+    K1, the query blocks of fold_query_block for K6 and K7).  Each
+    kernel's registers leave room for one resident CTA per SM, so the
+    grid should fill the SMs in whole waves."""
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     else:
         sms = 1
-    q_blocks = -(-bsz // query_block(bins, qt))
+    return wave_chunks(ctas, n_tiles, sms)
+
+
+def wave_chunks(ctas: int, n_tiles: int, sms: int) -> int:
+    """The fewest chunks (at most 64, at most one per tile) whose last
+    wave over ``sms`` SMs is at least 90 % full, else the fullest.  Fewer
+    chunks also keep the pool the flush sorts small."""
     best, best_fill = 1, 0.0
     for c in range(1, max(1, min(n_tiles, 64)) + 1):
-        ctas = q_blocks * c
-        fill = ctas / (-(-ctas // sms) * sms)
+        total = ctas * c
+        fill = total / (-(-total // sms) * sms)
         if fill >= 0.9:
             return c
         if fill > best_fill:
@@ -144,7 +189,7 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_topk_pool: unsupported bins={bins} "
                          f"depth={depth}")
-    if not bintopk_fits(f, bins):
+    if not bintopk_fits(f):
         raise ValueError(f"binned_topk_pool: F={f} exceeds the kernel's "
                          "shared-memory budget")
     if xhat.shape[0] < n_tiles * bins or xhat.shape[1] != f:
@@ -272,7 +317,8 @@ def binned_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
     dt = items.dtype
     qhat, c1 = prepare_query(queries, alpha, dtype=dt)
     qlam = query_lambdas.to(dt).contiguous()
-    chunks = _default_chunks(qhat.shape[0], bins, -(-n // bins), qhat.device)
+    chunks = _default_chunks(grid_ctas(qhat.shape[0], bins, qhat.shape[1]),
+                             -(-n // bins), qhat.device)
     pool_s, pool_i, det = binned_topk_pool(qhat, qlam, items, item_lambdas,
                                            c1, n, depth=depth, bins=bins,
                                            chunks=chunks)

@@ -27,8 +27,8 @@ import torch
 
 from ._build import check, lib, stream_of
 from .bintopk import (KERNEL_BINS, KERNEL_DEPTHS, _default_chunks,
-                      binned_topk_depth_for, bins_target, bintopk_fits,
-                      fold_pool_plain)
+                      binned_topk_depth_for, bins_target, fold_fits,
+                      fold_pool_plain, fold_query_block)
 from .energy_bintopk import energy_u
 from .search import INT_MAX, NEG_INF, dot_plane, two_key_topk
 
@@ -109,7 +109,7 @@ def binned_energy_approx_pool(zq, qn, qlam, ca, cb, zx, xn, xlam, wl: float,
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_energy_approx_pool: unsupported "
                          f"bins={bins} depth={depth}")
-    if not bintopk_fits(g, bins, _QT):
+    if not fold_fits(g, bins, _QT):
         raise ValueError(f"binned_energy_approx_pool: G={g} exceeds the "
                          "kernel's shared-memory budget")
     if zx.shape[0] < n_tiles * bins or zx.shape[1] != g \
@@ -190,8 +190,8 @@ def binned_energy_topk_approx(z_q, query_lambdas, zx, xlam, xn, z_samp,
     qn = (zq * zq).sum(dim=1)
     ca, cb = _fit_chords(zq, qn, z_samp, xn_samp, wd)
     depth, bins = binned_topk_depth_for(k), bins_target(k)
-    chunks = _default_chunks(zq.shape[0], bins, -(-n // bins), zq.device,
-                             _QT)
+    chunks = _default_chunks(-(-zq.shape[0] // fold_query_block(bins, _QT)),
+                             -(-n // bins), zq.device)
     pool_s, pool_i, pool_d, det = binned_energy_approx_pool(
         zq, qn, qlam, ca, cb, zx, xn, xlam, wl, n, depth=depth, bins=bins,
         chunks=chunks)

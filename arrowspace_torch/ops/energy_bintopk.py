@@ -19,7 +19,8 @@ import torch
 from ._build import check, lib, stream_of
 from .bintopk import (CORPUS_ALIGN, KERNEL_BINS, KERNEL_DEPTHS,
                       _default_chunks, binned_topk_depth_for, bins_target,
-                      bintopk_fits, flush_pool, fold_pool_plain)
+                      flush_pool, fold_fits, fold_pool_plain,
+                      fold_query_block)
 from .search import dot_plane, exact_topk, two_key_topk
 
 __all__ = ["ENERGY_CHUNK", "dtype_scalar", "energy_u", "energy_plane",
@@ -127,7 +128,7 @@ def binned_energy_pool(zq, qn, qlam, zx, xn, xlam, wl: float, wd: float,
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_energy_pool: unsupported bins={bins} "
                          f"depth={depth}")
-    if not bintopk_fits(g, bins):
+    if not fold_fits(g, bins):
         raise ValueError(f"binned_energy_pool: G={g} exceeds the kernel's "
                          "shared-memory budget")
     if zx.shape[0] < n_tiles * bins or zx.shape[1] != g \
@@ -183,7 +184,8 @@ def binned_energy_topk(z_q, query_lambdas, zx, xlam, xn, wl: float,
     qlam = query_lambdas.to(dt).contiguous()
     qn = (zq * zq).sum(dim=1)
     depth, bins = binned_topk_depth_for(k), bins_target(k)
-    chunks = _default_chunks(zq.shape[0], bins, -(-n // bins), zq.device)
+    chunks = _default_chunks(-(-zq.shape[0] // fold_query_block(bins, 4)),
+                             -(-n // bins), zq.device)
     pool_s, pool_i, det = binned_energy_pool(zq, qn, qlam, zx, xn, xlam, wl,
                                              wd, n, depth=depth, bins=bins,
                                              chunks=chunks)

@@ -34,11 +34,14 @@ share a bin: the first streamed batch of each session then needs the
 strided repair.  Any failed check exits non-zero.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
 
-Output: progress lines, then the card's name and power limit, then one
-JSON line with each kernel's launches (counted over its path's run),
+Output: progress lines (each session's device time by kernel under
+torch.profiler among them), then the card's name and power limit, then
+one JSON line with each kernel's launches (counted over its path's run),
 error against its plain version, mean times, the bound of its work on
-this card and the time of a PyTorch call computing the same function
-(null where none does), then the last line {"ok": true, "device": ...}.
+this card (for K1, whose products run on the tensor cores as 3×TF32,
+also bound_fp32_ms, the bound of the same work on the fp32 CUDA cores)
+and the time of a PyTorch call computing the same function (null where
+none does), then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ SEED = 11
 # so every λ would be 0 and neither K2 nor the λ term would be tested.
 EPS = 1.0
 BATCH, K, ALPHA, N_BATCHES = 2048, 10, 0.9, 16
-N_PROFILE = 8           # batches of each energy session under the profiler
+N_PROFILE = 8           # batches of each session under the profiler
 TAULAMBDA_ROWS = 262_144
 TOL = 1e-5              # kernel vs plain version, float32 scores and λ
 # The energy path: session weights, and the score tolerance against a
@@ -68,8 +71,10 @@ TOL = 1e-5              # kernel vs plain version, float32 scores and λ
 # one-ulp error of d² (≈ 4e-6 at |z|² ≈ 30) by w_D/(2√d²).
 E_WL, E_WD = 1.0, 0.5
 E_TOL = 5e-5
-# Published H100 SXM peaks: float32 outside the tensor cores, HBM3.
+# Published H100 SXM peaks: float32 outside the tensor cores, HBM3, and
+# dense TF32 on the tensor cores (K1's 3×TF32 products).
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+PEAK_TF32_FLOPS = 494.7e12
 
 
 class SmokeFailure(Exception):
@@ -144,11 +149,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, n_bytes: float) -> tuple:
+def bound(ops: float, n_bytes: float, tf32_ops: float = 0.0) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for work
-    of ``ops`` float32 operations that must move ``n_bytes`` (each input
+    of ``ops`` float32 operations on the CUDA cores and ``tf32_ops`` TF32
+    operations on the tensor cores that must move ``n_bytes`` (each input
     read once, each output written once)."""
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(ops / PEAK_F32_FLOPS, tf32_ops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -311,8 +317,8 @@ def serve(torch, counters, index, rows, canon, dev, seed, kernels):
 def main_path(torch, counters, rows, canon, dev):
     """The cosine path, through the user entry points: build, session,
     warm-up, stream.  The kernel counters are set to 0 just before the
-    build and read right after the stream.  Returns the index, the query
-    batches and the launch counts."""
+    build and read right after the stream.  Returns the index, the
+    session, the query batches and the launch counts."""
     from arrowspace_torch.index import ArrowIndex
 
     log(f"[2] cosine path: ArrowIndex.build {rows.shape[0]}x{rows.shape[1]} "
@@ -328,7 +334,7 @@ def main_path(torch, counters, rows, canon, dev):
         f"clusters={index.aspace.n_clusters} graph={tuple(index.gl.shape())}")
     log_clustering(index.builder)
 
-    _, batches, launches, self_hits, i0 = serve(
+    session, batches, launches, self_hits, i0 = serve(
         torch, counters, index, rows, canon, dev, SEED + 1,
         {"bintopk": "k1", "taulambda": "k2", "merge_topk": "k3"})
     check(all(v > 0 for v in launches.values()),
@@ -337,7 +343,16 @@ def main_path(torch, counters, rows, canon, dev):
     check_lambdas(index.aspace.lambdas, canon, "cosine")
     log(f"  row 0 (3 overflowing bins, K3) top-{K}: {i0[0].tolist()}")
     log(f"  row 1 (1 fired bin, strided repair) top-{K}: {i0[1].tolist()}")
-    return index, batches, launches
+    return index, session, batches, launches
+
+
+def k1_bounds(b: int, n: int, f: int, n_bytes: int) -> tuple:
+    """K1's two bounds: (bound_ms, bound_by) of the work its design does,
+    the 3·2F TF32 products on the tensor cores beside the λ term's five
+    fp32 operations a pair, and bound_fp32_ms, the whole 2F + 5 a pair on
+    the fp32 CUDA cores."""
+    b_ms, b_by = bound(5.0 * b * n, n_bytes, tf32_ops=6.0 * b * n * f)
+    return b_ms, b_by, bound(b * n * (2.0 * f + 5), n_bytes)[0]
 
 
 def kernels_vs_plain(torch, index, batches, dev):
@@ -387,7 +402,8 @@ def kernels_vs_plain(torch, index, batches, dev):
     k1_err = 0.0
     for k in (K, 64):
         depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
-        chunks = bt._default_chunks(BATCH, bins, -(-n // bins), q.device)
+        chunks = bt._default_chunks(bt.grid_ctas(BATCH, bins, qhat.shape[1]),
+                                    -(-n // bins), q.device)
         args = (qhat, qlam, xhat, xlam, c1, n)
         kw = dict(depth=depth, bins=bins, chunks=chunks)
         out_k = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), k, c1)
@@ -401,20 +417,21 @@ def kernels_vs_plain(torch, index, batches, dev):
             f"plain={int(out_p[2].sum())} det max_abs_err={det_err:.3e}")
         check(det_err <= TOL, "K1 det disagrees")
         k1_err = max(k1_err, err, det_err)
+        pool = bt.binned_topk_pool(*args, **kw)
+        b_ms, b_by, b32_ms = k1_bounds(
+            BATCH, n, qhat.shape[1],
+            nbytes(qhat, qlam, xhat[:n], xlam[:n], *pool))
+        ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw))
+        log(f"    K1 k={k}: ms={ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
+            f"bound_fp32_ms={b32_ms:.3f}")
         if k == K:
-            # per pair: the F-term dot (2F) and the λ term (5)
-            pool = bt.binned_topk_pool(*args, **kw)
-            b_ms, b_by = bound(BATCH * n * (2.0 * qhat.shape[1] + 5),
-                               nbytes(qhat, qlam, xhat[:n], xlam[:n], *pool))
             rec["bintopk"] = dict(
-                ms=cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)),
-                plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
+                ms=ms, plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
                     *args, **kw), reps=2),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms,
+                library_ms=None)
             log(f"    matmul context (qhat @ xhat.T, {BATCH}x{n}x"
                 f"{qhat.shape[1]}): {matmul_ms(torch, qhat, xhat[:n]):.3f} ms")
-        else:
-            log(f"    k=64: ms={cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)):.3f}")
     rec["bintopk"]["max_abs_err"] = k1_err
 
     # K3 at k=10 over the whole batch; each (query, chunk) partial top-k
@@ -481,7 +498,7 @@ def energy_path(torch, counters, rows, canon, dev):
     from arrowspace_torch.energymaps import EnergyParams
     from arrowspace_torch.index import ArrowIndex
 
-    log(f"[5] energy path: ArrowIndex.build_energy {rows.shape[0]}x"
+    log(f"[6] energy path: ArrowIndex.build_energy {rows.shape[0]}x"
         f"{rows.shape[1]} EnergyParams(allow_tall_graphs=True) seed={SEED}")
     reset(counters)
     if dev.type == "cuda":
@@ -575,7 +592,7 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
     from arrowspace_torch.ops import energy_bintopk as eb
     from arrowspace_torch.ops import select_tau as st
 
-    log("[6] energy kernels against their plain versions on the card")
+    log("[7] energy kernels against their plain versions on the card")
     a, rec = index.aspace, {}
 
     # K4 over the corpus, as the build's λ pass calls it
@@ -615,7 +632,8 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
     n, g = eng.n, zq.shape[1]
     depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
     z_n = eng.zx[:n]
-    chunks = bt._default_chunks(BATCH, bins, -(-n // bins), dev)
+    chunks = bt._default_chunks(-(-BATCH // bt.fold_query_block(bins, 4)),
+                                -(-n // bins), dev)
     args = (zq, qn, qlam, eng.zx, eng.xn, eng.xlam, eng.wl, eng.wd, n)
     kw = dict(depth=depth, bins=bins, chunks=chunks)
     pool = eb.binned_energy_pool(*args, **kw)
@@ -647,7 +665,8 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
 
     ap = approx.engine
     ca, cb = ea._fit_chords(zq, qn, ap.z_samp, ap.xn_samp, ap.wd)
-    chunks = bt._default_chunks(BATCH, bins, -(-n // bins), dev, ea._QT)
+    chunks = bt._default_chunks(-(-BATCH // bt.fold_query_block(bins, ea._QT)),
+                                -(-n // bins), dev)
     args = (zq, qn, qlam, ca, cb, ap.zx, ap.xn, ap.xlam, ap.wl, n)
     kw = dict(depth=depth, bins=bins, chunks=chunks)
     pool = ea.binned_energy_approx_pool(*args, **kw)
@@ -688,7 +707,7 @@ def wide_path(torch, counters, dev):
     session, the batches and the launch counts."""
     from arrowspace_torch.index import ArrowIndex
 
-    log(f"[8] wide projected path: ArrowIndex.build {W_ROWS}x{W_FEAT} "
+    log(f"[9] wide projected path: ArrowIndex.build {W_ROWS}x{W_FEAT} "
         f"eps={EPS} dims_reduction=True seed={SEED} on {dev}")
     t0 = time.perf_counter()
     rows = clustered_rows(W_ROWS, W_FEAT, SEED)
@@ -744,7 +763,7 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     from arrowspace_torch.ops.search import prepare_query
     from arrowspace_torch.taumode import select_tau_batch
 
-    log("[9] wide-path kernels against their plain versions on the card")
+    log("[10] wide-path kernels against their plain versions on the card")
     a = index.aspace
     win = TAUMODE_WINDOW_BYTES // (W_FEAT * 4) >> 14 << 14
     x = a.data[:win]
@@ -783,7 +802,8 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
     rows = a.nitems
     depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
-    chunks = bt._default_chunks(BATCH, bins, -(-rows // bins), q.device)
+    chunks = bt._default_chunks(bt.grid_ctas(BATCH, bins, W_FEAT),
+                                -(-rows // bins), q.device)
     args = (qhat, qlam.contiguous(), xhat, xlam, c1, rows)
     kw = dict(depth=depth, bins=bins, chunks=chunks)
     out_k = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), K, c1)
@@ -791,10 +811,12 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     agree(f"K1 bintopk F={W_FEAT} k={K} chunks={chunks}", out_k[0],
           out_k[1], out_p[0], out_p[1],
           exact=exact_scores(qhat, qlam, xhat, xlam, c1, out_k[1]) + c1)
-    b1_ms, _ = bound(BATCH * rows * (2.0 * W_FEAT + 5),
-                     nbytes(qhat, qlam, xhat[:rows], xlam[:rows]))
+    b1_ms, b1_by, b32_ms = k1_bounds(
+        BATCH, rows, W_FEAT, nbytes(qhat, qlam, xhat[:rows], xlam[:rows],
+                                    *bt.binned_topk_pool(*args, **kw)))
     k1_ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw), reps=3)
-    log(f"    K1 at F={W_FEAT}: ms={k1_ms:.3f} bound_ms={b1_ms:.3f}")
+    log(f"    K1 at F={W_FEAT}: ms={k1_ms:.3f} bound_ms={b1_ms:.3f} "
+        f"({b1_by}) bound_fp32_ms={b32_ms:.3f}")
     return rec
 
 
@@ -842,7 +864,7 @@ def small_reference(torch, dev):
     check(gpu.aspace.n_clusters == cpu.aspace.n_clusters,
           "small build: cluster counts differ")
     err = float(np.abs(gpu.lambdas - cpu.lambdas).max())
-    log(f"[4] small reference (4000x32, card f32 vs CPU f64): "
+    log(f"[5] small reference (4000x32, card f32 vs CPU f64): "
         f"λ max_abs_err={err:.3e}")
     check(err <= 1e-4, "small reference: λ disagrees")
     q = rows[:32] * 1.02
@@ -918,11 +940,13 @@ def main() -> int:
 
         rows = clustered_rows(N_ROWS, N_FEAT, SEED)
         canon = plant_duplicates(rows)
-        index, batches, launches = main_path(torch, counters, rows, canon,
-                                             dev)
+        index, session, batches, launches = main_path(torch, counters, rows,
+                                                      canon, dev)
         rec = kernels_vs_plain(torch, index, batches, dev)
+        where_time_goes(torch, (("cosine session", session),), batches,
+                        step=4)
         small_reference(torch, dev)
-        del index, batches
+        del index, session, batches
         torch.cuda.empty_cache()
 
         index, exact, approx, batches, e_launches, res_e, res_a = \
@@ -933,7 +957,7 @@ def main() -> int:
                                            batches, dev))
         where_time_goes(torch, (("exact energy session", exact),
                                 ("approx energy session", approx)), batches,
-                        step=7)
+                        step=8)
         del index, exact, approx, batches, res_e, res_a, rows
         torch.cuda.empty_cache()
 
@@ -942,7 +966,7 @@ def main() -> int:
         launches["lambda_batch"] = w_launches["lambda_batch"]
         rec.update(wide_kernels_vs_plain(torch, index, batches, dev))
         where_time_goes(torch, (("wide projected session", session),),
-                        batches, step=10)
+                        batches, step=11)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -951,7 +975,9 @@ def main() -> int:
                 "replaces": rep, "launches": launches[name],
                 **{key: rec[name][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                    "library_ms")},
+                **{key: v for key, v in rec[name].items()
+                   if key == "bound_fp32_ms"}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

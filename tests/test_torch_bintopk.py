@@ -259,6 +259,103 @@ def test_plain_scan_matches_jax_f64():
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-12)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on float32 values: round to the nearest value with
+    10 mantissa bits, ties away from zero (add 0x1000 to the bits, clear
+    the low 13)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_dot(q, x, terms):
+    """The dot products of K1 (csrc/bintopk.cu): F padded with zeros to
+    whole 8-feature k-steps; at each step the listed TF32 products, in
+    order, each summed exactly and rounded once into the float32
+    accumulator, as one m16n8k8 mma.sync does."""
+    fp = -(-q.shape[1] // 8) * 8
+    q = torch.nn.functional.pad(q, (0, fp - q.shape[1]))
+    x = torch.nn.functional.pad(x, (0, fp - x.shape[1]))
+    qh, xh = _tf32_rna(q), _tf32_rna(x)
+    parts = {"qh": qh, "ql": _tf32_rna(q - qh), "xh": xh,
+             "xl": _tf32_rna(x - xh)}
+    acc = torch.zeros(q.shape[0], x.shape[0], dtype=torch.float32)
+    for k0 in range(0, fp, 8):
+        for qp, xp in terms:
+            a = parts[qp][:, k0:k0 + 8].double()
+            b = parts[xp][:, k0:k0 + 8].double()
+            acc = (acc.double() + a @ b.T).float()
+    return acc
+
+
+_THREE_TF32 = (("ql", "xh"), ("qh", "xl"), ("qh", "xh"))
+
+
+@pytest.mark.parametrize("f", [128, 768])
+def test_k1_three_tf32_split_keeps_float32_accuracy(f):
+    """On the smoke run's corpus (64 centres in [0.2, 0.8], noise 0.05,
+    unit rows; queries perturbed ×1.02, α-prescaled with α = 0.9) the
+    3×TF32 product stays within 2e-6 of float64, under the 1e-5 score
+    tolerance, where one TF32 product does not; identical rows get
+    bitwise identical scores."""
+    rng = np.random.default_rng(f)
+    centres = rng.uniform(0.2, 0.8, (64, f))
+    x = centres[rng.integers(0, 64, 512)] + rng.normal(0, 0.05, (512, f))
+    x[300] = x[7]
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, 512, 16)] * 1.02
+    q = 0.9 * q / np.linalg.norm(q, axis=1, keepdims=True)
+    qt, xt = (torch.tensor(a, dtype=torch.float32) for a in (q, x))
+    ref = qt.double() @ xt.double().T
+    three = _tensor_core_dot(qt, xt, _THREE_TF32)
+    one = _tensor_core_dot(qt, xt, (("qh", "xh"),))
+    assert float((three.double() - ref).abs().max()) <= 2e-6
+    assert float((one.double() - ref).abs().max()) > 1e-5
+    assert torch.equal(three[:, 300], three[:, 7])
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -11],
+                     dtype=torch.float32)
+    assert _tf32_rna(v).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                     1.0, 1.0 + 2.0 ** -9]
+
+
+@pytest.mark.parametrize("bins", [128, 256, 512])
+@pytest.mark.parametrize("f,qs,qb", [(7, 12, 128), (40, 44, 128),
+                                     (128, 132, 128), (416, 420, 128),
+                                     (417, 428, 64), (768, 772, 64),
+                                     (769, 780, 32), (1264, 1268, 32)])
+def test_k1_gate_for_the_tensor_core_layout(bins, f, qs, qb):
+    """K1's CTA holds 4096 (query, bin) pairs: the largest query block of
+    128, 64, 32 whose shared memory fits (the block's rows at stride
+    ceil8(F) + 4, two slices of 4096/qb rows × 64 features at stride 68)
+    and a grid axis over the groups of 4096/qb bins.  The gate is the
+    32-query block's, the same at every bin count; the fold's own gate
+    (K6, K7) is the one it was."""
+    smem = (qb * qs + 2 * (4096 // qb) * 68) * 4
+    assert smem <= 227 * 1024 and bt.bintopk_fits(f)
+    assert bt.query_block(f, 2048) == qb
+    if qb < 128:   # the next larger block does not fit
+        assert (2 * qb * qs + 2 * (4096 // (2 * qb)) * 68) * 4 > 227 * 1024
+    assert bt.query_block(f, 37) == min(qb, 64)
+    assert bt.query_block(f, 1) == 32
+    assert not bt.bintopk_fits(1265)
+    # B = 2048 always gives 64 CTAs per 128 bins, whatever the block
+    assert bt.grid_ctas(2048, bins, f) == 64 * (bins // 128)
+    assert bt.grid_ctas(37, bins, f) == -(-37 // min(qb, 64)) * (
+        bins * min(qb, 64) // 4096)
+    widest = {128: 1268, 256: 1452, 512: 2652}[bins]
+    assert bt.fold_fits(widest, bins) and not bt.fold_fits(widest + 1, bins)
+    assert bt.fold_query_block(bins, 4) == 32 * 128 // bins
+    # whole waves on 132 SMs at B = 2048 and 1M rows
+    n_tiles = -(-1_000_000 // bins)
+    want = {128: 2, 256: 1, 512: 1}[bins]
+    ctas = bt.grid_ctas(2048, bins, f)
+    assert bt.wave_chunks(ctas, n_tiles, 132) == want
+    assert bt._default_chunks(ctas, n_tiles, torch.device("cpu")) == 1
+
+
 def test_repair_helpers():
     det = np.array([[0.1, 0.9, NEG_INF], [0.95, 0.96, 0.97]], np.float32)
     fired, ok = br.fired_bins_host(det, np.array([0.5, 0.5], np.float32))

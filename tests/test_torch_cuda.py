@@ -93,6 +93,62 @@ def test_k1_pool_matches_plain(dev, f, bins, depth):
     assert float((det - rdet).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("f", [128, 768])
+@pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4)])
+def test_k1_identical_rows_score_bitwise_alike(dev, f, bins, depth):
+    """Copies of query 0 in bins of every warp's 32-bin range (and, at 256
+    and 512 bins, of another bin group), in all three chunks, two of them
+    in one bin: the tensor-core products give them bitwise equal scores,
+    and the flush returns them first, in ascending id order."""
+    n, b, chunks = 5003, 19, 3
+    rng = np.random.default_rng(f + bins)
+    q, ql = rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b)
+    x, xl = rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)
+    n_tiles = -(-n // bins)
+    tiles_per_chunk = -(-n_tiles // chunks)
+    spots = [(0, 3), (1, 38), (2, 70), (0, 101), (1, bins - 2), (2, 3)]
+    ids = sorted(c * tiles_per_chunk * bins + bn for c, bn in spots)
+    x[ids], xl[ids] = q[0], ql[0]
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (q, ql, x, xl))
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    args = (qh, ql, xh, xlh, c1, n)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    ps, pi, det = bt.binned_topk_pool(*args, **kw)
+    torch.cuda.synchronize()
+    copies = torch.isin(pi, torch.tensor(ids, device=dev, dtype=pi.dtype))
+    assert int(copies[0].sum()) == len(ids)
+    for r in range(b):
+        found = ps[r][copies[r]]
+        assert found.numel() == 0 or bool((found == found[0]).all())
+    s, i, _, _ = bt.flush_pool(ps, pi, det, 10, c1)
+    assert i[0, :len(ids)].tolist() == ids
+    assert bool((s[0, :len(ids)] == s[0, 0]).all())
+    _, ri, _, _ = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw), 10,
+                                c1)
+    assert i[0, :len(ids)].tolist() == ri[0, :len(ids)].tolist()
+
+
+@pytest.mark.parametrize("b,n,bins", [(1, 131, 128), (17, 4099, 256),
+                                      (45, 70001, 512), (33, 1000, 128)])
+def test_k1_ragged_query_block_and_tile_at_f768(dev, b, n, bins):
+    """F = 768 with B not a multiple of 16 (a ragged m16 tile) and n not a
+    multiple of bins (a ragged last tile), at the wrapper's own chunk
+    count."""
+    args = _inputs(dev, n, 768, b, seed=b + n)
+    chunks = bt._default_chunks(bt.grid_ctas(b, bins, 768), -(-n // bins),
+                                dev)
+    kw = dict(depth=3, bins=bins, chunks=chunks)
+    ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
+    rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
+    torch.cuda.synchronize()
+    assert ps.shape == rs.shape and det.shape == rdet.shape
+    _assert_scored_ids(ps, pi, rs, args)
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    assert float((det - rdet).abs().max()) <= TOL
+
+
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
 @pytest.mark.parametrize("rows_per_chunk", [128, 1280, 6000])
 def test_k3_partial_matches_plain(dev, k, rows_per_chunk):
