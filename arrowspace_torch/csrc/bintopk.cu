@@ -8,7 +8,8 @@
 // shifted score s = (α·q̂)·x̂_g - c1·min(|λ_q - λ_g|, 1); row g belongs to
 // bin g mod bins.  Per (query, chunk, bin) it keeps the top-DEPTH scores
 // by (-score, lowest id) and det, the largest score the chunk dropped,
-// in the layout of binned_fold.cuh (whose staging it reuses).
+// in the layout the energy tile (energy_tile.cuh) shares; the staging
+// and the 3×TF32 k-step are binned_fold.cuh's.
 //
 // What bounds it on an H100: the B×N×F products, 268 GFMA at 1M×128 and
 // B=2048.  On the fp32 CUDA cores (33.5 TFMA/s) they took 98 % of a
@@ -24,7 +25,7 @@
 // therefore sums into a zeroed partial that one rounded fp32 add folds
 // into the tile's dot product.  What bounds it now is the rate of the
 // mma.sync pipe (3×TF32 alone takes two thirds to three quarters of the
-// kernel's time, tools/k1_ablation.py), then the corpus reads from L2
+// kernel's time, tools/kernel_ablation.py), then the corpus reads from L2
 // and the fold.  The design:
 // - a CTA is 8 warps, each on a 16-query × 32-bin tile, holding 4096
 //   (query, bin) pairs: QB = 128, 64 or 32 queries × 4096/QB bins, the
@@ -55,6 +56,8 @@ constexpr int kThreads = asp_fold::kThreads;  // 8 warps (stage_slice's)
 constexpr int kPairs = 4096;  // (query, bin) pairs a CTA holds: 16 a thread
 constexpr int kFK = 64;       // features a staged slice holds
 constexpr int kXS = 68;       // row stride of a staged slice (floats)
+static_assert(kFK == asp_fold::kTileFK && kXS == asp_fold::kTileXS,
+              "mma_kstep's slice");
 constexpr size_t kSmemLimit = 227 * 1024;
 
 // A CTA holds QB queries × BG = kPairs / QB bins (QB 32, 64 or 128); each
@@ -65,54 +68,9 @@ __host__ __device__ constexpr size_t smem_bytes(int F, int QB) {
          sizeof(float);
 }
 
-// cvt.rna.tf32.f32 for finite v (every value K1 reads is): round to the
-// nearest 10-bit mantissa, ties away from zero.  Two integer instructions,
-// where the cvt compiles to about five (it also handles NaN and inf).
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
-}
-
-// d += a · b on one m16n8k8 tile; a row-major 16×8, b column-major 8×8.
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k-step of 8 features for the warp's 16 queries × 32 bins: qa points
-// at the thread's A element (query g, feature t), xb at its B element
-// (bin g of n-tile 0, feature t).
-__device__ __forceinline__ void mma_kstep(float (&acc)[4][4], const float* qa,
-                                          int QS, const float* xb) {
-  uint32_t ahi[4], alo[4];
-  split_tf32(qa[0], ahi[0], alo[0]);           // (g,     t)
-  split_tf32(qa[8 * QS], ahi[1], alo[1]);      // (g + 8, t)
-  split_tf32(qa[4], ahi[2], alo[2]);           // (g,     t + 4)
-  split_tf32(qa[8 * QS + 4], ahi[3], alo[3]);  // (g + 8, t + 4)
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float* xj = xb + j * 8 * kXS;
-    uint32_t bhi0, blo0, bhi1, blo1;
-    split_tf32(xj[0], bhi0, blo0);             // (k = t,     n = g)
-    split_tf32(xj[4], bhi1, blo1);             // (k = t + 4, n = g)
-    mma_tf32(acc[j], alo, bhi0, bhi1);
-    mma_tf32(acc[j], ahi, blo0, blo1);
-    mma_tf32(acc[j], ahi, bhi0, bhi1);
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
+// The 3×TF32 k-step and the cp.async wait of binned_fold.cuh.
+using asp_fold::cp_async_wait_all;
+using asp_fold::mma_kstep;
 
 struct Args {
   const float* qrows;

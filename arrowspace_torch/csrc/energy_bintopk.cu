@@ -11,24 +11,22 @@
 //   s  = d²·rsqrt(d²)                     (= √d²)
 //   u  = w_D·rsqrt(1 + 2s + d²)           (= w_D/(1+√d²))
 //   score = u - w_λ·|λ_q - λ_g|           (true score = score - w_D)
-// folded into the per-(query, chunk, bin) top-DEPTH pool and det of
-// binned_fold.cuh: the same bins, depth, det and "row g sits in bin
-// g mod bins" layout as K1, so the strided repair serves both.
+// folded into the per-(query, chunk, bin) top-DEPTH pool and det of the
+// energy tile (energy_tile.cuh): the same bins, depth, det and "row g
+// sits in bin g mod bins" layout as K1, so the strided repair serves both.
 //
-// What bounds it on an H100: the B×N×G dot products in fp32 FMA, 134
-// GFMA at 1M×64 and B=2048 (4.0 ms at 33.5 TFMA/s), plus two rsqrt per
-// pair on the SFUs (4.2 G at that shape).  What the design does about
-// it: K1's register-tiled, cp.async double-buffered fold (4 queries × 4
-// bins a thread); the per-pair tail is a dozen instructions beside the
-// G=64 FMAs of the dot.  Every step is rounded explicitly (__fadd_rn,
+// What bounds it on an H100, and the design: energy_tile.cuh, with 16
+// (query, bin) pairs a thread (NT = 4).  The dot product comes from the
+// tensor cores as 3×TF32; the tail is rounded explicitly (__fadd_rn,
 // __fsub_rn, __fmul_rn) so nvcc cannot contract any of it into an FMA
 // that the plain PyTorch expression does not make, and both sides call
 // the same rsqrt: rsqrtf here, torch.rsqrt in the plain version, which
 // PyTorch's CUDA build implements with the same rsqrtf (asp_rsqrt_probe
-// lets chip_smoke.py check that bitwise on the card).
+// lets chip_smoke.py check that bitwise on the card).  So the score
+// equals energy_plane's once the dot product is given.
 #include <float.h>
 
-#include "binned_fold.cuh"
+#include "energy_tile.cuh"
 
 namespace {
 
@@ -81,11 +79,13 @@ extern "C" int asp_energy_bintopk(const void* zq, const void* qn,
   const EnergyScore score{
       static_cast<const float*>(qn), static_cast<const float*>(qlam),
       static_cast<const float*>(xn), static_cast<const float*>(xlam), wl, wd};
-  return asp_fold::launch_pool<4>(
-      depth, bins, score, static_cast<const float*>(zq),
-      static_cast<const float*>(zx), n, B, G, n_chunks, tiles_per_chunk,
+  const asp_energy::TileArgs a{
+      static_cast<const float*>(zq), static_cast<const float*>(zx),
+      n, B, G, bins, n_chunks, tiles_per_chunk,
       static_cast<float*>(pool_s), static_cast<int*>(pool_i), nullptr,
-      static_cast<float*>(det), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(det)};
+  return asp_energy::launch_pool<4>(score, a, depth,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = rsqrtf(x[i]): the rsqrt the energy kernels call, for holding

@@ -10,23 +10,21 @@
 //   d²  = (|z_q|² + |z_g|²) - 2·z_q·z_g     (K6's d², bitwise)
 //   ŝ   = max(d²·a₁ + b₁, min(d², c)·a₂ + b₂) - w_λ·|λ_q - λ_g|
 // ŝ is folded into the per-(query, chunk, bin) top-DEPTH pool and det of
-// binned_fold.cuh, and each pool entry keeps its d², so the pool carries
+// the energy tile, and each pool entry keeps its d², so the pool carries
 // 3·DEPTH + 1 planes (K1 and K6: 2·DEPTH + 1).  The wrapper rescores the
 // pooled d² exactly, sorts, and certifies a query when its k-th exact
 // score beats every det (an item outside the pool lost a surrogate
 // comparison, so its exact score ≤ its surrogate ≤ det).
 //
-// What bounds it on an H100: the B×N×G dot products in fp32 FMA, 134
-// GFMA at 1M×64 and B=2048 (4.0 ms at 33.5 TFMA/s); the surrogate has no
-// transcendental.  What the design does about it: the fold of
-// binned_fold.cuh, but with 2 queries × 4 bins a thread (QT=2) where K1
-// and K6 hold 4 × 4: the d² payload adds DEPTH registers per (query,
-// bin) pair, and K1's 16 pairs a thread already sit at 254 registers.
-// Halving the pairs keeps the pool in registers without spilling, at the
-// price of half the FMAs per staged query load.  Every step of the
-// surrogate is rounded explicitly so it equals the plain PyTorch
-// expression bitwise.
-#include "binned_fold.cuh"
+// What bounds it on an H100, and the design: energy_tile.cuh, whose
+// 3×TF32 product on the tensor cores gives K6's dot product bitwise, so
+// the d² here is K6's.  The surrogate has no transcendental, but the d²
+// payload adds DEPTH registers a (query, bin) pair: K6's 16 pairs a
+// thread would pass 255 registers, so K7 holds 8 (a 16-query × 16-bin
+// warp tile, NT = 2; 2048 pairs a CTA).  Every step of the surrogate is
+// rounded explicitly so it equals chord_plane's once the dot product is
+// given.
+#include "energy_tile.cuh"
 
 namespace {
 
@@ -80,10 +78,11 @@ extern "C" int asp_energy_chord(const void* zq, const void* qn,
       static_cast<const float*>(qn), static_cast<const float*>(qlam),
       static_cast<const float*>(ca), static_cast<const float*>(cb),
       static_cast<const float*>(xn), static_cast<const float*>(xlam), wl};
-  return asp_fold::launch_pool<2>(
-      depth, bins, score, static_cast<const float*>(zq),
-      static_cast<const float*>(zx), n, B, G, n_chunks, tiles_per_chunk,
+  const asp_energy::TileArgs a{
+      static_cast<const float*>(zq), static_cast<const float*>(zx),
+      n, B, G, bins, n_chunks, tiles_per_chunk,
       static_cast<float*>(pool_s), static_cast<int*>(pool_i),
-      static_cast<float*>(pool_d), static_cast<float*>(det),
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(pool_d), static_cast<float*>(det)};
+  return asp_energy::launch_pool<2>(score, a, depth,
+                                    static_cast<cudaStream_t>(stream));
 }

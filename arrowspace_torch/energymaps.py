@@ -45,7 +45,6 @@ from .core import ArrowSpace
 from .graph import GraphLaplacian, GraphParams
 from .laplacian import build_laplacian_matrix
 from .ops.bin_repair import BinnedEnergyTopK
-from .ops.bintopk import bins_target, fold_fits
 from .ops.energy_bintopk import ENERGY_CHUNK, energy_topk_chunked
 from .reduction import ImplicitProjection
 from .utils.log import get_logger
@@ -112,11 +111,11 @@ def bounded_l2_energy(diff) -> float:
 
 def energy_binned_fits(nitems: int, k: int, g: int) -> bool:
     """The energy engine gate, keyed on size alone: a corpus past
-    ENERGY_CHUNK rows, k up to 128 and a z-width within the kernels'
-    shared-memory gate take the binned engine (K6, or K7 with approx) on
-    every device; the CPU runs it through the kernels' plain versions."""
-    return (nitems > ENERGY_CHUNK and k <= 128
-            and fold_fits(g, bins_target(k)))
+    ENERGY_CHUNK rows, k up to 128 and any z-width take the binned engine
+    (K6, or K7 with approx) on every device (the energy tile's shared
+    memory does not grow with G); the CPU runs it through the kernels'
+    plain versions."""
+    return nitems > ENERGY_CHUNK and k <= 128 and g >= 1
 
 
 def _as_tensor(x, device, dtype) -> torch.Tensor:

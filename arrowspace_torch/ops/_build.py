@@ -33,7 +33,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu", "select_tau.cu",
            "lambda_batch.cu", "energy_bintopk.cu", "energy_chord.cu")
-HEADERS = ("common.cuh", "binned_fold.cuh")
+HEADERS = ("common.cuh", "binned_fold.cuh", "energy_tile.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -21,9 +21,9 @@ whole bin, so the per-chunk pools keep the contract.  It computes the
 dot products on the tensor cores as 3×TF32 (csrc/bintopk.cu), within
 1e-5 of float32, not bitwise; identical rows still score bitwise alike.
 ``binned_topk_pool_plain`` is the same computation in plain PyTorch.
-The fold (``fold_pool_plain`` here) is also the plain version of the
-energy kernels K6 and K7 (csrc/binned_fold.cuh, with its own gate
-``fold_fits``).
+Its fold (``fold_pool_plain``) is also the plain fold of the energy
+kernels K6 and K7 (csrc/energy_tile.cuh, ops/energy_bintopk.py), which
+keep the same pool layout.
 
 Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
 dot product is α·cos, and c1 is added back after the flush.
@@ -38,17 +38,15 @@ from .search import (INT_MAX, NEG_INF, dot_plane, lambda_term,
                      prepare_query, safe_unit, two_key_topk)
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
-           "bintopk_fits", "query_block", "grid_ctas", "fold_fits",
-           "fold_query_block", "wave_chunks", "binned_topk_pool",
-           "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
-           "binned_lambda_topk"]
+           "bintopk_fits", "query_block", "grid_ctas", "wave_chunks",
+           "binned_topk_pool", "binned_topk_pool_plain", "fold_pool_plain",
+           "flush_pool", "binned_lambda_topk"]
 
 # Prepared corpora are zero-padded to a multiple of the widest bin count,
 # so one prepared copy serves every k.
 CORPUS_ALIGN = 512
 KERNEL_BINS = (128, 256, 512)
 KERNEL_DEPTHS = (2, 3, 4)
-_THREADS = 256
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block can use
 # K1's CTA holds _PAIRS (query, bin) pairs, 16 a thread, as a block of
 # query_block() queries × _PAIRS / query_block() bins (csrc/bintopk.cu)
@@ -74,24 +72,6 @@ def bins_target(k: int) -> int:
     if k <= 32:
         return 256
     return 512
-
-
-def fold_query_block(bins: int, qt: int) -> int:
-    """Queries per CTA of the shared fold kernels (K6 with qt 4, K7 with
-    qt 2; csrc/binned_fold.cuh): 256 threads, each holding a qt-query ×
-    4-bin tile of the running state."""
-    return _THREADS * 4 * qt // bins
-
-
-def fold_fits(f: int, bins: int = 128, qt: int = 4) -> bool:
-    """Whether a fold kernel's shared memory (the query block's rows,
-    padded to whole float4s, and two buffers of one feature slice of a
-    corpus tile) fits a block."""
-    qs_stride = -(-f // 4) * 4 + 4
-    slice_stride = (32 if bins >= 512 else 64) + 4  # csrc slice_stride()
-    smem = (fold_query_block(bins, qt) * qs_stride
-            + 2 * bins * slice_stride) * 4
-    return f >= 1 and smem <= _SMEM_LIMIT
 
 
 def _bintopk_smem(f: int, qb: int) -> int:
@@ -140,9 +120,9 @@ def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
 
 def _default_chunks(ctas: int, n_tiles: int, device) -> int:
     """Corpus chunks for a grid of ``ctas`` CTAs per chunk (grid_ctas for
-    K1, the query blocks of fold_query_block for K6 and K7).  Each
-    kernel's registers leave room for one resident CTA per SM, so the
-    grid should fill the SMs in whole waves."""
+    K1, energy_bintopk.energy_grid_ctas for K6 and K7).  Each kernel's
+    registers leave room for one resident CTA per SM, so the grid should
+    fill the SMs in whole waves."""
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     else:

@@ -27,17 +27,19 @@ import torch
 
 from ._build import check, lib, stream_of
 from .bintopk import (KERNEL_BINS, KERNEL_DEPTHS, _default_chunks,
-                      binned_topk_depth_for, bins_target, fold_fits,
-                      fold_pool_plain, fold_query_block)
-from .energy_bintopk import energy_u
+                      binned_topk_depth_for, bins_target, fold_pool_plain)
+from .energy_bintopk import energy_grid_ctas, energy_u
 from .search import INT_MAX, NEG_INF, dot_plane, two_key_topk
 
-__all__ = ["SAMPLE_ROWS", "prepare_energy_chord_sample", "chord_plane",
-           "binned_energy_approx_pool", "binned_energy_approx_pool_plain",
-           "binned_energy_topk_approx"]
+__all__ = ["SAMPLE_ROWS", "K7_PAIRS", "prepare_energy_chord_sample",
+           "chord_plane", "binned_energy_approx_pool",
+           "binned_energy_approx_pool_plain", "binned_energy_topk_approx"]
 
 SAMPLE_ROWS = 1024
-_QT = 2          # queries per thread of the K7 kernel (csrc QT)
+# (query, bin) pairs a CTA of K7's energy tile holds: 8 warps of 16
+# queries × 16 bins (csrc/energy_chord.cu, NT = 2; its d² payload leaves
+# no registers for K6's 16 pairs a thread)
+K7_PAIRS = 2048
 
 
 def prepare_energy_chord_sample(zx, xn, n: int, seed: int = 0):
@@ -109,9 +111,8 @@ def binned_energy_approx_pool(zq, qn, qlam, ca, cb, zx, xn, xlam, wl: float,
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_energy_approx_pool: unsupported "
                          f"bins={bins} depth={depth}")
-    if not fold_fits(g, bins, _QT):
-        raise ValueError(f"binned_energy_approx_pool: G={g} exceeds the "
-                         "kernel's shared-memory budget")
+    if g < 1:
+        raise ValueError("binned_energy_approx_pool: empty z-plane rows")
     if zx.shape[0] < n_tiles * bins or zx.shape[1] != g \
             or xn.shape[0] < n_tiles * bins:
         raise ValueError("binned_energy_approx_pool: corpus not padded to "
@@ -190,8 +191,9 @@ def binned_energy_topk_approx(z_q, query_lambdas, zx, xlam, xn, z_samp,
     qn = (zq * zq).sum(dim=1)
     ca, cb = _fit_chords(zq, qn, z_samp, xn_samp, wd)
     depth, bins = binned_topk_depth_for(k), bins_target(k)
-    chunks = _default_chunks(-(-zq.shape[0] // fold_query_block(bins, _QT)),
-                             -(-n // bins), zq.device)
+    chunks = _default_chunks(
+        energy_grid_ctas(zq.shape[0], bins, zq.shape[1], K7_PAIRS),
+        -(-n // bins), zq.device)
     pool_s, pool_i, pool_d, det = binned_energy_approx_pool(
         zq, qn, qlam, ca, cb, zx, xn, xlam, wl, n, depth=depth, bins=bins,
         chunks=chunks)

@@ -10,6 +10,11 @@ shifted scale and -w_D is restored after the sort and the flag compare
 (pallas_bintopk.py:953-996).  The pool layout, bins, depth, det and the
 flush are K1's (ops/bintopk.py), so the strided repair covers both.
 ``binned_energy_pool_plain`` is the same computation in plain PyTorch.
+
+K6 and K7 are one kernel, the energy tile (csrc/energy_tile.cuh), on
+the tensor cores; ``energy_query_block`` and ``energy_grid_ctas`` mirror
+its CTA rule for the chunk count.  Its shared memory does not grow with
+the z-width, so it takes any G.
 """
 
 from __future__ import annotations
@@ -19,11 +24,11 @@ import torch
 from ._build import check, lib, stream_of
 from .bintopk import (CORPUS_ALIGN, KERNEL_BINS, KERNEL_DEPTHS,
                       _default_chunks, binned_topk_depth_for, bins_target,
-                      flush_pool, fold_fits, fold_pool_plain,
-                      fold_query_block)
+                      flush_pool, fold_pool_plain)
 from .search import dot_plane, exact_topk, two_key_topk
 
-__all__ = ["ENERGY_CHUNK", "dtype_scalar", "energy_u", "energy_plane",
+__all__ = ["ENERGY_CHUNK", "K6_PAIRS", "energy_query_block",
+           "energy_grid_ctas", "dtype_scalar", "energy_u", "energy_plane",
            "energy_topk_chunked", "prepare_binned_energy_corpus",
            "binned_energy_pool", "binned_energy_pool_plain",
            "binned_energy_topk", "rsqrt_probe"]
@@ -32,6 +37,29 @@ __all__ = ["ENERGY_CHUNK", "dtype_scalar", "energy_u", "energy_plane",
 # above which the energy search takes the binned engine
 # (energymaps.py:420 of the JAX package).
 ENERGY_CHUNK = 65536
+# (query, bin) pairs a CTA of the energy tile holds: 8 warps of 16
+# queries × 32 bins for K6 (csrc/energy_tile.cuh, NT = 4)
+K6_PAIRS = 4096
+_SLICE = 64      # features of a staged slice
+
+
+def energy_query_block(g: int, bsz: int) -> int:
+    """Queries per CTA of the energy tile (csrc query_block, the same
+    rule): 128 where the z-plane is one slice wide (G ≤ 64, the query
+    block is then staged once) and the batch, rounded up to a multiple of
+    32, fills it; else 64 where the batch fills it, else 32."""
+    cap = -(-bsz // 32) * 32
+    if cap >= 128 and g <= _SLICE:
+        return 128
+    return 64 if cap >= 64 else 32
+
+
+def energy_grid_ctas(bsz: int, bins: int, g: int, pairs: int) -> int:
+    """CTAs per corpus chunk of the energy tile holding ``pairs`` (query,
+    bin) pairs a CTA (K6_PAIRS, or energy_approx.K7_PAIRS): one per query
+    block and group of pairs / query_block bins."""
+    qb = energy_query_block(g, bsz)
+    return -(-bsz // qb) * (bins * qb // pairs)
 
 
 def dtype_scalar(v: float, dtype) -> float:
@@ -128,9 +156,8 @@ def binned_energy_pool(zq, qn, qlam, zx, xn, xlam, wl: float, wd: float,
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_energy_pool: unsupported bins={bins} "
                          f"depth={depth}")
-    if not fold_fits(g, bins):
-        raise ValueError(f"binned_energy_pool: G={g} exceeds the kernel's "
-                         "shared-memory budget")
+    if g < 1:
+        raise ValueError("binned_energy_pool: empty z-plane rows")
     if zx.shape[0] < n_tiles * bins or zx.shape[1] != g \
             or xn.shape[0] < n_tiles * bins:
         raise ValueError("binned_energy_pool: corpus not padded to whole "
@@ -184,8 +211,9 @@ def binned_energy_topk(z_q, query_lambdas, zx, xlam, xn, wl: float,
     qlam = query_lambdas.to(dt).contiguous()
     qn = (zq * zq).sum(dim=1)
     depth, bins = binned_topk_depth_for(k), bins_target(k)
-    chunks = _default_chunks(-(-zq.shape[0] // fold_query_block(bins, 4)),
-                             -(-n // bins), zq.device)
+    chunks = _default_chunks(
+        energy_grid_ctas(zq.shape[0], bins, zq.shape[1], K6_PAIRS),
+        -(-n // bins), zq.device)
     pool_s, pool_i, det = binned_energy_pool(zq, qn, qlam, zx, xn, xlam, wl,
                                              wd, n, depth=depth, bins=bins,
                                              chunks=chunks)

@@ -38,10 +38,10 @@ Output: progress lines (each session's device time by kernel under
 torch.profiler among them), then the card's name and power limit, then
 one JSON line with each kernel's launches (counted over its path's run),
 error against its plain version, mean times, the bound of its work on
-this card (for K1, whose products run on the tensor cores as 3×TF32,
-also bound_fp32_ms, the bound of the same work on the fp32 CUDA cores)
-and the time of a PyTorch call computing the same function (null where
-none does), then the last line {"ok": true, "device": ...}.
+this card (for K1, K6 and K7, whose products run on the tensor cores as
+3×TF32, also bound_fp32_ms, the bound of the same work on the fp32 CUDA
+cores) and the time of a PyTorch call computing the same function (null
+where none does), then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ TOL = 1e-5              # kernel vs plain version, float32 scores and λ
 E_WL, E_WD = 1.0, 0.5
 E_TOL = 5e-5
 # Published H100 SXM peaks: float32 outside the tensor cores, HBM3, and
-# dense TF32 on the tensor cores (K1's 3×TF32 products).
+# dense TF32 on the tensor cores (the 3×TF32 products of K1, K6, K7).
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
 
@@ -346,13 +346,14 @@ def main_path(torch, counters, rows, canon, dev):
     return index, session, batches, launches
 
 
-def k1_bounds(b: int, n: int, f: int, n_bytes: int) -> tuple:
-    """K1's two bounds: (bound_ms, bound_by) of the work its design does,
-    the 3·2F TF32 products on the tensor cores beside the λ term's five
-    fp32 operations a pair, and bound_fp32_ms, the whole 2F + 5 a pair on
-    the fp32 CUDA cores."""
-    b_ms, b_by = bound(5.0 * b * n, n_bytes, tf32_ops=6.0 * b * n * f)
-    return b_ms, b_by, bound(b * n * (2.0 * f + 5), n_bytes)[0]
+def tc_bounds(b: int, n: int, f: int, tail: int, n_bytes: int) -> tuple:
+    """The two bounds of a tensor-core kernel (K1, K6, K7): (bound_ms,
+    bound_by) of the work its design does, the 3·2F TF32 products a pair
+    on the tensor cores beside ``tail`` fp32 operations a pair of its
+    score, and bound_fp32_ms, the whole 2F + tail a pair on the fp32 CUDA
+    cores."""
+    b_ms, b_by = bound(tail * b * n, n_bytes, tf32_ops=6.0 * b * n * f)
+    return b_ms, b_by, bound(b * n * (2.0 * f + tail), n_bytes)[0]
 
 
 def kernels_vs_plain(torch, index, batches, dev):
@@ -418,8 +419,9 @@ def kernels_vs_plain(torch, index, batches, dev):
         check(det_err <= TOL, "K1 det disagrees")
         k1_err = max(k1_err, err, det_err)
         pool = bt.binned_topk_pool(*args, **kw)
-        b_ms, b_by, b32_ms = k1_bounds(
-            BATCH, n, qhat.shape[1],
+        # K1's λ term: five fp32 operations a pair
+        b_ms, b_by, b32_ms = tc_bounds(
+            BATCH, n, qhat.shape[1], 5,
             nbytes(qhat, qlam, xhat[:n], xlam[:n], *pool))
         ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw))
         log(f"    K1 k={k}: ms={ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
@@ -467,6 +469,38 @@ def energy_exact(zq, qlam, z, lam, ids):
     num = (d * d).sum(-1).sqrt()
     dl = (qlam.double()[:, None] - lam[ids].double()).abs()
     return E_WD / (1.0 + num) - E_WL * dl - E_WD
+
+
+def flag_flips(name, fl, rfl, s, det, err) -> int:
+    """Flags (or certifications) of the kernel against the plain
+    version's: a row may differ only where its k-th score and its largest
+    det lie within twice the measured score error, a near-tie that
+    another rounding of the product can turn.  Returns how many rows
+    differ."""
+    diff = (fl != rfl).cpu()
+    if bool(diff.any()):
+        gap = (s[:, -1] - det.amax(dim=1)).abs().cpu()
+        check(float(gap[diff].max()) <= 2.0 * err,
+              f"{name}: a row differs from the plain version's outside a "
+              "near-tie")
+    return int(diff.sum())
+
+
+def d2_error(torch, zq, zx, pool, wd, rows: int = 512) -> tuple:
+    """Max abs error of K7's pooled d² and of u = w_D/(1+√d²) from it,
+    against float64 from the same float32 rows, over every live pool
+    entry of the first ``rows`` queries."""
+    from arrowspace_torch.ops.search import INT_MAX
+    rows = min(rows, zq.shape[0])
+    pi, pd = (t[:rows].reshape(rows, -1) for t in pool[1:3])
+    live = pi != INT_MAX
+    ids = torch.where(live, pi, torch.zeros_like(pi)).long()
+    d = zq[:rows].double()[:, None, :] - zx[ids].double()
+    d2 = (d * d).sum(-1)
+    d2_err = float((pd.double() - d2)[live].abs().max())
+    u = wd / (1.0 + pd.double().clamp_min(0.0).sqrt())
+    u_err = float((u - wd / (1.0 + d2.sqrt()))[live].abs().max())
+    return d2_err, u_err
 
 
 def energy_stream(torch, session, batches, dev, counters):
@@ -566,19 +600,27 @@ def energy_path(torch, counters, rows, canon, dev):
 def energy_vs_plain_scan(torch, index, exact, res_e, res_a, batches, dev):
     """Both sessions' first 256 rows of batch 0, the duplicated rows 0 and
     1 among them, against the plain chunked scan on the session's own
-    prepared queries."""
+    prepared queries and plane (the engine serves the z-plane centred on
+    its mean), and against float64 on the raw plane.  The plain scan of
+    the raw plane is logged beside them: its own float32 error."""
     from arrowspace_torch.ops.energy_bintopk import energy_topk_chunked
-    a = index.aspace
+    a, eng = index.aspace, exact.engine
     q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
     zq, qlam = exact.prepare(q)
     z = a.projected_items()
-    ps, pi = energy_topk_chunked(zq, qlam, z, a.lambdas, E_WL, E_WD, k=K)
+    ps, pi = energy_topk_chunked(eng.centred(zq), qlam, eng.zx[:eng.n],
+                                 eng.xlam[:eng.n], E_WL, E_WD, k=K)
     for name, res in (("exact", res_e), ("approx", res_a)):
         s0, i0 = res[0][0][:256], res[0][1][:256]
         agree(f"energy {name} session vs plain chunked scan (256 queries)",
               s0, i0, ps, pi, tol=E_TOL,
               exact=energy_exact(zq, qlam, z, a.lambdas,
                                  torch.as_tensor(i0, device=dev)))
+    rs, ri = energy_topk_chunked(zq, qlam, z, a.lambdas, E_WL, E_WD, k=K)
+    raw_err = float((energy_exact(zq, qlam, z, a.lambdas, ri) - rs).abs()
+                    .max())
+    log(f"  plain chunked scan of the raw (uncentred) plane vs float64: "
+        f"max_abs_err={raw_err:.3e}")
     log(f"  row 0 top-{K}: {res_e[0][1][0].tolist()}")
     log(f"  row 1 top-{K}: {res_e[0][1][1].tolist()}")
 
@@ -623,16 +665,18 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
         f"bitwise equal={rsqrt_eq}")
     check(rsqrt_eq, "rsqrtf and torch.rsqrt differ")
 
-    # K6 and K7 on batch 0, over each session's prepared corpus
+    # K6 and K7 on batch 0, over each session's prepared corpus (the
+    # z-plane centred on its mean, as the engine serves it)
     q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
-    zq, qlam = exact.prepare(q)
-    zq, qlam = zq.contiguous(), qlam.contiguous()
-    qn = (zq * zq).sum(dim=1)
     eng = exact.engine
+    zq, qlam = exact.prepare(q)
+    zq, qlam = eng.centred(zq).contiguous(), qlam.contiguous()
+    qn = (zq * zq).sum(dim=1)
     n, g = eng.n, zq.shape[1]
     depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
     z_n = eng.zx[:n]
-    chunks = bt._default_chunks(-(-BATCH // bt.fold_query_block(bins, 4)),
+    chunks = bt._default_chunks(eb.energy_grid_ctas(BATCH, bins, g,
+                                                    eb.K6_PAIRS),
                                 -(-n // bins), dev)
     args = (zq, qn, qlam, eng.zx, eng.xn, eng.xlam, eng.wl, eng.wd, n)
     kw = dict(depth=depth, bins=bins, chunks=chunks)
@@ -645,33 +689,43 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
                 tol=E_TOL, exact=energy_exact(zq, qlam, z_n, eng.xlam,
                                               out_k[1]))
     det_err = float((out_k[3] - out_p[3]).abs().max())
-    flags_eq = bool(torch.equal(out_k[2], out_p[2]))
+    flips = flag_flips("K6 flags", out_k[2], out_p[2], out_k[0], out_k[3],
+                       err)
     log(f"    flags kernel={int(out_k[2].sum())} plain={int(out_p[2].sum())} "
-        f"equal={flags_eq} det max_abs_err={det_err:.3e}")
-    check(det_err <= E_TOL and flags_eq, "K6 det or flags disagree")
+        f"rows differing (near-ties)={flips} det max_abs_err={det_err:.3e}")
+    check(det_err <= E_TOL, "K6 det disagrees")
     log(f"    matmul context (zq @ z.T, {BATCH}x{n}x{g}): "
         f"{matmul_ms(torch, zq, z_n):.3f} ms")
-    # per pair: the G-term dot (2G), d² (3), clamp (2), two rsqrt and
-    # four roundings of the tail (6), the λ term (4)
-    b_ms, b_by = bound(BATCH * n * (2.0 * g + 15),
-                       nbytes(zq, qn, qlam, z_n, eng.xn[:n], eng.xlam[:n],
-                              *pool))
+    # per pair: d² (3), clamp (2), two rsqrt and four roundings of the
+    # tail (6), the λ term (4)
+    b_ms, b_by, b32_ms = tc_bounds(
+        BATCH, n, g, 15, nbytes(zq, qn, qlam, z_n, eng.xn[:n],
+                                eng.xlam[:n], *pool))
+    ms = cuda_ms(lambda: eb.binned_energy_pool(*args, **kw))
+    log(f"    K6: ms={ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
+        f"bound_fp32_ms={b32_ms:.3f}")
     rec["energy_bintopk"] = dict(
-        max_abs_err=max(err, det_err),
-        ms=cuda_ms(lambda: eb.binned_energy_pool(*args, **kw)),
+        max_abs_err=max(err, det_err), ms=ms,
         plain_ms=cuda_ms(lambda: eb.binned_energy_pool_plain(*args, **kw),
                          reps=2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms, library_ms=None)
 
     ap = approx.engine
     ca, cb = ea._fit_chords(zq, qn, ap.z_samp, ap.xn_samp, ap.wd)
-    chunks = bt._default_chunks(-(-BATCH // bt.fold_query_block(bins, ea._QT)),
+    chunks = bt._default_chunks(eb.energy_grid_ctas(BATCH, bins, g,
+                                                    ea.K7_PAIRS),
                                 -(-n // bins), dev)
     args = (zq, qn, qlam, ca, cb, ap.zx, ap.xn, ap.xlam, ap.wl, n)
     kw = dict(depth=depth, bins=bins, chunks=chunks)
     pool = ea.binned_energy_approx_pool(*args, **kw)
     pool_p = ea.binned_energy_approx_pool_plain(*args, **kw)
-    d2_err = float((pool[2] - pool_p[2]).abs().max())
+    same = pool[1] == pool_p[1]      # slots holding the same row
+    d2_err = float((pool[2] - pool_p[2])[same].abs().max())
+    d2_64, u_64 = d2_error(torch, zq, ap.zx, pool, ap.wd)
+    log(f"    K7 pooled d² against float64 (first 512 queries, every live "
+        f"entry): d² max_abs_err={d2_64:.3e}, u = w_D/(1+√d²) "
+        f"max_abs_err={u_64:.3e}")
+    check(u_64 <= E_TOL, "K7's d² misses the energy tolerance")
     out_k = ea._flush_rescore_certify(*pool, qlam, ap.xlam, ap.wl, ap.wd, K)
     out_p = ea._flush_rescore_certify(*pool_p, qlam, ap.xlam, ap.wl, ap.wd,
                                       K)
@@ -680,22 +734,25 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
                 tol=E_TOL, exact=energy_exact(zq, qlam, z_n, ap.xlam,
                                               out_k[1]))
     det_err = float((pool[3] - pool_p[3]).abs().max())
-    flags_eq = bool(torch.equal(out_k[2], out_p[2]))
+    flips = flag_flips("K7 certification", out_k[2], out_p[2], out_k[0],
+                       pool[3].reshape(BATCH, -1) - ap.wd, err)
     log(f"    uncertified kernel={int(out_k[2].sum())} "
-        f"plain={int(out_p[2].sum())} equal={flags_eq} det max_abs_err="
-        f"{det_err:.3e} pooled d² max_abs_err={d2_err:.3e}")
-    check(det_err <= E_TOL and flags_eq, "K7 det or certification disagree")
-    # per pair: the dot (2G), d² (3), two chords and their max (6), the
-    # λ term (4)
-    b_ms, b_by = bound(BATCH * n * (2.0 * g + 13),
-                       nbytes(zq, qn, qlam, ca, cb, z_n, ap.xn[:n],
-                              ap.xlam[:n], *pool))
+        f"plain={int(out_p[2].sum())} rows differing (near-ties)={flips} "
+        f"det max_abs_err={det_err:.3e} pooled d² vs plain (slots "
+        f"holding the same row) max_abs_err={d2_err:.3e}")
+    check(det_err <= E_TOL, "K7 det disagrees")
+    # per pair: d² (3), two chords and their max (6), the λ term (4)
+    b_ms, b_by, b32_ms = tc_bounds(
+        BATCH, n, g, 13, nbytes(zq, qn, qlam, ca, cb, z_n, ap.xn[:n],
+                                ap.xlam[:n], *pool))
+    ms = cuda_ms(lambda: ea.binned_energy_approx_pool(*args, **kw))
+    log(f"    K7: ms={ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
+        f"bound_fp32_ms={b32_ms:.3f}")
     rec["energy_chord"] = dict(
-        max_abs_err=max(err, det_err),
-        ms=cuda_ms(lambda: ea.binned_energy_approx_pool(*args, **kw)),
+        max_abs_err=max(err, det_err), ms=ms,
         plain_ms=cuda_ms(lambda: ea.binned_energy_approx_pool_plain(
             *args, **kw), reps=2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms, library_ms=None)
     return rec
 
 
@@ -811,9 +868,9 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     agree(f"K1 bintopk F={W_FEAT} k={K} chunks={chunks}", out_k[0],
           out_k[1], out_p[0], out_p[1],
           exact=exact_scores(qhat, qlam, xhat, xlam, c1, out_k[1]) + c1)
-    b1_ms, b1_by, b32_ms = k1_bounds(
-        BATCH, rows, W_FEAT, nbytes(qhat, qlam, xhat[:rows], xlam[:rows],
-                                    *bt.binned_topk_pool(*args, **kw)))
+    b1_ms, b1_by, b32_ms = tc_bounds(
+        BATCH, rows, W_FEAT, 5, nbytes(qhat, qlam, xhat[:rows], xlam[:rows],
+                                       *bt.binned_topk_pool(*args, **kw)))
     k1_ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw), reps=3)
     log(f"    K1 at F={W_FEAT}: ms={k1_ms:.3f} bound_ms={b1_ms:.3f} "
         f"({b1_by}) bound_fp32_ms={b32_ms:.3f}")

@@ -13,8 +13,11 @@ import torch
 from arrowspace_tpu.ops.pallas_bintopk import binned_lambda_topk as j_binned
 from arrowspace_tpu.ops.pallas_topk import fused_lambda_topk as j_merge
 from arrowspace_tpu.ops.search import batched_lambda_aware_topk as j_plain
+from arrowspace_torch.energymaps import energy_binned_fits
 from arrowspace_torch.ops import bin_repair as br
 from arrowspace_torch.ops import bintopk as bt
+from arrowspace_torch.ops import energy_approx as ea
+from arrowspace_torch.ops import energy_bintopk as eb
 from arrowspace_torch.ops import topk as tk
 from arrowspace_torch.ops.search import (INT_MAX, NEG_INF,
                                          batched_lambda_aware_topk,
@@ -267,23 +270,39 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tensor_core_dot(q, x, terms):
-    """The dot products of K1 (csrc/bintopk.cu): F padded with zeros to
-    whole 8-feature k-steps; at each step the listed TF32 products, in
-    order, each summed exactly and rounded once into the float32
-    accumulator, as one m16n8k8 mma.sync does."""
+def _trunc32(v: torch.Tensor) -> torch.Tensor:
+    """float64 values rounded toward zero to float32."""
+    r = v.float()
+    over = r.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tensor_core_dot(q, x, terms, *, truncate=False, partial=None):
+    """The dot products of K1 (csrc/bintopk.cu) and the energy tile
+    (csrc/energy_tile.cuh): F padded with zeros to whole 8-feature
+    k-steps; at each step the listed TF32 products, in order, each summed
+    exactly into the float32 accumulator as one m16n8k8 mma.sync does,
+    and rounded to nearest or, with ``truncate``, toward zero (the tensor
+    core's accumulate truncates).  With ``partial``, every run of that
+    many features sums into a zeroed partial that one rounded float32 add
+    joins to the dot product (both kernels: 64)."""
     fp = -(-q.shape[1] // 8) * 8
     q = torch.nn.functional.pad(q, (0, fp - q.shape[1]))
     x = torch.nn.functional.pad(x, (0, fp - x.shape[1]))
     qh, xh = _tf32_rna(q), _tf32_rna(x)
     parts = {"qh": qh, "ql": _tf32_rna(q - qh), "xh": xh,
              "xl": _tf32_rna(x - xh)}
+    rnd = _trunc32 if truncate else (lambda v: v.float())
+    step = partial or fp
     acc = torch.zeros(q.shape[0], x.shape[0], dtype=torch.float32)
-    for k0 in range(0, fp, 8):
-        for qp, xp in terms:
-            a = parts[qp][:, k0:k0 + 8].double()
-            b = parts[xp][:, k0:k0 + 8].double()
-            acc = (acc.double() + a @ b.T).float()
+    for p0 in range(0, fp, step):
+        part = torch.zeros_like(acc)
+        for k0 in range(p0, min(fp, p0 + step), 8):
+            for qp, xp in terms:
+                a = parts[qp][:, k0:k0 + 8].double()
+                b = parts[xp][:, k0:k0 + 8].double()
+                part = rnd(part.double() + a @ b.T)
+        acc = (acc.double() + part.double()).float()
     return acc
 
 
@@ -331,8 +350,10 @@ def test_k1_gate_for_the_tensor_core_layout(bins, f, qs, qb):
     128, 64, 32 whose shared memory fits (the block's rows at stride
     ceil8(F) + 4, two slices of 4096/qb rows × 64 features at stride 68)
     and a grid axis over the groups of 4096/qb bins.  The gate is the
-    32-query block's, the same at every bin count; the fold's own gate
-    (K6, K7) is the one it was."""
+    32-query block's, the same at every bin count.  The energy tile (K6,
+    K7) stages a query slice beside each corpus slice, so its gate admits
+    every z-width, those the fp32 fold admitted among them, and its
+    query block is 128 only where the z-plane is one 64-feature slice."""
     smem = (qb * qs + 2 * (4096 // qb) * 68) * 4
     assert smem <= 227 * 1024 and bt.bintopk_fits(f)
     assert bt.query_block(f, 2048) == qb
@@ -345,9 +366,20 @@ def test_k1_gate_for_the_tensor_core_layout(bins, f, qs, qb):
     assert bt.grid_ctas(2048, bins, f) == 64 * (bins // 128)
     assert bt.grid_ctas(37, bins, f) == -(-37 // min(qb, 64)) * (
         bins * min(qb, 64) // 4096)
+    # the fp32 fold's widest z-plane at this bin count, and wider
     widest = {128: 1268, 256: 1452, 512: 2652}[bins]
-    assert bt.fold_fits(widest, bins) and not bt.fold_fits(widest + 1, bins)
-    assert bt.fold_query_block(bins, 4) == 32 * 128 // bins
+    k = {128: 10, 256: 20, 512: 64}[bins]
+    assert bt.bins_target(k) == bins
+    for g in (1, f, widest, widest + 1, 4 * widest):
+        assert energy_binned_fits(1_000_000, k, g)
+    eqb = 128 if f <= 64 else 64
+    assert eb.energy_query_block(f, 2048) == eqb
+    assert eb.energy_query_block(f, 37) == 64
+    assert eb.energy_query_block(f, 1) == 32
+    # B = 2048: K6 64 CTAs per 128 bins, as K1; K7 (8 pairs a thread) 128
+    assert eb.energy_grid_ctas(2048, bins, f, eb.K6_PAIRS) == bins // 2
+    assert eb.energy_grid_ctas(2048, bins, f, ea.K7_PAIRS) == bins
+    assert eb.energy_grid_ctas(37, bins, f, ea.K7_PAIRS) == bins * 64 // 2048
     # whole waves on 132 SMs at B = 2048 and 1M rows
     n_tiles = -(-1_000_000 // bins)
     want = {128: 2, 256: 1, 512: 1}[bins]

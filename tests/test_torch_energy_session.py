@@ -192,8 +192,13 @@ def test_approx_needs_the_binned_engine():
 @pytest.mark.parametrize("n,k,g,kernel", [
     (ENERGY_CHUNK + 1, 10, 64, "binned"), (ENERGY_CHUNK, 10, 64, "chunked"),
     (1_000_000, 128, 64, "binned"), (1_000_000, 129, 64, "chunked"),
-    (1_000_000, 10, 4096, "chunked")])
+    (1_000_000, 10, 4096, "binned"), (1_000_000, 64, 2652, "binned"),
+    (1_000_000, 10, 1268, "binned")])
 def test_energy_session_gate_is_keyed_on_size(n, k, g, kernel):
+    """The energy tile takes any z-width (its shared memory does not grow
+    with G), so only N and k choose the engine: every width the fp32
+    fold's gate admitted (G <= 1268 at 128 bins, 2652 at 512) and wider
+    ones take the binned engine."""
     assert energy_session_config(n, k, g) == kernel
     assert energy_binned_fits(n, k, g) == (kernel == "binned")
 

@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Ablation of the binned top-k kernels K1 (csrc/bintopk.cu), K6
+(csrc/energy_bintopk.cu) and K7 (csrc/energy_chord.cu) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc:
+
+    python3 tools/kernel_ablation.py [--kernels k1,k6,k7] [--before DIR]
+
+Where no kernel profiler can be used, this is the way to see what bounds
+a kernel: it compiles copies of the kernel's sources with one part taken
+out (by text substitution; every substitution must match, or the script
+fails) and times each copy on the same inputs at the serving shapes:
+
+- K1: 1,000,000 clustered unit rows at F = 128 and F = 768, B = 2048
+  α-scaled queries, 128 bins, depth 3;
+- K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
+  clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
+  Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
+  rows ×1.02, w_λ = 1, w_D = 0.5, 128 bins, depth 3; the plane centred
+  on its mean as the binned energy engine serves it, and (precision
+  variants) uncentred too.
+
+Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
+network or det), "no_staging" (the first slice only), "no_product",
+"product_only", "staging_only"; K1 also "one_tf32" and "lo_truncated";
+K6 and K7 also "partial_8/16/64" (the truncating accumulate summed in
+zeroed partials of 8, 16 or 64 features instead of the shipped 32).
+A variant with a part removed computes garbage: only "kernel" is checked
+against the plain version.  For K6 and K7 every variant that keeps the
+product also reports its error against float64: K6's pool scores, K7's
+pooled d² and u = w_D/(1+√d²) from it, over the first 512 queries.
+
+``--before DIR`` also ablates the K6 and K7 of another checkout's csrc
+directory (DIR), for instance the fp32 fold of an earlier commit
+unpacked with ``git archive``; its C entry points must be the same.  For
+K1 it builds DIR's kernel beside this one, times both, and compares
+their machine code (cuobjdump -sass) instantiation by instantiation.
+
+Output: the card's name and power limit, each variant's registers and
+spills by instantiation (ptxas), then one line per (kernel, plane,
+variant) with its mean milliseconds over 5 launches (CUDA events, after
+one warm-up).  Build outputs go to arrowspace_torch/_build/ablation/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from arrowspace_torch.ops import bintopk as bt  # noqa: E402
+from arrowspace_torch.ops import energy_approx as ea  # noqa: E402
+from arrowspace_torch.ops import energy_bintopk as eb  # noqa: E402
+from arrowspace_torch.ops._build import (CSRC, FLAGS, SIGNATURES,  # noqa
+                                         _nvcc)
+from arrowspace_torch.ops.search import INT_MAX, prepare_query  # noqa: E402
+
+OUT = ROOT / "arrowspace_torch" / "_build" / "ablation"
+N, B, BINS, DEPTH, K = 1_000_000, 2048, 128, 3, 10
+WL, WD = 1.0, 0.5
+
+# (file, old, new) substitutions of each part, by kernel and design
+K1_PARTS = {
+    "product": [("bintopk.cu", "mma_kstep(part, qa + kk, QS, xb + kk);",
+                 "(void)0;")],
+    "fold": [("bintopk.cu", "if (gr < a.n) {",
+              "if (gr < a.n && a.c1 > 1e30f) {")],
+    "staging": [("bintopk.cu",
+                 "    if (step + 1 < steps) {\n      const bool wrap",
+                 "    if (false) {\n      const bool wrap")],
+}
+TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
+    "product": [("energy_tile.cuh", "      tile_product_full<NT>(acc, qa, xb);",
+                 "      (void)0;"),
+                ("energy_tile.cuh",
+                 "      tile_product<NT>(acc, qa, xb, fk);", "      (void)0;")],
+    "fold": [("energy_tile.cuh", "if (gr < a.n) {",
+              "if (gr < a.n && a.n < 0) {")],
+    "staging": [("energy_tile.cuh",
+                 "    if (step + 1 < steps) {\n      const bool wrap",
+                 "    if (false) {\n      const bool wrap")],
+}
+FOLD_PARTS = {   # the fp32 fold of earlier commits (binned_fold.cuh)
+    "product": [("binned_fold.cuh",
+                 "fma_group<BINS, G, QG, QT>(acc, qb, QS, xb, ff, tx, ty);",
+                 "(void)0;")],
+    "fold": [("binned_fold.cuh", "if (g < n) {", "if (g < n && n < 0) {")],
+    "staging": [("binned_fold.cuh",
+                 "    if (step + 1 < steps) {\n      const bool wrap",
+                 "    if (false) {\n      const bool wrap")],
+}
+
+
+def variants(parts: dict, extra: dict) -> dict:
+    p = parts
+    return {"kernel": [], "no_fold": p["fold"], "no_staging": p["staging"],
+            "no_product": p["product"],
+            "product_only": p["staging"] + p["fold"],
+            "staging_only": p["product"] + p["fold"], **extra}
+
+
+K1_VARIANTS = variants(K1_PARTS, {
+    "one_tf32": [("binned_fold.cuh",
+                  "    mma_tf32(acc[j], alo, bhi0, bhi1);\n"
+                  "    mma_tf32(acc[j], ahi, blo0, blo1);\n", "")],
+    # lo passed unrounded: the tensor core then reads its top 19 bits
+    "lo_truncated": [("binned_fold.cuh",
+                      "  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));",
+                      "  lo = __float_as_uint(__fsub_rn(v, "
+                      "__uint_as_float(hi)));")]})
+TILE_VARIANTS = variants(TILE_PARTS, {
+    f"partial_{pk}": [("energy_tile.cuh", "constexpr int kPartial = 32;",
+                       f"constexpr int kPartial = {pk};")]
+    for pk in (8, 16, 64)})
+FOLD_VARIANTS = variants(FOLD_PARTS, {})
+SOURCES = {"k1": "bintopk.cu", "k6": "energy_bintopk.cu",
+           "k7": "energy_chord.cu"}
+ENTRY = {"k1": "asp_bintopk", "k6": "asp_energy_bintopk",
+         "k7": "asp_energy_chord"}
+
+
+def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
+    """One shared library per variant, all nvcc runs started together;
+    prints each variant's registers and spills by instantiation."""
+    procs = {}
+    for name, subs in table.items():
+        src = OUT / f"{tag}_{kernel}_{name}"
+        if src.exists():
+            shutil.rmtree(src)
+        shutil.copytree(csrc, src)
+        for fname, old, new in subs:
+            path = src / fname
+            text = path.read_text()
+            if text.count(old) < 1:
+                raise SystemExit(f"{tag} {kernel} {name}: substitution "
+                                 f"{old!r} not found in {fname}")
+            path.write_text(text.replace(old, new))
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *FLAGS, "-shared", "-I", str(src), "-o",
+             str(src / "lib.so"), str(src / SOURCES[kernel])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {tag} {kernel} {name}:\n{log}")
+        regs = re.findall(r"Compiling entry function '(\w+)'.*?\n(?:.*\n)*?"
+                          r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) "
+                          r"registers", log)
+        summary = ", ".join(f"{short(fn)}: {r} regs"
+                            + (f" {sp} B spilled" if sp != "0" else "")
+                            for fn, sp, r in regs if "kernel" in fn)
+        print(f"{tag} {kernel} {name}: {summary}", flush=True)
+        lib = ctypes.CDLL(str(OUT / f"{tag}_{kernel}_{name}" / "lib.so"))
+        fn = getattr(lib, ENTRY[kernel])
+        fn.argtypes = list(SIGNATURES[ENTRY[kernel]])
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def short(mangled: str) -> str:
+    """'depth,query block' of a mangled kernel instantiation."""
+    nums = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)
+    return ",".join(nums[0]) if nums else mangled[:40]
+
+
+def chunking(ctas: int, dev) -> tuple:
+    """(chunks, tiles per chunk) as the wrappers choose them."""
+    n_tiles = -(-N // BINS)
+    tpc = -(-n_tiles // bt._default_chunks(ctas, n_tiles, dev))
+    return -(-n_tiles // tpc), tpc
+
+
+def time_ms(call) -> float:
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 5
+
+
+def clustered(dev, n: int, f: int, seed: int):
+    """chip_smoke.py's corpus kind, made on the card: 64 centres in
+    [0.2, 0.8], noise 0.05."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cen = torch.rand(64, f, device=dev, generator=gen) * 0.6 + 0.2
+    pick = torch.randint(0, 64, (n,), device=dev, generator=gen)
+    return cen[pick] + 0.05 * torch.randn(n, f, device=dev, generator=gen), \
+        gen
+
+
+def k1_inputs(dev, f: int):
+    x, gen = clustered(dev, N, f, seed=f)
+    xl = torch.rand(N, device=dev, generator=gen) * 0.2
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(x[:B] * 1.02, 0.9, dtype=torch.float32)
+    return qh.contiguous(), xl[:B].contiguous(), xh, xlh, c1
+
+
+def sass(kernel: str, tag: str) -> dict:
+    """{'depth,query block': [instructions]} of a built K1 variant."""
+    tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(
+        OUT / f"{tag}_{kernel}_kernel" / "lib.so")], capture_output=True,
+        text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            key = short(name) if "bintopk_kernel" in name else None
+            if key:
+                out[key] = []
+        elif key and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            out[key].append(line.split("*/", 1)[1].split(";")[0].strip())
+    return out
+
+
+def run_k1(libs, dev, tag: str = "now") -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    for f in (128, 768):
+        qh, ql, xh, xlh, c1 = k1_inputs(dev, f)
+        chunks, tpc = chunking(bt.grid_ctas(B, BINS, f), dev)
+        ps = torch.empty((B, chunks, DEPTH, BINS), device=dev)
+        pi = torch.empty_like(ps, dtype=torch.int32)
+        det = torch.empty((B, chunks, BINS), device=dev)
+        for name, fn in libs.items():
+            def call():
+                rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                        xlh.data_ptr(), c1, N, B, f, BINS, DEPTH, chunks,
+                        tpc, ps.data_ptr(), pi.data_ptr(), det.data_ptr(),
+                        stream)
+                if rc != 0:
+                    raise SystemExit(f"k1 {name}: launch failed ({rc})")
+            line = f"{tag} k1 F={f} {name}: {time_ms(call):.3f} ms"
+            if name == "kernel":
+                rs, _, rdet = bt.binned_topk_pool_plain(
+                    qh, ql, xh, xlh, c1, N, depth=DEPTH, bins=BINS,
+                    chunks=chunks)
+                err = max(float((ps - rs).abs().max()),
+                          float((det - rdet).abs().max()))
+                line += f" (max_abs_err vs plain {err:.3e})"
+                if err > 1e-5:
+                    print(line, flush=True)
+                    raise SystemExit("K1 disagrees with its plain version")
+            print(line, flush=True)
+        del qh, ql, xh, xlh, ps, pi, det
+        torch.cuda.empty_cache()
+
+
+def energy_plane(dev, centred: bool):
+    """(zq, qn, qlam, zx, xn, xlam) of the smoke's z-plane."""
+    x, gen = clustered(dev, N, 128, seed=11)
+    proj = torch.randn(128, 64, generator=torch.Generator().manual_seed(11),
+                       dtype=torch.float64).to(dev, torch.float32) / 8.0
+    z = x @ proj
+    zq = (x[:B] * 1.02) @ proj
+    lam = torch.rand(N, device=dev, generator=gen) * 0.05
+    qlam = lam[:B] + 0.001
+    if centred:
+        mu = z.mean(dim=0)
+        z, zq = z - mu, zq - mu
+    zx, xlam, xn = eb.prepare_binned_energy_corpus(z, lam)
+    zq = zq.contiguous()
+    return zq, (zq * zq).sum(dim=1), qlam.contiguous(), zx, xn, xlam
+
+
+def energy_errors(kernel, zq, qlam, zx, xlam, out, rows: int = 512) -> str:
+    """The kernel's error against float64 over the live pool entries of
+    the first ``rows`` queries: K6's scores; K7's d² and u from it."""
+    pi = out[1][:rows].reshape(rows, -1)
+    live = pi != INT_MAX
+    ids = torch.where(live, pi, torch.zeros_like(pi)).long()
+    d = zq[:rows].double()[:, None, :] - zx[ids].double()
+    d2 = (d * d).sum(-1)
+    u = WD / (1.0 + d2.sqrt())
+    if kernel == "k6":
+        ref = u - WL * (qlam[:rows].double()[:, None]
+                        - xlam[ids].double()).abs()
+        err = (out[0][:rows].reshape(rows, -1).double() - ref)[live]
+        return f"score err vs f64 {float(err.abs().max()):.3e}"
+    pd = out[2][:rows].reshape(rows, -1).double()
+    d2_err = float((pd - d2)[live].abs().max())
+    u_err = float((WD / (1.0 + pd.clamp_min(0).sqrt()) - u)[live].abs().max())
+    return f"d2 err vs f64 {d2_err:.3e}, u err {u_err:.3e}"
+
+
+def run_energy(kernel, libs, dev, tag, centred: bool) -> None:
+    zq, qn, qlam, zx, xn, xlam = energy_plane(dev, centred)
+    pairs = eb.K6_PAIRS if kernel == "k6" else ea.K7_PAIRS
+    chunks, tpc = chunking(eb.energy_grid_ctas(B, BINS, 64, pairs), dev)
+    shape = (B, chunks, DEPTH, BINS)
+    ps = torch.empty(shape, device=dev)
+    pi = torch.empty(shape, device=dev, dtype=torch.int32)
+    pd = torch.empty(shape, device=dev)
+    det = torch.empty((B, chunks, BINS), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "k7":
+        z_s, xn_s = ea.prepare_energy_chord_sample(zx, xn, N)
+        ca, cb = ea._fit_chords(zq, qn, z_s, xn_s, WD)
+    plane = "centred" if centred else "uncentred"
+    for name, fn in libs.items():
+        if not centred and name not in ("kernel",) \
+                and not name.startswith("partial"):
+            continue
+
+        def call():
+            if kernel == "k6":
+                rc = fn(zq.data_ptr(), qn.data_ptr(), qlam.data_ptr(),
+                        zx.data_ptr(), xn.data_ptr(), xlam.data_ptr(), WL,
+                        WD, N, B, 64, BINS, DEPTH, chunks, tpc,
+                        ps.data_ptr(), pi.data_ptr(), det.data_ptr(), stream)
+            else:
+                rc = fn(zq.data_ptr(), qn.data_ptr(), qlam.data_ptr(),
+                        ca.data_ptr(), cb.data_ptr(), zx.data_ptr(),
+                        xn.data_ptr(), xlam.data_ptr(), WL, N, B, 64, BINS,
+                        DEPTH, chunks, tpc, ps.data_ptr(), pi.data_ptr(),
+                        pd.data_ptr(), det.data_ptr(), stream)
+            if rc != 0:
+                raise SystemExit(f"{tag} {kernel} {name}: launch failed "
+                                 f"({rc})")
+        line = (f"{tag} {kernel} {plane} chunks={chunks} {name}: "
+                f"{time_ms(call):.3f} ms")
+        if name == "kernel" or name.startswith("partial"):
+            out = (ps, pi) if kernel == "k6" else (ps, pi, pd)
+            line += "; " + energy_errors(kernel, zq, qlam, zx, xlam, out)
+        if name == "kernel":
+            kw = dict(depth=DEPTH, bins=BINS, chunks=chunks)
+            if kernel == "k6":
+                rs, _, rdet = eb.binned_energy_pool_plain(
+                    zq, qn, qlam, zx, xn, xlam, WL, WD, N, **kw)
+            else:
+                rs, _, _, rdet = ea.binned_energy_approx_pool_plain(
+                    zq, qn, qlam, ca, cb, zx, xn, xlam, WL, N, **kw)
+            err = max(float((ps - rs).abs().max()),
+                      float((det - rdet).abs().max()))
+            line += f"; max_abs_err vs plain {err:.3e}"
+            if err > 5e-5 and centred:
+                print(line, flush=True)
+                raise SystemExit(f"{tag} {kernel} disagrees with its plain "
+                                 "version")
+        print(line, flush=True)
+    del zq, qn, qlam, zx, xn, xlam, ps, pi, pd, det
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="k1,k6,k7")
+    ap.add_argument("--before", type=pathlib.Path, default=None,
+                    help="csrc directory of another checkout (K6, K7)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    kernels = args.kernels.split(",")
+    if "k1" in kernels:
+        libs = build("k1", CSRC, K1_VARIANTS, "now")
+        if args.before is not None:
+            old = build("k1", args.before.resolve(), {"kernel": []},
+                        "before")
+            a, b = sass("k1", "before"), sass("k1", "now")
+            for key in sorted(b):
+                print(f"k1 {key}: {len(b[key])} instructions, machine code "
+                      f"equal to --before's: {a.get(key) == b[key]}",
+                      flush=True)
+            run_k1(old, dev, "before")
+        run_k1(libs, dev)
+    for kernel in ("k6", "k7"):
+        if kernel not in kernels:
+            continue
+        runs = [("now", CSRC, TILE_VARIANTS)]
+        if args.before is not None:
+            runs.append(("before", args.before.resolve(), FOLD_VARIANTS))
+        for tag, csrc, table in runs:
+            libs = build(kernel, csrc, table, tag)
+            for centred in (True, False):
+                run_energy(kernel, libs, dev, tag, centred)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
