@@ -3,9 +3,10 @@
 PyTorch counterpart of ``arrowspace_tpu.core`` (reference:
 core.rs:84-1006).  ArrowSpace keeps the N×F item matrix and the per-item
 λ vector on one device in one dtype; searches are batched products plus
-an exact top-k (ops/search.py), or the binned kernel with exact repair on
-large corpora (binned_fits, the one engine gate, which the serving session
-shares).
+an exact top-k (ops/search.py), or on large corpora the binned kernel
+with exact repair (binned_fits) or, where K1 does not admit F, the exact
+merge kernel (merge_fits): the engine gates, which the serving session
+shares.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from .config import resolve
 from .ops.bintopk import bintopk_fits
 from .ops.search import batched_lambda_aware_topk, binned_topk_with_repair
+from .ops.topk import fused_lambda_topk
 from .reduction import ImplicitProjection
 from .taumode import (TAUDEFAULT, TauMode, select_tau, select_tau_batch,
                       synthetic_lambda_batch, synthetic_lambda_single)
@@ -27,9 +29,9 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.core")
 
 __all__ = ["ArrowItem", "ArrowSpace", "BINNED_MIN_ITEMS", "BINNED_MAX_K",
-           "binned_fits"]
+           "binned_fits", "merge_fits"]
 
-# Corpus size and k from which the binned kernel serves (core.py:422-442
+# Corpus size and k from which the streaming kernels serve (core.py:422-442
 # of the JAX package).
 BINNED_MIN_ITEMS = 65536
 BINNED_MAX_K = 128
@@ -38,11 +40,19 @@ BINNED_MAX_K = 128
 def binned_fits(nitems: int, k: int, f: int) -> bool:
     """Whether the binned kernel (K1) with exact repair serves this size:
     at least BINNED_MIN_ITEMS rows, k up to BINNED_MAX_K and F within
-    K1's shared-memory gate.  The one engine gate of both search and the
+    K1's shared-memory gate.  An engine gate of both search and the
     serving session, keyed on size alone: a CPU index runs the same engine
     as a CUDA one, through the kernels' plain versions."""
-    return (nitems >= BINNED_MIN_ITEMS and k <= BINNED_MAX_K
-            and bintopk_fits(f))
+    return merge_fits(nitems, k) and bintopk_fits(f)
+
+
+def merge_fits(nitems: int, k: int) -> bool:
+    """Whether the streaming kernels serve this size: at least
+    BINNED_MIN_ITEMS rows and k up to BINNED_MAX_K.  Where it holds and
+    binned_fits does not (F above K1's gate), the exact merge kernel (K3)
+    serves, at any F (core.py:429-439 of the JAX package).  Keyed on size
+    alone, as binned_fits is."""
+    return nitems >= BINNED_MIN_ITEMS and k <= BINNED_MAX_K
 
 
 class ArrowItem:
@@ -216,5 +226,8 @@ class ArrowSpace:
         if binned_fits(self.nitems, k_eff, self.nfeatures):
             return binned_topk_with_repair(q, ql, self.data, self.lambdas,
                                            alpha, k=k_eff)
+        if merge_fits(self.nitems, k_eff):
+            return fused_lambda_topk(q, ql, self.data, self.lambdas, alpha,
+                                     k=k_eff)
         return batched_lambda_aware_topk(q, ql, self.data, self.lambdas,
                                          alpha, k=k_eff)

@@ -1,9 +1,12 @@
-// What the binned top-k kernels share: K1 (bintopk.cu, λ-aware cosine
-// score) and K6/K7 (the energy tile, energy_tile.cuh).  Each keeps, per
-// (query, bin), a running top-DEPTH in registers where its tensor-core
-// accumulators are; this header holds the two pieces they have in common:
-// - the staging of a corpus tile's feature slice into shared memory by
-//   cp.async (stage_slice), two buffers a kernel, one barrier a step;
+// What the tensor-core top-k kernels share: K1 (bintopk.cu, λ-aware
+// cosine score), K6/K7 (the energy tile, energy_tile.cuh) and K3
+// (merge_topk.cu, the exact merge top-k of K1's score).  K1, K6 and K7
+// keep, per (query, bin), a running top-DEPTH in registers where their
+// tensor-core accumulators are; K3 keeps each query's top-k in shared
+// memory.  This header holds the pieces they have in common:
+// - the staging of a tile's feature slice into shared memory by cp.async
+//   (stage_slice for a bin tile of the corpus, stage_rows for any run of
+//   rows), two buffers a kernel, one barrier a step;
 // - the 3×TF32 product on the tensor cores (mma_kstep): mma.sync m16n8k8
 //   TF32, every fp32 value v split in registers into hi = rna(v) and
 //   lo = rna(v - hi), and lo·hi, hi·lo, hi·hi accumulated in fp32 at each
@@ -83,6 +86,40 @@ __device__ __forceinline__ void stage_slice(float* dst,
       for (int e = 0; e < 4; ++e) {
         if (f + e < F)
           cp_async4(d + e, src + e);
+        else
+          d[e] = 0.0f;
+      }
+    }
+  }
+}
+
+// Issues the copy of rows r0 .. r0+ROWS-1 of a row-major (·, F) matrix,
+// features f0 .. f0+kTileFK-1, into dst[ROWS][kTileXS]; rows at or past
+// r_end and features at or past F are stored as zeros.  vec: F is a
+// multiple of 4 and the rows are 16-byte aligned.  The energy tile stages
+// its query slices with it, K3 both its query and its corpus slices.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int r0, int r_end, int F, int f0,
+                                           bool vec, int tid) {
+  constexpr int kC4 = kTileFK / 4;
+  for (int idx = tid; idx < ROWS * kC4; idx += kThreads) {
+    const int r = idx / kC4, c = idx % kC4;
+    const int f = f0 + 4 * c;
+    float* d = dst + r * kTileXS + 4 * c;
+    const bool live = r0 + r < r_end;
+    const float* s = src + (size_t)(r0 + r) * F + f;
+    if (vec) {
+      if (live && f < F)
+        cp_async16(d, s);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (live && f + e < F)
+          cp_async4(d + e, s + e);
         else
           d[e] = 0.0f;
       }

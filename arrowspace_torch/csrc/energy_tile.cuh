@@ -75,38 +75,6 @@ struct TileArgs {
   float* det;
 };
 
-// Issues the copy of query rows q0 .. q0+QB-1, features f0 .. f0+63 into
-// dst[QB][kXS]; rows at or past B and features at or past G are stored
-// as zeros.  vec: G is a multiple of 4 and the rows are 16-byte aligned.
-template <int QB>
-__device__ __forceinline__ void stage_queries(float* dst,
-                                              const float* __restrict__ q,
-                                              int q0, int B, int G, int f0,
-                                              bool vec, int tid) {
-  constexpr int kC4 = kFK / 4;
-  for (int idx = tid; idx < QB * kC4; idx += kThreads) {
-    const int r = idx / kC4, c = idx % kC4;
-    const int f = f0 + 4 * c;
-    float* d = dst + r * kXS + 4 * c;
-    const bool live = q0 + r < B;
-    const float* src = q + (size_t)(q0 + r) * G + f;
-    if (vec) {
-      if (live && f < G)
-        asp_fold::cp_async16(d, src);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (live && f + e < G)
-          asp_fold::cp_async4(d + e, src + e);
-        else
-          d[e] = 0.0f;
-      }
-    }
-  }
-}
-
 // acc += the 3×TF32 products of features [0, fk) of the staged slices,
 // in zeroed partials of kPartial features.
 template <int NT>
@@ -179,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   if (steps > 0) {
     asp_fold::stage_slice<kBG>(xs, a.xrows, (int64_t)t_begin * bins + b0,
                                a.G, 0, xvec, tid);
-    stage_queries<QB>(qs, a.qrows, q0, a.B, a.G, 0, qvec, tid);
+    asp_fold::stage_rows<QB>(qs, a.qrows, q0, a.B, a.G, 0, qvec, tid);
   }
   asp_fold::cp_async_commit();
 
@@ -225,8 +193,8 @@ __global__ void __launch_bounds__(kThreads)
                                  (int64_t)(wrap ? t + 1 : t) * bins + b0,
                                  a.G, f1, xvec, tid);
       if (restage)
-        stage_queries<QB>(qs + nb * QB * kXS, a.qrows, q0, a.B, a.G, f1,
-                          qvec, tid);
+        asp_fold::stage_rows<QB>(qs + nb * QB * kXS, a.qrows, q0, a.B, a.G,
+                                 f1, qvec, tid);
     }
     asp_fold::cp_async_commit();
 

@@ -15,7 +15,8 @@ PyTorch counterpart of ``arrowspace_tpu.index``:
 A serving step is query-λ preparation (τ selection + synthetic λ on the
 device) followed by the scoring + top-k kernel chosen by
 session_kernel_kind: the binned kernel (K1) with exact strided repair of
-flagged rows, or the plain product + stable sort.  The stream loop keeps
+flagged rows, the exact merge kernel (K3) where K1 does not admit F, or
+the plain product + stable sort.  The stream loop keeps
 ``depth`` batches in flight: batch i+1 is enqueued on the current stream
 before batch i's results are waited for.
 """
@@ -29,11 +30,12 @@ import numpy as np
 import torch
 
 from .builder import ArrowSpaceBuilder
-from .core import ArrowItem, ArrowSpace, binned_fits
+from .core import ArrowItem, ArrowSpace, binned_fits, merge_fits
 from .graph import GraphLaplacian
 from .ops.bin_repair import BinnedEnergyTopK, BinnedTopK
-from .ops.bintopk import bins_target
+from .ops.bintopk import bins_target, prepare_binned_corpus
 from .ops.search import batched_lambda_aware_topk, rescore_topk_f64
+from .ops.topk import fused_lambda_topk
 from .sampling import SamplerType
 from .taumode import TauMode, select_tau_batch, synthetic_lambda_batch
 from .utils.log import get_logger
@@ -47,8 +49,11 @@ __all__ = ["ArrowIndex", "SearchSession", "EnergySearchSession",
 def session_kernel_kind(nitems: int, k: int, f: int) -> str:
     """The serving step's top-k engine, keyed on size, never on the
     device: "binned" (K1 plus exact repair) where core.binned_fits admits
-    the size, else "plain"."""
-    return "binned" if binned_fits(nitems, k, f) else "plain"
+    the size, "merge" (K3, exact, no repair) where only core.merge_fits
+    does (F above K1's gate), else "plain"."""
+    if binned_fits(nitems, k, f):
+        return "binned"
+    return "merge" if merge_fits(nitems, k) else "plain"
 
 
 def stream_search(step, batches, batch_size: int, depth: int, device,
@@ -138,9 +143,11 @@ class SearchSession:
     """Pipelined streaming search for serving.
 
     One step per batch fuses query-λ preparation with scoring + top-k; on
-    the binned kernel the corpus is normalised and padded once, here.
-    Flagged rows are repaired through the strided repair, with the exact
-    merge kernel (K3) for rows whose fired bins overflow."""
+    the binned and merge kernels the corpus is normalised and padded
+    once, here.  On the binned kernel flagged rows are repaired through
+    the strided repair, with the exact merge kernel (K3) for rows whose
+    fired bins overflow; the merge kernel is exact and flags nothing
+    (index.py:94-98 of the JAX package)."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
                  alpha: float = 0.9, depth: int = 2):
@@ -158,14 +165,25 @@ class SearchSession:
         data, lambdas = aspace.data, aspace.lambdas
         engine = BinnedTopK(data, lambdas, alpha_f, k_eff) \
             if self.kernel == "binned" else None
+        if self.kernel == "merge":
+            xhat, xlam = prepare_binned_corpus(data, lambdas)
+            n_items = index.nitems
+
+            def exact(q, qlam):
+                return fused_lambda_topk(q, qlam, xhat, xlam, alpha_f,
+                                         k=k_eff, prepared=True,
+                                         n_items=n_items)
+        else:
+            def exact(q, qlam):
+                return batched_lambda_aware_topk(q, qlam, data, lambdas,
+                                                 alpha_f, k=k_eff)
 
         def step(q):
             _, qlam = prepare(q)
             if engine is not None:
                 s, i, flags, det = engine.step(q, qlam)
                 return s, i, flags, qlam, det
-            s, i = batched_lambda_aware_topk(q, qlam, data, lambdas,
-                                             alpha_f, k=k_eff)
+            s, i = exact(q, qlam)
             return s, i, None, qlam, None
 
         self._step = step

@@ -5,9 +5,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels (nvcc, sm_90a) and drives three
+It builds the hand-written CUDA kernels (nvcc, sm_90a) and drives four
 paths once at full width: two on one seeded, clustered 1,000,000 x 128
-corpus and one on a 1,000,000 x 768 corpus of the same kind:
+corpus, one on a 1,000,000 x 768 and one on a 1,000,000 x 1536 corpus of
+the same kind:
 
 - the cosine path: ArrowIndex.build, then a SearchSession serving
   batched λ-aware top-k at B=2048, k=10, α=0.9 (kernels K1, K2, K3);
@@ -19,7 +20,13 @@ corpus and one on a 1,000,000 x 768 corpus of the same kind:
 - the wide projected path: ArrowIndex.build with dims_reduction=True on
   the 768-wide rows, whose JL feature graph has r = min(jl_dim, F/2)
   nodes, so λ of the raw rows takes K4 and then K5 in each 2 GiB row
-  window; then a SearchSession as on the cosine path (K1, K3).
+  window; then a SearchSession as on the cosine path (K1, K3);
+- the 1536-wide projected path: the same build on 1536-wide rows (the
+  width of the most widely deployed text embeddings), whose F is above
+  K1's gate, so the SearchSession resolves "merge" and serves every batch
+  through the exact merge kernel K3 (K5 in each of the build's three row
+  windows; τ takes the sort, since K4 holds rows of up to 1024 values); a
+  "plain" session (matmul + stable sort) is timed beside it.
 
 Every build's clustering scan runs in the native C++ library
 (arrowspace_torch/native), compiled with the host C++ compiler at first
@@ -36,11 +43,14 @@ without the package beside it, it exits non-zero and prints no result.
 
 Output: progress lines (each session's device time by kernel under
 torch.profiler among them), then the card's name and power limit, then
-one JSON line with each kernel's launches (counted over its path's run),
+one JSON line with each kernel's launches (counted over its path's run;
+K3's over the 1536-wide path, with its other paths' counts beside them),
 error against its plain version, mean times, the bound of its work on
-this card (for K1, K6 and K7, whose products run on the tensor cores as
-3×TF32, also bound_fp32_ms, the bound of the same work on the fp32 CUDA
-cores) and the time of a PyTorch call computing the same function (null
+this card (for K1, K3, K6 and K7, whose products run on the tensor cores
+as 3×TF32, also bound_fp32_ms, the bound of the same work on the fp32
+CUDA cores; for K1 and K3 the time of torch.matmul of the product alone,
+as context; for K3 its record at 1M x 1536 and at the wide repair's
+shape) and the time of a PyTorch call computing the same function (null
 where none does), then the last line {"ok": true, "device": ...}.
 """
 
@@ -57,6 +67,10 @@ N_ROWS, N_FEAT, N_CENTRES, NOISE = 1_000_000, 128, 64, 0.05
 # The wide projected path: the JAX package's wide-F configuration
 # (bench.py:691-709, the 100M x 768 target's F) at 1M rows.
 W_ROWS, W_FEAT = 1_000_000, 768
+# The 1536-wide path: the shape of dbpedia-entities-openai-1M (OpenAI
+# text-embedding-ada-002 vectors), made here from the seed; batches of the
+# "plain" session timed beside the "merge" one.
+X_ROWS, X_FEAT, X_PLAIN_BATCHES = 1_000_000, 1536, 3
 SEED = 11
 # The default ε (1e-3) leaves this corpus's feature graph without an edge,
 # so every λ would be 0 and neither K2 nor the λ term would be tested.
@@ -72,7 +86,7 @@ TOL = 1e-5              # kernel vs plain version, float32 scores and λ
 E_WL, E_WD = 1.0, 0.5
 E_TOL = 5e-5
 # Published H100 SXM peaks: float32 outside the tensor cores, HBM3, and
-# dense TF32 on the tensor cores (the 3×TF32 products of K1, K6, K7).
+# dense TF32 on the tensor cores (the 3×TF32 products of K1, K3, K6, K7).
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
 
@@ -109,8 +123,9 @@ def clustered_rows(n: int, f: int, seed: int) -> np.ndarray:
     in [0.2, 0.8], Gaussian noise 0.05."""
     rng = np.random.default_rng(seed)
     centres = rng.uniform(0.2, 0.8, (N_CENTRES, f))
-    return centres[rng.integers(0, N_CENTRES, n)] \
-        + rng.normal(0, NOISE, (n, f))
+    rows = centres[rng.integers(0, N_CENTRES, n)]
+    rows += rng.normal(0, NOISE, (n, f))
+    return rows
 
 
 def plant_duplicates(rows: np.ndarray) -> np.ndarray:
@@ -264,19 +279,21 @@ def check_lambdas(lam, canon, what) -> None:
           f"identical rows got different {what} λ")
 
 
-def serve(torch, counters, index, rows, canon, dev, seed, kernels):
-    """A SearchSession of the index, warmed up, then fed 16 batches of
-    perturbed corpus rows (×1.02), batch 0 carrying the duplicated rows
-    0 and 1 (the strided repair and K3).  The launch counts of
-    ``kernels`` ({name: counter key}) are read right after the stream,
-    before any check runs.  Batch 0's first 256 rows are held against
-    the plain full scan (matmul + stable sort) with the session's own
-    query λ.  Returns (launches, self-match rate, batch 0's ids)."""
+def serve(torch, counters, index, rows, canon, dev, seed, kernels,
+          kind="binned"):
+    """A SearchSession of the index, which must resolve ``kind``, warmed
+    up, then fed 16 batches of perturbed corpus rows (×1.02), batch 0
+    carrying the duplicated rows 0 and 1 (on the binned kernel the
+    strided repair and K3).  The launch counts of ``kernels`` ({name:
+    counter key}) are read right after the stream, before any check runs.
+    Batch 0's first 256 rows are held against the plain full scan (matmul
+    + stable sort) with the session's own query λ.  Returns (session,
+    batches, launches, self-match rate, batch 0's ids, ms per batch)."""
     from arrowspace_torch.index import _query_prep
     from arrowspace_torch.ops.search import batched_lambda_aware_topk
 
     session = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
-    check(session.kernel == "binned", f"session kernel {session.kernel}")
+    check(session.kernel == kind, f"session kernel {session.kernel}")
     session.warmup()
     repairs_warm = counters["repair"].calls
     rng = np.random.default_rng(seed)
@@ -291,7 +308,9 @@ def serve(torch, counters, index, rows, canon, dev, seed, kernels):
     launches = {name: counters[key].launches for name, key in kernels.items()}
     repairs = counters["repair"].calls - repairs_warm
     log(f"  launches: {launches}; strided repairs in the stream: {repairs}")
-    check(repairs > 0, "the stream repaired no flagged row")
+    check(repairs > 0 or kind != "binned",
+          "the stream repaired no flagged row")
+    check(repairs == 0 or kind == "binned", "a merge session repaired")
 
     ms_batch = t_stream / N_BATCHES * 1e3
     self_hits = np.mean([float(np.mean(canon[r[1][:, 0]] == canon[p]))
@@ -311,7 +330,7 @@ def serve(torch, counters, index, rows, canon, dev, seed, kernels):
     agree("session vs plain full scan (256 queries)", s0, i0, ps, pi,
           exact=true_scores(q, qlam, a.data, a.lambdas,
                             torch.as_tensor(i0, device=dev)))
-    return session, batches, launches, self_hits, i0
+    return session, batches, launches, self_hits, i0, ms_batch
 
 
 def main_path(torch, counters, rows, canon, dev):
@@ -334,7 +353,7 @@ def main_path(torch, counters, rows, canon, dev):
         f"clusters={index.aspace.n_clusters} graph={tuple(index.gl.shape())}")
     log_clustering(index.builder)
 
-    session, batches, launches, self_hits, i0 = serve(
+    session, batches, launches, self_hits, i0, _ = serve(
         torch, counters, index, rows, canon, dev, SEED + 1,
         {"bintopk": "k1", "taulambda": "k2", "merge_topk": "k3"})
     check(all(v > 0 for v in launches.values()),
@@ -347,7 +366,7 @@ def main_path(torch, counters, rows, canon, dev):
 
 
 def tc_bounds(b: int, n: int, f: int, tail: int, n_bytes: int) -> tuple:
-    """The two bounds of a tensor-core kernel (K1, K6, K7): (bound_ms,
+    """The two bounds of a tensor-core kernel (K1, K3, K6, K7): (bound_ms,
     bound_by) of the work its design does, the 3·2F TF32 products a pair
     on the tensor cores beside ``tail`` fp32 operations a pair of its
     score, and bound_fp32_ms, the whole 2F + tail a pair on the fp32 CUDA
@@ -361,7 +380,6 @@ def kernels_vs_plain(torch, index, batches, dev):
     path's shapes; returns the per-kernel records (without launches)."""
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops import taulambda as tl
-    from arrowspace_torch.ops import topk as tk
     from arrowspace_torch.ops.search import prepare_query
 
     log("[3] kernels against their plain versions on the card")
@@ -436,30 +454,47 @@ def kernels_vs_plain(torch, index, batches, dev):
                 f"{qhat.shape[1]}): {matmul_ms(torch, qhat, xhat[:n]):.3f} ms")
     rec["bintopk"]["max_abs_err"] = k1_err
 
-    # K3 at k=10 over the whole batch; each (query, chunk) partial top-k
-    # is held against its plain version as one row
-    rows_pc = tk._chunk_rows(BATCH, n, q.device)
+    # K3 at k=10 over the whole batch
+    rec["merge_topk"] = k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n,
+                                    "K3 merge_topk")
+    return rec
+
+
+def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
+    """K3 at k=K on these queries, at the wrapper's chunking: each (query,
+    chunk) partial top-k held against its plain version as one row and
+    its scores against float64; its time, the plain version's, its TF32
+    and fp32 bounds (the 3·2F TF32 products
+    and 5 fp32 operations of the λ term a pair) and torch.matmul's time
+    for the product alone, as context."""
+    from arrowspace_torch.ops import topk as tk
+    bsz, f = qhat.shape
+    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K)
     args = (qhat, qlam, xhat, xlam, c1, n)
-    s_k, i_k = tk.merge_topk_partial(*args, k=K, rows_per_chunk=rows_pc)
-    s_p, i_p = tk.merge_topk_partial_plain(*args, k=K,
-                                           rows_per_chunk=rows_pc)
+    kw = dict(k=K, rows_per_chunk=rows_pc)
+    s_k, i_k = tk.merge_topk_partial(*args, **kw)
+    s_p, i_p = tk.merge_topk_partial_plain(*args, **kw)
     chunks = s_k.shape[1]
-    err = agree(f"K3 merge_topk k={K} rows_per_chunk={rows_pc} "
+    err = agree(f"{name} B={bsz} F={f} k={K} rows_per_chunk={rows_pc} "
                 f"chunks={chunks}", s_k.reshape(-1, K), i_k.reshape(-1, K),
                 s_p.reshape(-1, K), i_p.reshape(-1, K),
                 exact=exact_scores(qhat.repeat_interleave(chunks, 0),
                                    qlam.repeat_interleave(chunks, 0), xhat,
                                    xlam, c1, i_k.reshape(-1, K).long()))
-    b_ms, b_by = bound(BATCH * n * (2.0 * qhat.shape[1] + 5),
-                       nbytes(qhat, qlam, xhat[:n], xlam[:n], s_k, i_k))
-    rec["merge_topk"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=cuda_ms(lambda: tk.merge_topk_partial(*args, k=K,
-                                                 rows_per_chunk=rows_pc),
-                   reps=2),
-        plain_ms=cuda_ms(lambda: tk.merge_topk_partial_plain(
-            *args, k=K, rows_per_chunk=rows_pc), reps=2))
-    return rec
+    del s_p, i_p
+    b_ms, b_by, b32_ms = tc_bounds(
+        bsz, n, f, 5, nbytes(qhat, qlam, xhat[:n], xlam[:n], s_k, i_k))
+    out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               bound_fp32_ms=b32_ms, library_ms=None,
+               ms=cuda_ms(lambda: tk.merge_topk_partial(*args, **kw),
+                          reps=3),
+               plain_ms=cuda_ms(lambda: tk.merge_topk_partial_plain(
+                   *args, **kw), reps=2),
+               matmul_ms=matmul_ms(torch, qhat, xhat[:n]))
+    log(f"    {name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
+        f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32_ms:.3f} "
+        f"matmul context ({bsz}x{n}x{f}) {out['matmul_ms']:.3f} ms")
+    return out
 
 
 def energy_exact(zq, qlam, z, lam, ids):
@@ -795,7 +830,7 @@ def wide_path(torch, counters, dev):
           f"F/2 = {W_FEAT // 2}")
     check(edges > 0, "the wide build's feature graph has no edge")
 
-    session, batches, launches, _, i0 = serve(
+    session, batches, launches, _, i0, _ = serve(
         torch, counters, index, rows, canon, dev, SEED + 3,
         {"select_tau": "k4", "lambda_batch": "k5", "taulambda": "k2",
          "bintopk": "k1", "merge_topk": "k3"})
@@ -812,8 +847,10 @@ def wide_path(torch, counters, dev):
 
 def wide_kernels_vs_plain(torch, index, batches, dev):
     """K5 against its plain version at the wide build's first row window
-    (the shape the build gives it) and K1 at F = 768 on batch 0; returns
-    K5's record (without launches)."""
+    (the shape the build gives it), K1 at F = 768 on batch 0, and K3 at
+    the shape batch 0's repair hands it (row 0, whose fired bins
+    overflow); returns K5's record (without launches) and K3's at that
+    shape."""
     from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops import lambda_batch as lb
@@ -874,12 +911,121 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     k1_ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw), reps=3)
     log(f"    K1 at F={W_FEAT}: ms={k1_ms:.3f} bound_ms={b1_ms:.3f} "
         f"({b1_by}) bound_fp32_ms={b32_ms:.3f}")
-    return rec
+    k3 = k3_vs_plain(torch, qhat[:1].contiguous(), qlam[:1].contiguous(),
+                     xhat, xlam, c1, rows, "K3 at the wide repair's shape")
+    return rec, k3
 
 
-def where_time_goes(torch, sessions, batches, step) -> None:
-    """Device time by kernel over the first N_PROFILE batches of each
-    session (torch.profiler), and the device's idle share of that
+def host_peak_gib() -> float:
+    """This process's peak resident host memory so far, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def x_path(torch, counters, dev):
+    """The 1536-wide projected path, through the user entry points: a
+    seeded build with dims_reduction=True on 1M x 1536 rows, then a
+    SearchSession, which must resolve "merge" (F is above K1's gate),
+    warmed up and fed 16 batches.  The counters are set to 0 just before
+    the build and read right after the stream.  Returns the index, the
+    session, the batches, the launch counts and the ms per batch."""
+    from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
+    from arrowspace_torch.index import ArrowIndex
+    from arrowspace_torch.ops.select_tau import select_tau_fits
+
+    log(f"[12] 1536-wide projected path: ArrowIndex.build {X_ROWS}x"
+        f"{X_FEAT} eps={EPS} dims_reduction=True seed={SEED} on {dev}")
+    t0 = time.perf_counter()
+    rows = clustered_rows(X_ROWS, X_FEAT, SEED)
+    canon = plant_duplicates(rows)
+    log(f"  corpus made in {time.perf_counter() - t0:.3f}s; host peak "
+        f"{host_peak_gib():.3f} GiB")
+    reset(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = ArrowIndex.build(rows, eps=EPS, dims_reduction=True, seed=SEED,
+                             device=dev)
+    sync(torch, dev)
+    t_build = time.perf_counter() - t0
+    a, st = index.aspace, index.builder.stage_seconds
+    n = index.gl.matrix.shape[0]
+    log(f"  build_s={t_build:.3f} " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in st.items()))
+    log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} graph="
+        f"{n}x{n} max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB host peak "
+        f"{host_peak_gib():.3f} GiB")
+    log_clustering(index.builder)
+    check(a.reduced_dim == n and 2 * n <= X_FEAT,
+          f"the 1536-wide build's graph is {n} nodes, not a JL graph")
+
+    session, batches, launches, _, i0, ms = serve(
+        torch, counters, index, rows, canon, dev, SEED + 4,
+        {"select_tau": "k4", "lambda_batch": "k5", "taulambda": "k2",
+         "bintopk": "k1", "merge_topk": "k3"}, kind="merge")
+    # λ runs in row windows; τ takes K4 where its gate admits F (a row in
+    # one warp's registers), else the sort; λ then takes K5
+    win = max(1 << 14, TAUMODE_WINDOW_BYTES // (X_FEAT * 4) >> 14 << 14)
+    windows = -(-X_ROWS // win)
+    k4 = windows if select_tau_fits(X_FEAT) else 0
+    check(launches["select_tau"] == k4
+          and launches["lambda_batch"] == windows,
+          f"the 1536-wide build's {windows} windows did not take K4 "
+          f"{k4} times and K5 {windows} times")
+    check(launches["taulambda"] == 0 and launches["bintopk"] == 0,
+          "the 1536-wide path launched K2 or K1")
+    check(launches["merge_topk"] == N_BATCHES + 1,
+          "K3 did not launch once for every batch and the warm-up")
+    check_lambdas(a.lambdas, canon, "1536-wide")
+    log(f"  row 0 top-{K}: {i0[0].tolist()}")
+    return index, session, batches, launches, ms
+
+
+def x_plain_session(torch, index, batches, dev):
+    """A "plain" session (the full product + stable sort) of the same
+    index, the gate's other option at this width, timed over
+    X_PLAIN_BATCHES batches after its warm-up.  The session is made
+    through make_search_session with the gate answering "plain"."""
+    import arrowspace_torch.index as index_mod
+    gate = index_mod.session_kernel_kind
+    index_mod.session_kernel_kind = lambda *a: "plain"
+    try:
+        plain = index.make_search_session(batch_size=BATCH, k=K,
+                                          alpha=ALPHA)
+    finally:
+        index_mod.session_kernel_kind = gate
+    check(plain.kernel == "plain", f"plain session kernel {plain.kernel}")
+    plain.warmup()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    list(plain.search_stream(batches[:X_PLAIN_BATCHES]))
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / X_PLAIN_BATCHES * 1e3
+    log(f"  plain session: {X_PLAIN_BATCHES} batches of {BATCH}, "
+        f"ms_per_batch={ms:.3f}")
+    return plain, ms
+
+
+def x_kernels_vs_plain(torch, index, batches, dev):
+    """K3 against its plain version on batch 0 at 1M x 1536 (the
+    session's prepared corpus); returns its record."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops.search import prepare_query
+
+    log("[13] K3 against its plain version at 1M x 1536 on the card")
+    a = index.aspace
+    q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
+    xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
+    qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
+    qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
+    return k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam, c1,
+                       a.nitems, "K3 merge_topk")
+
+
+def where_time_goes(torch, sessions, batches, step,
+                    n_batches=N_PROFILE) -> None:
+    """Device time by kernel over the first ``n_batches`` batches of
+    each session (torch.profiler), and the device's idle share of that
     window: 1 - (summed kernel time) / wall time.  A measurement only:
     where the profiler records no device time it prints so."""
     from torch.profiler import ProfilerActivity, profile
@@ -889,7 +1035,7 @@ def where_time_goes(torch, sessions, batches, step) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            list(session.search_stream(batches[:N_PROFILE]))
+            list(session.search_stream(batches[:n_batches]))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.key_averages()
@@ -901,11 +1047,11 @@ def where_time_goes(torch, sessions, batches, step) -> None:
         if total <= 0.0:
             log(f"  {name}: no device time recorded (not measured)")
             continue
-        log(f"  {name}: {N_PROFILE} batches, wall {wall_us / 1e3:.3f} ms, "
+        log(f"  {name}: {n_batches} batches, wall {wall_us / 1e3:.3f} ms, "
             f"device busy {total / 1e3:.3f} ms, idle share "
             f"{1.0 - total / wall_us:.4f}")
         for key, us in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"    {us / 1e3 / N_PROFILE:9.3f} ms/batch  "
+            log(f"    {us / 1e3 / n_batches:9.3f} ms/batch  "
                 f"{100.0 * us / total:5.1f} %  {key[:90]}")
 
 
@@ -1021,9 +1167,35 @@ def main() -> int:
         index, session, batches, w_launches = wide_path(torch, counters,
                                                         dev)
         launches["lambda_batch"] = w_launches["lambda_batch"]
-        rec.update(wide_kernels_vs_plain(torch, index, batches, dev))
+        k5_rec, k3_wide = wide_kernels_vs_plain(torch, index, batches, dev)
+        rec.update(k5_rec)
         where_time_goes(torch, (("wide projected session", session),),
                         batches, step=11)
+        del index, session, batches
+        torch.cuda.empty_cache()
+
+        index, session, batches, x_launches, x_ms = x_path(torch, counters,
+                                                           dev)
+        k3_x = x_kernels_vs_plain(torch, index, batches, dev)
+        plain, plain_ms = x_plain_session(torch, index, batches, dev)
+        log(f"  1536-wide sessions: merge {x_ms:.3f} ms a batch, plain "
+            f"{plain_ms:.3f} ms a batch")
+        where_time_goes(torch, (("1536-wide merge session", session),),
+                        batches, step=14)
+        where_time_goes(torch, (("1536-wide plain session", plain),),
+                        batches, step=14, n_batches=2)
+        k3 = rec["merge_topk"]
+        k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
+                                k3_x["max_abs_err"])
+        k3["at_1536"] = {key: k3_x[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_fp32_ms", "matmul_ms")}
+        k3["wide_repair_768"] = {key: k3_wide[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_fp32_ms")}
+        k3["launches_by_path"] = {
+            "cosine": launches["merge_topk"],
+            "wide_768": w_launches["merge_topk"],
+            "wide_1536": x_launches["merge_topk"]}
+        launches["merge_topk"] = x_launches["merge_topk"]
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1034,7 +1206,8 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
                 **{key: v for key, v in rec[name].items()
-                   if key == "bound_fp32_ms"}}
+                   if key in ("bound_fp32_ms", "matmul_ms", "at_1536",
+                              "wide_repair_768", "launches_by_path")}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -210,6 +210,127 @@ def test_k3_partial_matches_plain_at_f768(dev):
     assert torch.equal(i == INT_MAX, ri == INT_MAX)
 
 
+@pytest.mark.parametrize("f", [40, 768, 1272, 1536])
+@pytest.mark.parametrize("k", [1, 10, 64, 128])
+def test_k3_partial_matches_plain_at_every_width(dev, f, k):
+    """The tensor-core K3 at the widths it serves, B = 70 (a ragged 64-
+    query block) and n = 5003 (a ragged 64-row tile), at the wrapper's
+    own chunking."""
+    n, b = 5003, 70
+    args = _inputs(dev, n, f, b, seed=f + k)
+    rpc = tk._chunk_rows(b, n, dev, k)
+    before = tk.merge_topk_partial.launches
+    s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rpc)
+    rs, ri = tk.merge_topk_partial_plain(*args, n, k=k, rows_per_chunk=rpc)
+    torch.cuda.synchronize()
+    assert tk.merge_topk_partial.launches == before + 1
+    assert s.shape == rs.shape == (b, -(-n // rpc), k)
+    _assert_scored_ids(s, i, rs, args)
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
+
+
+@pytest.mark.parametrize("f,b", [(128, 70), (768, 19), (1536, 64)])
+def test_k3_identical_rows_score_bitwise_alike(dev, f, b):
+    """Copies of query 0 in several tiles, warps and chunks, two of them
+    adjacent: bitwise equal partial scores, and fused_lambda_topk returns
+    them first in ascending id order."""
+    n = 9001
+    rng = np.random.default_rng(f)
+    q, ql = rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b)
+    x, xl = rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)
+    ids = [3, 4, 70, 101, 2049, 4500, 8999]
+    x[ids], xl[ids] = q[0], ql[0]
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (q, ql, x, xl))
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    s, i = tk.merge_topk_partial(qh, ql, xh, xlh, c1, n, k=10,
+                                 rows_per_chunk=2048)
+    torch.cuda.synchronize()
+    copies = torch.isin(i, torch.tensor(ids, device=dev, dtype=i.dtype))
+    assert int(copies[0].sum()) == len(ids)
+    found = s[0][copies[0]]
+    assert bool((found == found[0]).all())
+    fs, fi = tk.fused_lambda_topk(q, ql, x, xl, 0.9, k=10)
+    assert fi[0, :len(ids)].tolist() == ids
+    assert bool((fs[0, :len(ids)] == fs[0, 0]).all())
+
+
+@pytest.mark.parametrize("f", [128, 768])
+def test_k1_and_k3_score_a_pair_bitwise_alike(dev, f):
+    """K1 and K3 run one 3×TF32 instruction sequence a (query, row) pair,
+    so every row both return for a query has bitwise equal scores (the
+    repair merges K3's rows with K1's)."""
+    n, b = 20_000, 64
+    args = _inputs(dev, n, f, b, seed=f)
+    pool_s, pool_i, _ = bt.binned_topk_pool(*args, n, depth=3, bins=128,
+                                            chunks=2)
+    s, i = tk.merge_topk_partial(*args, n, k=128,
+                                 rows_per_chunk=tk._chunk_rows(b, n, dev,
+                                                               128))
+    torch.cuda.synchronize()
+    dense = torch.full((b, n + 1), float("nan"), device=dev)
+    pi = pool_i.reshape(b, -1).long().clamp_max(n)
+    dense.scatter_(1, pi, pool_s.reshape(b, -1))
+    got = dense.gather(1, i.reshape(b, -1).long().clamp_max(n))
+    both = ~torch.isnan(got) & (i.reshape(b, -1) != INT_MAX)
+    assert int(both.sum()) >= b * 100
+    assert torch.equal(got[both], s.reshape(b, -1)[both])
+
+
+def test_merge_session_at_f1536_equals_plain_scan(dev):
+    """A 70000 x 1536 projected build on the card: the session resolves
+    "merge" (K1's gate does not admit F = 1536), launches K3 once per
+    batch, and equals the plain full scan: scores within 1e-5, ids equal
+    outside near-ties within twice the score error."""
+    rng = np.random.default_rng(9)
+    c = rng.uniform(0.2, 0.8, (24, 1536))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
+                                                       (70_000, 1536))
+    rows[[11, 500, 501]] = rows[10]
+    idx = ArrowIndex.build(rows, eps=1.0, dims_reduction=True, seed=9,
+                           device=dev)
+    sess = idx.make_search_session(batch_size=64, k=10, alpha=0.9)
+    assert sess.kernel == "merge"
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    queries[0] = rows[10] * 1.02
+    k3, k1 = tk.merge_topk_partial.launches, bt.binned_topk_pool.launches
+    (gs, gi), = list(sess.search_stream([queries]))
+    assert tk.merge_topk_partial.launches == k3 + 1
+    assert bt.binned_topk_pool.launches == k1
+    from arrowspace_torch.index import _query_prep
+    q = torch.tensor(queries, dtype=torch.float32, device=dev)
+    _, qlam = _query_prep(idx.aspace, idx.gl)[1](q)
+    ps, pi = batched_lambda_aware_topk(q, qlam, idx.aspace.data,
+                                       idx.aspace.lambdas, 0.9, k=10)
+    ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+    err = float(np.abs(gs - ps).max())
+    assert err <= TOL
+    copies = [gi[0].tolist().index(v) for v in (10, 11, 500, 501)]
+    assert copies == list(range(copies[0], copies[0] + 4))
+    for r, j in zip(*np.nonzero(gi != pi)):
+        pos = np.nonzero(pi[r] == gi[r, j])[0]
+        other = ps[r, pos[0]] if pos.size else ps[r, -1]
+        assert abs(other - ps[r, j]) <= 2.0 * err
+
+
+def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    qh, ql, xh, xlh, c1 = _inputs(dev, 600, 16, 4, seed=1)
+    kw = dict(k=10, rows_per_chunk=256)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh, ql, xh, xlh, c1, 600, k=129,
+                              rows_per_chunk=256)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh.double(), ql, xh, xlh, c1, 600, **kw)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh, ql, xh.half(), xlh, c1, 600, **kw)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh.t().contiguous().t(), ql, xh, xlh, c1, 600,
+                              **kw)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh, ql, xh[:, ::2], xlh, c1, 600, **kw)
+
+
 def _graph(n, seed, density=0.1):
     rng = np.random.default_rng(seed)
     a = rng.uniform(0, 1, (n, n)) * (rng.uniform(0, 1, (n, n)) < density)

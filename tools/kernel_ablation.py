@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Ablation of the binned top-k kernels K1 (csrc/bintopk.cu), K6
-(csrc/energy_bintopk.cu) and K7 (csrc/energy_chord.cu) on one NVIDIA GPU.
+"""Ablation of the tensor-core top-k kernels K1 (csrc/bintopk.cu), K3
+(csrc/merge_topk.cu), K6 (csrc/energy_bintopk.cu) and K7
+(csrc/energy_chord.cu) on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ablation.py [--kernels k1,k6,k7] [--before DIR]
+    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7] [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
 a kernel: it compiles copies of the kernel's sources with one part taken
@@ -13,6 +14,8 @@ fails) and times each copy on the same inputs at the serving shapes:
 
 - K1: 1,000,000 clustered unit rows at F = 128 and F = 768, B = 2048
   α-scaled queries, 128 bins, depth 3;
+- K3: the same rows at F = 128 and F = 1536, k = 10, at the wrapper's
+  chunking;
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
   clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
@@ -21,7 +24,8 @@ fails) and times each copy on the same inputs at the serving shapes:
   variants) uncentred too.
 
 Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
-network or det), "no_staging" (the first slice only), "no_product",
+network or det; for K3 no selection: no candidate is appended, so no
+merge runs), "no_staging" (the first slice only), "no_product",
 "product_only", "staging_only"; K1 also "one_tf32" and "lo_truncated";
 K6 and K7 also "partial_8/16/64" (the truncating accumulate summed in
 zeroed partials of 8, 16 or 64 features instead of the shipped 32).
@@ -34,7 +38,9 @@ pooled d² and u = w_D/(1+√d²) from it, over the first 512 queries.
 directory (DIR), for instance the fp32 fold of an earlier commit
 unpacked with ``git archive``; its C entry points must be the same.  For
 K1 it builds DIR's kernel beside this one, times both, and compares
-their machine code (cuobjdump -sass) instantiation by instantiation.
+their machine code (cuobjdump -sass) instantiation by instantiation; for
+K3 it times DIR's kernel as shipped, at its own chunking (the fp32
+kernel of earlier commits: 8 queries a CTA, two CTAs per SM).
 
 Output: the card's name and power limit, each variant's registers and
 spills by instantiation (ptxas), then one line per (kernel, plane,
@@ -60,6 +66,7 @@ sys.path.insert(0, str(ROOT))
 from arrowspace_torch.ops import bintopk as bt  # noqa: E402
 from arrowspace_torch.ops import energy_approx as ea  # noqa: E402
 from arrowspace_torch.ops import energy_bintopk as eb  # noqa: E402
+from arrowspace_torch.ops import topk as tk  # noqa: E402
 from arrowspace_torch.ops._build import (CSRC, FLAGS, SIGNATURES,  # noqa
                                          _nvcc)
 from arrowspace_torch.ops.search import INT_MAX, prepare_query  # noqa: E402
@@ -86,6 +93,17 @@ TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
     "fold": [("energy_tile.cuh", "if (gr < a.n) {",
               "if (gr < a.n && a.n < 0) {")],
     "staging": [("energy_tile.cuh",
+                 "    if (step + 1 < steps) {\n      const bool wrap",
+                 "    if (false) {\n      const bool wrap")],
+}
+K3_PARTS = {
+    "product": [("merge_topk.cu",
+                 "        asp_fold::mma_kstep(part, qa + kk, kXS, xb + kk);",
+                 "        (void)0;")],
+    "fold": [("merge_topk.cu",
+              "if (live_q[i] && gr < r1 && ahead(sc, gr, kth_s, kth_i)) {",
+              "if (live_q[i] && gr < r1 && a.c1 > 1e30f) {")],
+    "staging": [("merge_topk.cu",
                  "    if (step + 1 < steps) {\n      const bool wrap",
                  "    if (false) {\n      const bool wrap")],
 }
@@ -122,10 +140,11 @@ TILE_VARIANTS = variants(TILE_PARTS, {
                        f"constexpr int kPartial = {pk};")]
     for pk in (8, 16, 64)})
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
-SOURCES = {"k1": "bintopk.cu", "k6": "energy_bintopk.cu",
-           "k7": "energy_chord.cu"}
-ENTRY = {"k1": "asp_bintopk", "k6": "asp_energy_bintopk",
-         "k7": "asp_energy_chord"}
+K3_VARIANTS = variants(K3_PARTS, {})
+SOURCES = {"k1": "bintopk.cu", "k3": "merge_topk.cu",
+           "k6": "energy_bintopk.cu", "k7": "energy_chord.cu"}
+ENTRY = {"k1": "asp_bintopk", "k3": "asp_merge_topk",
+         "k6": "asp_energy_bintopk", "k7": "asp_energy_chord"}
 
 
 def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
@@ -262,6 +281,65 @@ def run_k1(libs, dev, tag: str = "now") -> None:
         torch.cuda.empty_cache()
 
 
+def run_k3(libs, dev, tag: str = "now") -> None:
+    """K3 at F = 128 and 1536, k = 10: this checkout's chunking (or, for
+    --before, the fp32 kernel's: two CTAs of 8 queries per SM)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for f in (128, 1536):
+        qh, ql, xh, xlh, c1 = k1_inputs(dev, f)
+        if tag == "now":
+            rpc = tk.merge_rows_per_chunk(B, N, sms, K)
+        else:
+            chunks = max(1, -(-2 * sms // -(-B // 8)))
+            rpc = max(128, -(-(-(-N // chunks)) // 128) * 128)
+        chunks = -(-N // rpc)
+        out_s = torch.empty((B, chunks, K), device=dev)
+        out_i = torch.empty((B, chunks, K), device=dev, dtype=torch.int32)
+        for name, fn in libs.items():
+            def call():
+                rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                        xlh.data_ptr(), c1, N, B, f, K, chunks, rpc,
+                        out_s.data_ptr(), out_i.data_ptr(), stream)
+                if rc != 0:
+                    raise SystemExit(f"k3 {name}: launch failed ({rc})")
+            line = (f"{tag} k3 F={f} chunks={chunks} {name}: "
+                    f"{time_ms(call):.3f} ms")
+            if name == "kernel":
+                rs, _ = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N,
+                                                    k=K, rows_per_chunk=rpc)
+                err = float((out_s - rs).abs().max())
+                ids = out_i.reshape(B, -1).long()
+                rows = xh[ids[:256]].double()
+                ref = (rows * qh[:256].double()[:, None, :]).sum(-1) - c1 * (
+                    ql[:256].double()[:, None] - xlh[ids[:256]].double()
+                ).abs().clamp_max(1.0)
+                err64 = float((out_s.reshape(B, -1)[:256].double() - ref)
+                              .abs().max())
+                line += (f" (max_abs_err vs plain {err:.3e}, vs float64 "
+                         f"{err64:.3e} over 256 queries)")
+                if err > 1e-5:
+                    print(line, flush=True)
+                    raise SystemExit("K3 disagrees with its plain version")
+            print(line, flush=True)
+        if tag == "now":   # the chunk count for one resident CTA an SM
+            rpc2 = tk.merge_rows_per_chunk(
+                B, N, sms // tk.merge_ctas_per_sm(B, K), K)
+            ch2 = -(-N // rpc2)
+            s2 = torch.empty((B, ch2, K), device=dev)
+            i2 = torch.empty((B, ch2, K), device=dev, dtype=torch.int32)
+            fn = libs["kernel"]
+            ms = time_ms(lambda: fn(
+                qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(),
+                c1, N, B, f, K, ch2, rpc2, s2.data_ptr(), i2.data_ptr(),
+                stream))
+            print(f"{tag} k3 F={f} chunks={ch2} kernel, chunks for one CTA "
+                  f"an SM: {ms:.3f} ms", flush=True)
+            del s2, i2
+        del qh, ql, xh, xlh, out_s, out_i
+        torch.cuda.empty_cache()
+
+
 def energy_plane(dev, centred: bool):
     """(zq, qn, qlam, zx, xn, xlam) of the smoke's z-plane."""
     x, gen = clustered(dev, N, 128, seed=11)
@@ -360,9 +438,9 @@ def run_energy(kernel, libs, dev, tag, centred: bool) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", default="k1,k6,k7")
+    ap.add_argument("--kernels", default="k1,k3,k6,k7")
     ap.add_argument("--before", type=pathlib.Path, default=None,
-                    help="csrc directory of another checkout (K6, K7)")
+                    help="csrc directory of another checkout (K1, K3, K6, K7)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
@@ -386,6 +464,12 @@ def main() -> int:
                       flush=True)
             run_k1(old, dev, "before")
         run_k1(libs, dev)
+    if "k3" in kernels:
+        libs = build("k3", CSRC, K3_VARIANTS, "now")
+        if args.before is not None:
+            run_k3(build("k3", args.before.resolve(), {"kernel": []},
+                         "before"), dev, "before")
+        run_k3(libs, dev)
     for kernel in ("k6", "k7"):
         if kernel not in kernels:
             continue
