@@ -114,95 +114,10 @@ __device__ __forceinline__ float asp_warp_sum(float v) {
 
 // ---- synthetic λ of item rows against a graph L (n×n) ----
 //
-// Shared by K2 (taulambda.cu, τ + λ) and K5 (lambda_batch.cu, λ given τ).
-// Per item row x with graph coordinates xₙ = x[:n], W = max(-L, 0) off
-// the diagonal and W2 = W∘W, the five quadratic forms
-//   xₙᵀLxₙ, xₙᵀWxₙ, x²ᵀW2x², xᵀW2x³, x³ᵀW2x
-// are folded panel by panel: a CTA holds 4·(threads/8) item rows in
-// shared memory, and a thread owns a 4-row × 4-column register tile of
-// the five matrix-vector products over one panel of kPanel graph rows
-// i (the thread's columns are panel rows tc*4 .. tc*4+3).
-// asp_lambda_accumulate adds graph columns j of one staged block to the
-// products; asp_lambda_fold dots the finished panel with the rows'
-// coordinates i; asp_lambda_reduce sums the 8 column threads of a row
-// (adjacent lanes); asp_lambda_of turns the sums into λ.
+// Shared by K2 (taulambda.cu, τ + λ) and K5 (lambda_batch.cu, λ given τ),
+// whose five quadratic forms run on the tensor cores (lambda_tile.cuh).
 
 #define ASP_DENOM_EPS 1e-12f
-
-// xr: the thread's first row at the block's first column (rows xstride
-// apart); lp/wp/w2p: the block of L, W, W2 stored column-major, entry
-// (i, j) at j*(kPanel+1) + i; nj: columns in the block.
-template <int kPanel>
-__device__ __forceinline__ void asp_lambda_accumulate(
-    const float* xr, int xstride, const float* lp, const float* wp,
-    const float* w2p, int tc, int nj, float (&aL)[4][4], float (&aW)[4][4],
-    float (&aA)[4][4], float (&aB)[4][4], float (&aC)[4][4]) {
-  for (int j = 0; j < nj; ++j) {
-    float x1[4], x2[4], x3[4], lv[4], wv[4], w2v[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      x1[a] = xr[a * xstride + j];
-      x2[a] = x1[a] * x1[a];
-      x3[a] = x2[a] * x1[a];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      lv[c] = lp[j * (kPanel + 1) + tc * 4 + c];
-      wv[c] = wp[j * (kPanel + 1) + tc * 4 + c];
-      w2v[c] = w2p[j * (kPanel + 1) + tc * 4 + c];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        aL[a][c] = fmaf(lv[c], x1[a], aL[a][c]);   // (L x)_i
-        aW[a][c] = fmaf(wv[c], x1[a], aW[a][c]);   // (W x)_i
-        aA[a][c] = fmaf(w2v[c], x2[a], aA[a][c]);  // (W2 x²)_i
-        aB[a][c] = fmaf(w2v[c], x3[a], aB[a][c]);  // (W2 x³)_i
-        aC[a][c] = fmaf(w2v[c], x1[a], aC[a][c]);  // (W2 x)_i
-      }
-  }
-}
-
-// xr: the thread's first row at the panel's first graph row i0; ni:
-// graph rows left from i0 (the panel's columns past n are skipped).
-__device__ __forceinline__ void asp_lambda_fold(
-    const float* xr, int xstride, int tc, int ni, const float (&aL)[4][4],
-    const float (&aW)[4][4], const float (&aA)[4][4],
-    const float (&aB)[4][4], const float (&aC)[4][4], float (&pn)[4],
-    float (&pw)[4], float (&pb)[4], float (&pc)[4], float (&pd)[4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (tc * 4 + c < ni) {
-        const float xi = xr[a * xstride + tc * 4 + c];
-        const float xi2 = xi * xi;
-        pn[a] = fmaf(xi, aL[a][c], pn[a]);
-        pw[a] = fmaf(xi, aW[a][c], pw[a]);
-        pb[a] = fmaf(xi2, aA[a][c], pb[a]);
-        pc[a] = fmaf(xi, aB[a][c], pc[a]);
-        pd[a] = fmaf(xi2 * xi, aC[a][c], pd[a]);
-      }
-    }
-}
-
-__device__ __forceinline__ void asp_lambda_reduce(float (&pn)[4],
-                                                  float (&pw)[4],
-                                                  float (&pb)[4],
-                                                  float (&pc)[4],
-                                                  float (&pd)[4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) {
-      pn[a] += __shfl_xor_sync(ASP_FULL_MASK, pn[a], off);
-      pw[a] += __shfl_xor_sync(ASP_FULL_MASK, pw[a], off);
-      pb[a] += __shfl_xor_sync(ASP_FULL_MASK, pb[a], off);
-      pc[a] += __shfl_xor_sync(ASP_FULL_MASK, pc[a], off);
-      pd[a] += __shfl_xor_sync(ASP_FULL_MASK, pd[a], off);
-    }
-}
 
 // den = xᵀx over the full row; s_part = x²·d_r + x²·d_c and ta =
 // x⁴·d2_r + x⁴·d2_c over xₙ; num, xwx, tb, tc, td the quadratic forms.

@@ -33,7 +33,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bintopk.cu", "merge_topk.cu", "taulambda.cu", "select_tau.cu",
            "lambda_batch.cu", "energy_bintopk.cu", "energy_chord.cu")
-HEADERS = ("common.cuh", "binned_fold.cuh", "energy_tile.cuh")
+HEADERS = ("common.cuh", "binned_fold.cuh", "energy_tile.cuh",
+           "lambda_tile.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +54,8 @@ SIGNATURES = {
     # lam_out, tau_out, stream
     "asp_taulambda": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _F, _P, _P, _P),
+    # cols, row_scalars -> shared bytes of a K2 or K5 CTA
+    "asp_lambda_tile_bytes": (_I, _I),
     # x, N, F, kind, pct, tau_out, stream
     "asp_select_tau": (_P, _L, _I, _I, _F, _P, _P),
     # x, L, W, W2, d_r, d_c, d2_r, d2_c, tau, N, F, n, lam_out, stream

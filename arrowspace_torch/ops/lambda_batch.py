@@ -25,18 +25,31 @@ from ..config import DENOM_EPS
 from ..taumode import graph_weights
 from ._build import check, lib, stream_of
 
-__all__ = ["lambda_batch_fits", "graph_operands", "fused_lambda_batch",
-           "lambda_batch_plain"]
+__all__ = ["lambda_batch_fits", "lambda_tile_floats", "graph_operands",
+           "fused_lambda_batch", "lambda_batch_plain"]
 
-_ROWS = 128                # item rows per CTA
-_PANEL = 32                # graph rows and columns per staged block
+_ROWS = 64                 # item rows per CTA (csrc/lambda_tile.cuh)
+_NI = 32                   # graph rows per staged slice
+_XS = 68                   # row stride of a staged slice (floats)
 _SMEM_LIMIT = 227 * 1024
 
 
+def lambda_tile_floats(cols: int, row_scalars: int) -> int:
+    """Shared floats of a CTA of K2 or K5 (csrc/lambda_tile.cuh): the item
+    tile of rows of ``cols`` values (row stride whole k-steps + 4), two
+    buffers of the L, W and W2 slices, the two warp groups' five forms a
+    row and the kernel's ``row_scalars`` sums a row.  It mirrors the
+    tile's ``smem_bytes``; a card test holds the two equal."""
+    stride = -(-cols // 8) * 8 + 4
+    return (_ROWS * stride + 2 * 3 * _NI * _XS
+            + (2 * 5 + row_scalars) * _ROWS)
+
+
 def lambda_batch_fits(f: int, n: int) -> bool:
-    """Shared memory of one CTA: the graph coordinates of its rows, three
-    32×32 graph blocks and eight per-row sums; n <= 420."""
-    smem = (_ROWS * (n + 1) + 3 * _PANEL * (_PANEL + 1) + 8 * _ROWS) * 4
+    """Shared memory of one CTA: the λ body's item tile of the rows'
+    graph coordinates, the graph slices, and three per-row sums; n <=
+    680."""
+    smem = lambda_tile_floats(n, 3) * 4
     return 1 <= n <= f and smem <= _SMEM_LIMIT
 
 

@@ -16,7 +16,8 @@ Per item row x (F values) against a graph L (n×n, n <= F):
 ``taulambda_fits`` is the kernel's shared-memory gate; above it the
 caller runs select_tau_batch + synthetic_lambda_batch.
 ``taulambda_plain`` is the same computation in plain PyTorch.  The λ
-body is K5's (ops/lambda_batch.py, csrc/common.cuh).
+body is K5's (ops/lambda_batch.py, csrc/lambda_tile.cuh: the five
+quadratic forms on the tensor cores as 3×TF32).
 """
 
 from __future__ import annotations
@@ -25,21 +26,21 @@ import torch
 
 from ..taumode import select_tau_sorted
 from ._build import check, lib, stream_of
-from .lambda_batch import graph_operands, lambda_batch_plain
+from .lambda_batch import (graph_operands, lambda_batch_plain,
+                           lambda_tile_floats)
 
 __all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain"]
 
-_ROWS = 128                # item rows per CTA
-_PANEL = 32                # graph columns staged per step
 _SMEM_LIMIT = 227 * 1024
 _KINDS = {"median": 0, "percentile": 1, "mean": 2, "fixed": 3}
 
 
 def taulambda_fits(f: int, n: int) -> bool:
-    """Shared memory of one CTA: the item tile, three graph panels and
-    the per-row partial sums; F is capped by the per-lane row registers
-    of the τ selection (8 values a lane)."""
-    smem = (_ROWS * (f + 1) + 3 * n * (_PANEL + 1) + 9 * _ROWS) * 4
+    """Shared memory of one CTA: the λ body's item tile of whole rows,
+    the graph slices and four per-row sums (it fits at every F <= 256);
+    F is capped by the per-lane row registers of the τ selection (8
+    values a lane)."""
+    smem = lambda_tile_floats(f, 4) * 4
     return 1 <= n <= f <= 256 and smem <= _SMEM_LIMIT
 
 

@@ -46,12 +46,15 @@ torch.profiler among them), then the card's name and power limit, then
 one JSON line with each kernel's launches (counted over its path's run;
 K3's over the 1536-wide path, with its other paths' counts beside them),
 error against its plain version, mean times, the bound of its work on
-this card (for K1, K3, K6 and K7, whose products run on the tensor cores
-as 3×TF32, also bound_fp32_ms, the bound of the same work on the fp32
-CUDA cores; for K1 and K3 the time of torch.matmul of the product alone,
-as context; for K3 its record at 1M x 1536 and at the wide repair's
-shape) and the time of a PyTorch call computing the same function (null
-where none does), then the last line {"ok": true, "device": ...}.
+this card (for K1, K2, K3, K5, K6 and K7, whose products run on the
+tensor cores as 3×TF32, also bound_fp32_ms, the bound of the same work on
+the fp32 CUDA cores; for K1 and K3 the time of torch.matmul of the
+product alone, as context; for K3 its record at 1M x 1536 and at the
+wide repair's shape; for K2 and K5 their λ error against a float64 plain
+λ, K2's record at the cosine build's shape and K5's at the 1536-wide
+build's row window, each held against its plain version) and the time of a
+PyTorch call computing the same function (null where none does), then
+the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -375,6 +378,26 @@ def tc_bounds(b: int, n: int, f: int, tail: int, n_bytes: int) -> tuple:
     return b_ms, b_by, bound(b * n * (2.0 * f + tail), n_bytes)[0]
 
 
+def lambda_bounds(rows: int, n: int, f: int, n_bytes: int) -> tuple:
+    """The two bounds of K2 and K5, whose five n×n quadratic forms a row
+    run on the tensor cores as 3×TF32 (lambda_tile.cuh): (bound_ms,
+    bound_by) of 3·10·n² TF32 operations a row beside the fp32 ones (x²
+    over the row, the O(n) row terms and the fold: 2F + 18n), and
+    bound_fp32_ms, the whole 10·n² + 2F + 18n a row on the CUDA cores."""
+    tail = rows * (2.0 * f + 18.0 * n)
+    b_ms, b_by = bound(tail, n_bytes, tf32_ops=30.0 * rows * n * n)
+    return b_ms, b_by, bound(tail + 10.0 * rows * n * n, n_bytes)[0]
+
+
+def lambda_f64_errors(x, lap, tau, *lams) -> list:
+    """Each λ of ``lams`` against a float64 plain λ of the same rows and
+    τ, relative where |λ| > 1, as the plain comparison is."""
+    from arrowspace_torch.ops import lambda_batch as lb
+    ref = lb.lambda_batch_plain(x.double(), lap.double(), tau.double())
+    return [float(((lam.double() - ref).abs() / ref.abs().clamp_min(1.0))
+                  .max()) for lam in lams]
+
+
 def kernels_vs_plain(torch, index, batches, dev):
     """Each kernel against its plain version on the card, at the main
     path's shapes; returns the per-kernel records (without launches)."""
@@ -398,24 +421,55 @@ def kernels_vs_plain(torch, index, batches, dev):
     lam_k, tau_k = tl.fused_taulambda(x, lap, aspace.taumode)
     lam_p, tau_p = tl.taulambda_plain(x, lap, aspace.taumode)
     err = float((lam_k - lam_p).abs().max())
+    err64, plain64 = lambda_f64_errors(x, lap, tau_p, lam_k, lam_p)
     tau_eq = bool(torch.equal(tau_k, tau_p))
     n_distinct = int(torch.unique(lam_p).numel())
     log(f"  K2 taulambda {TAULAMBDA_ROWS}x{x.shape[1]}: λ max_abs_err="
-        f"{err:.3e}, τ bitwise equal={tau_eq}; plain λ min="
+        f"{err:.3e} (vs float64 {err64:.3e}; the plain float32 λ vs "
+        f"float64 {plain64:.3e}), τ bitwise equal={tau_eq}; plain λ min="
         f"{float(lam_p.min()):.6g} max={float(lam_p.max()):.6g} "
         f"distinct={n_distinct}")
     check(n_distinct >= 1000, "K2 compared on nearly constant λ")
     check(err <= TOL and tau_eq, "K2 disagrees with its plain version")
-    # five n×n quadratic forms a row (csrc/taulambda.cu), 2 flops a FMA
-    nn = lap.shape[0]
-    b_ms, b_by = bound(10.0 * x.shape[0] * nn * nn,
-                       nbytes(x, lap, lam_k, tau_k) + 2 * nbytes(lap))
+    # the rows, τ and the graph read once (L, W and W2), λ and τ written
+    nn, ff = lap.shape[0], x.shape[1]
+    b_ms, b_by, b32_ms = lambda_bounds(
+        x.shape[0], nn, ff, nbytes(x, lap, lam_k, tau_k) + 2 * nbytes(lap))
     rec["taulambda"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, max_abs_err_f64=err64,
         ms=cuda_ms(lambda: tl.fused_taulambda(x, lap, aspace.taumode)),
         plain_ms=cuda_ms(lambda: tl.taulambda_plain(x, lap,
                                                     aspace.taumode)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms, library_ms=None)
+    log(f"    K2: ms={rec['taulambda']['ms']:.3f} bound_ms={b_ms:.3f} "
+        f"({b_by}) bound_fp32_ms={b32_ms:.3f}")
+    # and at the shape the cosine build launches it: all rows, one launch
+    xa = aspace.data
+    lam_a, tau_a = tl.fused_taulambda(xa, lap, aspace.taumode)
+    lam_p, tau_p = tl.taulambda_plain(xa, lap, aspace.taumode)
+    err_a = float((lam_a - lam_p).abs().max())
+    err64_a, plain64_a = lambda_f64_errors(xa, lap, tau_p, lam_a, lam_p)
+    tau_eq = bool(torch.equal(tau_a, tau_p))
+    log(f"  K2 taulambda at the build's {xa.shape[0]}x{ff}: λ max_abs_err="
+        f"{err_a:.3e} (vs float64 {err64_a:.3e}; the plain float32 λ vs "
+        f"float64 {plain64_a:.3e}), τ bitwise equal={tau_eq}")
+    check(err_a <= TOL and tau_eq,
+          "K2 disagrees with its plain version at the build's rows")
+    rec["taulambda"]["max_abs_err"] = max(err, err_a)
+    rec["taulambda"]["max_abs_err_f64"] = max(err64, err64_a)
+    a_ms, a_by, a32_ms = lambda_bounds(
+        xa.shape[0], nn, ff, nbytes(xa, lap, lam_a, tau_a) + 2 * nbytes(lap))
+    rec["taulambda"]["at_build"] = dict(
+        rows=xa.shape[0], max_abs_err=err_a, max_abs_err_f64=err64_a,
+        ms=cuda_ms(lambda: tl.fused_taulambda(xa, lap, aspace.taumode)),
+        plain_ms=cuda_ms(lambda: tl.taulambda_plain(xa, lap,
+                                                    aspace.taumode), reps=3),
+        bound_ms=a_ms, bound_by=a_by, bound_fp32_ms=a32_ms)
+    log(f"    K2 at the build's rows: ms="
+        f"{rec['taulambda']['at_build']['ms']:.3f} plain_ms="
+        f"{rec['taulambda']['at_build']['plain_ms']:.3f} bound_ms="
+        f"{a_ms:.3f} ({a_by}) bound_fp32_ms={a32_ms:.3f}")
+    del lam_a, tau_a, lam_p, tau_p
 
     # K1 at k=10 (depth 3, bins 128) and k=64 (depth 4, bins 512)
     k1_err = 0.0
@@ -845,6 +899,40 @@ def wide_path(torch, counters, dev):
     return index, session, batches, launches
 
 
+def k5_vs_plain(torch, a, lap, win, name):
+    """K5 against its plain version on the first row window of the build
+    ``a`` (``win`` rows, the shape the build gives it), τ from the build's
+    selection; returns its record (without launches)."""
+    from arrowspace_torch.ops import lambda_batch as lb
+    from arrowspace_torch.taumode import select_tau_batch
+
+    x = a.data[:win]
+    n, f = lap.shape[0], x.shape[1]
+    tau = select_tau_batch(x, a.taumode)
+    lam_k = lb.fused_lambda_batch(x, lap, tau)
+    lam_p = lb.lambda_batch_plain(x, lap, tau)
+    err = float(((lam_k - lam_p).abs() / lam_p.abs().clamp_min(1.0)).max())
+    err64, plain64 = lambda_f64_errors(x, lap, tau, lam_k, lam_p)
+    n_distinct = int(torch.unique(lam_p).numel())
+    log(f"  {name} {win}x{f}, n={n}: λ max_abs_err={err:.3e} (vs float64 "
+        f"{err64:.3e}; the plain float32 λ vs float64 {plain64:.3e}); plain "
+        f"λ distinct={n_distinct}; K5 λ equals the build's: "
+        f"{bool(torch.equal(lam_k, a.lambdas[:win]))}")
+    check(n_distinct >= 1000, f"{name} compared on nearly constant λ")
+    check(err <= TOL, f"{name} disagrees with its plain version")
+    # the rows, τ and the graph (L, W and W2) read once, λ written once
+    b_ms, b_by, b32_ms = lambda_bounds(
+        win, n, f, nbytes(x, tau, lam_k) + 3 * nbytes(lap))
+    rec = dict(
+        max_abs_err=err, max_abs_err_f64=err64,
+        ms=cuda_ms(lambda: lb.fused_lambda_batch(x, lap, tau)),
+        plain_ms=cuda_ms(lambda: lb.lambda_batch_plain(x, lap, tau), reps=3),
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms, library_ms=None)
+    log(f"    {name}: ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} "
+        f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32_ms:.3f}")
+    return rec
+
+
 def wide_kernels_vs_plain(torch, index, batches, dev):
     """K5 against its plain version at the wide build's first row window
     (the shape the build gives it), K1 at F = 768 on batch 0, and K3 at
@@ -855,33 +943,14 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops import lambda_batch as lb
     from arrowspace_torch.ops.search import prepare_query
-    from arrowspace_torch.taumode import select_tau_batch
 
     log("[10] wide-path kernels against their plain versions on the card")
     a = index.aspace
     win = TAUMODE_WINDOW_BYTES // (W_FEAT * 4) >> 14 << 14
-    x = a.data[:win]
     lap = index.gl.matrix
     n = lap.shape[0]
-    tau = select_tau_batch(x, a.taumode)
-    lam_k = lb.fused_lambda_batch(x, lap, tau)
-    lam_p = lb.lambda_batch_plain(x, lap, tau)
-    err = float(((lam_k - lam_p).abs() / lam_p.abs().clamp_min(1.0)).max())
-    n_distinct = int(torch.unique(lam_p).numel())
-    log(f"  K5 lambda_batch {win}x{W_FEAT}, n={n}: λ max_abs_err={err:.3e}; "
-        f"plain λ distinct={n_distinct}; K5 λ equals the build's: "
-        f"{bool(torch.equal(lam_k, a.lambdas[:win]))}")
-    check(n_distinct >= 1000, "K5 compared on nearly constant λ")
-    check(err <= TOL, "K5 disagrees with its plain version")
-    # five n×n quadratic forms a row (10·n² flops); the rows, τ and the
-    # graph read once, λ written once
-    b_ms, b_by = bound(10.0 * win * n * n,
-                       nbytes(x, tau, lam_k) + 3 * nbytes(lap))
-    rec = {"lambda_batch": dict(
-        max_abs_err=err, ms=cuda_ms(lambda: lb.fused_lambda_batch(x, lap,
-                                                                  tau)),
-        plain_ms=cuda_ms(lambda: lb.lambda_batch_plain(x, lap, tau), reps=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    rec = {"lambda_batch": k5_vs_plain(torch, a, lap, win, "K5 lambda_batch")}
+    x = a.data[:win]
     xn = x[:, :n].contiguous()
     ops = lb.graph_operands(lap, torch.float32)[:3]
     five = (ops[0], ops[1], ops[2], ops[2], ops[2])
@@ -1007,19 +1076,23 @@ def x_plain_session(torch, index, batches, dev):
 
 
 def x_kernels_vs_plain(torch, index, batches, dev):
-    """K3 against its plain version on batch 0 at 1M x 1536 (the
-    session's prepared corpus); returns its record."""
+    """K5 against its plain version at the 1536-wide build's first row
+    window, and K3 on batch 0 at 1M x 1536 (the session's prepared
+    corpus); returns their records (without launches)."""
+    from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops.search import prepare_query
 
-    log("[13] K3 against its plain version at 1M x 1536 on the card")
+    log("[13] K5 and K3 against their plain versions at 1536 on the card")
     a = index.aspace
+    win = max(1 << 14, TAUMODE_WINDOW_BYTES // (X_FEAT * 4) >> 14 << 14)
+    k5 = k5_vs_plain(torch, a, index.gl.matrix, win, "K5 lambda_batch")
     q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
     xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
     qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
     qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
-    return k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam, c1,
-                       a.nitems, "K3 merge_topk")
+    return k5, k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam, c1,
+                           a.nitems, "K3 merge_topk")
 
 
 def where_time_goes(torch, sessions, batches, step,
@@ -1176,7 +1249,7 @@ def main() -> int:
 
         index, session, batches, x_launches, x_ms = x_path(torch, counters,
                                                            dev)
-        k3_x = x_kernels_vs_plain(torch, index, batches, dev)
+        k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
         plain, plain_ms = x_plain_session(torch, index, batches, dev)
         log(f"  1536-wide sessions: merge {x_ms:.3f} ms a batch, plain "
             f"{plain_ms:.3f} ms a batch")
@@ -1184,6 +1257,11 @@ def main() -> int:
                         batches, step=14)
         where_time_goes(torch, (("1536-wide plain session", plain),),
                         batches, step=14, n_batches=2)
+        k5 = rec["lambda_batch"]
+        k5["max_abs_err"] = max(k5["max_abs_err"], k5_x["max_abs_err"])
+        k5["max_abs_err_f64"] = max(k5["max_abs_err_f64"],
+                                    k5_x["max_abs_err_f64"])
+        k5["at_1536"] = k5_x
         k3 = rec["merge_topk"]
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
@@ -1207,7 +1285,8 @@ def main() -> int:
                     "library_ms")},
                 **{key: v for key, v in rec[name].items()
                    if key in ("bound_fp32_ms", "matmul_ms", "at_1536",
-                              "wide_repair_768", "launches_by_path")}}
+                              "wide_repair_768", "launches_by_path",
+                              "max_abs_err_f64", "at_build")}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,6 +36,7 @@ from arrowspace_torch.ops import lambda_batch as lb
 from arrowspace_torch.ops import select_tau as st
 from arrowspace_torch.ops import taulambda as tl
 from arrowspace_torch.ops import topk as tk
+from arrowspace_torch.ops._build import lib
 from arrowspace_torch.ops.search import (INT_MAX, batched_lambda_aware_topk,
                                          binned_topk_with_repair,
                                          prepare_query)
@@ -169,7 +170,8 @@ def test_k3_partial_matches_plain(dev, k, rows_per_chunk):
     assert torch.equal(i == INT_MAX, ri == INT_MAX)
 
 
-@pytest.mark.parametrize("f,n", [(128, 128), (40, 24), (33, 33)])
+@pytest.mark.parametrize("f,n", [(128, 128), (40, 24), (33, 33),
+                                 (256, 256)])
 @pytest.mark.parametrize("mode", [TauMode.median(), TauMode.percentile(0.3),
                                   TauMode.percentile(0.75), TauMode.mean(),
                                   TauMode.fixed(0.2)])
@@ -340,7 +342,7 @@ def _graph(n, seed, density=0.1):
 
 
 @pytest.mark.parametrize("f,n", [(768, 185), (768, 384), (300, 150),
-                                 (64, 32)])
+                                 (64, 32), (1024, 680), (1536, 185)])
 def test_k5_matches_plain(dev, f, n):
     """3001 rows (not a multiple of the CTA's 128), an all-zero row and
     a row whose graph coordinates are all 0 (S = 0)."""
@@ -363,6 +365,15 @@ def test_k5_matches_plain(dev, f, n):
     assert int(torch.unique(ref).numel()) > 1000
 
 
+@pytest.mark.parametrize("cols", [24, 33, 128, 185, 256, 680, 1536])
+def test_lambda_tile_floats_mirrors_the_kernels_shared_memory(dev, cols):
+    """The wrappers' gates read the λ tile's shared memory from
+    lambda_tile_floats; it equals the kernels' own smem_bytes."""
+    for row_scalars in (3, 4):   # K5, K2
+        assert lb.lambda_tile_floats(cols, row_scalars) * 4 == \
+            lib().asp_lambda_tile_bytes(cols, row_scalars)
+
+
 def test_k2_and_k5_share_the_lambda_body(dev):
     """K5 given K2's τ computes K2's λ."""
     rng = np.random.default_rng(2)
@@ -373,6 +384,62 @@ def test_k2_and_k5_share_the_lambda_body(dev):
     lam5 = lb.fused_lambda_batch(x, lap, tau)
     torch.cuda.synchronize()
     assert float((lam2 - lam5).abs().max()) <= TOL
+
+
+def test_k2_k5_identical_rows_get_bitwise_identical_lambda(dev):
+    """Copies of one row at every place of the 64-row CTA (both rows of a
+    thread's C fragment, every m-tile, another CTA, the ragged last CTA)
+    get the same λ bits from K5 and from K2."""
+    rng = np.random.default_rng(5)
+    for f, n in ((768, 185), (128, 128)):
+        x = torch.tensor(rng.uniform(0.1, 1.0, (3001, f)),
+                         dtype=torch.float32, device=dev)
+        copies = [0, 7, 8, 15, 16, 33, 63, 64, 200, 2999, 3000]
+        x[copies] = x[1234].clone()
+        lap = torch.tensor(_graph(n, seed=n, density=0.3),
+                           dtype=torch.float32, device=dev)
+        lams = [lb.fused_lambda_batch(x, lap, torch.full(
+            (3001,), 0.4, device=dev))]
+        if tl.taulambda_fits(f, n):
+            lams.append(tl.fused_taulambda(x, lap, TauMode.median())[0])
+        torch.cuda.synchronize()
+        for lam in lams:
+            assert torch.equal(lam[copies],
+                               lam[1234].expand(len(copies)))
+
+
+@pytest.mark.parametrize("spread", [0.05, 0.01])
+@pytest.mark.parametrize("f,n", [(768, 185), (128, 128)])
+def test_k2_k5_cancellation_rows(dev, f, n, spread):
+    """Rows 0.5 ± spread over a dense graph: S and G's numerator are small
+    differences of large moments.  Each kernel's λ is no further from
+    float64 than 3 times the plain float32 version's distance (the CPU
+    emulation, tests/test_torch_lambda_tc.py, reads at most 1.8); at ±0.05
+    it is also within TOL of the plain version.  At ±0.01 the plain
+    float32 λ is itself about 1e-3 from float64, so no other summation
+    order agrees with it within TOL: the fp32 CUDA-core body that the
+    tensor-core one replaced read 6.1e-4 (K5) and 9.3e-4 (K2) from the
+    plain version there, as this one reads 6.6e-4 and 9.2e-4
+    (tools/kernel_ablation.py on an H100)."""
+    rng = np.random.default_rng(f + n)
+    x = torch.tensor(0.5 + rng.uniform(-spread, spread, (3001, f)),
+                     dtype=torch.float32, device=dev)
+    lap = torch.tensor(_graph(n, seed=n, density=1.0), dtype=torch.float32,
+                       device=dev)
+    tau = torch.tensor(rng.uniform(0.01, 1.0, 3001), dtype=torch.float32,
+                       device=dev)
+    if tl.taulambda_fits(f, n):
+        lam, tau = tl.fused_taulambda(x, lap, TauMode.median())
+    else:
+        lam = lb.fused_lambda_batch(x, lap, tau)
+    ref = lb.lambda_batch_plain(x, lap, tau)
+    ref64 = lb.lambda_batch_plain(x.double(), lap.double(), tau.double())
+    torch.cuda.synchronize()
+    err64 = float((lam.double() - ref64).abs().max())
+    plain_err64 = float((ref.double() - ref64).abs().max())
+    assert err64 <= 3.0 * plain_err64 + 1e-7
+    if spread == 0.05:
+        assert float((lam - ref).abs().max()) <= TOL
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -392,7 +459,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     tau = torch.ones(xh.shape[0], device=dev)
     with pytest.raises(ValueError):              # n above the gate
         lb.fused_lambda_batch(torch.zeros(4, 1024, device=dev),
-                              torch.eye(421, device=dev), tau[:4])
+                              torch.eye(681, device=dev), tau[:4])
     with pytest.raises(ValueError):              # one τ per row
         lb.fused_lambda_batch(xh, torch.eye(8, device=dev), tau[:3])
 

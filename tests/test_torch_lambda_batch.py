@@ -89,7 +89,8 @@ def test_fits_gate():
     assert lb.lambda_batch_fits(768, 185)
     assert lb.lambda_batch_fits(768, 384)
     assert lb.lambda_batch_fits(420, 420)
-    assert not lb.lambda_batch_fits(768, 421)
+    assert lb.lambda_batch_fits(768, 680)
+    assert not lb.lambda_batch_fits(768, 681)
     assert not lb.lambda_batch_fits(100, 101)
     assert not lb.lambda_batch_fits(64, 0)
 

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Ablation of the tensor-core top-k kernels K1 (csrc/bintopk.cu), K3
-(csrc/merge_topk.cu), K6 (csrc/energy_bintopk.cu) and K7
-(csrc/energy_chord.cu) on one NVIDIA GPU.
+"""Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K3
+(csrc/merge_topk.cu), K6 (csrc/energy_bintopk.cu), K7
+(csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
+(csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh), on
+one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7] [--before DIR]
+    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7,k2,k5]
+                                     [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
 a kernel: it compiles copies of the kernel's sources with one part taken
@@ -21,16 +24,31 @@ fails) and times each copy on the same inputs at the serving shapes:
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
   rows ×1.02, w_λ = 1, w_D = 0.5, 128 bins, depth 3; the plane centred
   on its mean as the binned energy engine serves it, and (precision
-  variants) uncentred too.
+  variants) uncentred too;
+- K5: 688,128 clustered rows at F = 768 (the wide build's first row
+  window) with their median τ, over a graph of n = 185 nodes made on the
+  card as the wide build makes it (the builder's λ-graph, ε = 1.0, over
+  317 centroid-like rows projected to 185 dimensions by the seeded JL
+  projection); K2: the clustered rows at F = 128, 262,144 and 1,000,000
+  of them, over the graph made the same way from 128-wide centroid-like
+  rows (n = 128), median τ.  Both also on 65,536 cancellation-prone rows
+  (0.5 ± 0.05 and 0.5 ± 0.01 over a dense random graph).
 
 Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
 network or det; for K3 no selection: no candidate is appended, so no
 merge runs), "no_staging" (the first slice only), "no_product",
 "product_only", "staging_only"; K1 also "one_tf32" and "lo_truncated";
 K6 and K7 also "partial_8/16/64" (the truncating accumulate summed in
-zeroed partials of 8, 16 or 64 features instead of the shipped 32).
-A variant with a part removed computes garbage: only "kernel" is checked
-against the plain version.  For K6 and K7 every variant that keeps the
+zeroed partials of 8, 16 or 64 features instead of the shipped 32); K2
+and K5 (fold: the epilogue that multiplies the products by the rows'
+coordinates; staging: the graph slices) also "no_b_split" (the graph
+operands passed to the tensor core unsplit: what splitting them once
+per launch could save at most) and "nt4" (a warp on 4 n-tiles of graph
+rows instead of 2: 171 registers, one CTA an SM) and "four_tf32" (lo·lo
+added to the three products, with its λ errors).  A variant with a part
+removed computes garbage: only "kernel" is checked against the plain
+version; for K2 and K5 it also reports its λ error against a float64 λ
+computed on the card.  For K6 and K7 every variant that keeps the
 product also reports its error against float64: K6's pool scores, K7's
 pooled d² and u = w_D/(1+√d²) from it, over the first 512 queries.
 
@@ -40,7 +58,9 @@ unpacked with ``git archive``; its C entry points must be the same.  For
 K1 it builds DIR's kernel beside this one, times both, and compares
 their machine code (cuobjdump -sass) instantiation by instantiation; for
 K3 it times DIR's kernel as shipped, at its own chunking (the fp32
-kernel of earlier commits: 8 queries a CTA, two CTAs per SM).
+kernel of earlier commits: 8 queries a CTA, two CTAs per SM); for K2 and
+K5 it times DIR's kernel as shipped and reports its float64 error beside
+this one's.
 
 Output: the card's name and power limit, each variant's registers and
 spills by instantiation (ptxas), then one line per (kernel, plane,
@@ -63,17 +83,23 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from arrowspace_torch.graph import GraphFactory  # noqa: E402
 from arrowspace_torch.ops import bintopk as bt  # noqa: E402
+from arrowspace_torch.ops import lambda_batch as lb  # noqa: E402
+from arrowspace_torch.ops import taulambda as tl  # noqa: E402
 from arrowspace_torch.ops import energy_approx as ea  # noqa: E402
 from arrowspace_torch.ops import energy_bintopk as eb  # noqa: E402
 from arrowspace_torch.ops import topk as tk  # noqa: E402
 from arrowspace_torch.ops._build import (CSRC, FLAGS, SIGNATURES,  # noqa
                                          _nvcc)
 from arrowspace_torch.ops.search import INT_MAX, prepare_query  # noqa: E402
+from arrowspace_torch.reduction import ImplicitProjection  # noqa: E402
+from arrowspace_torch.taumode import TauMode, select_tau_sorted  # noqa: E402
 
 OUT = ROOT / "arrowspace_torch" / "_build" / "ablation"
 N, B, BINS, DEPTH, K = 1_000_000, 2048, 128, 3, 10
 WL, WD = 1.0, 0.5
+CANCEL_SPREADS = (0.05, 0.01)   # K2's and K5's rows 0.5 ± spread
 
 # (file, old, new) substitutions of each part, by kernel and design
 K1_PARTS = {
@@ -139,12 +165,42 @@ TILE_VARIANTS = variants(TILE_PARTS, {
     f"partial_{pk}": [("energy_tile.cuh", "constexpr int kPartial = 32;",
                        f"constexpr int kPartial = {pk};")]
     for pk in (8, 16, 64)})
+LAMBDA_PARTS = {   # the λ body of K2 and K5 (csrc/lambda_tile.cuh)
+    "product": [("lambda_tile.cuh",
+                 "        kstep(P, xa + kk, S, gb + kk, nt_live);",
+                 "        (void)0;")],
+    "fold": [("lambda_tile.cuh", "      fold(s, P, xs + (m0 + g) * S",
+              "      if (n < 0) fold(s, P, xs + (m0 + g) * S")],
+    "staging": [("lambda_tile.cuh",
+                 "    if (step + 1 < steps) {\n      const int p1",
+                 "    if (false) {\n      const int p1")],
+}
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
 K3_VARIANTS = variants(K3_PARTS, {})
+LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
+    "no_b_split": [("lambda_tile.cuh",
+                    f"asp_fold::split_tf32({v}, {hi}, {lo});",
+                    f"{hi} = {lo} = __float_as_uint({v});")
+                   for v, hi, lo in (
+                       ("b[0]", "lh0", "ll0"), ("b[4]", "lh1", "ll1"),
+                       ("b[kNI * kXS]", "wh0", "wl0"),
+                       ("b[kNI * kXS + 4]", "wh1", "wl1"),
+                       ("b[2 * kNI * kXS]", "vh0", "vl0"),
+                       ("b[2 * kNI * kXS + 4]", "vh1", "vl1"))],
+    "nt4": [("lambda_tile.cuh", "constexpr int kNT = 2;",
+             "constexpr int kNT = 4;")],
+    # the fourth product lo·lo too: how much of the λ error the 3×TF32
+    # split leaves out
+    "four_tf32": [("lambda_tile.cuh",
+                   "  mma_tf32_zero(d, al, bh0, bh1);\n",
+                   "  mma_tf32_zero(d, al, bh0, bh1);\n"
+                   "  asp_fold::mma_tf32(d, al, bl0, bl1);\n")]})
 SOURCES = {"k1": "bintopk.cu", "k3": "merge_topk.cu",
-           "k6": "energy_bintopk.cu", "k7": "energy_chord.cu"}
+           "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
+           "k2": "taulambda.cu", "k5": "lambda_batch.cu"}
 ENTRY = {"k1": "asp_bintopk", "k3": "asp_merge_topk",
-         "k6": "asp_energy_bintopk", "k7": "asp_energy_chord"}
+         "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
+         "k2": "asp_taulambda", "k5": "asp_lambda_batch"}
 
 
 def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
@@ -436,11 +492,120 @@ def run_energy(kernel, libs, dev, tag, centred: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def build_graph(dev, rows, n: int):
+    """The λ-graph of a build over centroid-like rows: 317 of the
+    clustered rows (the wide build found 317 clusters), projected to n
+    dimensions by the seeded JL projection where n < F, then the
+    builder's λ-graph at ε = 1.0 (k = 6, topk = 4, p = 2) over the
+    feature rows."""
+    cent = rows[torch.randperm(rows.shape[0], device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(317))[:317]]
+    if n < rows.shape[1]:
+        cent = ImplicitProjection(rows.shape[1], n, seed=11).project_device(
+            cent)
+    return GraphFactory.build_laplacian_matrix_from_k_cluster(
+        cent.double().cpu().numpy(), 1.0, 6, 4, 2.0, None, False, False,
+        rows.shape[0], device=dev, dtype=torch.float32).matrix
+
+
+def dense_graph(dev, n: int):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    a = torch.rand(n, n, device=dev, generator=gen)
+    a = torch.maximum(a, a.T).fill_diagonal_(0.0)
+    return torch.diag(a.sum(1)) - a
+
+
+def lambda_call(kernel, fn, x, lap, tau, lam, tau_out, stream):
+    """One launch of K2 (median τ) or K5 on (x, lap[, tau])."""
+    ops = [t.contiguous() for t in lb.graph_operands(lap, torch.float32)]
+    n_rows, f = x.shape
+    n = lap.shape[0]
+
+    def call():
+        if kernel == "k5":
+            rc = fn(x.data_ptr(), *[t.data_ptr() for t in ops],
+                    tau.data_ptr(), n_rows, f, n, lam.data_ptr(), stream)
+        else:
+            rc = fn(x.data_ptr(), *[t.data_ptr() for t in ops], n_rows, f,
+                    n, 0, 0.5, 0.0, lam.data_ptr(), tau_out.data_ptr(),
+                    stream)
+        if rc != 0:
+            raise SystemExit(f"{kernel}: launch failed ({rc})")
+    return call
+
+
+def lambda_errors(kernel, fn, x, lap, tau, stream) -> tuple:
+    """(error vs the plain version, vs float64) of one launch: the largest
+    |λ - ref| / max(|ref|, 1), as chip_smoke.py measures it."""
+    lam = torch.empty(x.shape[0], device=x.device)
+    tau_out = torch.empty_like(lam)
+    lambda_call(kernel, fn, x, lap, tau, lam, tau_out, stream)()
+    ref = lb.lambda_batch_plain(x, lap, tau)
+    ref64 = lb.lambda_batch_plain(x.double(), lap.double(), tau.double())
+    if kernel == "k2" and not torch.equal(tau_out, tau):
+        raise SystemExit("K2's τ differs from the sort's")
+
+    def err(r):
+        return float(((lam.double() - r.double()).abs()
+                      / r.double().abs().clamp_min(1.0)).max())
+    return err(ref), err(ref64)
+
+
+def run_lambda(kernel, libs, dev, tag: str = "now") -> None:
+    """K5 at 688128 x 768, n = 185, or K2 at 262144 and 1M x 128, n = 128,
+    on the clustered rows and a build's graph; then each "kernel" on
+    65536 cancellation-prone rows (0.5 ± each of CANCEL_SPREADS) over a
+    dense graph."""
+    stream = torch.cuda.current_stream().cuda_stream
+    f, n = (768, 185) if kernel == "k5" else (128, 128)
+    rows, _ = clustered(dev, 688128 if kernel == "k5" else N, f, seed=f)
+    lap = build_graph(dev, rows, n)
+    mode = TauMode.median()
+    shapes = [688128] if kernel == "k5" else [262144, N]
+    for n_rows in shapes:
+        x = rows[:n_rows]
+        tau = select_tau_sorted(x, mode).contiguous()
+        lam = torch.empty(n_rows, device=dev)
+        tau_out = torch.empty_like(lam)
+        for name, fn in libs.items():
+            call = lambda_call(kernel, fn, x, lap, tau, lam, tau_out, stream)
+            line = (f"{tag} {kernel} {n_rows}x{f} n={n} {name}: "
+                    f"{time_ms(call):.3f} ms")
+            if name in ("kernel", "four_tf32"):
+                e, e64 = lambda_errors(kernel, fn, x, lap, tau, stream)
+                line += f" (λ err vs plain {e:.3e}, vs float64 {e64:.3e})"
+                if e > 1e-5 and name == "kernel":
+                    print(line, flush=True)
+                    raise SystemExit(f"{kernel} disagrees with its plain "
+                                     "version")
+            print(line, flush=True)
+    del rows
+    lap = dense_graph(dev, n)
+    for spread in CANCEL_SPREADS:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = 0.5 + spread * (2.0 * torch.rand(65536, f, device=dev,
+                                             generator=gen) - 1.0)
+        tau = select_tau_sorted(x, mode).contiguous()
+        ref = lb.lambda_batch_plain(x, lap, tau).double()
+        p64 = float((ref - lb.lambda_batch_plain(
+            x.double(), lap.double(), tau.double())).abs().max())
+        for name in ("kernel", "four_tf32"):
+            if name not in libs:
+                continue
+            e, e64 = lambda_errors(kernel, libs[name], x, lap, tau, stream)
+            print(f"{tag} {kernel} {name} rows 0.5 ± {spread}, dense graph, "
+                  f"65536x{f} n={n}: λ err vs plain {e:.3e}, vs float64 "
+                  f"{e64:.3e} (plain float32 vs float64 {p64:.3e})",
+                  flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", default="k1,k3,k6,k7")
+    ap.add_argument("--kernels", default="k1,k3,k6,k7,k2,k5")
     ap.add_argument("--before", type=pathlib.Path, default=None,
-                    help="csrc directory of another checkout (K1, K3, K6, K7)")
+                    help="csrc directory of another checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
@@ -480,6 +645,15 @@ def main() -> int:
             libs = build(kernel, csrc, table, tag)
             for centred in (True, False):
                 run_energy(kernel, libs, dev, tag, centred)
+    for kernel in ("k2", "k5"):
+        if kernel not in kernels:
+            continue
+        libs = build(kernel, CSRC, LAMBDA_VARIANTS, "now")
+        if args.before is not None:
+            run_lambda(kernel, build(kernel, args.before.resolve(),
+                                     {"kernel": []}, "before"), dev,
+                       "before")
+        run_lambda(kernel, libs, dev)
     return 0
 
 
