@@ -17,10 +17,11 @@
 // What bounds it on an H100: the five quadratic forms, 5·n² multiply-adds
 // a row (82 GFMA at 1M×128), which the λ body shared with K5
 // (lambda_tile.cuh) runs on the tensor cores as 3×TF32 (4.9e14 TF32
-// flops at 1M×128, 1.0 ms at 494.7 TFLOP/s); then τ's 32 ballot passes a
-// row.  What the design does: a CTA stages its 64 item rows once (F <=
-// 256 values each); τ is a warp-per-row bisection over the sortable-int
-// value range (common.cuh, shared with K4), exact like the sort, so the
+// flops at 1M×128, 1.0 ms at 494.7 TFLOP/s); then τ's selection.  What
+// the design does: a CTA stages its 64 item rows once (F <= 256 values
+// each); τ is a warp-per-row radix select over the row's finite range
+// (common.cuh, shared with K4; its counters borrow the graph slices'
+// shared memory until the products begin), exact like the sort, so the
 // median and percentile equal select_tau_batch bitwise; the same warp sums
 // the O(F) row terms and then zeroes the row's columns n .. round8(n) - 1,
 // which the products must read as 0; then the shared body runs the
@@ -38,6 +39,8 @@ constexpr int kThreads = al::kThreads;
 constexpr int kRows = al::kRows;
 constexpr int kMaxLane = 8;      // row values per lane: F <= 256
 constexpr int kRowScalars = 4;   // τ, xᵀx, the S and G row terms
+static_assert(al::kGraphFloats >= kThreads / 32 * 256,
+              "the graph slices hold every warp's selection counters");
 
 __global__ void __launch_bounds__(kThreads, al::kCtasPerSm)
     taulambda_kernel(const float* __restrict__ x, const float* __restrict__ L,
@@ -73,22 +76,23 @@ __global__ void __launch_bounds__(kThreads, al::kCtasPerSm)
   __syncthreads();
 
   // ---- τ and the O(F) row sums: one warp per row ----
-  const int nv = (F + 31) / 32;
+  // the graph slices' space holds each warp's 256 selection counters
+  // until the products begin (see the barrier below)
+  unsigned* hist = reinterpret_cast<unsigned*>(gs) + warp * 256;
   for (int r = warp; r < kRows; r += kThreads / 32) {
     int y[kMaxLane];
     float v[kMaxLane];
-    int m_count = 0;
+    int fin_count = 0;
     float den = 0.0f, sr = 0.0f, sc = 0.0f, tar = 0.0f, tac = 0.0f,
           fsum = 0.0f;
 #pragma unroll
     for (int m = 0; m < kMaxLane; ++m) {
       const int f = m * 32 + lane;
-      const bool in = m < nv && f < F;
+      const bool in = f < F;
       v[m] = in ? xs[r * S + f] : 0.0f;
       const bool fin = in && isfinite(v[m]);
-      y[m] = in ? asp_to_sortable(fin ? v[m] : __int_as_float(0x7F800000))
-                : INT32_MAX;
-      if (m < nv) m_count += __popc(__ballot_sync(ASP_FULL_MASK, fin));
+      y[m] = fin ? asp_to_sortable(v[m]) : ASP_NO_VALUE;
+      fin_count += fin;
       if (fin) fsum += v[m];
       if (in) {
         const float x2 = v[m] * v[m];
@@ -110,11 +114,12 @@ __global__ void __launch_bounds__(kThreads, al::kCtasPerSm)
     if (kind == 3) {
       tau = fixed;
     } else if (kind == 2) {
+      const int m_count = __reduce_add_sync(ASP_FULL_MASK, fin_count);
       const float s = asp_warp_sum(fsum);
       tau = m_count > 0 ? s / (float)max(m_count, 1) : 0.0f;
       tau = fmaxf(tau, ASP_TAU_FLOOR);
     } else {
-      tau = asp_warp_order_tau<kMaxLane>(y, nv, m_count, F, kind, pct);
+      tau = asp_warp_order_tau<kMaxLane>(y, kind, pct, hist);
     }
     // the products read the row's columns n .. n8 - 1 as 0
     __syncwarp();
@@ -128,6 +133,7 @@ __global__ void __launch_bounds__(kThreads, al::kCtasPerSm)
   }
 
   // ---- the five quadratic forms on the tensor cores ----
+  __syncthreads();   // every warp is done with its counters in gs
   al::forms(xs, S, L, W, W2, n, vec, gs, red);
 
   // ---- λ per row ----

@@ -3,12 +3,16 @@
 Replaces ``arrowspace_tpu.ops.pallas_tau.fused_select_tau`` (pallas_call
 at pallas_tau.py:475; body ``_kernel`` :422, ``_tau_rows`` :305 with the
 ``bisect`` layout).  ``taumode.select_tau_batch`` routes float32 median
-and percentile batches of at least 2²² values here; in the energy build
-that is the corpus λ pass of a tall graph, where K2 does not apply.
+and percentile batches of at least 2²² values here: the energy build's
+corpus λ pass (a tall graph, where K2 does not apply) and each row
+window of the projected builds at F = 768 and 1536.
 
-The kernel selects the order statistic by bisection over the sortable
-int range (common.cuh, shared with K2), so τ equals
-``taumode.select_tau_sorted``, its plain version, bitwise.
+The kernel selects the order statistic by a radix select over each
+row's finite range (common.cuh, shared with K2), so τ equals
+``taumode.select_tau_sorted``, its plain version, bitwise.  It takes
+rows of up to 1536 values, where the JAX package's Pallas kernel stops
+below 1536 (``fused_select_tau_fits``) and sorts: both are bitwise
+equal to the sort.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from ._build import check, lib, stream_of
 __all__ = ["MAX_F", "select_tau_fits", "fused_select_tau",
            "select_tau_plain"]
 
-MAX_F = 1024               # 32 values a lane of one warp
+MAX_F = 1536               # 48 values a lane of one warp
 _KINDS = {"median": 0, "percentile": 1}
 
 

@@ -107,10 +107,10 @@ def select_tau_batch(x: torch.Tensor, mode: TauMode) -> torch.Tensor:
     dtype on x's device.
 
     A float32 median or percentile batch of at least
-    SELECT_TAU_KERNEL_MIN_ELEMS values, with F within K4's gate, takes
-    the K4 kernel (ops/select_tau.py; its plain version on the CPU); the
-    gate is keyed on size and dtype, never on the device.  Everything
-    else takes select_tau_sorted."""
+    SELECT_TAU_KERNEL_MIN_ELEMS values, with F within K4's gate (F <=
+    1536), takes the K4 kernel (ops/select_tau.py; its plain version on
+    the CPU); the gate is keyed on size and dtype, never on the device.
+    Everything else, wider rows included, takes select_tau_sorted."""
     n_rows, f = x.shape
     if (mode.kind in ("median", "percentile") and x.dtype == torch.float32
             and n_rows * f >= SELECT_TAU_KERNEL_MIN_ELEMS):

@@ -24,9 +24,9 @@ the same kind:
 - the 1536-wide projected path: the same build on 1536-wide rows (the
   width of the most widely deployed text embeddings), whose F is above
   K1's gate, so the SearchSession resolves "merge" and serves every batch
-  through the exact merge kernel K3 (K5 in each of the build's three row
-  windows; τ takes the sort, since K4 holds rows of up to 1024 values); a
-  "plain" session (matmul + stable sort) is timed beside it.
+  through the exact merge kernel K3 (K4, then K5, in each of the build's
+  three row windows); a "plain" session (matmul + stable sort) is timed
+  beside it.
 
 Every build's clustering scan runs in the native C++ library
 (arrowspace_torch/native), compiled with the host C++ compiler at first
@@ -714,20 +714,12 @@ def energy_vs_plain_scan(torch, index, exact, res_e, res_a, batches, dev):
     log(f"  row 1 top-{K}: {res_e[0][1][1].tolist()}")
 
 
-def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
-    """K4, K6 and K7 against their plain versions on the card, at the
-    energy path's shapes; returns the per-kernel records (without
-    launches)."""
-    from arrowspace_torch.ops import bintopk as bt
-    from arrowspace_torch.ops import energy_approx as ea
-    from arrowspace_torch.ops import energy_bintopk as eb
+def k4_vs_plain(torch, x, mode):
+    """K4 against its plain version (the row sort) on the rows x, as a
+    build's λ pass hands them to it: τ bitwise equal; returns its record
+    (without launches), torch.nanquantile's time beside it."""
     from arrowspace_torch.ops import select_tau as st
 
-    log("[7] energy kernels against their plain versions on the card")
-    a, rec = index.aspace, {}
-
-    # K4 over the corpus, as the build's λ pass calls it
-    x, mode = a.data, a.taumode
     tau_k = st.fused_select_tau(x, mode)
     tau_p = st.select_tau_plain(x, mode)
     tau_eq = bool(torch.equal(tau_k, tau_p))
@@ -740,12 +732,32 @@ def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
         log(f"    torch.nanquantile(x, 0.5, dim=1) vs K4: max_abs_diff="
             f"{float((lib_tau - tau_k).abs().max()):.3e}")
         lib = cuda_ms(lambda: torch.nanquantile(x, 0.5, dim=1), reps=3)
+    # the rows read once and τ written once; one comparison a value
     b_ms, b_by = bound(float(x.numel()), nbytes(x, tau_k))
-    rec["select_tau"] = dict(
+    rec = dict(
         max_abs_err=float((tau_k - tau_p).abs().max()),
-        ms=cuda_ms(lambda: st.fused_select_tau(x, mode)),
+        ms=cuda_ms(lambda: st.fused_select_tau(x, mode), reps=20),
         plain_ms=cuda_ms(lambda: st.select_tau_plain(x, mode), reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log(f"    K4: ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.3f} "
+        f"bound_ms={b_ms:.3f} ({b_by}) library_ms="
+        f"{lib if lib is None else round(lib, 3)}")
+    return rec
+
+
+def energy_kernels_vs_plain(torch, index, exact, approx, batches, dev):
+    """K4, K6 and K7 against their plain versions on the card, at the
+    energy path's shapes; returns the per-kernel records (without
+    launches)."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import energy_approx as ea
+    from arrowspace_torch.ops import energy_bintopk as eb
+
+    log("[7] energy kernels against their plain versions on the card")
+    a, rec = index.aspace, {}
+
+    # K4 over the corpus, as the build's λ pass calls it
+    rec["select_tau"] = k4_vs_plain(torch, a.data, a.taumode)
 
     # K6 and K7 call rsqrtf; their plain versions call torch.rsqrt
     v = torch.logspace(-37.0, 38.0, 1 << 20, device=dev)
@@ -934,11 +946,11 @@ def k5_vs_plain(torch, a, lap, win, name):
 
 
 def wide_kernels_vs_plain(torch, index, batches, dev):
-    """K5 against its plain version at the wide build's first row window
-    (the shape the build gives it), K1 at F = 768 on batch 0, and K3 at
-    the shape batch 0's repair hands it (row 0, whose fired bins
-    overflow); returns K5's record (without launches) and K3's at that
-    shape."""
+    """K4 and K5 against their plain versions at the wide build's first
+    row window (the shape the build gives them), K1 at F = 768 on batch
+    0, and K3 at the shape batch 0's repair hands it (row 0, whose fired
+    bins overflow); returns K5's record (without launches), K3's at that
+    shape and K4's at the window."""
     from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops import lambda_batch as lb
@@ -949,6 +961,7 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
     win = TAUMODE_WINDOW_BYTES // (W_FEAT * 4) >> 14 << 14
     lap = index.gl.matrix
     n = lap.shape[0]
+    k4 = k4_vs_plain(torch, a.data[:win], a.taumode)
     rec = {"lambda_batch": k5_vs_plain(torch, a, lap, win, "K5 lambda_batch")}
     x = a.data[:win]
     xn = x[:, :n].contiguous()
@@ -982,7 +995,7 @@ def wide_kernels_vs_plain(torch, index, batches, dev):
         f"({b1_by}) bound_fp32_ms={b32_ms:.3f}")
     k3 = k3_vs_plain(torch, qhat[:1].contiguous(), qlam[:1].contiguous(),
                      xhat, xlam, c1, rows, "K3 at the wide repair's shape")
-    return rec, k3
+    return rec, k3, k4
 
 
 def host_peak_gib() -> float:
@@ -1020,6 +1033,8 @@ def x_path(torch, counters, dev):
     n = index.gl.matrix.shape[0]
     log(f"  build_s={t_build:.3f} " + " ".join(
         f"{k}_s={v:.3f}" for k, v in st.items()))
+    log(f"  λ pass (τ by K4, λ by K5, in row windows): "
+        f"{st['taumode']:.3f} s")
     log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} graph="
         f"{n}x{n} max_memory_allocated="
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB host peak "
@@ -1076,23 +1091,25 @@ def x_plain_session(torch, index, batches, dev):
 
 
 def x_kernels_vs_plain(torch, index, batches, dev):
-    """K5 against its plain version at the 1536-wide build's first row
-    window, and K3 on batch 0 at 1M x 1536 (the session's prepared
-    corpus); returns their records (without launches)."""
+    """K4 and K5 against their plain versions at the 1536-wide build's
+    first row window, and K3 on batch 0 at 1M x 1536 (the session's
+    prepared corpus); returns their records (without launches)."""
     from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops.search import prepare_query
 
-    log("[13] K5 and K3 against their plain versions at 1536 on the card")
+    log("[13] K4, K5 and K3 against their plain versions at 1536 on the "
+        "card")
     a = index.aspace
     win = max(1 << 14, TAUMODE_WINDOW_BYTES // (X_FEAT * 4) >> 14 << 14)
+    k4 = k4_vs_plain(torch, a.data[:win], a.taumode)
     k5 = k5_vs_plain(torch, a, index.gl.matrix, win, "K5 lambda_batch")
     q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
     xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
     qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
     qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
-    return k5, k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam, c1,
-                           a.nitems, "K3 merge_topk")
+    return k4, k5, k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam,
+                               c1, a.nitems, "K3 merge_topk")
 
 
 def where_time_goes(torch, sessions, batches, step,
@@ -1240,7 +1257,8 @@ def main() -> int:
         index, session, batches, w_launches = wide_path(torch, counters,
                                                         dev)
         launches["lambda_batch"] = w_launches["lambda_batch"]
-        k5_rec, k3_wide = wide_kernels_vs_plain(torch, index, batches, dev)
+        k5_rec, k3_wide, k4_wide = wide_kernels_vs_plain(torch, index,
+                                                         batches, dev)
         rec.update(k5_rec)
         where_time_goes(torch, (("wide projected session", session),),
                         batches, step=11)
@@ -1249,7 +1267,7 @@ def main() -> int:
 
         index, session, batches, x_launches, x_ms = x_path(torch, counters,
                                                            dev)
-        k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
+        k4_x, k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
         plain, plain_ms = x_plain_session(torch, index, batches, dev)
         log(f"  1536-wide sessions: merge {x_ms:.3f} ms a batch, plain "
             f"{plain_ms:.3f} ms a batch")
@@ -1262,6 +1280,14 @@ def main() -> int:
         k5["max_abs_err_f64"] = max(k5["max_abs_err_f64"],
                                     k5_x["max_abs_err_f64"])
         k5["at_1536"] = k5_x
+        k4 = rec["select_tau"]
+        k4["max_abs_err"] = max(k4["max_abs_err"], k4_wide["max_abs_err"],
+                                k4_x["max_abs_err"])
+        k4["at_768"], k4["at_1536"] = k4_wide, k4_x
+        k4["launches_by_path"] = {
+            "energy": launches["select_tau"],
+            "wide_768": w_launches["select_tau"],
+            "wide_1536": x_launches["select_tau"]}
         k3 = rec["merge_topk"]
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
@@ -1284,9 +1310,10 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
                 **{key: v for key, v in rec[name].items()
-                   if key in ("bound_fp32_ms", "matmul_ms", "at_1536",
-                              "wide_repair_768", "launches_by_path",
-                              "max_abs_err_f64", "at_build")}}
+                   if key in ("bound_fp32_ms", "matmul_ms", "at_768",
+                              "at_1536", "wide_repair_768",
+                              "launches_by_path", "max_abs_err_f64",
+                              "at_build")}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

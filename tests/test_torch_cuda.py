@@ -462,6 +462,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                               torch.eye(681, device=dev), tau[:4])
     with pytest.raises(ValueError):              # one τ per row
         lb.fused_lambda_batch(xh, torch.eye(8, device=dev), tau[:3])
+    with pytest.raises(ValueError):              # F above K4's gate
+        st.fused_select_tau(torch.zeros(4, st.MAX_F + 1, device=dev),
+                            TauMode.median())
 
 
 def test_binned_search_with_forced_repair_equals_full_scan(dev):
@@ -516,7 +519,45 @@ def test_cuda_session_matches_cpu_float64_build(dev):
     assert float(np.mean(gi == ci)) >= 0.99
 
 
-@pytest.mark.parametrize("f", [128, 64, 7, 300, 1024])
+def awkward_rows(f: int, seed: int) -> np.ndarray:
+    """23 rows of F float32 values that stress an order statistic:
+    random, constant, negative, ±0.0, denormal, duplicates, sorted,
+    reversed, one finite value, all NaN, ±inf, sums that overflow, the
+    full float32 range, and values that share every radix digit but the
+    last (tests/test_torch_tau_select.py emulates K4 on them)."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.normal(0.5, 1.0, f), rng.uniform(0.2, 0.8, f)]
+    rows.append(np.full(f, 0.7))                              # constant
+    rows.append(rng.uniform(-3.0, -1.0, f))                   # negative
+    z = np.where(rng.uniform(size=f) < 0.5, -0.0, 0.0)        # ±0 and some
+    z[rng.uniform(size=f) < 0.3] = 0.25
+    rows.append(z)
+    den = rng.integers(-2**23 + 1, 2**23, f).astype(np.int32)  # denormals
+    rows.append(np.abs(den).view(np.float32) * np.sign(den))
+    rows.append(rng.choice([0.1, 0.2, 0.3], f))               # duplicates
+    rows.append(np.sort(rng.normal(size=f)))                  # sorted
+    rows.append(np.sort(rng.normal(size=f))[::-1])            # reversed
+    one = np.full(f, np.nan)                                  # one finite
+    one[rng.integers(f)] = 0.4
+    rows.append(one)
+    rows.append(np.full(f, np.nan))                           # all NaN
+    pm = rng.uniform(0.1, 1.0, f)                             # ±inf
+    pm[rng.uniform(size=f) < 0.3] = np.inf
+    pm[rng.uniform(size=f) < 0.2] = -np.inf
+    rows.append(pm)
+    rows.append(np.where(rng.uniform(size=f) < 0.5, np.inf, -np.inf))
+    rows.append(rng.uniform(3.0e38, 3.4e38, f))               # sums overflow
+    rows.append(rng.choice([-3.0e38, 3.0e38, 1e-30, 0.5], f))  # full range
+    one_bin = (np.float32(1.0).view(np.int32)                 # one digit
+               + rng.permutation(f)).astype(np.int32).view(np.float32)
+    one_bin[rng.integers(f)] = 1e6
+    rows.append(one_bin)
+    rows.extend(rng.uniform(0.0, 1.0, (6, f)))
+    return np.asarray(rows, dtype=np.float32)
+
+
+
+@pytest.mark.parametrize("f", [128, 64, 7, 300, 1024, 768, 1025, 1536])
 @pytest.mark.parametrize("mode", [TauMode.median(), TauMode.percentile(0.3),
                                   TauMode.percentile(0.75)])
 def test_k4_matches_plain(dev, f, mode):
@@ -528,12 +569,54 @@ def test_k4_matches_plain(dev, f, mode):
     x[8, ::2] = float("-inf")
     x[9, :] = float("nan")
     x[10, :] = 0.0
+    awk = awkward_rows(f, seed=f)
+    x[11:11 + len(awk)] = torch.from_numpy(awk).to(dev)
     before = st.fused_select_tau.launches
     tau = st.fused_select_tau(x, mode)
     ref = st.select_tau_plain(x, mode)
     torch.cuda.synchronize()
     assert st.fused_select_tau.launches == before + 1
     assert torch.equal(tau, ref)
+
+
+@pytest.mark.parametrize("f", [128, 768, 1536])
+def test_k4_scalar_and_vector_loads_agree(dev, f):
+    """Rows 16-byte aligned take 16-byte loads, others one value a lane
+    at a time: the same τ, bitwise, as the sort."""
+    rng = np.random.default_rng(f + 1)
+    rows = np.concatenate([rng.uniform(0.15, 0.85, (2000, f)),
+                           awkward_rows(f, seed=f + 1)]).astype(np.float32)
+    buf = torch.empty(rows.size + 1, device=dev)
+    shifted = buf[1:].view(rows.shape)          # 4 bytes past alignment
+    shifted.copy_(torch.from_numpy(rows))
+    aligned = shifted.clone()
+    assert shifted.data_ptr() % 16 == 4 and aligned.data_ptr() % 16 == 0
+    for mode in (TauMode.median(), TauMode.percentile(0.3)):
+        ref = st.select_tau_plain(aligned, mode)
+        assert torch.equal(st.fused_select_tau(aligned, mode), ref)
+        assert torch.equal(st.fused_select_tau(shifted, mode), ref)
+
+
+@pytest.mark.parametrize("f", [128, 33, 256])
+@pytest.mark.parametrize("mode", [TauMode.median(), TauMode.percentile(0.0),
+                                  TauMode.percentile(0.3),
+                                  TauMode.percentile(1.0)])
+def test_k2_tau_bitwise_on_awkward_rows(dev, f, mode):
+    """K2's τ phase runs the same selection as K4: bitwise equal to the
+    sort on the same awkward rows, beside random ones in every CTA."""
+    rng = np.random.default_rng(f + 7)
+    rows = rng.uniform(0.1, 1.0, (1000, f))
+    awk = awkward_rows(f, seed=f)
+    rows[::40][:len(awk)] = awk
+    x = torch.tensor(rows, dtype=torch.float32, device=dev)
+    a = rng.uniform(0, 1, (f, f)) * (rng.uniform(0, 1, (f, f)) < 0.1)
+    a = np.maximum(a, a.T)
+    np.fill_diagonal(a, 0.0)
+    lap = torch.tensor(np.diag(a.sum(1)) - a, dtype=torch.float32,
+                       device=dev)
+    _, tau = tl.fused_taulambda(x, lap, mode)
+    _, rtau = tl.taulambda_plain(x, lap, mode)
+    assert torch.equal(tau, rtau)
 
 
 def _energy_inputs(dev, n, g, b, seed):

@@ -103,7 +103,8 @@ def test_k4_plain_matches_pallas_tau(f, mode):
 def test_select_tau_batch_routes_float32_batches_to_k4(monkeypatch):
     """The gate is keyed on size and dtype: float32 median or percentile
     batches of at least 2²² values take K4's wrapper (its plain version
-    here), float64 and smaller batches the sort."""
+    here), rows of up to 1536 values included, float64 and smaller
+    batches the sort."""
     calls = []
     real = st.fused_select_tau
 
@@ -121,6 +122,10 @@ def test_select_tau_batch_routes_float32_batches_to_k4(monkeypatch):
     taumode.select_tau_batch(big.double(), TauMode.median())
     taumode.select_tau_batch(big, TauMode.mean())
     assert len(calls) == 2
+    wide = torch.from_numpy(rng.normal(size=(4096, 1536)).astype(np.float32))
+    tau = taumode.select_tau_batch(wide, TauMode.median())
+    assert torch.equal(tau, taumode.select_tau_sorted(wide, TauMode.median()))
+    assert calls[2:] == [(4096, 1536)]
 
 
 # ------------------------------------------------------------------ K6

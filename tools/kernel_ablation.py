@@ -2,12 +2,13 @@
 """Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K3
 (csrc/merge_topk.cu), K6 (csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
-(csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh), on
-one NVIDIA GPU.
+(csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
+and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
+(common.cuh), on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7,k2,k5]
+    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7,k2,k5,k4]
                                      [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
@@ -33,6 +34,12 @@ fails) and times each copy on the same inputs at the serving shapes:
   of them, over the graph made the same way from 128-wide centroid-like
   rows (n = 128), median τ.  Both also on 65,536 cancellation-prone rows
   (0.5 ± 0.05 and 0.5 ± 0.01 over a dense random graph).
+- K4 (``--kernels k4``): median τ of the clustered rows at the three
+  shapes the builds give it, 1,000,000 x 128 (the energy build),
+  688,128 x 768 (the wide build's first row window) and 344,064 x 1536
+  (the 1536 build's), and of 1,000,000 x 128 rows whose values share
+  every radix digit but the last (the selection's slowest case); then
+  K2 as above with the same selection variants.
 
 Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
 network or det; for K3 no selection: no candidate is appended, so no
@@ -51,6 +58,15 @@ version; for K2 and K5 it also reports its λ error against a float64 λ
 computed on the card.  For K6 and K7 every variant that keeps the
 product also reports its error against float64: K6's pool scores, K7's
 pooled d² and u = w_D/(1+√d²) from it, over the first 512 queries.
+The τ selection (K4, and K2 under ``--kernels k4``): "kernel" (the
+radix select), "range_only" (the row load, the range reductions and one
+τ a row: the floor the selection can reach), and three bisections of
+the offsets' range in its place: "old_count" (32 passes over the whole
+32-bit range, a ballot and popc per held value, the count of earlier
+commits), "redux_count" (32 passes, each lane counting with compares
+and one warp reduction a pass) and "redux_bounded" (the same inside the
+row's [lo, hi], ⌈log2(hi - lo + 1)⌉ passes at most).  Every variant but
+"range_only" is held bitwise to the sort.
 
 ``--before DIR`` also ablates the K6 and K7 of another checkout's csrc
 directory (DIR), for instance the fp32 fold of an earlier commit
@@ -60,7 +76,8 @@ their machine code (cuobjdump -sass) instantiation by instantiation; for
 K3 it times DIR's kernel as shipped, at its own chunking (the fp32
 kernel of earlier commits: 8 queries a CTA, two CTAs per SM); for K2 and
 K5 it times DIR's kernel as shipped and reports its float64 error beside
-this one's.
+this one's; for K4 it times DIR's kernel as shipped (and, where DIR's
+gate refuses F, the sort that DIR's builds then take).
 
 Output: the card's name and power limit, each variant's registers and
 spills by instantiation (ptxas), then one line per (kernel, plane,
@@ -195,12 +212,53 @@ LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
                    "  mma_tf32_zero(d, al, bh0, bh1);\n",
                    "  mma_tf32_zero(d, al, bh0, bh1);\n"
                    "  asp_fold::mma_tf32(d, al, bl0, bl1);\n")]})
+# the bisections that the τ selection's variants put in the radix
+# select's place (same arguments; common.cuh)
+BISECT = """
+template <int NV, bool POPC, bool BOUNDED>
+__device__ unsigned asp_bisect_select(const unsigned (&u)[NV], unsigned k,
+                                      unsigned range, unsigned*) {
+  unsigned lo = 0, hi = BOUNDED ? range : 0xFFFFFFFFu;
+  while (lo < hi) {
+    const unsigned mid = lo + (hi - lo) / 2;
+    unsigned cnt = 0;
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      if (POPC)
+        cnt += __popc(__ballot_sync(ASP_FULL_MASK, u[m] <= mid));
+      else
+        cnt += u[m] <= mid;
+    }
+    if (!POPC) cnt = __reduce_add_sync(ASP_FULL_MASK, cnt);
+    if (cnt >= k + 1)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+"""
+TAU_ANCHOR = "// τ of one row held as y (see above)"
+SELECT_VARIANTS = {
+    "kernel": [],
+    "range_only": [("common.cuh", "  if (m == 0) return ASP_TAU_FLOOR;\n",
+                    "  if (m >= 0) return asp_from_sortable(lo);\n")],
+    **{name: [("common.cuh", TAU_ANCHOR, BISECT + TAU_ANCHOR),
+              ("common.cuh", "asp_radix_select<NV>(",
+               f"asp_bisect_select<NV, {popc}, {bounded}>(")]
+       for name, popc, bounded in (("old_count", "true", "false"),
+                                   ("redux_count", "false", "false"),
+                                   ("redux_bounded", "false", "true"))}}
+K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
 SOURCES = {"k1": "bintopk.cu", "k3": "merge_topk.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
-           "k2": "taulambda.cu", "k5": "lambda_batch.cu"}
+           "k2": "taulambda.cu", "k5": "lambda_batch.cu",
+           "k4": "select_tau.cu"}
 ENTRY = {"k1": "asp_bintopk", "k3": "asp_merge_topk",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
-         "k2": "asp_taulambda", "k5": "asp_lambda_batch"}
+         "k2": "asp_taulambda", "k5": "asp_lambda_batch",
+         "k4": "asp_select_tau"}
 
 
 def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
@@ -244,8 +302,9 @@ def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
 
 
 def short(mangled: str) -> str:
-    """'depth,query block' of a mangled kernel instantiation."""
-    nums = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)
+    """'depth,query block' (K4: 'slots,vector loads') of a mangled
+    kernel instantiation."""
+    nums = re.findall(r"ILi(\d+)EL[ib](\d+)E", mangled)
     return ",".join(nums[0]) if nums else mangled[:40]
 
 
@@ -256,17 +315,17 @@ def chunking(ctas: int, dev) -> tuple:
     return -(-n_tiles // tpc), tpc
 
 
-def time_ms(call) -> float:
+def time_ms(call, reps: int = 5) -> float:
     call()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(5):
+    for _ in range(reps):
         call()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / 5
+    return start.elapsed_time(end) / reps
 
 
 def clustered(dev, n: int, f: int, seed: int):
@@ -601,6 +660,65 @@ def run_lambda(kernel, libs, dev, tag: str = "now") -> None:
     torch.cuda.empty_cache()
 
 
+def one_digit_rows(dev, n: int, f: int):
+    """Rows whose values are 1.0 plus 0-199 ulps, with one value near
+    -3e38 whose sortable int ends in a zero byte: the values share every
+    digit of the radix select but the last, so each pass's histogram
+    adds collide in one counter."""
+    gen = torch.Generator(device=dev).manual_seed(f)
+    bits = 0x3F800000 + torch.randint(0, 200, (n, f), device=dev,
+                                      generator=gen, dtype=torch.int32)
+    bits[:, 0] = (-3.0e38 * torch.ones(1)).view(torch.int32).item() | 0xFF
+    return bits.view(torch.float32)
+
+
+def run_k4(libs, dev, tag: str = "now") -> None:
+    """The median τ of the clustered rows at K4_SHAPES, then of the
+    one-digit rows at 1M x 128: each variant's mean ms over 20 launches,
+    beside the bound (the rows read once, τ written once, at 3.35 TB/s)
+    and torch.nanquantile; every variant but range_only must equal the
+    sort bitwise."""
+    stream = torch.cuda.current_stream().cuda_stream
+    mode = TauMode.median()
+    planes = [(f"{n}x{f}", lambda n=n, f=f: clustered(dev, n, f, seed=f)[0])
+              for n, f in K4_SHAPES]
+    planes.append(("one-digit 1000000x128",
+                   lambda: one_digit_rows(dev, 1_000_000, 128)))
+    for label, make in planes:
+        x = make()
+        n_rows, f = x.shape
+        ref = select_tau_sorted(x, mode)
+        out = torch.empty(n_rows, device=dev)
+        if tag == "now":
+            b_ms = (x.numel() + n_rows) * 4 / 3.35e12 * 1e3
+            lib_ms = time_ms(lambda: torch.nanquantile(x, 0.5, dim=1), 3)
+            print(f"k4 {label}: bound {b_ms:.3f} ms (bytes), "
+                  f"torch.nanquantile {lib_ms:.3f} ms", flush=True)
+        for name, fn in libs.items():
+            def call():
+                return fn(x.data_ptr(), n_rows, f, 0, 0.5, out.data_ptr(),
+                          stream)
+            if call() != 0:
+                if tag != "before":
+                    raise SystemExit(f"k4 {name}: launch failed at {label}")
+                ms = time_ms(lambda: select_tau_sorted(x, mode), 3)
+                print(f"{tag} k4 {label} {name}: refuses F = {f}; the sort "
+                      f"its builds take there: {ms:.3f} ms", flush=True)
+                continue
+            line = f"{tag} k4 {label} {name}: {time_ms(call, 20):.3f} ms"
+            if name != "range_only":
+                call()
+                eq = bool(torch.equal(out, ref))
+                line += f" (τ bitwise equal to the sort: {eq})"
+                if not eq:
+                    print(line, flush=True)
+                    raise SystemExit(f"{tag} k4 {name} disagrees with the "
+                                     "sort")
+            print(line, flush=True)
+        del x, ref, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default="k1,k3,k6,k7,k2,k5")
@@ -654,6 +772,16 @@ def main() -> int:
                                      {"kernel": []}, "before"), dev,
                        "before")
         run_lambda(kernel, libs, dev)
+    if "k4" in kernels:   # the τ selection: K4, then K2's τ phase
+        runs = {"k4": run_k4,
+                "k2": lambda libs, dev, tag="now": run_lambda("k2", libs,
+                                                              dev, tag)}
+        for kernel, run in runs.items():
+            libs = build(kernel, CSRC, SELECT_VARIANTS, "now")
+            if args.before is not None:
+                run(build(kernel, args.before.resolve(), {"kernel": []},
+                          "before"), dev, "before")
+            run(libs, dev)
     return 0
 
 
