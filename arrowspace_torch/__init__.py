@@ -16,6 +16,7 @@ from .core import ArrowItem, ArrowSpace  # noqa: F401
 from .graph import GraphFactory, GraphLaplacian, GraphParams  # noqa: F401
 from .builder import ArrowSpaceBuilder  # noqa: F401
 from .sampling import SamplerType  # noqa: F401
+from . import eigenmaps  # noqa: F401  (attaches the staged API)
 from .index import ArrowIndex, SearchSession  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,11 +6,14 @@ core.rs:84-1006).  ArrowSpace keeps the N×F item matrix and the per-item
 an exact top-k (ops/search.py), or on large corpora the binned kernel
 with exact repair (binned_fits) or, where K1 does not admit F, the exact
 merge kernel (merge_fits): the engine gates, which the serving session
-shares.
+shares.  Items and λ are mutated out of place (a new tensor per
+set), so a session made before a mutation keeps serving the snapshot it
+was made from, as the JAX package's immutable arrays do.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,17 +22,20 @@ import torch
 
 from .config import resolve
 from .ops.bintopk import bintopk_fits
-from .ops.search import batched_lambda_aware_topk, binned_topk_with_repair
+from .ops.search import (batched_lambda_aware_topk, binned_topk_with_repair,
+                         hybrid_search_device_fused)
 from .ops.topk import fused_lambda_topk
 from .reduction import ImplicitProjection
-from .taumode import (TAUDEFAULT, TauMode, select_tau, select_tau_batch,
-                      synthetic_lambda_batch, synthetic_lambda_single)
+from .taumode import (TAUDEFAULT, TauMode, compute_taumode_lambdas,
+                      select_tau, select_tau_batch, synthetic_lambda_batch,
+                      synthetic_lambda_single)
 from .utils.log import get_logger
 
 logger = get_logger("arrowspace.core")
 
-__all__ = ["ArrowItem", "ArrowSpace", "BINNED_MIN_ITEMS", "BINNED_MAX_K",
-           "binned_fits", "merge_fits"]
+__all__ = ["ArrowItem", "ArrowFeature", "ArrowSpace", "BINNED_MIN_ITEMS",
+           "BINNED_MAX_K", "binned_fits", "merge_fits",
+           "densematrix_to_vecvec"]
 
 # Corpus size and k from which the streaming kernels serve (core.py:422-442
 # of the JAX package).
@@ -68,22 +74,64 @@ class ArrowItem:
     def __len__(self) -> int:
         return self.item.shape[0]
 
+    def is_empty(self) -> bool:
+        return self.item.size == 0
+
     def lambda_component_similarity(self, other: "ArrowItem") -> float:
         """1 - min(|Δλ|, 1) (reference: core.rs:135-138)."""
         return 1.0 - min(abs(self.lambda_ - other.lambda_), 1.0)
-
-    def cosine_similarity(self, other) -> float:
-        other = np.asarray(other, dtype=np.float64)
-        denom = float(np.linalg.norm(self.item) * np.linalg.norm(other))
-        if denom > 0.0:
-            return float(np.dot(self.item, other)) / denom
-        return 0.0
 
     def lambda_similarity(self, other: "ArrowItem", alpha: float) -> float:
         """α·cos + (1-α)·λ-proximity (reference: core.rs:156-175)."""
         assert len(self) == len(other), "items should be of the same length"
         return alpha * self.cosine_similarity(other.item) \
             + (1.0 - alpha) * self.lambda_component_similarity(other)
+
+    def dot(self, other: "ArrowItem") -> float:
+        assert len(self) == len(other), "Dimension mismatch"
+        return float(np.dot(self.item, other.item))
+
+    @staticmethod
+    def norm(a) -> float:
+        a = np.asarray(a, dtype=np.float64)
+        return float(np.sqrt(np.sum(a * a)))
+
+    def cosine_similarity(self, other) -> float:
+        other = np.asarray(other, dtype=np.float64)
+        denom = ArrowItem.norm(self.item) * ArrowItem.norm(other)
+        if denom > 0.0:
+            return float(np.dot(self.item, other)) / denom
+        logger.warning("Zero vector encountered in cosine similarity "
+                       "computation")
+        return 0.0
+
+    def euclidean_distance(self, other: "ArrowItem") -> float:
+        assert len(self) == len(other), "Dimension mismatch"
+        d = self.item - other.item
+        return float(np.sqrt(np.sum(d * d)))
+
+    def add_inplace(self, other: "ArrowItem") -> None:
+        assert len(self) == len(other), "Dimension mismatch"
+        self.item += other.item
+
+    def mul_inplace(self, other: "ArrowItem") -> None:
+        assert len(self) == len(other), "Dimension mismatch"
+        self.item *= other.item
+
+    def scale(self, scalar: float) -> None:
+        self.item *= scalar
+
+    def __iter__(self):
+        return iter(self.item)
+
+
+class ArrowFeature:
+    """A feature column (reference: core.rs:91-94)."""
+
+    __slots__ = ("feature",)
+
+    def __init__(self, feature):
+        self.feature = np.asarray(feature, dtype=np.float64)
 
 
 @dataclass
@@ -113,6 +161,9 @@ class ArrowSpace:
     # instead of raising the reference's error (taumode.rs:574).
     pad_tall_graphs: bool = False
     _projected_cache: Optional[torch.Tensor] = None
+    # (λ ascending as float64, their item ids): lambda_sorted_index's cache,
+    # dropped by every change of data or λ
+    _lambda_order: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @staticmethod
     def new(items: Sequence[Sequence[float]], taumode: TauMode = TAUDEFAULT,
@@ -231,3 +282,168 @@ class ArrowSpace:
                                      k=k_eff)
         return batched_lambda_aware_topk(q, ql, self.data, self.lambdas,
                                          alpha, k=k_eff)
+
+    # ------------------------------------------------------------------
+    # Access and mutation (core.py:241-360 of the JAX package)
+    # ------------------------------------------------------------------
+    def lambdas_list(self) -> np.ndarray:
+        return self.lambdas.cpu().numpy()
+
+    def cluster_of(self, i: int) -> Optional[int]:
+        if self.cluster_assignments is None or \
+                i >= len(self.cluster_assignments):
+            return None
+        v = int(self.cluster_assignments[i])
+        return None if v < 0 else v
+
+    def get_feature(self, i: int) -> ArrowFeature:
+        assert i < self.nfeatures, "feature index out of bounds"
+        return ArrowFeature(self.data[:, i].cpu().numpy())
+
+    def _data_changed(self) -> None:
+        self._projected_cache = None
+        self._lambda_order = None
+        self.host_rows = None   # the data diverged from the float64 original
+
+    def set_feature(self, f: int, values: ArrowFeature) -> None:
+        assert f < self.nfeatures, "feature index out of bounds"
+        col = torch.as_tensor(values.feature).to(device=self.device,
+                                                 dtype=self.dtype)
+        self.data = self.data.index_copy(
+            1, torch.tensor([f], device=self.device), col[:, None])
+        self._data_changed()
+
+    def get_item(self, i: int) -> ArrowItem:
+        assert i < self.nitems, "item index out of bounds"
+        return ArrowItem(self.data[i].cpu().numpy(), float(self.lambdas[i]))
+
+    def set_item(self, i: int, values: ArrowItem) -> None:
+        assert i < self.nitems, "item index out of bounds"
+        row = torch.as_tensor(values.item).to(device=self.device,
+                                              dtype=self.dtype)
+        self.data = self.data.index_copy(
+            0, torch.tensor([i], device=self.device), row[None, :])
+        self._data_changed()
+
+    def _check_gl(self, gl) -> None:
+        assert gl.nnodes == self.nitems, \
+            "Laplacian nodes must match number of items"
+
+    def _refresh_lambda_row(self, a: int, gl) -> None:
+        """λ of row ``a`` after it changed.  The reference re-runs the
+        whole batch (core.rs:644); λ_j depends only on row j and the
+        unchanged graph, so recomputing the edited row gives the same
+        value: τ from the row on the host, then synthetic_lambda_single
+        against the graph, on its device in its dtype."""
+        row = self.data[a].double().cpu().numpy()
+        tau = select_tau(row, self.taumode)
+        lam = synthetic_lambda_single(row, gl.matrix, tau)
+        self.lambdas = self.lambdas.index_copy(
+            0, torch.tensor([a], device=self.device),
+            torch.tensor([lam], dtype=self.dtype, device=self.device))
+        self._lambda_order = None
+
+    def add_items(self, a: int, b: int, gl) -> None:
+        """Row a += row b, then λ of row a (reference: core.rs:614-642)."""
+        assert a < self.nitems and b < self.nitems, (
+            f"Item indices out of bounds: a={a}, b={b}, ncols={self.nitems}")
+        self._check_gl(gl)
+        item_a, item_b = self.get_item(a), self.get_item(b)
+        item_a.add_inplace(item_b)
+        self.set_item(a, item_a)
+        self._refresh_lambda_row(a, gl)
+
+    def mul_items(self, a: int, b: int, gl) -> None:
+        """Row a *= row b elementwise, then λ of row a."""
+        assert a < self.nitems and b < self.nitems, (
+            f"Item indices out of bounds: a={a}, b={b}, ncols={self.nitems}")
+        self._check_gl(gl)
+        item_a, item_b = self.get_item(a), self.get_item(b)
+        item_a.mul_inplace(item_b)
+        self.set_item(a, item_a)
+        self._refresh_lambda_row(a, gl)
+
+    def scale_item(self, a: int, scalar: float, gl) -> None:
+        """Row a *= scalar, then λ of row a."""
+        assert a < self.nitems, (
+            f"Item index out of bounds: a={a}, ncols={self.nitems}")
+        self._check_gl(gl)
+        item_a = self.get_item(a)
+        item_a.scale(scalar)
+        self.set_item(a, item_a)
+        self._refresh_lambda_row(a, gl)
+
+    def recompute_lambdas(self, gl) -> None:
+        """Every λ again (reference: core.rs:711-727), through
+        compute_taumode_lambdas: K2, K4 and K5 by their gates."""
+        self.lambdas = compute_taumode_lambdas(self.data, gl.matrix,
+                                               self.taumode)
+        self._lambda_order = None
+
+    def update_lambdas(self, new_lambdas) -> None:
+        new = torch.as_tensor(np.array(new_lambdas)) \
+            if not torch.is_tensor(new_lambdas) else new_lambdas
+        new = new.to(device=self.device, dtype=self.dtype)
+        assert new.shape == self.lambdas.shape, \
+            "New lambdas length must match existing lambdas length"
+        self.lambdas = new
+        self._lambda_order = None
+
+    # ------------------------------------------------------------------
+    # Hybrid and range search (core.py:444-496 of the JAX package)
+    # ------------------------------------------------------------------
+    def search_lambda_aware_hybrid(self, query: ArrowItem, k: int,
+                                   alpha: float) -> List[Tuple[int, float]]:
+        """Hybrid search mixing cosine-only evidence (reference:
+        core.rs:802-928): the union of the λ-aware top-k, the high-cosine
+        set (> 0.9999, scored by cosine) and the semantic top-1, best
+        first, k of them (ops.search.hybrid_search_device_fused)."""
+        if k == 0:
+            return []
+        scores, ids = hybrid_search_device_fused(
+            torch.as_tensor(query.item), query.lambda_, self.data,
+            self.lambdas, alpha, k=min(k, self.nitems))
+        return [(int(i), float(s)) for i, s in
+                zip(ids.tolist(), scores.tolist())]
+
+    def lambda_sorted_index(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(λ ascending as float64, the item ids in that order): a stable
+        argsort, cached until data or λ change, for O(log N + M) bands."""
+        if self._lambda_order is None or \
+                len(self._lambda_order[0]) != self.nitems:
+            lam = self.lambdas.double().cpu().numpy()
+            order = np.argsort(lam, kind="stable")
+            self._lambda_order = (lam[order], order)
+        return self._lambda_order
+
+    def range_search_sorted(self, lo: float, hi: float,
+                            limit: Optional[int] = None
+                            ) -> List[Tuple[int, float]]:
+        """Two-sided λ band [lo, hi] by binary search on the sorted λ
+        index: (item id, λ) ascending by λ, at most ``limit``."""
+        lam_sorted, order = self.lambda_sorted_index()
+        i0 = int(np.searchsorted(lam_sorted, lo, side="left"))
+        i1 = int(np.searchsorted(lam_sorted, hi, side="right"))
+        hits = [(int(order[i]), float(lam_sorted[i])) for i in range(i0, i1)]
+        return hits[:limit] if limit is not None else hits
+
+    def range_search(self, query: ArrowItem, gl,
+                     eps: float) -> List[Tuple[int, float]]:
+        """λ-band range search with the reference's signed one-sided test
+        query.λ - item.λ <= eps (reference: core.rs:944-976, kept as it
+        is); a query whose λ is 0 is prepared first.  Returns (item id,
+        query.λ - item.λ) in id order."""
+        if math.isclose(query.lambda_, 0.0, rel_tol=1e-9, abs_tol=1e-9):
+            qlam = self.prepare_query_item(query.item, gl)
+        else:
+            qlam = query.lambda_
+        diff = qlam - self.lambdas.double().cpu().numpy()
+        hits = np.nonzero(diff <= eps)[0]
+        return [(int(i), float(diff[i])) for i in hits]
+
+
+def densematrix_to_vecvec(matrix) -> List[List[float]]:
+    """Rows as lists of floats (core.rs:1042-1047)."""
+    if torch.is_tensor(matrix):
+        matrix = matrix.double().cpu().numpy()
+    return np.asarray(matrix, dtype=np.float64).tolist()

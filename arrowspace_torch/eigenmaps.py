@@ -3,23 +3,30 @@
 PyTorch counterpart of ``arrowspace_tpu.eigenmaps`` (reference:
 eigenmaps.rs:93-456):
 
-1. start_clustering — optimal-K heuristic + incremental clustering (host,
-   the native scan) + optional JL projection of the centroids;
+1. start_clustering — optimal-K heuristic + incremental clustering (the
+   native scan when seeded, the chunked scan when not; a large corpus
+   runs its Two-NN tiles and the chunked scan's distances on the index's
+   tensor) + optional JL projection of the centroids;
 2. eigenmaps        — feature-graph Laplacian from the centroids;
-3. compute_taumode  — batched λτ on the index device.
+3. compute_taumode  — batched λτ on the index device;
+4. search           — λ-aware search with query preparation.
+
+Each stage is also attached to ArrowSpace, as the reference's trait
+impl is (eigenmaps.py:193-197 of the JAX package).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from typing import List, Tuple
 
 import numpy as np
 
 import torch
 
 from . import clustering
-from .core import ArrowSpace
+from .core import ArrowItem, ArrowSpace
 from .graph import GraphFactory, GraphLaplacian
 from .reduction import ImplicitProjection, compute_jl_dimension
 from .sampling import SamplerType
@@ -29,7 +36,7 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.eigenmaps")
 
 __all__ = ["ClusteredOutput", "start_clustering", "eigenmaps",
-           "compute_taumode"]
+           "compute_taumode", "search"]
 
 
 @dataclass
@@ -54,10 +61,14 @@ def start_clustering(builder, rows) -> ClusteredOutput:
         else SamplerType.simple(1.0)
     sampler = sampler_type.make(seed=builder.clustering_seed)
 
+    # host seconds of the clustering steps, for the build's breakdown
+    cs = builder.clustering_seconds = {}
     t0 = time.perf_counter()
     k_opt, radius, intrinsic_dim = clustering.compute_optimal_k(
-        rows_arr, n_items, n_features, builder.clustering_seed)
+        rows_arr, n_items, n_features, builder.clustering_seed,
+        device_data=aspace.data, seconds=cs)
     t1 = time.perf_counter()
+    cs["optimal_k"] = t1 - t0
     logger.debug("Optimal clustering: K=%d, radius=%.6f, intrinsic_dim=%d",
                  k_opt, radius, intrinsic_dim)
     builder.cluster_max_clusters = k_opt
@@ -65,10 +76,9 @@ def start_clustering(builder, rows) -> ClusteredOutput:
 
     centroids, assignments, sizes = \
         clustering.run_incremental_clustering_with_sampling(
-            builder, rows_arr, n_features, k_opt, radius, sampler)
-    # host seconds of the two clustering steps, for the build's breakdown
-    builder.clustering_seconds = {"optimal_k": t1 - t0,
-                                  "scan": time.perf_counter() - t1}
+            builder, rows_arr, n_features, k_opt, radius, sampler,
+            device_data=aspace.data)
+    cs["scan"] = time.perf_counter() - t1
     assign_arr = assignments.array
     logger.info("Clustering complete: %d centroids, %d items assigned",
                 centroids.shape[0], int((assign_arr >= 0).sum()))
@@ -122,3 +132,22 @@ def compute_taumode(aspace: ArrowSpace, gl: GraphLaplacian) -> None:
     aspace.lambdas = compute_taumode_lambdas(
         aspace.data, gl.matrix, aspace.taumode,
         pad_items=aspace.pad_tall_graphs)
+    aspace._lambda_order = None      # the sorted λ-band index
+
+
+def search(aspace: ArrowSpace, item, gl: GraphLaplacian, k: int,
+           alpha: float) -> List[Tuple[int, float]]:
+    """Stage 5: λ-aware search with query preparation (reference:
+    eigenmaps.rs:410-455).  Like the reference, the projected query is
+    handed to search_lambda_aware, which needs the projected width to
+    equal the stored item width."""
+    q_lambda = aspace.prepare_query_item(item, gl)
+    q = ArrowItem(aspace.project_query(item), q_lambda)
+    return aspace.search_lambda_aware(q, k, alpha)
+
+
+# The staged API on ArrowSpace, as the reference's trait impl.
+ArrowSpace.start_clustering = staticmethod(start_clustering)
+ArrowSpace.eigenmaps = eigenmaps
+ArrowSpace.compute_taumode = compute_taumode
+ArrowSpace.search = search

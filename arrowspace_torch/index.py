@@ -12,6 +12,11 @@ PyTorch counterpart of ``arrowspace_tpu.index``:
         allow_tall_graphs=True), seed=11, device="cuda")
     session = energy.make_energy_session(batch_size=2048, k=10)
 
+    index.search_hybrid(query, k=10); index.range(lo, hi)
+    index.aspace.add_items(a, b, index.gl); index.stats()
+
+Without ``seed`` the build's clustering is the unseeded chunked scan.
+
 A serving step is query-λ preparation (τ selection + synthetic λ on the
 device) followed by the scoring + top-k kernel chosen by
 session_kernel_kind: the binned kernel (K1) with exact strided repair of
@@ -372,6 +377,10 @@ class ArrowIndex:
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
         qlam = self.aspace.prepare_query_items_batch(queries, self.gl)
         if precision == "f64_rescore":
+            if self.aspace.host_rows is None:
+                raise ValueError(
+                    "f64_rescore needs the original f64 rows; a mutation "
+                    "of the index's items dropped them")
             m = min(rescore_pool or max(4 * k, k + 32), self.aspace.nitems)
             _s, cand = self.aspace.search_lambda_aware_batch(
                 queries, qlam, m, alpha)
@@ -391,6 +400,19 @@ class ArrowIndex:
         qlam = self.aspace.prepare_query_item(query, self.gl)
         return self.aspace.search_lambda_aware(ArrowItem(query, qlam), k,
                                                alpha)
+
+    def search_hybrid(self, query, k: int = 10, alpha: float = 0.9
+                      ) -> List[Tuple[int, float]]:
+        """Hybrid search (ArrowSpace.search_lambda_aware_hybrid) with the
+        query's λ prepared first."""
+        qlam = self.aspace.prepare_query_item(query, self.gl)
+        return self.aspace.search_lambda_aware_hybrid(
+            ArrowItem(query, qlam), k, alpha)
+
+    def range(self, lo: float, hi: float,
+              limit: Optional[int] = None) -> List[Tuple[int, float]]:
+        """Two-sided λ band via the sorted index (O(log N + M))."""
+        return self.aspace.range_search_sorted(lo, hi, limit)
 
     def make_search_session(self, batch_size: int, k: int = 10,
                             alpha: float = 0.9,
@@ -417,6 +439,16 @@ class ArrowIndex:
                                    w_dirichlet=w_dirichlet, depth=depth,
                                    approx=approx)
 
+    def warmup(self, batch_sizes=(1, 16, 256), k: int = 10,
+               alpha: float = 0.9) -> None:
+        """One search at each batch size, so that kernel builds and
+        first-call costs land here and not on the first query."""
+        rng = np.random.default_rng(0)
+        for b in batch_sizes:
+            q = rng.uniform(0.1, 1.0, (b, self.aspace.nfeatures))
+            self.search(q, k=min(k, self.nitems), alpha=alpha)
+        logger.info("warmup complete for batch sizes %s", batch_sizes)
+
     @property
     def lambdas(self) -> np.ndarray:
         return self.aspace.lambdas.cpu().numpy()
@@ -424,3 +456,19 @@ class ArrowIndex:
     @property
     def nitems(self) -> int:
         return self.aspace.nitems
+
+    def stats(self) -> dict:
+        lam = self.lambdas
+        gstats = self.gl.statistics()
+        return {
+            "n_items": self.aspace.nitems,
+            "n_features": self.aspace.nfeatures,
+            "n_clusters": self.aspace.n_clusters,
+            "graph_nodes": self.gl.shape()[0],
+            "graph_nnz": self.gl.nnz(),
+            "graph_sparsity": gstats.sparsity,
+            "lambda_min": float(lam.min()),
+            "lambda_max": float(lam.max()),
+            "lambda_mean": float(lam.mean()),
+            "lambda_std": float(lam.std()),
+        }

@@ -20,7 +20,7 @@ import torch
 __all__ = ["NEG_INF", "INT_MAX", "safe_unit", "dot_plane", "prepare_query",
            "shifted_lambda_plane", "two_key_topk", "exact_topk",
            "batched_lambda_aware_topk", "binned_topk_with_repair",
-           "rescore_topk_f64"]
+           "rescore_topk_f64", "hybrid_search_device_fused"]
 
 NEG_INF = float(np.finfo(np.float32).min)
 INT_MAX = int(np.iinfo(np.int32).max)
@@ -134,6 +134,39 @@ def batched_lambda_aware_topk(queries, query_lambdas, items, item_lambdas,
         out_s.append(s)
         out_i.append(i)
     return torch.cat(out_s) + c1, torch.cat(out_i)
+
+
+def hybrid_search_device_fused(query, query_lambda, items, item_lambdas,
+                               alpha, *, k: int):
+    """The hybrid search's union on the items' device (reference:
+    core.rs:802-928; ops/search.py:289-324 of the JAX package): one
+    effective score per item, then one exact top-k.
+
+    The λ-aware score here is the reference expression α·cos + (1-α)·(1 -
+    min(|Δλ|, 1)), cos through safe_unit, not the serving path's shifted
+    score.  Precedence, as the reference's dict union: a high cosine (>
+    0.9999) keeps its cosine; membership of the λ-aware top-k keeps the
+    blended score; the semantic top-1 (the first maximal cosine) keeps
+    its cosine; every other item scores -inf.  The λ-aware top-k holds k
+    items, so k <= N rows come back valid.  Both top-k steps are the
+    stable sort of exact_topk: ties to the lowest id, as lax.top_k
+    orders them.  Returns (scores (k,), ids (k,)) on the items' device."""
+    dt = items.dtype
+    a = torch.tensor(alpha, dtype=dt)
+    q = query.to(device=items.device, dtype=dt).reshape(1, -1)
+    cos = dot_plane(safe_unit(q), safe_unit(items))[0]
+    dl = (torch.tensor(float(query_lambda), dtype=dt) - item_lambdas).abs()
+    lam_score = a * cos + (1.0 - a) * (1.0 - dl.clamp_max(1.0))
+    _, top_idx = exact_topk(lam_score[None, :], k)
+    n = items.shape[0]
+    in_topk = torch.zeros(n, dtype=torch.bool, device=items.device)
+    in_topk[top_idx[0]] = True
+    is_sem = torch.arange(n, device=items.device) == cos.argmax()
+    eff = torch.where(cos > 0.9999, cos,
+                      torch.where(in_topk, lam_score,
+                                  torch.where(is_sem, cos, float("-inf"))))
+    s, i = exact_topk(eff[None, :], k)
+    return s[0], i[0]
 
 
 def binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, *, k: int):

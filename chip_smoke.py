@@ -28,9 +28,20 @@ the same kind:
   three row windows); a "plain" session (matmul + stable sort) is timed
   beside it.
 
-Every build's clustering scan runs in the native C++ library
+Every seeded build's clustering scan runs in the native C++ library
 (arrowspace_torch/native), compiled with the host C++ compiler at first
-use; each build prints its optimal-K and scan seconds.
+use; each build prints its optimal-K and scan seconds, and its Two-NN
+estimate from the card tile beside the host tiles' on the same sample
+rows (they must be equal).  Two more phases on the cosine corpus:
+
+- the API on the seeded cosine index, after its session: search_hybrid
+  against a float64 plain hybrid, range on three λ bands, add_items /
+  mul_items / scale_item with the one-row λ refresh against
+  recompute_lambdas (one K2 launch), stats and warmup;
+- the unseeded cosine path: ArrowIndex.build without a seed (the
+  chunked scan, its at-cap tail on the card) and a SearchSession (K2 in
+  the build, K1), then the chunked scan's engine on the card (float32)
+  against its host path (float64) at the build's K and radius.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
@@ -254,10 +265,36 @@ def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL) -> float:
     return err
 
 
-def log_clustering(builder) -> None:
-    cs = builder.clustering_seconds
-    log(f"  clustering: optimal_k_s={cs['optimal_k']:.3f} "
-        f"native_scan_s={cs['scan']:.3f}")
+def log_clustering(torch, index, rows) -> None:
+    """The build's host clustering seconds, and its Two-NN estimate: the
+    card tile (timed inside the build, and again here) beside the host
+    tiles on the same sample rows, whose estimates must be equal (the
+    estimate bounds k_max).  Optimal K with the host tiles in place of
+    the card tile is reckoned from the two timings of this run."""
+    from arrowspace_torch import clustering as cl
+    b = index.builder
+    cs = b.clustering_seconds
+    n, f = rows.shape
+    seed = b.clustering_seed if b.clustering_seed is not None \
+        else cl.CLUSTERING_SEED
+    idx = cl._twonn_indices(n, seed)
+    t0 = time.perf_counter()
+    part_d = cl._twonn_two_smallest_device(index.aspace.data, idx)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part_h = cl._twonn_two_smallest_host(rows, idx)
+    t_host = time.perf_counter() - t0
+    id_d, id_h = cl._twonn_dimension(part_d, f), cl._twonn_dimension(part_h, f)
+    rel = float((np.abs(part_d - part_h)
+                 / np.maximum(np.abs(part_h), 1e-6)).max())
+    scan = "native" if b.deterministic_clustering else "chunked"
+    log(f"  clustering: optimal_k_s={cs['optimal_k']:.3f} (twonn_s="
+        f"{cs['twonn']:.3f} on the card) {scan}_scan_s={cs['scan']:.3f}")
+    log(f"  Two-NN on {len(idx)} sample rows: card tile {t_dev:.3f}s "
+        f"id={id_d}; host tiles {t_host:.3f}s id={id_h}; two smallest d² "
+        f"max rel diff {rel:.3e}; optimal K with the host tiles "
+        f"{cs['optimal_k'] - cs['twonn'] + t_host:.3f}s")
+    check(id_d == id_h, f"Two-NN: card estimate {id_d} != host {id_h}")
 
 
 def reset(counters) -> None:
@@ -354,7 +391,7 @@ def main_path(torch, counters, rows, canon, dev):
     log(f"  build_s={t_build:.3f} clustering_s={st['clustering']:.3f} "
         f"laplacian_s={st['laplacian']:.3f} taumode_s={st['taumode']:.3f} "
         f"clusters={index.aspace.n_clusters} graph={tuple(index.gl.shape())}")
-    log_clustering(index.builder)
+    log_clustering(torch, index, rows)
 
     session, batches, launches, self_hits, i0, _ = serve(
         torch, counters, index, rows, canon, dev, SEED + 1,
@@ -638,7 +675,7 @@ def energy_path(torch, counters, rows, canon, dev):
         f"{k}_s={v:.3f}" for k, v in st.items()))
     log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} X={x_nodes} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB")
-    log_clustering(index.builder)
+    log_clustering(torch, index, rows)
     build = {"select_tau": counters["k4"].launches,
              "taulambda": counters["k2"].launches}
     log(f"  build launches: {build}")
@@ -890,7 +927,7 @@ def wide_path(torch, counters, dev):
     log(f"  clusters={a.n_clusters} reduced_dim={a.reduced_dim} graph="
         f"{n}x{n} edges={edges} max_memory_allocated="
         f"{peak / 2**30:.3f} GiB")
-    log_clustering(index.builder)
+    log_clustering(torch, index, rows)
     check(a.reduced_dim == n and 2 * n <= W_FEAT,
           f"the wide build's graph is {n} nodes, not a JL graph of at most "
           f"F/2 = {W_FEAT // 2}")
@@ -1039,7 +1076,7 @@ def x_path(torch, counters, dev):
         f"{n}x{n} max_memory_allocated="
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB host peak "
         f"{host_peak_gib():.3f} GiB")
-    log_clustering(index.builder)
+    log_clustering(torch, index, rows)
     check(a.reduced_dim == n and 2 * n <= X_FEAT,
           f"the 1536-wide build's graph is {n} nodes, not a JL graph")
 
@@ -1166,6 +1203,274 @@ def small_reference(torch, dev):
     agree("small reference search", gs, gi, cs, ci, tol=1e-4)
 
 
+def topk_by_score(score, k):
+    """The k ids of the largest scores, ties to the lowest id."""
+    kth = np.partition(score, score.shape[0] - k)[score.shape[0] - k]
+    cand = np.nonzero(score >= kth)[0]
+    return cand[np.lexsort((cand, -score[cand]))][:k]
+
+
+def hybrid_plain64(q, qlam, xunit, lam, k):
+    """The hybrid union in float64 on the host (the reference expression,
+    ties to the lowest id): (every item's effective score, the k ids,
+    cos, the blended score, the k-th blended score of the λ-aware
+    top-k)."""
+    qn = np.linalg.norm(q)
+    cos = xunit @ (q / qn if qn > 0 else q)
+    blend = ALPHA * cos + (1.0 - ALPHA) * (1.0 - np.minimum(
+        np.abs(qlam - lam), 1.0))
+    top = topk_by_score(blend, k)
+    eff = np.full(cos.shape[0], -np.inf)
+    sem = int(np.argmax(cos))
+    eff[sem] = cos[sem]
+    eff[top] = blend[top]
+    high = cos > 0.9999
+    eff[high] = cos[high]
+    return eff, topk_by_score(eff, k), cos, blend, blend[top[-1]]
+
+
+def api_phase(torch, counters, index, batches, dev):
+    """The search and mutation API on the seeded cosine index, after its
+    session has run: search_hybrid against a float64 plain hybrid on
+    host_rows (the same query λ), range on three λ bands against a numpy
+    filter, add_items / mul_items / scale_item with the one-row λ refresh
+    against recompute_lambdas (one K2 launch, counted), a search for a
+    mutated row, f64_rescore refused after mutation, stats and warmup."""
+    a, gl = index.aspace, index.gl
+    log("[4a] search and mutation API on the seeded cosine index")
+
+    # hybrid: ids equal outside near-ties of the blended score and of the
+    # 0.9999 threshold (within twice the measured score error)
+    host = a.host_rows
+    xunit = host / np.maximum(np.linalg.norm(host, axis=1), 1e-300)[:, None]
+    lam = a.lambdas.double().cpu().numpy()
+    qs = batches[0][:64]
+    t0 = time.perf_counter()
+    got = [index.search_hybrid(q, k=K, alpha=ALPHA) for q in qs]
+    t_hyb = (time.perf_counter() - t0) / len(qs) * 1e3
+    refs = [hybrid_plain64(q, a.prepare_query_item(q, gl), xunit, lam, K)
+            for q in qs]
+    err = max(abs(sc - ref[0][i]) for g, ref in zip(got, refs)
+              for i, sc in g if np.isfinite(ref[0][i]))
+    check(err <= TOL, f"hybrid: score error {err} > {TOL}")
+    tol = 2.0 * max(err, 1e-12)
+    swaps = 0
+    for g, (eff, ids, cos, blend, kth) in zip(got, refs):
+        for j, (i, _sc) in enumerate(g):
+            r = int(ids[j])
+            if i == r:
+                continue
+            edge = any(abs(blend[x] - kth) <= tol
+                       or abs(cos[x] - 0.9999) <= tol for x in (i, r))
+            check(edge or abs(eff[i] - eff[r]) <= tol,
+                  f"hybrid: id {i} at {j} differs from the float64 union's "
+                  f"{r} outside a near-tie")
+            swaps += 1
+    log(f"  search_hybrid: 64 queries, {t_hyb:.3f} ms a query, "
+        f"max_abs_err={err:.3e} near_tie_swaps={swaps}")
+
+    # range: three bands, exact against a numpy filter of the λ
+    qtl = np.quantile(lam, [0.0, 0.05, 0.45, 0.55, 0.9, 1.0])
+    for lo, hi in ((qtl[0], qtl[1]), (qtl[2], qtl[3]), (qtl[4], qtl[5])):
+        hits = index.range(float(lo), float(hi))
+        sel = np.nonzero((lam >= lo) & (lam <= hi))[0]
+        sel = sel[np.lexsort((sel, lam[sel]))]
+        check([i for i, _ in hits] == sel.tolist()
+              and [v for _, v in hits] == lam[sel].tolist(),
+              f"range [{lo}, {hi}] differs from the numpy filter")
+        log(f"  range [{lo:.6g}, {hi:.6g}]: {len(hits)} items, equal to "
+            f"the numpy filter")
+
+    # mutation: three rows, the one-row refresh against the full recompute
+    n = a.nitems
+    rows_m = {"add_items": (n // 8 + 7, 5 * n // 8 + 3),
+              "mul_items": (n // 4 + 11, 3 * n // 4 + 5),
+              "scale_item": (n // 3 + 13, 1.5)}
+    before = a.lambdas.clone()
+    for op, (i, arg) in rows_m.items():
+        getattr(a, op)(i, arg, gl)
+    touched = torch.zeros(a.nitems, dtype=torch.bool, device=dev)
+    touched[[i for i, _ in rows_m.values()]] = True
+    check(bool(torch.equal(a.lambdas[~touched], before[~touched])),
+          "a mutation moved an untouched row's λ")
+    refreshed = a.lambdas[touched].clone()
+    reset(counters)
+    t0 = time.perf_counter()
+    a.recompute_lambdas(gl)
+    sync(torch, dev)
+    t_rec = time.perf_counter() - t0
+    k2 = counters["k2"].launches
+    lam_err = float((refreshed - a.lambdas[touched]).abs().max())
+    log(f"  add_items, mul_items, scale_item on rows "
+        f"{[i for i, _ in rows_m.values()]}: one-row λ refresh vs "
+        f"recompute_lambdas max_abs_err={lam_err:.3e}; untouched λ bitwise "
+        f"unchanged; recompute_lambdas {t_rec:.3f}s, K2 launches={k2}")
+    check(k2 == 1, f"recompute_lambdas launched K2 {k2} times, not once")
+    check(lam_err <= TOL, "the one-row λ refresh disagrees with K2")
+    mutated = rows_m["add_items"][0]
+    _s, ids = index.search(a.get_item(mutated).item, k=K, alpha=ALPHA)
+    check(int(ids[0][0]) == mutated, "search did not find the mutated row")
+    try:
+        index.search(qs[:2], k=K, precision="f64_rescore")
+        check(False, "f64_rescore ran after mutation")
+    except ValueError:
+        pass
+    st = index.stats()
+    index.warmup()
+    log(f"  search finds mutated row {mutated} first; f64_rescore refused; "
+        f"stats: n_clusters={st['n_clusters']} graph_nnz={st['graph_nnz']} "
+        f"lambda_mean={st['lambda_mean']:.6g}; warmup ran")
+
+
+def unseeded_path(torch, counters, rows, canon, dev):
+    """The unseeded cosine path: ArrowIndex.build without a seed (default
+    sampling simple(0.6), the chunked scan), then a SearchSession of 16
+    batches held against the plain full scan.  The counters are set to 0
+    just before the build and read right after the stream.  Returns the
+    index."""
+    from arrowspace_torch.index import ArrowIndex
+    from arrowspace_torch.sampling import SamplerType
+
+    log(f"[5a] unseeded cosine path: ArrowIndex.build {rows.shape[0]}x"
+        f"{rows.shape[1]} eps={EPS} (no seed) on {dev}")
+    made = []
+    make = SamplerType.make
+    SamplerType.make = lambda self, seed=None: made.append(
+        make(self, seed)) or made[-1]
+    reset(counters)
+    try:
+        t0 = time.perf_counter()
+        index = ArrowIndex.build(rows, eps=EPS, device=dev)
+        sync(torch, dev)
+        t_build = time.perf_counter() - t0
+    finally:
+        SamplerType.make = make
+    b, a = index.builder, index.aspace
+    cs = b.clustering_seconds
+    kept, _ = made[-1].get_stats()
+    share = kept / rows.shape[0]
+    assigned = int((a.cluster_assignments >= 0).sum())
+    log(f"  build_s={t_build:.3f} " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in b.stage_seconds.items()))
+    log(f"  K={b.cluster_max_clusters} radius={b.cluster_radius:.6g} "
+        f"n_clusters={a.n_clusters} kept share={share:.4f} assigned="
+        f"{assigned}; chunked scan {cs['scan']:.3f}s: pre-cap chunks "
+        f"{cs['scan_pre_cap']:.3f}s, at-cap tail {cs['scan_tail']:.3f}s")
+    log_clustering(torch, index, rows)
+    check(not b.deterministic_clustering, "the build was seeded")
+    check(int(a.cluster_sizes.sum()) == assigned,
+          "cluster sizes do not sum to the assigned rows")
+    check(0.325 < share < 0.89, f"kept share {share} outside (0.325, 0.89)")
+    _, _, launches, self_hits, _, _ = serve(
+        torch, counters, index, rows, canon, dev, SEED + 5,
+        {"bintopk": "k1", "taulambda": "k2", "merge_topk": "k3"})
+    check(launches["taulambda"] == 1 and launches["bintopk"] == N_BATCHES + 1,
+          f"the unseeded path launched {launches}, not K2 once and K1 "
+          f"{N_BATCHES + 1} times")
+    return index
+
+
+def chunked_engine_vs_host(torch, index, rows, dev):
+    """_incremental_clustering_chunked twice on the same rows with the K,
+    radius and chunk of the unseeded build and samplers seeded alike: the
+    engine on the card (float32) and the host path (float64).  n_c must be
+    equal.  A row may be assigned differently only near a rule's edge:
+    its float64 d² at decision time (the host run's snapshot) within
+    ``tol`` of radius/2, radius or 1.5·radius, its two nearest centroids
+    within 2·tol, or its sampler draw within float32 rounding of the keep
+    rate; tol = the float32 d² error measured on those snapshots + the
+    reach of the final centroid difference Δ (2·√d²·Δ + Δ²)."""
+    from arrowspace_torch import clustering as cl
+    from arrowspace_torch.builder import ArrowSpaceBuilder
+    from arrowspace_torch.sampling import SamplerType
+
+    b0 = index.builder
+    k_cap, radius = b0.cluster_max_clusters, b0.cluster_radius
+    n, f = rows.shape
+    chunk = cl._device_chunk_for(n)
+    log(f"[5b] chunked scan: engine on the card (float32) vs host path "
+        f"(float64), K={k_cap} radius={radius:.6g} chunk={chunk}")
+
+    def run(device_data):
+        b = ArrowSpaceBuilder(device=dev)
+        s = SamplerType.simple(0.6).make(seed=SEED)
+        t0 = time.perf_counter()
+        out = cl._incremental_clustering_chunked(
+            b, rows, f, k_cap, radius, s, chunk=chunk,
+            device_data=device_data)
+        return out, time.perf_counter() - t0, b.clustering_seconds
+
+    tails = []
+    apply_tail = cl._apply_atcap_tail
+    cl._apply_atcap_tail = lambda eng, c0, *r, **k: tails.append(c0) or \
+        apply_tail(eng, c0, *r, **k)
+    try:
+        (c_e, a_e, z_e), t_e, cs_e = run(index.aspace.data)
+    finally:
+        cl._apply_atcap_tail = apply_tail
+    records = []
+    decide = cl._apply_chunk_decisions
+
+    def record(rows_c, best, best_d2, offset, builder, sampler, radius_,
+               max_clusters, cent, counts, assign, state, **kw):
+        records.append((offset, best.shape[0], best_d2.copy(),
+                        cent[:state["n_c"]].copy()))
+        return decide(rows_c, best, best_d2, offset, builder, sampler,
+                      radius_, max_clusters, cent, counts, assign, state,
+                      **kw)
+    cl._apply_chunk_decisions = record
+    try:
+        (c_h, a_h, z_h), t_h, _ = run(None)
+    finally:
+        cl._apply_chunk_decisions = decide
+    log(f"  engine: {t_e:.3f}s (pre-cap {cs_e['scan_pre_cap']:.3f}s, at-cap "
+        f"tail from row {tails[0] if tails else None} "
+        f"{cs_e['scan_tail']:.3f}s); host path: {t_h:.3f}s")
+    check(c_e.shape[0] == c_h.shape[0],
+          f"n_c differs: engine {c_e.shape[0]}, host {c_h.shape[0]}")
+    check(len(tails) == 1, "the engine run did not take the at-cap tail")
+
+    # float64 decision-time distances of every row (the host snapshots),
+    # and the float32 d² error of the engine's formula on them
+    bd, d2nd = np.full(n, np.nan), np.full(n, np.nan)
+    f32_err = 0.0
+    x64 = torch.as_tensor(rows, device=dev)
+
+    def plane(x, c):
+        return ((x * x).sum(1)[:, None] - 2.0 * (x @ c.T)
+                + (c * c).sum(1)[None, :]).clamp_min(0.0)
+    for off, m, best_d2, snap in records:
+        c64 = torch.as_tensor(snap, device=dev)
+        r64 = x64[off:off + m]
+        p64 = plane(r64, c64)
+        f32_err = max(f32_err, float((plane(r64.float(), c64.float())
+                                      .double() - p64).abs().max()))
+        bd[off:off + m] = best_d2
+        if p64.shape[1] > 1:
+            d2nd[off:off + m] = p64.topk(2, dim=1, largest=False) \
+                .values[:, 1].cpu().numpy()
+    delta = float(np.linalg.norm(c_e - c_h, axis=1).max())
+    cent_abs = float(np.abs(c_e - c_h).max())
+    diff = np.nonzero(a_e.array != a_h.array)[0]
+    bdd, d2d = bd[diff], d2nd[diff]
+    tol_rule = f32_err + 2.0 * np.sqrt(bdd) * delta + delta ** 2
+    tol_tie = 2.0 * (f32_err + 2.0 * np.sqrt(d2d) * delta + delta ** 2)
+    rule = np.min(np.abs(bdd[:, None] - radius * np.array([0.5, 1.0, 1.5])),
+                  axis=1) <= tol_rule
+    tie = d2d - bdd <= tol_tie
+    draws = SamplerType.simple(0.6).make(seed=SEED)._rng.random(n)[diff]
+    keep_edge = (draws.astype(np.float32) < np.float32(0.6)) != (draws < 0.6)
+    bad = diff[~(rule | tie | keep_edge)]
+    log(f"  n_c={c_e.shape[0]} (both); rows assigned differently: "
+        f"{diff.size} ({diff.size / n:.3e} of the rows; near a rule edge "
+        f"{int(rule.sum())}, near a tie {int(tie.sum())}, at the keep rate "
+        f"{int(keep_edge.sum())}); float32 d² error on the host's snapshots "
+        f"{f32_err:.3e}; largest centroid |Δ| {cent_abs:.3e} (row L2 "
+        f"{delta:.3e}); sizes equal: {z_e == z_h}")
+    check(bad.size == 0, f"{bad.size} rows assigned differently away from "
+          f"every rule edge and tie, e.g. row {bad[:1].tolist()}")
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -1238,8 +1543,14 @@ def main() -> int:
         rec = kernels_vs_plain(torch, index, batches, dev)
         where_time_goes(torch, (("cosine session", session),), batches,
                         step=4)
+        api_phase(torch, counters, index, batches, dev)
         small_reference(torch, dev)
         del index, session, batches
+        torch.cuda.empty_cache()
+
+        index = unseeded_path(torch, counters, rows, canon, dev)
+        chunked_engine_vs_host(torch, index, rows, dev)
+        del index
         torch.cuda.empty_cache()
 
         index, exact, approx, batches, e_launches, res_e, res_a = \

@@ -61,8 +61,28 @@ def test_seeded_scan_identical(rate):
     assert s_t == s_j
 
 
-def test_unseeded_large_raises_not_implemented():
+@pytest.mark.parametrize("rate", [0.6, None])
+def test_unseeded_large_takes_chunked_scan(rate, monkeypatch):
+    """An unseeded run of 4096 rows takes the chunked scan (host BLAS
+    below the engine's gate) and equals the JAX package's result under
+    samplers seeded alike."""
     rows = _clustered(5, n=4096, f=4)
-    b = ArrowSpaceBuilder(device="cpu").with_inline_sampling(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.run_incremental_clustering_with_sampling(b, rows, 4, 8, 0.5, None)
+    calls = []
+    inner = tc._incremental_clustering_chunked
+    monkeypatch.setattr(tc, "_incremental_clustering_chunked",
+                        lambda *a, **k: calls.append(1) or inner(*a, **k))
+    tb = ArrowSpaceBuilder(device="cpu").with_inline_sampling(
+        SamplerType.simple(rate) if rate else None)
+    jb = JBuilder().with_inline_sampling(JSampler.simple(rate) if rate
+                                         else None)
+    t_s = SamplerType.simple(rate or 1.0).make(seed=3)
+    j_s = JSampler.simple(rate or 1.0).make(seed=3)
+    c_t, a_t, s_t = tc.run_incremental_clustering_with_sampling(
+        tb, rows, 4, 8, 0.5, t_s)
+    c_j, a_j, s_j = jc.run_incremental_clustering_with_sampling(
+        jb, rows, 4, 8, 0.5, j_s)
+    assert calls == [1]
+    np.testing.assert_allclose(c_t, c_j, rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(a_t.array, a_j.array)
+    assert s_t == s_j
+    assert t_s.get_stats() == j_s.get_stats()

@@ -905,3 +905,220 @@ def test_cuda_energy_session_matches_cpu_float64(dev):
         assert counter.launches > before
         assert float(np.abs(gs - cs).max()) <= 1e-4
         assert float(np.mean(gi == ci)) >= 0.99
+
+
+# ----------------------------------------------------------------------
+# The unseeded build's scan and Two-NN tile on the card, and the search
+# and mutation API, against the CPU float64 port.
+# ----------------------------------------------------------------------
+
+def _blobs(seed, n, f, centres):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.2, 0.8, (centres, f))
+    return c[rng.integers(0, centres, n)] + rng.normal(0, 0.05, (n, f))
+
+
+def _scan(rows, k_cap, radius, chunk, device_data, sampling="simple"):
+    """One run of the chunked scan with an unseeded builder and a sampler
+    seeded alike every time."""
+    from arrowspace_torch import clustering as cl
+    from arrowspace_torch.builder import ArrowSpaceBuilder
+    from arrowspace_torch.sampling import SamplerType
+    kind = SamplerType.simple(0.6) if sampling == "simple" \
+        else SamplerType.density_adaptive(0.7)
+    b = ArrowSpaceBuilder(device="cpu").with_inline_sampling(kind)
+    return cl._incremental_clustering_chunked(
+        b, rows, rows.shape[1], k_cap, radius, kind.make(seed=3),
+        chunk=chunk, device_data=device_data)
+
+
+def test_chunked_engine_on_card_matches_cpu_float64(dev, monkeypatch):
+    """The chunked scan's engine on the card (float32) against the CPU
+    float64 engine on 100000 x 32 clustered rows at chunk 16384, the cap
+    reached in the first chunk: n_c equal; a row may be assigned
+    differently only where its float64 d² at decision time lies within
+    tol of radius/2, radius or 1.5·radius, its two nearest centroids lie
+    within 2·tol, or its draw within float32 rounding of the keep rate
+    (tol: the float32 d² error measured on the snapshots, plus the reach
+    2·√d²·Δ + Δ² of the final centroid difference Δ).  The CPU engine
+    equals the host path, whose per-chunk snapshots give the decision-
+    time distances."""
+    from arrowspace_torch import clustering as cl
+    from arrowspace_torch.sampling import SamplerType
+    rows = _blobs(17, 100_000, 32, 24)
+    n = rows.shape[0]
+    monkeypatch.setattr(cl, "DEVICE_CLUSTERING_MIN_ELEMS", 0)
+    k_cap, radius, _ = cl.compute_optimal_k(rows, n, 32, 7)
+    tails = []
+    tail = cl._apply_atcap_tail
+    monkeypatch.setattr(cl, "_apply_atcap_tail", lambda e, c0, *a, **k:
+                        tails.append(c0) or tail(e, c0, *a, **k))
+    card = _scan(rows, k_cap, radius, 16384,
+                 torch.as_tensor(rows, dtype=torch.float32, device=dev))
+    cpu = _scan(rows, k_cap, radius, 16384, torch.as_tensor(rows))
+    assert tails == [16384, 16384]
+    records = []
+    decide = cl._apply_chunk_decisions
+
+    def record(rows_c, best, best_d2, offset, *a, **k):
+        records.append((offset, best_d2.copy(), a[4][:a[7]["n_c"]].copy()))
+        return decide(rows_c, best, best_d2, offset, *a, **k)
+    monkeypatch.setattr(cl, "_apply_chunk_decisions", record)
+    host = _scan(rows, k_cap, radius, 16384, None)
+    np.testing.assert_allclose(cpu[0], host[0], rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(cpu[1].array, host[1].array)
+    assert card[0].shape == host[0].shape
+
+    bd, d2nd, f32_err = np.full(n, np.nan), np.full(n, np.nan), 0.0
+    for off, best_d2, snap in records:
+        x = torch.as_tensor(rows[off:off + best_d2.shape[0]], device=dev)
+        c = torch.as_tensor(snap, device=dev)
+
+        def plane(x, c):
+            return ((x * x).sum(1)[:, None] - 2.0 * (x @ c.T)
+                    + (c * c).sum(1)[None, :]).clamp_min(0.0)
+        p64 = plane(x, c)
+        f32_err = max(f32_err, float((plane(x.float(), c.float()).double()
+                                      - p64).abs().max()))
+        bd[off:off + best_d2.shape[0]] = best_d2
+        if p64.shape[1] > 1:
+            d2nd[off:off + best_d2.shape[0]] = p64.topk(
+                2, dim=1, largest=False).values[:, 1].cpu().numpy()
+    delta = float(np.linalg.norm(card[0] - host[0], axis=1).max())
+    diff = np.nonzero(card[1].array != host[1].array)[0]
+    b, d = bd[diff], d2nd[diff]
+    rule = np.min(np.abs(b[:, None] - radius * np.array([0.5, 1.0, 1.5])),
+                  axis=1) <= f32_err + 2.0 * np.sqrt(b) * delta + delta ** 2
+    tie = d - b <= 2.0 * (f32_err + 2.0 * np.sqrt(d) * delta + delta ** 2)
+    draws = SamplerType.simple(0.6).make(seed=3)._rng.random(n)[diff]
+    edge = (draws.astype(np.float32) < np.float32(0.6)) != (draws < 0.6)
+    assert diff.size <= n // 100
+    assert (rule | tie | edge).all(), diff[~(rule | tie | edge)][:5]
+
+
+@pytest.mark.parametrize("sampling", ["simple", "density"])
+def test_chunked_tail_reads_nothing_back(dev, monkeypatch, sampling):
+    """decide_tail's loop over the at-cap windows runs with
+    torch.cuda.set_sync_debug_mode("error"): a read-back inside it
+    (.item(), .cpu(), bool(tensor), a boolean mask) would raise."""
+    from arrowspace_torch import clustering as cl
+    x = torch.ones(3, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            x.sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    inner = cl._ChunkDistances._tail_windows
+    calls = []
+
+    def guarded(self, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(1)
+        return out
+    monkeypatch.setattr(cl._ChunkDistances, "_tail_windows", guarded)
+    monkeypatch.setattr(cl, "DEVICE_CLUSTERING_MIN_ELEMS", 0)
+    rows = _blobs(23, 40_000, 16, 12)
+    cent, assign, sizes = _scan(
+        rows, 8, 0.05, 4096,
+        torch.as_tensor(rows, dtype=torch.float32, device=dev), sampling)
+    assert calls == [1]
+    assert cent.shape == (8, 16) and sum(sizes) == int((assign.array >= 0)
+                                                       .sum())
+
+
+def test_unseeded_build_on_card(dev):
+    """ArrowIndex.build without a seed on the card at 200000 x 32 (above
+    the engine's gate, and two of its 131072-row windows): the chunked
+    scan's tail on the card, sizes that sum to the assigned rows, finite
+    λ, a search that finds corpus rows."""
+    rows = _blobs(29, 200_000, 32, 20)
+    idx = ArrowIndex.build(rows, eps=1.0, device=dev)
+    a, cs = idx.aspace, idx.builder.clustering_seconds
+    assert not idx.builder.deterministic_clustering
+    assert cs["scan_tail"] > 0.0
+    assert int(a.cluster_sizes.sum()) == int((a.cluster_assignments >= 0)
+                                             .sum())
+    assert np.isfinite(idx.lambdas).all()
+    s, i = idx.search(rows[[5, 777]], k=5, alpha=0.9)
+    assert i[:, 0].tolist() == [5, 777]
+
+
+def test_twonn_card_tile_matches_host_tiles(dev, monkeypatch):
+    """The Two-NN tile on the card (float32) against the host tiles
+    (float32) on the same sample rows, in one corpus window and in four
+    with a clamped tail: the two smallest d² within 1e-3 relative and the
+    estimate equal, through estimate_intrinsic_dimension's gate too."""
+    from arrowspace_torch import clustering as cl
+    rows = _blobs(19, 150_000, 64, 30)
+    idx = cl._twonn_indices(150_000, 11)
+    host = cl._twonn_two_smallest_host(rows, idx)
+    data = torch.as_tensor(rows, dtype=torch.float32, device=dev)
+    for win in (1 << 20, 40_000):
+        monkeypatch.setattr(cl, "TWONN_CORPUS_WIN", win)
+        card = cl._twonn_two_smallest_device(data, idx)
+        np.testing.assert_allclose(card, host, rtol=1e-3, atol=1e-5)
+        assert cl._twonn_dimension(card, 64) == cl._twonn_dimension(host, 64)
+    assert cl.estimate_intrinsic_dimension(rows, 150_000, 64, 11,
+                                           device_data=data) == \
+        cl.estimate_intrinsic_dimension(rows, 150_000, 64, 11)
+
+
+def test_api_on_card_matches_cpu_float64(dev):
+    """Hybrid search, λ-band range search and item mutation on a seeded
+    70000 x 16 index on the card against the same index (its λ and
+    Laplacian carried across) in float64 on the CPU: hybrid scores within
+    1e-5 and ids equal outside near-ties; ranges equal; each mutation's
+    row and λ within 1e-5, the one-row refresh within 1e-5 of the card's
+    recompute_lambdas (K2), every other λ bitwise unchanged."""
+    from arrowspace_torch.convert import from_jax_state
+    from arrowspace_torch.core import ArrowItem
+    rows = _blobs(5, 70_000, 16, 24)
+    rows[[100, 2000]] = rows[7]
+    gpu = ArrowIndex.build(rows, eps=1.0, seed=5, device=dev)
+    cpu = from_jax_state(rows, gpu.lambdas, gpu.gl.matrix.double().cpu()
+                         .numpy(), gpu.aspace.taumode, device="cpu",
+                         dtype=torch.float64)
+    for pick in (7, 11, 4321, 69_999):
+        g = gpu.search_hybrid(rows[pick] * 1.02, k=10, alpha=0.8)
+        c = cpu.search_hybrid(rows[pick] * 1.02, k=10, alpha=0.8)
+        gs, cs = np.array([s for _, s in g]), np.array([s for _, s in c])
+        assert float(np.abs(gs - cs).max()) <= TOL
+        cids = [i for i, _ in c]
+        for j, (i, s) in enumerate(g):
+            if i != cids[j]:
+                other = cs[cids.index(i)] if i in cids else cs[-1]
+                assert abs(other - cs[j]) <= 2 * TOL
+    lam = np.sort(gpu.lambdas)
+    for lo, hi in ((lam[0], lam[500]), (lam[30_000], lam[40_000])):
+        assert gpu.range(float(lo), float(hi)) == cpu.range(float(lo),
+                                                            float(hi))
+    q = ArrowItem(rows[3] * 1.01, float(lam[35_000]))
+    assert gpu.aspace.range_search(q, gpu.gl, 0.001) == \
+        cpu.aspace.range_search(q, cpu.gl, 0.001)
+    before = gpu.aspace.lambdas.clone()
+    for op, args in (("add_items", (40, 41)), ("mul_items", (50, 51)),
+                     ("scale_item", (60, 1.5))):
+        getattr(gpu.aspace, op)(*args, gpu.gl)
+        getattr(cpu.aspace, op)(*args, cpu.gl)
+        a = args[0]
+        assert np.allclose(gpu.aspace.get_item(a).item,
+                           cpu.aspace.get_item(a).item, atol=1e-6)
+        assert abs(float(gpu.aspace.lambdas[a])
+                   - float(cpu.aspace.lambdas[a])) <= TOL
+    touched = torch.zeros(70_000, dtype=torch.bool, device=dev)
+    touched[[40, 50, 60]] = True
+    assert torch.equal(gpu.aspace.lambdas[~touched], before[~touched])
+    refreshed = gpu.aspace.lambdas[touched].clone()
+    k2 = tl.fused_taulambda.launches
+    gpu.aspace.recompute_lambdas(gpu.gl)
+    assert tl.fused_taulambda.launches == k2 + 1
+    assert float((refreshed - gpu.aspace.lambdas[touched]).abs().max()) \
+        <= TOL
+    with pytest.raises(ValueError):
+        gpu.search(rows[:2], k=5, precision="f64_rescore")
