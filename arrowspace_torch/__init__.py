@@ -14,9 +14,10 @@ from .utils.log import init  # noqa: F401
 from .taumode import TauMode, TAU_FLOOR, TAUDEFAULT  # noqa: F401
 from .core import ArrowItem, ArrowSpace  # noqa: F401
 from .graph import GraphFactory, GraphLaplacian, GraphParams  # noqa: F401
-from .builder import ArrowSpaceBuilder  # noqa: F401
+from .builder import ArrowSpaceBuilder, ConfigValue  # noqa: F401
 from .sampling import SamplerType  # noqa: F401
 from . import eigenmaps  # noqa: F401  (attaches the staged API)
 from .index import ArrowIndex, SearchSession  # noqa: F401
+from .live import LiveEnergySearchSession, LiveSearchSession  # noqa: F401
 
 __version__ = "0.1.0"

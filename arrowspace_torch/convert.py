@@ -1,10 +1,11 @@
 """State carried across from an index built by the JAX package.
 
 ``from_jax_state`` takes the arrays of a built index as numpy (the item
-matrix, λ, the graph Laplacian, the τ policy, the clustering fields and,
-for a dims-reduced or energy build, the F×r projection matrix and the
-tall-graph flag) and returns this package's ArrowIndex on a given
-device, so an index built once can be served here.  It needs nothing of
+matrix, λ, the graph Laplacian, the τ policy, the clustering fields,
+the signals graph of a spectral build and, for a dims-reduced or energy
+build, the F×r projection matrix and the tall-graph flag) and returns
+this package's ArrowIndex on a given device, so an index built once can
+be served here.  It needs nothing of
 the JAX package: a τ policy is anything with ``kind`` and ``value``.
 """
 
@@ -32,12 +33,15 @@ def from_jax_state(data, lambdas, laplacian, taumode, *,
                    cluster_radius: float = 0.0,
                    projection: Optional[np.ndarray] = None,
                    pad_tall_graphs: bool = False,
+                   signals=None,
                    device=None, dtype=None) -> ArrowIndex:
     """ArrowIndex over the given state.  ``data`` (N, F), ``lambdas``
     (N,) and ``laplacian`` (n, n) are array-likes; ``taumode`` is a
     TauMode of either package; ``projection`` the (F, r) matrix of a
     projected build (the JAX package's
-    ``aspace.projection_matrix.matrix()``), held as it is."""
+    ``aspace.projection_matrix.matrix()``), held as it is; ``signals``
+    the F′×F′ signals graph (``aspace.signals``) where the build made
+    one."""
     dev, dt = resolve(device, dtype)
     rows = np.array(data, dtype=np.float64)       # owned, writable copy
     lap = np.asarray(laplacian, dtype=np.float64)
@@ -62,8 +66,13 @@ def from_jax_state(data, lambdas, laplacian, taumode, *,
         pad_tall_graphs=bool(pad_tall_graphs),
     )
     if projection is not None:
-        aspace.projection_matrix = ImplicitProjection.from_matrix(projection)
+        aspace.projection_matrix = ImplicitProjection.from_matrix(
+            projection, generator="threefry")
         aspace.reduced_dim = aspace.projection_matrix.reduced_dim
+    if signals is not None:
+        sig = np.asarray(signals, dtype=np.float64)
+        aspace.signals = torch.tensor(sig).to(device=dev, dtype=dt)
+        aspace._signals_nnz = int(np.count_nonzero(sig))
     gl = GraphLaplacian(
         init_data=torch.empty((0, n_items), device=dev, dtype=dt),
         matrix=torch.tensor(lap).to(device=dev, dtype=dt),

@@ -142,6 +142,10 @@ class ArrowSpace:
     nfeatures: int = 0
     nitems: int = 0
     data: Optional[torch.Tensor] = None          # (N, F)
+    # F′×F′ Laplacian of the feature graph's Laplacian (with_spectral,
+    # graph.GraphFactory.build_spectral_laplacian), on the index device;
+    # where set and non-empty, item λ is computed against it
+    signals: Optional[torch.Tensor] = None
     lambdas: Optional[torch.Tensor] = None       # (N,)
     taumode: TauMode = TAUDEFAULT
 
@@ -160,7 +164,11 @@ class ArrowSpace:
     # zero-pads items to graphs with more nodes than item coordinates
     # instead of raising the reference's error (taumode.rs:574).
     pad_tall_graphs: bool = False
+    _signals_nnz: int = 0
     _projected_cache: Optional[torch.Tensor] = None
+    # (signals shape, z = projected items · signalsᵀ): the energy
+    # search's z-plane (energymaps._energy_z_items)
+    _energy_z_cache: Optional[tuple] = None
     # (λ ascending as float64, their item ids): lambda_sorted_index's cache,
     # dropped by every change of data or λ
     _lambda_order: Optional[Tuple[np.ndarray, np.ndarray]] = None
@@ -193,6 +201,16 @@ class ArrowSpace:
     @property
     def dtype(self) -> torch.dtype:
         return self.data.dtype
+
+    def lambda_graph(self, gl) -> torch.Tensor:
+        """The graph item λ is computed against: ``signals`` where it is
+        set and non-empty, else the feature graph (eigenmaps.rs:358-383,
+        taumode.rs:195-200).  Query λ always reads ``gl.matrix``, items
+        built with signals too: the JAX package's quirk, kept
+        (core.py:195, 233 and index.py:414 of the JAX package)."""
+        if self.signals is not None and self.signals.shape[0] > 0:
+            return self.signals
+        return gl.matrix
 
     def _check_query(self, items: np.ndarray) -> None:
         assert items.shape[-1] == self.nfeatures, (
@@ -302,6 +320,7 @@ class ArrowSpace:
 
     def _data_changed(self) -> None:
         self._projected_cache = None
+        self._energy_z_cache = None
         self._lambda_order = None
         self.host_rows = None   # the data diverged from the float64 original
 
@@ -334,10 +353,10 @@ class ArrowSpace:
         whole batch (core.rs:644); λ_j depends only on row j and the
         unchanged graph, so recomputing the edited row gives the same
         value: τ from the row on the host, then synthetic_lambda_single
-        against the graph, on its device in its dtype."""
+        against the graph (lambda_graph), on its device in its dtype."""
         row = self.data[a].double().cpu().numpy()
         tau = select_tau(row, self.taumode)
-        lam = synthetic_lambda_single(row, gl.matrix, tau)
+        lam = synthetic_lambda_single(row, self.lambda_graph(gl), tau)
         self.lambdas = self.lambdas.index_copy(
             0, torch.tensor([a], device=self.device),
             torch.tensor([lam], dtype=self.dtype, device=self.device))
@@ -374,9 +393,11 @@ class ArrowSpace:
         self._refresh_lambda_row(a, gl)
 
     def recompute_lambdas(self, gl) -> None:
-        """Every λ again (reference: core.rs:711-727), through
-        compute_taumode_lambdas: K2, K4 and K5 by their gates."""
-        self.lambdas = compute_taumode_lambdas(self.data, gl.matrix,
+        """Every λ again (reference: core.rs:711-727) against
+        lambda_graph, through compute_taumode_lambdas: K2, K4 and K5 by
+        their gates."""
+        self.lambdas = compute_taumode_lambdas(self.data,
+                                               self.lambda_graph(gl),
                                                self.taumode)
         self._lambda_order = None
 

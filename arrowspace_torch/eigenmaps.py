@@ -7,7 +7,8 @@ eigenmaps.rs:93-456):
    native scan when seeded, the chunked scan when not; a large corpus
    runs its Two-NN tiles and the chunked scan's distances on the index's
    tensor) + optional JL projection of the centroids;
-2. eigenmaps        — feature-graph Laplacian from the centroids;
+2. eigenmaps        — feature-graph Laplacian from the centroids, and
+   with ``with_spectral`` the signals graph (its Laplacian's Laplacian);
 3. compute_taumode  — batched λτ on the index device;
 4. search           — λ-aware search with query preparation.
 
@@ -116,21 +117,27 @@ def start_clustering(builder, rows) -> ClusteredOutput:
 def eigenmaps(aspace: ArrowSpace, builder, centroids,
               n_items: int) -> GraphLaplacian:
     """Stage 2: feature-graph Laplacian from the clustered centroids
-    (reference: eigenmaps.rs:292-356)."""
+    (reference: eigenmaps.rs:292-356), then, when the builder asks for
+    it, the signals graph in ``aspace.signals`` (eigenmaps.py:145-146 of
+    the JAX package)."""
     n_centroids, n_features = np.shape(centroids)
     logger.info("EigenMaps::eigenmaps: %d centroids x %d features",
                 n_centroids, n_features)
-    return GraphFactory.build_laplacian_matrix_from_k_cluster(
+    gl = GraphFactory.build_laplacian_matrix_from_k_cluster(
         centroids, builder.lambda_eps, builder.lambda_k,
         builder.lambda_topk, builder.lambda_p, builder.lambda_sigma,
         builder.normalise, builder.sparsity_check, n_items,
         device=aspace.device, dtype=aspace.dtype)
+    if builder.prebuilt_spectral:
+        GraphFactory.build_spectral_laplacian(aspace, gl)
+    return gl
 
 
 def compute_taumode(aspace: ArrowSpace, gl: GraphLaplacian) -> None:
-    """Stage 3: batched λτ (reference: eigenmaps.rs:358-383)."""
+    """Stage 3: batched λτ (reference: eigenmaps.rs:358-383), against the
+    signals graph where it is set (ArrowSpace.lambda_graph)."""
     aspace.lambdas = compute_taumode_lambdas(
-        aspace.data, gl.matrix, aspace.taumode,
+        aspace.data, aspace.lambda_graph(gl), aspace.taumode,
         pad_items=aspace.pad_tall_graphs)
     aspace._lambda_order = None      # the sorted λ-band index
 

@@ -381,25 +381,70 @@ def build_energy_laplacian(builder, sub_centroids, energy_params: EnergyParams
 # ---------------------------------------------------------------------------
 
 def _query_z(aspace: ArrowSpace, queries: np.ndarray) -> torch.Tensor:
-    """The queries in z-space on the index device: projected on the host
-    in float64 when the build projected, as search_energy_batch of the
-    JAX package does."""
+    """The queries in the index's projected space on the index device:
+    projected on the host in float64 when the build projected, as
+    search_energy_batch of the JAX package does."""
     if aspace.projection_matrix is not None:
         queries = aspace.projection_matrix.project_batch_host(queries)
     return torch.as_tensor(queries).to(device=aspace.device,
                                        dtype=aspace.dtype)
 
 
+def energy_signals(aspace: ArrowSpace, width: int) -> Optional[torch.Tensor]:
+    """The signals graph where it is set, non-empty and as wide as the
+    projected items (``width``): the energy score then measures
+    differences through it (energymaps.rs:865-881); else None."""
+    sig = aspace.signals
+    if sig is not None and sig.shape[0] > 0 and sig.shape[1] == width:
+        return sig.to(device=aspace.device, dtype=aspace.dtype)
+    return None
+
+
+def _projected_dirichlet_batch(aspace: ArrowSpace, diffs: torch.Tensor
+                               ) -> torch.Tensor:
+    """Bounded projected Dirichlet of (N, F′) differences: ‖S·d‖ through
+    the signals graph where its shape lines up, else ‖d‖, mapped to
+    min(num/(1+num), 1) (reference: energymaps.rs:865-881)."""
+    sig = energy_signals(aspace, diffs.shape[1])
+    y = diffs if sig is None else diffs @ sig.T
+    num = torch.sqrt((y * y).sum(dim=1))
+    return (num / (1.0 + num)).clamp_max(1.0)
+
+
+def _energy_z_items(aspace: ArrowSpace, items_proj: torch.Tensor,
+                    signals: Optional[torch.Tensor]) -> torch.Tensor:
+    """The corpus z-plane of the streaming energy search: z = x_proj·Sᵀ,
+    computed once and cached on the ArrowSpace (the cache follows the
+    signals' shape and the row count, as the JAX package's does, and any
+    change of the items drops it); the projected items themselves when
+    there is no signals graph.  ‖S(q - x)‖ = ‖Sq - Sx‖, so the scores
+    need only z-distances."""
+    if signals is None:
+        return items_proj
+    cache = aspace._energy_z_cache
+    if cache is not None and cache[0] == tuple(signals.shape) \
+            and cache[1].shape[0] == items_proj.shape[0]:
+        return cache[1]
+    z = items_proj @ signals.T
+    aspace._energy_z_cache = (tuple(signals.shape), z)
+    return z
+
+
 def _energy_score_topk(q_proj, lambda_q, items_proj, item_lambdas,
-                       w_lambda: float, w_dirichlet: float, *, k: int):
+                       w_lambda: float, w_dirichlet: float, *, k: int,
+                       signals: Optional[torch.Tensor] = None):
     """In-memory energy scores of corpora up to ENERGY_CHUNK rows, as the
     JAX package's _energy_score_topk (energymaps.py:397-414): the bounded
-    L2 of the (B, N, F') differences, score = -(w_λ·|Δλ| + w_D·d), and a
-    stable top-k.  Returns (scores (B, k), ids (B, k))."""
+    L2 of the (B, N, F′) differences, through the signals graph when
+    given, score = -(w_λ·|Δλ| + w_D·d), and a stable top-k.  Returns
+    (scores (B, k), ids (B, k))."""
     out_s, out_i = [], []
-    rows = max(1, (1 << 24) // max(1, items_proj.numel()))
+    width = items_proj.shape[1] if signals is None else signals.shape[0]
+    rows = max(1, (1 << 24) // max(1, items_proj.shape[0] * width))
     for b0 in range(0, q_proj.shape[0], rows):
         diffs = q_proj[b0:b0 + rows, None, :] - items_proj[None, :, :]
+        if signals is not None:
+            diffs = torch.einsum("bnf,gf->bng", diffs, signals)
         num = torch.sqrt((diffs * diffs).sum(dim=2))
         d_dir = (num / (1.0 + num)).clamp_max(1.0)
         d_lambda = (lambda_q[b0:b0 + rows, None]
@@ -416,25 +461,30 @@ def search_energy_batch(aspace: ArrowSpace, queries, gl_energy: GraphLaplacian,
                         k: int, w_lambda: float, w_dirichlet: float):
     """Batched energy-only ranking: (B, F) queries -> host (scores, ids)
     (the serving-path variant of search_energy).  Above ENERGY_CHUNK rows
-    the binned energy engine (K6 + exact repair, the session's engine)
-    serves where energy_binned_fits admits the size, else the chunked
-    scan; below it the in-memory scan."""
+    the z-plane (_energy_z_items) is served by the binned energy engine
+    (K6 + exact repair, the session's engine) where energy_binned_fits
+    admits the size, else by the chunked scan; below it the in-memory
+    scan."""
     queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
     lambda_q = aspace.prepare_query_items_batch(queries, gl_energy)
-    z_q = _query_z(aspace, queries)
+    q_proj = _query_z(aspace, queries)
     items_proj = aspace.projected_items()
+    signals = energy_signals(aspace, items_proj.shape[1])
     k_eff = min(k, aspace.nitems)
     if aspace.nitems > ENERGY_CHUNK:
-        if energy_binned_fits(aspace.nitems, k_eff, items_proj.shape[1]):
-            engine = BinnedEnergyTopK(items_proj, aspace.lambdas, w_lambda,
+        z_items = _energy_z_items(aspace, items_proj, signals)
+        z_q = q_proj if signals is None else q_proj @ signals.T
+        if energy_binned_fits(aspace.nitems, k_eff, z_items.shape[1]):
+            engine = BinnedEnergyTopK(z_items, aspace.lambdas, w_lambda,
                                       w_dirichlet, k_eff)
             return engine(z_q, lambda_q)
-        s, i = energy_topk_chunked(z_q, lambda_q, items_proj,
+        s, i = energy_topk_chunked(z_q, lambda_q, z_items,
                                    aspace.lambdas, w_lambda, w_dirichlet,
                                    k=k_eff)
         return s.cpu().numpy(), i.cpu().numpy()
-    s, i = _energy_score_topk(z_q, lambda_q.to(aspace.dtype), items_proj,
-                              aspace.lambdas, w_lambda, w_dirichlet, k=k_eff)
+    s, i = _energy_score_topk(q_proj, lambda_q.to(aspace.dtype), items_proj,
+                              aspace.lambdas, w_lambda, w_dirichlet, k=k_eff,
+                              signals=signals)
     return s.cpu().numpy(), i.cpu().numpy()
 
 
@@ -446,9 +496,8 @@ def search_energy(aspace: ArrowSpace, query, gl_energy: GraphLaplacian,
     lambda_q = aspace.prepare_query_item(query, gl_energy)
     q_proj = torch.as_tensor(aspace.project_query(query)).to(
         device=aspace.device, dtype=aspace.dtype)
-    diffs = q_proj[None, :] - aspace.projected_items()
-    num = torch.sqrt((diffs * diffs).sum(dim=1))
-    d_dir = (num / (1.0 + num)).clamp_max(1.0)
+    d_dir = _projected_dirichlet_batch(
+        aspace, q_proj[None, :] - aspace.projected_items())
     d_lambda = (lambda_q - aspace.lambdas).abs()
     scores = -(w_lambda * d_lambda + w_dirichlet * d_dir)
     k_eff = min(k, aspace.nitems)

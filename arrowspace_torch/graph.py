@@ -326,3 +326,33 @@ class GraphFactory:
             result.matrix.shape[0], result.matrix.shape[1],
             result.nnodes, result.nnz())
         return result
+
+    @staticmethod
+    def build_spectral_laplacian(aspace, graph_laplacian: GraphLaplacian
+                                 ) -> None:
+        """The F′×F′ Laplacian of the feature graph's Laplacian, into
+        ``aspace.signals`` and ``aspace._signals_nnz`` (reference:
+        graph.rs:212-270): the dense L is transposed and a second
+        Laplacian is built over its rows with the graph's parameters, on
+        the index device in the index dtype."""
+        from .laplacian import build_laplacian_matrix
+
+        params = graph_laplacian.graph_params
+        gl2 = build_laplacian_matrix(graph_laplacian.matrix.T, params,
+                                     n_items=aspace.nitems,
+                                     device=aspace.device, dtype=aspace.dtype)
+        aspace.signals = gl2.matrix
+        aspace._signals_nnz = gl2.structural_nnz
+
+        sp = GraphLaplacian.sparsity(aspace.signals, gl2.structural_nnz)
+        if sp > 0.95 and params.sparsity_check:
+            raise ValueError(f"Resulting spectral matrix is too sparse {sp}")
+        if aspace.reduced_dim is not None:
+            assert (aspace.signals.shape[0] == aspace.reduced_dim
+                    and aspace.signals.shape[1] == aspace.reduced_dim), \
+                "result should be a FxF matrix with reduced dimensions F"
+        else:
+            assert aspace.signals.shape[0] == aspace.signals.shape[1], \
+                "result should be a FxF matrix"
+        logger.info("Built FxF feature matrix: %dx%d",
+                    aspace.signals.shape[0], aspace.signals.shape[1])

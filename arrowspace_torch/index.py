@@ -15,6 +15,10 @@ PyTorch counterpart of ``arrowspace_tpu.index``:
     index.search_hybrid(query, k=10); index.range(lo, hi)
     index.aspace.add_items(a, b, index.gl); index.stats()
 
+    index.save(path, "name"); ArrowIndex.load(path, "name", device="cuda")
+    live = index.make_live_session(batch_size=2048, k=10, capacity=2**21)
+    ids = live.add(rows); live.delete(ids[:5]); live.search(queries)
+
 Without ``seed`` the build's clustering is the unseeded chunked scan.
 
 A serving step is query-λ preparation (τ selection + synthetic λ on the
@@ -232,6 +236,38 @@ def energy_session_config(nitems: int, k: int, z_width: int) -> str:
         else "chunked"
 
 
+def _energy_query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
+    """The energy sessions' query preparation on the index device, as two
+    functions: ``to_z`` maps raw queries (B, F) to the z-plane (projected,
+    then through the signals graph where energymaps.energy_signals finds
+    one), and ``prepare`` returns (to_z(q), λ (B,)), λ against gl.matrix
+    as for every query (see ArrowSpace.lambda_graph)."""
+    from .energymaps import energy_signals
+    project, prepare_q = _query_prep(aspace, gl)
+    sig = energy_signals(aspace, aspace.projected_items().shape[1])
+
+    def through(q_prep):
+        return q_prep if sig is None else q_prep @ sig.T
+
+    def to_z(q):
+        return through(project(q))
+
+    def prepare(q):
+        q_prep, qlam = prepare_q(q)
+        return through(q_prep), qlam
+    return to_z, prepare
+
+
+def energy_z_plane(aspace: ArrowSpace) -> torch.Tensor:
+    """The corpus z-plane the energy sessions serve: the projected items,
+    through the signals graph where one is attached (cached on the
+    ArrowSpace, energymaps._energy_z_items)."""
+    from .energymaps import _energy_z_items, energy_signals
+    items_proj = aspace.projected_items()
+    return _energy_z_items(aspace, items_proj,
+                           energy_signals(aspace, items_proj.shape[1]))
+
+
 class EnergySearchSession:
     """Pipelined streaming ENERGY search for serving (indices built with
     build_energy).
@@ -257,7 +293,10 @@ class EnergySearchSession:
         self.depth = max(1, int(depth))
         self.device, self.dtype = aspace.device, aspace.dtype
         self._dim = aspace.nfeatures
-        z_items = aspace.projected_items()
+        # the z-plane: the projected items, through the signals graph
+        # where one is attached (index.py:547-620 of the JAX package)
+        to_z, self.prepare = _energy_query_prep(aspace, gl)
+        z_items = energy_z_plane(aspace)
         lambdas = aspace.lambdas
         kernel = energy_session_config(index.nitems, self.k,
                                        z_items.shape[1])
@@ -267,10 +306,8 @@ class EnergySearchSession:
                 "65536 rows, k <= 128, a z-width the kernels admit); this "
                 f"session resolved kernel={kernel!r}")
         self.kernel = "binned_approx" if approx else kernel
-        # prepare(q) -> (z_q, λ) of a raw (B, F) batch on the device
-        project, self.prepare = _query_prep(aspace, gl)
         engine = BinnedEnergyTopK(z_items, lambdas, w_lambda, w_dirichlet,
-                                  self.k, approx=approx, project=project) \
+                                  self.k, approx=approx, project=to_z) \
             if kernel == "binned" else None
         k_eff = self.k
 
@@ -368,6 +405,67 @@ class ArrowIndex:
         aspace, gl = build_energy(b, rows, energy_params or EnergyParams())
         return cls(aspace, gl, b)
 
+    def _synthesize_builder(self) -> ArrowSpaceBuilder:
+        """Builder config reconstructed from the index's state, for an
+        index with no builder attached (a loaded one): persisting the
+        defaults instead would change query-λ preparation on a
+        load -> save -> load round trip (index.py:763-781 of the JAX
+        package)."""
+        a = self.aspace
+        b = ArrowSpaceBuilder(device=a.device, dtype=a.dtype)
+        b.synthesis = a.taumode
+        gp = getattr(self.gl, "graph_params", None)
+        if gp is not None:
+            b.with_lambda_graph(gp.eps, gp.k, gp.topk, gp.p, gp.sigma)
+            b.normalise = gp.normalise
+            b.sparsity_check = gp.sparsity_check
+        b.use_dims_reduction = a.projection_matrix is not None
+        b.prebuilt_spectral = a.signals is not None and a.signals.shape[0] > 0
+        b.cluster_max_clusters = a.n_clusters or None
+        b.cluster_radius = a.cluster_radius or 1.0
+        return b
+
+    def save(self, path, name: str) -> None:
+        """Persist as the builder's Parquet artifacts (storage/parquet),
+        which the reference's tooling and the JAX package read too
+        (projected indexes excepted: see storage/parquet).  The raw input
+        is the item matrix as float64, so a reload gives the same
+        tensors.  Each device tensor is copied to the host once."""
+        import pathlib
+
+        from .storage import parquet as pq
+        base = pathlib.Path(path)
+        base.mkdir(parents=True, exist_ok=True)
+        a = self.aspace
+        b = self.builder or self._synthesize_builder()
+
+        def host64(t):
+            return t.double().cpu().numpy()
+        pq.save_dense_matrix_with_builder(host64(a.data), base,
+                                          f"{name}-raw_input", b)
+        pq.save_dense_matrix_with_builder(host64(self.gl.init_data).T, base,
+                                          f"{name}-laplacian-input", b)
+        pq.save_sparse_matrix_with_builder(
+            host64(self.gl.matrix), base, f"{name}-gl-matrix", b,
+            structural_nnz=self.gl.structural_nnz)
+        pq.save_lambda_with_builder(host64(a.lambdas), base,
+                                    f"{name}-lambdas", b,
+                                    projection=a.projection_matrix)
+        if a.signals is not None and a.signals.shape[0] > 0:
+            pq.save_sparse_matrix_with_builder(
+                host64(a.signals), base, f"{name}-aspace-signals", b)
+        logger.info("index saved to %s as '%s'", base, name)
+
+    @classmethod
+    def load(cls, path, name: str, *, device=None,
+             dtype=None) -> "ArrowIndex":
+        """An index saved by ``save`` (or a build with persistence), on
+        ``device`` in ``dtype``; no λ is computed."""
+        from .storage import parquet as pq
+        aspace, gl = pq.load_arrowspace_index(path, name, device=device,
+                                              dtype=dtype)
+        return cls(aspace, gl)
+
     def search(self, queries, k: int = 10, alpha: float = 0.9,
                precision: str = "f32", rescore_pool: Optional[int] = None):
         """Batched λ-aware search: (B, F) -> host (scores (B, k),
@@ -419,6 +517,29 @@ class ArrowIndex:
                             depth: int = 2) -> SearchSession:
         """Streaming search for serving, ``depth`` batches in flight."""
         return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth)
+
+    def make_live_session(self, batch_size: int, k: int = 10,
+                          alpha: float = 0.9, depth: int = 2,
+                          capacity: Optional[int] = None):
+        """Serving session with add/update/delete: the corpus lives in a
+        capacity buffer on the device and the live row count reaches the
+        kernels as their ``n`` (live.LiveSearchSession).  Results carry
+        stable external ids."""
+        from .live import LiveSearchSession
+        return LiveSearchSession(self, batch_size, k=k, alpha=alpha,
+                                 depth=depth, capacity=capacity)
+
+    def make_live_energy_session(self, batch_size: int, k: int = 10,
+                                 w_lambda: float = 1.0,
+                                 w_dirichlet: float = 0.5, depth: int = 2,
+                                 capacity: Optional[int] = None):
+        """Energy-index live session: add/update/delete over a capacity
+        buffer of the z-plane (live.LiveEnergySearchSession)."""
+        from .live import LiveEnergySearchSession
+        return LiveEnergySearchSession(self, batch_size, k=k,
+                                       w_lambda=w_lambda,
+                                       w_dirichlet=w_dirichlet, depth=depth,
+                                       capacity=capacity)
 
     def search_energy(self, queries, k: int = 10, w_lambda: float = 1.0,
                       w_dirichlet: float = 0.5):

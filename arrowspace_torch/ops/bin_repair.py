@@ -273,11 +273,22 @@ class BinnedTopK:
     K1 plus its flush, ``repair`` the exact repair of the flagged rows.
     A serving session calls the two apart, so that a batch's repair waits
     on the host while the next batch runs; calling the engine runs both
-    for one batch."""
+    for one batch.
 
-    def __init__(self, items, item_lambdas, alpha: float, k: int):
-        self.n, self.alpha, self.k = items.shape[0], float(alpha), int(k)
-        self.xhat, self.xlam = prepare_binned_corpus(items, item_lambdas)
+    ``prepared=True`` takes the buffers of prepare_binned_corpus as they
+    are, of which the first ``n`` rows are served: a live session's
+    capacity buffers, whose owner writes rows in place and sets ``n``
+    (K1, the strided repair and K3 read it as their row count and never
+    score a row at or past it)."""
+
+    def __init__(self, items, item_lambdas, alpha: float, k: int, *,
+                 prepared: bool = False, n: int = 0):
+        self.alpha, self.k = float(alpha), int(k)
+        if prepared:
+            self.n, self.xhat, self.xlam = int(n), items, item_lambdas
+        else:
+            self.n = items.shape[0]
+            self.xhat, self.xlam = prepare_binned_corpus(items, item_lambdas)
 
     def step(self, q, qlam):
         """(scores (B,k), ids (B,k), flags (B,), det (B, bins)), on the
@@ -336,12 +347,12 @@ class BinnedEnergyTopK:
 
     def __init__(self, z_items, item_lambdas, w_lambda: float,
                  w_dirichlet: float, k: int, *, approx: bool = False,
-                 project=None):
+                 project=None, rows: int = 0):
         self.n, self.k, self.approx = z_items.shape[0], int(k), approx
-        self.centre = z_items.mean(dim=0)
+        self._mean = z_items.mean(dim=0)
         self.zx, self.xlam, self.xn = prepare_binned_energy_corpus(
-            z_items - self.centre, item_lambdas)
-        self.centre = self.centre.to(self.zx.dtype)
+            z_items - self._mean, item_lambdas, rows=rows)
+        self.centre = self._mean.to(self.zx.dtype)
         self.wl = dtype_scalar(w_lambda, self.zx.dtype)
         self.wd = dtype_scalar(w_dirichlet, self.zx.dtype)
         self.project = project
@@ -354,6 +365,17 @@ class BinnedEnergyTopK:
         """Queries in z-space, in the prepared corpus's dtype, centred as
         the corpus is."""
         return z_q.to(self.zx.dtype) - self.centre
+
+    def write_rows(self, pos: torch.Tensor, z_rows, lam_rows) -> None:
+        """Write corpus rows ``pos`` of a capacity buffer (``rows`` at
+        construction) in place: z_rows (m, G) in z-space, centred on the
+        centre fixed at construction by the arithmetic of the prepared
+        rows, with their squared norms and λ.  The centre is never moved,
+        so the distances of the other rows stay as they were."""
+        zc = (z_rows - self._mean.to(z_rows.dtype)).to(self.zx.dtype)
+        self.zx.index_copy_(0, pos, zc)
+        self.xn.index_copy_(0, pos, (zc * zc).sum(dim=1))
+        self.xlam.index_copy_(0, pos, lam_rows.to(self.xlam.dtype))
 
     def step(self, z_q, qlam):
         """(scores (B,k), ids (B,k), flags (B,), det (B, bins) or None),

@@ -106,13 +106,17 @@ def bintopk_fits(f: int) -> bool:
     return f >= 1 and _bintopk_smem(f, 32) <= _SMEM_LIMIT
 
 
-def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor):
+def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor,
+                          rows: int = 0):
     """Unit-normalised corpus and its λ, zero-padded to a multiple of
-    CORPUS_ALIGN rows: float32 on CUDA (what the kernel reads), the
-    corpus dtype on the CPU.  Sessions do this once."""
+    CORPUS_ALIGN rows, and to at least ``rows`` (a live session's
+    capacity): float32 on CUDA (what the kernel reads), the corpus dtype
+    on the CPU.  Sessions do this once; a row written later by the same
+    arithmetic (safe_unit in the corpus dtype, then the cast) scores
+    bitwise as a prepared row would."""
     dt = torch.float32 if items.is_cuda else items.dtype
     n = items.shape[0]
-    pad = (-n) % CORPUS_ALIGN
+    pad = (-max(n, rows)) % CORPUS_ALIGN + max(0, rows - n)
     xhat = torch.nn.functional.pad(safe_unit(items).to(dt), (0, 0, 0, pad))
     xlam = torch.nn.functional.pad(item_lambdas.to(dt), (0, pad))
     return xhat.contiguous(), xlam.contiguous()

@@ -118,13 +118,15 @@ def energy_topk_chunked(z_q, query_lambdas, z_items, item_lambdas,
 
 
 def prepare_binned_energy_corpus(z_items: torch.Tensor,
-                                 item_lambdas: torch.Tensor):
+                                 item_lambdas: torch.Tensor, rows: int = 0):
     """The z-plane, its λ and its squared row norms, zero-padded to a
-    multiple of CORPUS_ALIGN rows: float32 on CUDA (what K6 and K7 read),
-    the corpus dtype on the CPU.  Sessions do this once.  Returns
+    multiple of CORPUS_ALIGN rows, and to at least ``rows`` (a live
+    session's capacity): float32 on CUDA (what K6 and K7 read), the
+    corpus dtype on the CPU.  Sessions do this once.  Returns
     (zx (n_pad, G), xlam (n_pad,), xn (n_pad,))."""
     dt = torch.float32 if z_items.is_cuda else z_items.dtype
-    pad = (-z_items.shape[0]) % CORPUS_ALIGN
+    n = z_items.shape[0]
+    pad = (-max(n, rows)) % CORPUS_ALIGN + max(0, rows - n)
     zx = torch.nn.functional.pad(z_items.to(dt), (0, 0, 0, pad))
     xlam = torch.nn.functional.pad(item_lambdas.to(dt), (0, pad))
     return zx.contiguous(), xlam.contiguous(), (zx * zx).sum(dim=1)

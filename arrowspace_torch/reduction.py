@@ -11,6 +11,10 @@ from the JAX package's (threefry) as those differ from the reference's
 (ChaCha8).  Determinism, shape, linearity and the 1/√r scale match.  An
 index built by the JAX package carries its own matrix across
 (``ImplicitProjection.from_matrix``, used by ``convert.from_jax_state``).
+``generator`` records which generator made the matrix ("torch" for this
+package's, "threefry" for one carried across from the JAX package), and
+a saved projected index stores the matrix itself (storage/parquet), so
+no package regenerates another's numbers from a seed.
 """
 
 from __future__ import annotations
@@ -42,18 +46,22 @@ class ImplicitProjection:
     reduction.rs:168-203).
 
     ``held``, when set, is a given (F, r) matrix used instead of the one
-    the seed generates."""
+    the seed generates; ``generator`` names what made the matrix."""
 
     original_dim: int
     reduced_dim: int
     seed: int = field(default_factory=lambda: secrets.randbits(64))
     held: Optional[np.ndarray] = None
+    generator: str = "torch"
 
     @staticmethod
-    def from_matrix(mat, seed: int = 0) -> "ImplicitProjection":
-        """A projection that holds the given (F, r) matrix."""
+    def from_matrix(mat, seed: int = 0,
+                    generator: str = "torch") -> "ImplicitProjection":
+        """A projection that holds the given (F, r) matrix, made by
+        ``generator``."""
         m = np.array(mat, dtype=np.float64)
-        return ImplicitProjection(m.shape[0], m.shape[1], seed, held=m)
+        return ImplicitProjection(m.shape[0], m.shape[1], seed, held=m,
+                                  generator=generator)
 
     def _cpu_matrix(self) -> torch.Tensor:
         """The F×r matrix on the CPU, cached: float32 Gaussians times

@@ -71,6 +71,32 @@ class TauMode:
         t = self.value
         return t if np.isfinite(t) and t > 0.0 else TAU_FLOOR
 
+    def __str__(self) -> str:  # Display parity (taumode.rs:663-672)
+        if self.kind in ("fixed", "percentile"):
+            return f"{self.kind.capitalize()}({_fmt_float(self.value)})"
+        return self.kind.capitalize()
+
+    def to_config(self):
+        """The policy's form in the persisted metadata."""
+        if self.kind in ("fixed", "percentile"):
+            return {self.kind.capitalize(): self.value}
+        return self.kind.capitalize()
+
+    @staticmethod
+    def from_config(cfg) -> "TauMode":
+        if isinstance(cfg, str):
+            return TauMode(cfg.lower())
+        if isinstance(cfg, dict):
+            (k, v), = cfg.items()
+            return TauMode(k.lower(), float(v))
+        raise ValueError(f"bad TauMode config: {cfg!r}")
+
+
+def _fmt_float(v: float) -> str:
+    """A float as Rust's Display prints it: "0.5", and "2" for 2.0."""
+    out = repr(float(v))
+    return out[:-2] if out.endswith(".0") else out
+
 
 TAUDEFAULT = TauMode.median()
 

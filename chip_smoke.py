@@ -43,6 +43,26 @@ rows (they must be equal).  Two more phases on the cosine corpus:
   the build, K1), then the chunked scan's engine on the card (float32)
   against its host path (float64) at the build's K and radius.
 
+Three phases cover the spectral build, persistence and the live
+sessions:
+
+- persistence: the seeded cosine index saved as Parquet artifacts
+  (under _smoke_artifacts/, removed at the end), loaded onto the card
+  and served: ids and scores bitwise those of the index's own session,
+  and no K2 in the load; a 131072-row snapshot of the wide projected
+  index saved and loaded likewise, its projection matrix bitwise;
+- live: a LiveSearchSession on the seeded cosine index (capacity n +
+  131072, K1 at the live count): 16 batches bitwise the static
+  session's, then add 65536 rows, update 4096 and delete 65536, each
+  timed and followed by 4 batches held against the plain scan of the
+  live rows, the added rows' λ against the query preparation, and a
+  to_index snapshot saved, loaded and served; a LiveEnergySearchSession
+  on the energy index (K6) through the same steps; a live "merge"
+  session on the 1536-wide index (K3) around an add and a delete;
+- spectral: the cosine corpus built again with with_spectral(True): the
+  signals graph against a float64 numpy build, λ (one K2 launch)
+  against a float64 λ, then a SearchSession.
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -71,6 +91,7 @@ the last line {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1471,6 +1492,542 @@ def chunked_engine_vs_host(torch, index, rows, dev):
           f"every rule edge and tie, e.g. row {bad[:1].tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# The spectral build, persistence and the live sessions
+# ---------------------------------------------------------------------------
+
+# Artifacts of the persistence phases go here, inside the checkout, and
+# are removed at the end of the run.
+ARTIFACTS = "_smoke_artifacts"
+# The live sessions: capacity headroom, the mutations, and the batches
+# run after each mutation; the wide snapshot's rows.
+LIVE_HEADROOM, LIVE_ADD, LIVE_UPDATE, LIVE_DELETE = 131_072, 65_536, 4_096, \
+    65_536
+LIVE_BATCHES, LIVE_COPIES = 4, 256
+SNAP_ROWS = 131_072
+
+
+def artifacts_dir():
+    import pathlib
+    return pathlib.Path(__file__).resolve().parent / ARTIFACTS
+
+
+def artifact_bytes(name: str) -> dict:
+    """Size in bytes of each file of the saved index ``name``."""
+    return {p.name[len(name) + 1:]: p.stat().st_size
+            for p in sorted(artifacts_dir().glob(f"{name}-*.parquet"))}
+
+
+def more_rows(n: int, f: int, seed: int) -> np.ndarray:
+    """n new rows of the corpus generator at width f: its 64 centres
+    (clustered_rows' first draws at SEED), new picks and noise from
+    ``seed``."""
+    centres = np.random.default_rng(SEED).uniform(0.2, 0.8, (N_CENTRES, f))
+    rng = np.random.default_rng(seed)
+    return centres[rng.integers(0, N_CENTRES, n)] \
+        + rng.normal(0, NOISE, (n, f))
+
+
+def timed(torch, dev, fn):
+    """(fn(), wall seconds to its end on the card)."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def stream_ms(torch, dev, session, batches):
+    """(results, ms per batch) of a session's stream over ``batches``."""
+    res, secs = timed(torch, dev,
+                      lambda: list(session.search_stream(batches)))
+    return res, secs / len(batches) * 1e3
+
+
+def same_results(name, got, ref) -> None:
+    """Two streams' (scores, ids) bitwise equal, batch by batch."""
+    for b, ((s, i), (rs, ri)) in enumerate(zip(got, ref)):
+        check(np.array_equal(i, ri), f"{name}: ids differ in batch {b}")
+        check(np.array_equal(s, rs), f"{name}: scores differ in batch {b}")
+    log(f"  {name}: ids and scores bitwise equal over {len(ref)} batches")
+
+
+def laplacian64(rows: np.ndarray, eps: float, topk: int, p: float,
+                sigma) -> np.ndarray:
+    """The λτ-graph Laplacian over the rows of ``rows`` in float64 numpy
+    (laplacian.rs:203-417): top-(topk+1) neighbours by rectified cosine
+    distance (stable order), d <= eps, w = 1/(1+(d/σ)^p), a max-merge
+    symmetrisation, L = D - A.  No row here has more than topk edges,
+    so the reference's sparsification (average degree above 10) never
+    applies."""
+    n = rows.shape[0]
+    kq = min(topk + 1, n)
+    sigma = 1.0 if sigma is None else sigma
+    norms = np.sqrt((rows * rows).sum(axis=1))
+    unit = rows / np.where(norms > 0, norms, 1.0)[:, None]
+    cos = np.where((norms[:, None] > 0) & (norms[None, :] > 0),
+                   unit @ unit.T, 0.0)
+    dist = 1.0 - np.maximum(cos, 0.0)
+    np.fill_diagonal(dist, -1.0)
+    nbr = np.argsort(dist, axis=1, kind="stable")[:, :kq]
+    d = np.take_along_axis(dist, nbr, axis=1)
+    keep = (nbr != np.arange(n)[:, None]) & (d <= eps)
+    w = 1.0 / (1.0 + (np.maximum(d, 0.0) / sigma) ** p)
+    keep &= w > 1e-12
+    check(keep.sum(axis=1).mean() <= 10.0, "laplacian64: would sparsify")
+    adj = np.zeros((n, n))
+    np.maximum.at(adj, (np.repeat(np.arange(n), kq), nbr.ravel()),
+                  np.where(keep, w, 0.0).ravel())
+    adj = np.maximum(adj, adj.T)
+    np.fill_diagonal(adj, 0.0)
+    return np.diag(adj.sum(axis=1)) - adj
+
+
+def spectral_path(torch, counters, rows, canon, dev):
+    """One more build of the cosine corpus with the signals graph
+    (ArrowSpaceBuilder, ε = 1.0, seed 11, with_spectral(True)): signals
+    128×128 against a float64 numpy build of the Laplacian of Lᵀ, the
+    build's λ (one K2 launch, counted) against a float64 λ against
+    signals, recompute_lambdas bitwise the build's, then a SearchSession
+    of 16 batches held against the plain full scan.  The counters are
+    set to 0 just before the build and read after the stream; returns
+    the launch counts."""
+    from arrowspace_torch.builder import ArrowSpaceBuilder
+    from arrowspace_torch.index import ArrowIndex
+    from arrowspace_torch.taumode import compute_taumode_lambdas
+
+    log(f"[4d] spectral path: ArrowSpaceBuilder {rows.shape[0]}x"
+        f"{rows.shape[1]} eps={EPS} seed={SEED} with_spectral(True)")
+    reset(counters)
+    b = (ArrowSpaceBuilder(device=dev).with_lambda_graph(EPS, 6, 3, 2.0, None)
+         .with_seed(SEED).with_spectral(True))
+    (a, gl), t_build = timed(torch, dev, lambda: b.build(rows))
+    k2_build = counters["k2"].launches
+    log(f"  build_s={t_build:.3f} " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in b.stage_seconds.items())
+        + f"; K2 launches in the build={k2_build}")
+    check(k2_build == 1, f"the spectral build launched K2 {k2_build} times")
+    sig = a.signals
+    check(sig is not None and tuple(sig.shape) == (N_FEAT, N_FEAT),
+          f"signals shape {None if sig is None else tuple(sig.shape)}")
+    gp = gl.graph_params
+    ref = laplacian64(gl.matrix.double().cpu().numpy().T, gp.eps, gp.topk,
+                      gp.p, gp.sigma)
+    sig_err = float(np.abs(sig.double().cpu().numpy() - ref).max())
+    edges = int((ref != 0).sum() - N_FEAT) // 2
+    log(f"  signals {tuple(sig.shape)}, {edges} edges: max_abs_err against "
+        f"a float64 numpy build of the Laplacian of L^T {sig_err:.3e}")
+    check(sig_err <= 1e-6, f"signals differ from float64: {sig_err}")
+    lam64 = compute_taumode_lambdas(a.data.double(), sig.double(), a.taumode)
+    lam_err = float((a.lambdas.double() - lam64).abs().max())
+    lam_feat = compute_taumode_lambdas(a.data.double(),
+                                       gl.matrix.double(), a.taumode)
+    log(f"  λ (K2 against signals) vs float64 λ against signals: "
+        f"max_abs_err={lam_err:.3e}; vs float64 λ against the feature "
+        f"graph {float((a.lambdas.double() - lam_feat).abs().max()):.3e}")
+    check(lam_err <= TOL, f"spectral λ vs float64: {lam_err} > {TOL}")
+    check_lambdas(a.lambdas, canon, "spectral")
+    before = a.lambdas.clone()
+    a.recompute_lambdas(gl)
+    check(bool(torch.equal(a.lambdas, before)),
+          "recompute_lambdas moved the spectral build's λ")
+    del lam64, lam_feat
+    index = ArrowIndex(a, gl, b)
+    reset(counters)
+    session, _b, launches, self_hits, _i0, ms = serve(
+        torch, counters, index, rows, canon, dev, SEED + 5,
+        {"bintopk": "k1", "merge_topk": "k3", "taulambda": "k2"})
+    check(launches["bintopk"] == N_BATCHES + 1 and self_hits == 1.0,
+          f"spectral session: launches {launches}, self-match {self_hits}")
+    log(f"  spectral session: {ms:.3f} ms a batch")
+    launches["taulambda"] = k2_build
+    return launches
+
+
+def persistence_phase(torch, counters, index, batches, dev):
+    """The seeded cosine index saved, loaded onto the card and served: a
+    SearchSession of the reloaded index over the 16 batches gives
+    bitwise the ids and scores of the index's own session; the load
+    launches no K2.  Returns (the index's session results, its ms per
+    batch, the reloaded session's K1 launches)."""
+    from arrowspace_torch.index import ArrowIndex
+
+    log("[4b] persistence: save, load and serve the seeded cosine index")
+    static = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    static.warmup()
+    ref, ms_static = stream_ms(torch, dev, static, batches)
+    base = artifacts_dir()
+    _, t_save = timed(torch, dev, lambda: index.save(base, "cosine"))
+    reset(counters)
+    loaded, t_load = timed(torch, dev, lambda: ArrowIndex.load(
+        base, "cosine", device=dev))
+    check(counters["k2"].launches == 0, "the load launched K2")
+    a, b = loaded.aspace, index.aspace
+    check(bool(torch.equal(a.data, b.data) and torch.equal(a.lambdas,
+                                                           b.lambdas)
+               and torch.equal(loaded.gl.matrix, index.gl.matrix)),
+          "the reloaded index's tensors differ")
+    sizes = artifact_bytes("cosine")
+    log(f"  save_s={t_save:.3f} load_s={t_load:.3f} (onto the card, no K2); "
+        f"files: " + ", ".join(f"{k} {v / 2**20:.1f} MiB"
+                               for k, v in sizes.items()))
+    reset(counters)
+    session = loaded.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    session.warmup()
+    got, ms = stream_ms(torch, dev, session, batches)
+    k1 = counters["k1"].launches
+    same_results("reloaded index's session vs the index's", got, ref)
+    log(f"  sessions: the index's {ms_static:.3f} ms a batch, the reloaded "
+        f"index's {ms:.3f}; K1 launches={k1}")
+    return ref, ms_static, k1
+
+
+def live_positions(live, ids) -> np.ndarray:
+    return np.vectorize(live._pos.__getitem__, otypes=[np.int64])(ids)
+
+
+def live_vs_plain(torch, live, name, q_np, res, dev) -> None:
+    """The first 256 rows of a live batch (its exact copies of added rows
+    among them) against the plain full scan of
+    the live rows (its first nitems positions) with the session's own
+    query λ, compared by buffer position (the external ids mapped
+    through the session's table), so that identical rows tie to the
+    lowest position, as in a static session."""
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+    n = live.nitems
+    q = torch.as_tensor(q_np[:256], device=dev, dtype=torch.float32)
+    _, qlam = live._prepare(q)
+    ps, pi = batched_lambda_aware_topk(q, qlam, live._raw[:n],
+                                       live._lam[:n], ALPHA, k=K)
+    pos = live_positions(live, res[1][:256])
+    check(int(pos.max()) < n, f"{name}: a position past the live count")
+    agree(name, res[0][:256], pos, ps, pi,
+          exact=true_scores(q, qlam, live._raw[:n], live._lam[:n],
+                            torch.as_tensor(pos, device=dev)))
+
+
+def copies_first(name, res, copies_ids, sources, canon, tol=None) -> None:
+    """Each query that is an exact copy of an added row (the copy of
+    corpus row ``sources[r]``) returns that row first, or behind a row
+    identical to it (the source row or one of its planted duplicates,
+    ``canon``), with the added row in its top k; with ``tol``, the two
+    scores within it.  Before any delete a corpus row's external id is
+    its row number."""
+    s, ids = res
+    for r, cid in enumerate(copies_ids):
+        row = list(ids[r])
+        check(int(cid) in row, f"{name}: added row {cid} not in its top {K}")
+        j, top = row.index(int(cid)), int(ids[r][0])
+        if j:
+            same = top < canon.size and canon[top] == canon[sources[r]]
+            check(same and (tol is None or s[r][0] - s[r][j] <= tol),
+                  f"{name}: query {r} returned {top} before its added copy "
+                  f"{cid}")
+    log(f"  {name}: each of {len(copies_ids)} added copies returned first "
+        f"or behind a row identical to it")
+
+
+def live_counts(counters) -> dict:
+    return {"k1": counters["k1"].launches, "k3": counters["k3"].launches,
+            "k2": counters["k2"].launches, "k6": counters["k6"].launches,
+            "repairs": counters["repair"].calls,
+            "energy_repairs": counters["erepair"].calls}
+
+
+def live_batches(rows, seed, n_batches, first=None) -> list:
+    """Query batches of corpus rows ×1.02; batch 0 begins with ``first``
+    (exact copies of added rows) where given."""
+    rng = np.random.default_rng(seed)
+    out = [rows[rng.integers(0, rows.shape[0], BATCH)] * 1.02
+           for _ in range(n_batches)]
+    if first is not None:
+        out[0][:len(first)] = first
+    return out
+
+
+def mutation_ids(live, rng, tail: int) -> tuple:
+    """(update ids, delete ids): LIVE_UPDATE ids at random; LIVE_DELETE
+    ids spread evenly through the corpus and the ids at its last
+    ``tail`` positions, so that the swap moves rows and stale rows stay
+    past the live count."""
+    n = live.nitems
+    upd = live._ids[rng.choice(n, LIVE_UPDATE, replace=False)]
+    spread = np.linspace(0, n - tail - 1, LIVE_DELETE - tail).astype(np.int64)
+    pos = np.concatenate([spread, np.arange(n - tail, n)])
+    check(np.unique(pos).size == LIVE_DELETE, "delete positions repeat")
+    return upd, live._ids[pos]
+
+
+def copy_sources(canon, rng) -> np.ndarray:
+    """LIVE_COPIES corpus rows without a planted duplicate, whose added
+    copies the queries repeat."""
+    single = np.nonzero(canon == np.arange(canon.size))[0]
+    single = single[np.bincount(canon, minlength=canon.size)[single] == 1]
+    return rng.choice(single, LIVE_COPIES, replace=False)
+
+
+def live_phase(torch, counters, index, rows, canon, batches, ref,
+               ms_static, dev):
+    """The live cosine session on the seeded index, capacity n + 131072:
+    (a) 16 batches before any mutation, bitwise the static session's;
+    (b) add 65536 rows (exact copies of 256 corpus rows, and new rows of
+    the generator), update 4096, delete 65536 (spread, and the tail),
+    each timed; (c) after each, 4 batches held against the plain full
+    scan of the live rows; (d) a query equal to an added row returns it
+    first or tied with its copies; (e) the added rows' λ against
+    prepare_query_items_batch; (f) K1 once a batch, K3 only on repair
+    overflow; (g) to_index, save, load, and a SearchSession whose ids,
+    mapped through the external ids, equal the live session's.  Returns
+    the K1 launches of (a) and the 4-batch checks."""
+    from arrowspace_torch.index import ArrowIndex
+
+    n0 = index.nitems
+    log(f"[4c] live cosine session: {n0} rows, capacity {n0 + LIVE_HEADROOM}")
+    live = index.make_live_session(batch_size=BATCH, k=K, alpha=ALPHA,
+                                   capacity=n0 + LIVE_HEADROOM)
+    check(live.kernel == "binned", f"live session kernel {live.kernel}")
+    live.warmup()
+    reset(counters)
+    got, ms_live = stream_ms(torch, dev, live, batches)
+    c = live_counts(counters)
+    check(c["k1"] == N_BATCHES, f"live stream: K1 launched {c['k1']} times")
+    same_results("(a) live session before mutation vs the static session",
+                 got, ref)
+    log(f"  (a) {len(batches)} batches: live {ms_live:.3f} ms a batch, static "
+        f"{ms_static:.3f}; launches {c}")
+    launches = c["k1"]
+
+    rng = np.random.default_rng(SEED + 7)
+    src = copy_sources(canon, rng)
+    added = np.concatenate([rows[src], more_rows(LIVE_ADD - LIVE_COPIES,
+                                                 N_FEAT, SEED + 8)])
+    ids_added, t = timed(torch, dev, lambda: live.add(added))
+    upd, dele = mutation_ids(live, rng, 4096)
+    for step in ("add", "update", "delete"):
+        m = LIVE_ADD
+        if step == "update":
+            m = LIVE_UPDATE
+            _, t = timed(torch, dev, lambda: live.update(
+                upd, more_rows(LIVE_UPDATE, N_FEAT, SEED + 9)))
+        elif step == "delete":
+            m = LIVE_DELETE
+            _, t = timed(torch, dev, lambda: live.delete(dele))
+        reset(counters)
+        qb = live_batches(rows, SEED + 10, LIVE_BATCHES,
+                          first=added[:LIVE_COPIES] if step == "add" else None)
+        res = list(live.search_stream(qb))
+        c = live_counts(counters)
+        check(c["k1"] == LIVE_BATCHES and c["k2"] == 0
+              and c["k3"] <= c["repairs"],
+              f"(f) live after {step}: launches {c} (K1 once a batch, K3 "
+              "only on repair overflow)")
+        launches += c["k1"]
+        log(f"  (b) {step} {m} rows: {t * 1e3:.3f} ms ({t * 1e6 / m:.3f} ms "
+            f"per 1000 rows); nitems={live.nitems}; (f) launches over "
+            f"{LIVE_BATCHES} batches {c}")
+        live_vs_plain(torch, live, f"(c) live after {step} vs plain scan of "
+                      "the live rows (256 queries)", qb[0], res[0], dev)
+        if step == "add":
+            copies_first("(d) live after add", res[0],
+                         ids_added[:LIVE_COPIES], src, canon, tol=2 * TOL)
+            pos = torch.as_tensor(live_positions(live, ids_added),
+                                  device=dev)
+            lam_ref = index.aspace.prepare_query_items_batch(added, index.gl)
+            lam_err = float((live._lam[pos] - lam_ref).abs().max())
+            log(f"  (e) added rows' λ vs prepare_query_items_batch: "
+                f"max_abs_err={lam_err:.3e}")
+            check(lam_err <= TOL, f"added rows' λ: {lam_err} > {TOL}")
+    stale = int((live._xhat[live.nitems:live.nitems + 4096].abs()
+                 .sum(dim=1) > 0).sum())
+    log(f"  stale prepared rows among the 4096 past the live count: {stale}")
+    check(stale > 0, "no stale row past the live count")
+
+    (snap, ext), t_snap = timed(torch, dev, live.to_index)
+    base = artifacts_dir()
+    _, t_save = timed(torch, dev, lambda: snap.save(base, "live"))
+    loaded, t_load = timed(torch, dev, lambda: ArrowIndex.load(
+        base, "live", device=dev))
+    q = live_batches(rows, SEED + 11, 1)[0][:256]
+    ls, li = live.search(q)
+    sess = loaded.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    ss, si = next(iter(sess.search_stream([q])))
+    check(np.array_equal(ext[si], li), "(g) the reloaded snapshot's ids, "
+          "mapped through the external ids, differ from the live session's")
+    log(f"  (g) to_index {t_snap:.3f}s, save {t_save:.3f}s, load "
+        f"{t_load:.3f}s; the reloaded snapshot's session equals the live "
+        f"session on 256 queries (scores bitwise "
+        f"{np.array_equal(ss, ls)})")
+    return launches
+
+
+def live_energy_phase(torch, counters, index, exact, rows, canon, batches,
+                      res_e, dev):
+    """The live energy session on the 1M energy index (K6, capacity
+    n + 131072): steps (a)-(e) of the live cosine phase, held at the
+    energy tolerance: (a) against the exact static session; (c) against
+    the plain chunked scan of the live rows on the engine's plane, the
+    centre fixed at construction.  Returns its K6 launches."""
+    from arrowspace_torch.ops.energy_bintopk import energy_topk_chunked
+
+    n0 = index.nitems
+    log(f"[8b] live energy session: {n0} rows, capacity "
+        f"{n0 + LIVE_HEADROOM}")
+    live = index.make_live_energy_session(
+        batch_size=BATCH, k=K, w_lambda=E_WL, w_dirichlet=E_WD,
+        capacity=n0 + LIVE_HEADROOM)
+    check(live.kernel == "binned", f"live energy kernel {live.kernel}")
+    e = live.engine
+    centre = e.centre.clone()
+    check(bool(torch.equal(centre, exact.engine.centre)),
+          "the live engine's centre is not the static engine's")
+    live.warmup()
+    reset(counters)
+    got, ms_live = stream_ms(torch, dev, live, batches)
+    c = live_counts(counters)
+    check(c["k6"] == N_BATCHES, f"live energy: K6 launched {c['k6']} times")
+    bitwise = all(np.array_equal(g[0], r[0]) and np.array_equal(g[1], r[1])
+                  for g, r in zip(got, res_e))
+    for b in (0, N_BATCHES - 1):
+        agree(f"(a) live energy batch {b} vs the static exact session",
+              got[b][0], got[b][1], res_e[b][0], res_e[b][1], tol=E_TOL)
+    log(f"  (a) {len(batches)} batches: live {ms_live:.3f} ms a batch, "
+        f"bitwise the "
+        f"static session's: {bitwise}; launches {c}")
+    launches = c["k6"]
+
+    rng = np.random.default_rng(SEED + 12)
+    src = copy_sources(canon, rng)
+    added = np.concatenate([rows[src], more_rows(LIVE_ADD - LIVE_COPIES,
+                                                 N_FEAT, SEED + 13)])
+    ids_added, t_add = timed(torch, dev, lambda: live.add(added))
+    upd, dele = mutation_ids(live, rng, 4096)
+    for step in ("add", "update", "delete"):
+        m, t = LIVE_ADD, t_add
+        if step == "update":
+            m = LIVE_UPDATE
+            _, t = timed(torch, dev, lambda: live.update(
+                upd, more_rows(LIVE_UPDATE, N_FEAT, SEED + 14)))
+        elif step == "delete":
+            m = LIVE_DELETE
+            _, t = timed(torch, dev, lambda: live.delete(dele))
+        check(bool(torch.equal(e.centre, centre)), "the centre moved")
+        reset(counters)
+        qb = live_batches(rows, SEED + 15, LIVE_BATCHES,
+                          first=added[:LIVE_COPIES] if step == "add" else None)
+        res = list(live.search_stream(qb))
+        c = live_counts(counters)
+        check(c["k6"] == LIVE_BATCHES, f"live energy after {step}: {c}")
+        launches += c["k6"]
+        log(f"  (b) {step} {m} rows: {t * 1e3:.3f} ms ({t * 1e6 / m:.3f} ms "
+            f"per 1000 rows); nitems={live.nitems}; launches {c}")
+        # (c) on 256 queries that are no exact copy: at d² → 0 the float32
+        # score's error is w_D·√(d² error), beyond E_TOL (README)
+        n, rr = live.nitems, slice(LIVE_COPIES, LIVE_COPIES + 256)
+        q = torch.as_tensor(qb[0][rr], device=dev, dtype=torch.float32)
+        zq, qlam = live._prepare(q)
+        zc = e.centred(zq)
+        ps, pi = energy_topk_chunked(zc, qlam, e.zx[:n], e.xlam[:n], E_WL,
+                                     E_WD, k=K)
+        pos = live_positions(live, res[0][1][rr])
+        check(int(pos.max()) < n, "live energy: a position past the count")
+        agree(f"(c) live energy after {step} vs plain chunked scan of the "
+              "live rows (256 queries)", res[0][0][rr], pos, ps, pi,
+              tol=E_TOL, exact=energy_exact(zc, qlam, e.zx, e.xlam,
+                                             torch.as_tensor(pos, device=dev)))
+        if step == "add":
+            copies_first("(d) live energy after add", res[0],
+                         ids_added[:LIVE_COPIES], src, canon)
+            lam_ref = index.aspace.prepare_query_items_batch(added, index.gl)
+            lam_err = float((e.xlam[torch.as_tensor(
+                live_positions(live, ids_added), device=dev)]
+                - lam_ref).abs().max())
+            log(f"  (e) added rows' λ vs prepare_query_items_batch: "
+                f"max_abs_err={lam_err:.3e}")
+            check(lam_err <= TOL, f"added energy λ: {lam_err} > {TOL}")
+    return launches
+
+
+def wide_snapshot_phase(torch, counters, index, batches, dev):
+    """A 131072-row snapshot of the wide projected index (the same graph,
+    projection and λ, as to_index makes one) saved and loaded onto the
+    card: the loaded projection matrix bitwise the saved one, and its
+    SearchSession (K1) bitwise the snapshot's over 4 batches.  Returns
+    the K1 launches of the reloaded session."""
+    import copy
+    import dataclasses
+
+    from arrowspace_torch.index import ArrowIndex
+
+    log(f"[10b] persistence of a {SNAP_ROWS}-row snapshot of the wide "
+        f"projected index (F = {W_FEAT})")
+    a = index.aspace
+    data = a.data[:SNAP_ROWS].clone()
+    snap_a = dataclasses.replace(
+        a, nitems=SNAP_ROWS, data=data, lambdas=a.lambdas[:SNAP_ROWS].clone(),
+        host_rows=data.double().cpu().numpy(), _projected_cache=None,
+        _energy_z_cache=None, _lambda_order=None)
+    gl = copy.copy(index.gl)
+    gl.nnodes = SNAP_ROWS
+    snap = ArrowIndex(snap_a, gl)
+    static = snap.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    check(static.kernel == "binned", f"snapshot session {static.kernel}")
+    static.warmup()
+    ref = list(static.search_stream(batches[:4]))
+    base = artifacts_dir()
+    _, t_save = timed(torch, dev, lambda: snap.save(base, "wide"))
+    loaded, t_load = timed(torch, dev, lambda: ArrowIndex.load(
+        base, "wide", device=dev))
+    p0, p1 = a.projection_matrix, loaded.aspace.projection_matrix
+    check(p1 is not None and p1.generator == "torch"
+          and bool(torch.equal(p1.matrix(), p0.matrix())),
+          "the reloaded projection matrix differs from the saved one")
+    reset(counters)
+    session = loaded.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    session.warmup()
+    got = list(session.search_stream(batches[:4]))
+    k1 = counters["k1"].launches
+    same_results("reloaded wide snapshot's session vs the snapshot's", got,
+                 ref)
+    log(f"  save_s={t_save:.3f} load_s={t_load:.3f}; projection "
+        f"{tuple(p1.matrix().shape)} bitwise; K1 launches={k1}; files: "
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB"
+                    for k, v in artifact_bytes("wide").items()))
+    return k1
+
+
+def live_merge_phase(torch, counters, index, batches, dev):
+    """The live "merge" session on the 1536-wide index (K3 at n_live):
+    4 batches before and 4 after an add of 4096 rows and a delete of
+    4096, each held against the plain full scan of the live rows.
+    Returns its K3 launches."""
+    n0 = index.nitems
+    log(f"[13b] live merge session: {n0} x {X_FEAT}, capacity {n0 + 8192}")
+    live = index.make_live_session(batch_size=BATCH, k=K, alpha=ALPHA,
+                                   capacity=n0 + 8192)
+    check(live.kernel == "merge", f"live session kernel {live.kernel}")
+    live.warmup()
+    launches = 0
+    rng = np.random.default_rng(SEED + 16)
+    for step in ("before", "after add and delete"):
+        if step != "before":
+            ids = live.add(more_rows(4096, X_FEAT, SEED + 17))
+            dele = np.concatenate([live._ids[rng.choice(n0, 2048,
+                                                        replace=False)],
+                                   ids[-2048:]])
+            live.delete(dele)
+        reset(counters)
+        res, ms = stream_ms(torch, dev, live, batches[:LIVE_BATCHES])
+        c = live_counts(counters)
+        check(c["k3"] == LIVE_BATCHES and c["k1"] == 0,
+              f"live merge {step}: launches {c}")
+        launches += c["k3"]
+        log(f"  {step}: nitems={live.nitems}, {ms:.3f} ms a batch, "
+            f"launches {c}")
+        live_vs_plain(torch, live, f"live merge {step} vs plain scan of the "
+                      "live rows (256 queries)", batches[0], res[0], dev)
+    return launches
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -1543,6 +2100,13 @@ def main() -> int:
         rec = kernels_vs_plain(torch, index, batches, dev)
         where_time_goes(torch, (("cosine session", session),), batches,
                         step=4)
+        ref, ms_static, k1_reloaded = persistence_phase(
+            torch, counters, index, batches, dev)
+        k1_live = live_phase(torch, counters, index, rows, canon, batches,
+                             ref, ms_static, dev)
+        del ref
+        spectral = spectral_path(torch, counters, rows, canon, dev)
+        torch.cuda.empty_cache()
         api_phase(torch, counters, index, batches, dev)
         small_reference(torch, dev)
         del index, session, batches
@@ -1562,6 +2126,8 @@ def main() -> int:
         where_time_goes(torch, (("exact energy session", exact),
                                 ("approx energy session", approx)), batches,
                         step=8)
+        k6_live = live_energy_phase(torch, counters, index, exact, rows,
+                                    canon, batches, res_e, dev)
         del index, exact, approx, batches, res_e, res_a, rows
         torch.cuda.empty_cache()
 
@@ -1573,6 +2139,8 @@ def main() -> int:
         rec.update(k5_rec)
         where_time_goes(torch, (("wide projected session", session),),
                         batches, step=11)
+        k1_snapshot = wide_snapshot_phase(torch, counters, index, batches,
+                                          dev)
         del index, session, batches
         torch.cuda.empty_cache()
 
@@ -1586,6 +2154,8 @@ def main() -> int:
                         batches, step=14)
         where_time_goes(torch, (("1536-wide plain session", plain),),
                         batches, step=14, n_batches=2)
+        del plain
+        k3_live = live_merge_phase(torch, counters, index, batches, dev)
         k5 = rec["lambda_batch"]
         k5["max_abs_err"] = max(k5["max_abs_err"], k5_x["max_abs_err"])
         k5["max_abs_err_f64"] = max(k5["max_abs_err_f64"],
@@ -1611,9 +2181,25 @@ def main() -> int:
             "wide_768": w_launches["merge_topk"],
             "wide_1536": x_launches["merge_topk"]}
         launches["merge_topk"] = x_launches["merge_topk"]
+        for name, by_path in {
+                "bintopk": {"cosine": launches["bintopk"],
+                            "reloaded_cosine": k1_reloaded,
+                            "live_cosine": k1_live,
+                            "spectral": spectral["bintopk"],
+                            "wide_768": w_launches["bintopk"],
+                            "reloaded_wide_snapshot": k1_snapshot},
+                "taulambda": {"cosine": launches["taulambda"],
+                              "spectral": spectral["taulambda"]},
+                "merge_topk": {"spectral": spectral["merge_topk"],
+                               "live_merge_1536": k3_live},
+                "energy_bintopk": {"exact_energy": launches["energy_bintopk"],
+                                   "live_energy": k6_live}}.items():
+            rec[name].setdefault("launches_by_path", {}).update(by_path)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(artifacts_dir(), ignore_errors=True)
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -1122,3 +1122,220 @@ def test_api_on_card_matches_cpu_float64(dev):
         <= TOL
     with pytest.raises(ValueError):
         gpu.search(rows[:2], k=5, precision="f64_rescore")
+
+
+# ---------------------------------------------------------------------------
+# K1, K3 and K6 at a row count n below the buffer's rows, as the live
+# sessions launch them: the rows at and past n are poisoned with exact
+# copies of the queries (they would win if scored) or with NaN.
+# ---------------------------------------------------------------------------
+
+CAP, N_LIVE = 8192, 5003
+
+
+def _poison(t, n, src, fill):
+    """t[n:] := the rows of ``src`` repeated, or NaN."""
+    if fill == "nan":
+        t[n:] = float("nan")
+        return
+    idx = torch.arange(t.shape[0] - n, device=t.device) % src.shape[0]
+    t[n:] = src[idx]
+
+
+def _poisoned_cosine(dev, f, b, fill, seed):
+    rng = np.random.default_rng(seed)
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b),
+                     rng.uniform(0.1, 1.0, (CAP, f)), rng.uniform(0, 1, CAP)))
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    _poison(xh, N_LIVE, qh / qh.norm(dim=1, keepdim=True), fill)
+    _poison(xlh, N_LIVE, ql, fill)
+    return q, ql, x, xl, qh, xh, xlh, c1
+
+
+def _no_row_past_n(i):
+    live = i != INT_MAX
+    assert bool(live.any()) and int(i[live].max()) < N_LIVE
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan"])
+@pytest.mark.parametrize("f,bins,depth", [(128, 128, 3), (40, 256, 2),
+                                          (768, 512, 4)])
+def test_k1_never_scores_a_row_past_n(dev, fill, f, bins, depth):
+    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, 37, fill, f)
+    kw = dict(depth=depth, bins=bins, chunks=3)
+    ps, pi, det = bt.binned_topk_pool(qh, ql, xh, xlh, c1, N_LIVE, **kw)
+    rs, ri, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, N_LIVE,
+                                             **kw)
+    torch.cuda.synchronize()
+    _no_row_past_n(pi)
+    assert not bool(torch.isnan(ps).any() or torch.isnan(det).any())
+    _assert_scored_ids(ps, pi, rs, (qh, ql, xh, xlh, c1))
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    assert float((det - rdet).abs().max()) <= TOL
+    # the flushed top-k against the plain scan of the first n raw rows
+    s, i, fl, _ = bt.binned_lambda_topk(q, ql, xh, xlh, 0.9, k=10,
+                                        prepared=True, n_items=N_LIVE)
+    es, ei = batched_lambda_aware_topk(q, ql, x[:N_LIVE], xl[:N_LIVE], 0.9,
+                                       k=10)
+    _no_row_past_n(i)
+    ok = ~fl
+    assert float((s - es)[ok].abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan"])
+@pytest.mark.parametrize("f,k,rows_per_chunk", [(40, 10, 1280),
+                                                (128, 64, 6000),
+                                                (1536, 10, 128),
+                                                (128, 10, 8192)])
+def test_k3_never_scores_a_row_past_n(dev, fill, f, k, rows_per_chunk):
+    """K3 clamps its last chunk at n (the staged tile is zero-filled past
+    it, and its candidates are masked), whatever the chunk's length."""
+    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, 19, fill, f + k)
+    s, i = tk.merge_topk_partial(qh, ql, xh, xlh, c1, N_LIVE, k=k,
+                                 rows_per_chunk=rows_per_chunk)
+    rs, ri = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N_LIVE, k=k,
+                                         rows_per_chunk=rows_per_chunk)
+    torch.cuda.synchronize()
+    _no_row_past_n(i)
+    assert not bool(torch.isnan(s).any())
+    _assert_scored_ids(s, i, rs, (qh, ql, xh, xlh, c1))
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
+    fs, fi = tk.fused_lambda_topk(q, ql, xh, xlh, 0.9, k=k, prepared=True,
+                                  n_items=N_LIVE)
+    es, _ = batched_lambda_aware_topk(q, ql, x[:N_LIVE], xl[:N_LIVE], 0.9,
+                                      k=k)
+    _no_row_past_n(fi)
+    assert float((fs - es).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan"])
+@pytest.mark.parametrize("g,bins,depth", [(64, 128, 3), (40, 256, 2),
+                                          (384, 512, 4)])
+def test_k6_never_scores_a_row_past_n(dev, fill, g, bins, depth):
+    zq, qn, ql, zx, xn, xlam = _energy_inputs(dev, CAP, g, 37, seed=g + bins)
+    _poison(zx, N_LIVE, zq, fill)
+    _poison(xn, N_LIVE, qn, fill)
+    _poison(xlam, N_LIVE, ql, fill)
+    kw = dict(depth=depth, bins=bins, chunks=3)
+    ps, pi, det = eb.binned_energy_pool(zq, qn, ql, zx, xn, xlam, 1.0, 0.5,
+                                        N_LIVE, **kw)
+    rs, ri, rdet = eb.binned_energy_pool_plain(zq, qn, ql, zx, xn, xlam, 1.0,
+                                               0.5, N_LIVE, **kw)
+    torch.cuda.synchronize()
+    _no_row_past_n(pi)
+    assert not bool(torch.isnan(ps).any() or torch.isnan(det).any())
+    assert float((ps - rs).abs().max()) <= TOL
+    assert float((det - rdet).abs().max()) <= TOL
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    live = pi != INT_MAX
+    exact = _f64_energy(zq, ql, zx, xlam, 1.0, 0.5, pi)
+    assert float((exact - ps.double())[live].abs().max()) <= TOL
+    s, i, fl, _ = eb.binned_energy_topk(zq, ql, zx, xlam, xn, 1.0, 0.5, k=10,
+                                        n=N_LIVE)
+    es, _ = eb.energy_topk_chunked(zq, ql, zx[:N_LIVE], xlam[:N_LIVE], 1.0,
+                                   0.5, k=10)
+    _no_row_past_n(i)
+    assert float((s - es)[~fl].abs().max()) <= TOL
+
+
+def _live_blobs(seed):
+    rows = _blobs(seed, 70_000, 16, 24)
+    rows[[100, 2000]] = rows[7]
+    return rows
+
+
+def test_live_session_on_card_after_mutations(dev):
+    """A live cosine session on the card (K1 at n_live below the buffer's
+    rows; the strided repair and K3 on flagged rows): an added copy of a
+    row gets its prepared row bitwise and, at α = 1, its score bitwise;
+    after deletes the rows past n_live are stale and then poisoned with
+    copies of the queries, and the results still equal the plain scan of
+    the live rows through the external ids."""
+    rows = _live_blobs(31)
+    idx = ArrowIndex.build(rows, eps=1.0, seed=5, device=dev)
+    sess = idx.make_live_session(batch_size=64, k=10, alpha=1.0,
+                                 capacity=70_000 + 4096)
+    assert sess.kernel == "binned"
+    (cid,) = sess.add(rows[1234])
+    pc = sess._pos[int(cid)]
+    assert torch.equal(sess._xhat[pc], sess._xhat[1234])
+    s, i = sess.search(rows[1234] * 1.01)
+    hit = list(i[0])
+    assert hit.index(1234) < hit.index(int(cid))
+    assert s[0][hit.index(1234)] == s[0][hit.index(int(cid))]
+    k1 = bt.binned_topk_pool.launches
+    sess.delete(list(range(0, 70_000, 7)))
+    n = sess.nitems
+    q = rows[np.random.default_rng(3).integers(0, 70_000, 64)] * 1.02
+    _poison(sess._xhat, n, torch.nn.functional.normalize(
+        torch.as_tensor(q, dtype=torch.float32, device=dev)), "copies")
+    s, i = sess.search(q)
+    assert bt.binned_topk_pool.launches > k1
+    qt = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    _, qlam = sess._prepare(qt)
+    es, ei = batched_lambda_aware_topk(qt, qlam, sess._raw[:n],
+                                       sess._lam[:n], 1.0, k=10)
+    assert float(np.abs(s - es.cpu().numpy()).max()) <= TOL
+
+    def cos64(ext):
+        pos = torch.as_tensor([[sess._pos[int(e)] for e in r] for r in ext],
+                              device=dev)
+        assert int(pos.max()) < n
+        x = torch.nn.functional.normalize(sess._raw[pos].double(), dim=-1)
+        qn = torch.nn.functional.normalize(qt.double(), dim=-1)
+        return (x * qn[:, None, :]).sum(-1)
+    ref = sess._ids[ei.cpu().numpy()]
+    gap = (cos64(i) - cos64(ref)).abs()[torch.as_tensor(i != ref,
+                                                        device=dev)]
+    assert gap.numel() == 0 or float(gap.max()) <= 2 * TOL
+
+
+def test_live_energy_session_on_card_after_mutations(dev):
+    """A live energy session on the card (K6 at n_live below the buffer's
+    rows) over a 16-wide energy index (no projection): with w_λ = 0 an
+    added copy of row r scores bitwise as row r; after deletes, poisoned
+    rows past n_live change nothing and the results equal the plain
+    chunked scan of the live rows."""
+    rows = _live_blobs(37)
+    idx = ArrowIndex.build_energy(rows, EnergyParams(allow_tall_graphs=True),
+                                  seed=5, device=dev)
+    assert idx.aspace.projection_matrix is None
+    sess = idx.make_live_energy_session(batch_size=64, k=10, w_lambda=0.0,
+                                        capacity=70_000 + 4096)
+    assert sess.kernel == "binned"
+    (cid,) = sess.add(rows[4321])
+    e, pc = sess.engine, sess._pos[int(cid)]
+    assert torch.equal(e.zx[pc], e.zx[4321]) and torch.equal(e.xn[pc],
+                                                             e.xn[4321])
+    s, i = sess.search(rows[4321])
+    hit = list(i[0])
+    assert hit.index(4321) < hit.index(int(cid))
+    assert s[0][hit.index(4321)] == s[0][hit.index(int(cid))]
+    sess.delete(list(range(0, 70_000, 5)))
+    n = sess.nitems
+    q = rows[np.random.default_rng(4).integers(0, 70_000, 64)] * 1.02
+    qt = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    z_q, qlam = sess._prepare(qt)
+    zc = e.centred(z_q)
+    _poison(e.zx, n, zc, "copies")
+    _poison(e.xn, n, (zc * zc).sum(dim=1), "copies")
+    _poison(e.xlam, n, qlam, "copies")
+    k6 = eb.binned_energy_pool.launches
+    s, i = sess.search(q)
+    assert eb.binned_energy_pool.launches > k6
+    es, ei = eb.energy_topk_chunked(zc, qlam, e.zx[:n], e.xlam[:n], 0.0, 0.5,
+                                    k=10)
+    e_tol = 5e-5          # d² of near duplicates, as chip_smoke.py's E_TOL
+    assert float(np.abs(s - es.cpu().numpy()).max()) <= e_tol
+
+    def u64(ext):
+        pos = torch.as_tensor([[sess._pos[int(e)] for e in r] for r in ext],
+                              device=dev)
+        assert int(pos.max()) < n
+        d = (zc.double()[:, None, :] - e.zx[pos].double()).norm(dim=-1)
+        return 0.5 / (1.0 + d)
+    ref = sess._ids[ei.cpu().numpy()]
+    gap = (u64(i) - u64(ref)).abs()[torch.as_tensor(i != ref, device=dev)]
+    assert gap.numel() == 0 or float(gap.max()) <= 2 * e_tol

@@ -195,9 +195,16 @@ def test_builder_options_not_ported_raise():
     b.with_dims_reduction(True)
     assert (b.use_dims_reduction, b.rp_eps) == (jb.use_dims_reduction,
                                                jb.rp_eps)
-    with pytest.raises(NotImplementedError):
-        b.with_persistence("/nonexistent", "x")
+    # persistence is ported: the builder records (name, path) as the JAX
+    # builder does; bf16 serving is not, and still raises
+    b.with_persistence("/nonexistent", "x")
+    assert b.persistence == JBuilder().with_persistence("/nonexistent",
+                                                        "x").persistence
     assert JBuilder().lambda_k == b.lambda_k
+    rows = _clustered(2, 60, 8)
+    with pytest.raises(NotImplementedError):
+        ArrowIndex.build(rows, eps=1.0, seed=3, **CPU64).search(
+            rows[:2], k=3, precision="bf16")
 
 
 def test_package_imports_without_jax():
@@ -209,7 +216,8 @@ def test_package_imports_without_jax():
             "arrowspace_torch.energymaps, arrowspace_torch.reduction, "
             "arrowspace_torch.ops.select_tau, "
             "arrowspace_torch.ops.energy_bintopk, "
-            "arrowspace_torch.ops.energy_approx; "
+            "arrowspace_torch.ops.energy_approx, arrowspace_torch.live, "
+            "arrowspace_torch.storage.parquet; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     root = pathlib.Path(__file__).resolve().parent.parent
