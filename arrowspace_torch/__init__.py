@@ -19,5 +19,10 @@ from .sampling import SamplerType  # noqa: F401
 from . import eigenmaps  # noqa: F401  (attaches the staged API)
 from .index import ArrowIndex, SearchSession  # noqa: F401
 from .live import LiveEnergySearchSession, LiveSearchSession  # noqa: F401
+from .pruned import (  # noqa: F401
+    PrunedCells, PrunedSearchSession, build_cells, build_cells_device,
+    load_cells, save_cells)
+from .ops.streaming import (streamed_lambda_topk,  # noqa: F401
+                            streamed_taumode_lambdas)
 
 __version__ = "0.1.0"

@@ -46,6 +46,11 @@ def resolve(device=None, dtype=None):
     return dev, (dtype if dtype is not None else DEFAULT_DTYPE)
 
 
+def numpy_dtype(dtype: torch.dtype):
+    """The numpy dtype of a torch dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 def is_test_mode() -> bool:
     """Mirrors the reference's #[cfg(test)] gates (e.g. the sampling-ratio
     runtime assert in clustering.rs:896-900 is disabled in test builds)."""

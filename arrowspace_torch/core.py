@@ -34,7 +34,7 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.core")
 
 __all__ = ["ArrowItem", "ArrowFeature", "ArrowSpace", "BINNED_MIN_ITEMS",
-           "BINNED_MAX_K", "binned_fits", "merge_fits",
+           "BINNED_MAX_K", "binned_fits", "merge_fits", "lambda_aware_topk",
            "densematrix_to_vecvec"]
 
 # Corpus size and k from which the streaming kernels serve (core.py:422-442
@@ -59,6 +59,23 @@ def merge_fits(nitems: int, k: int) -> bool:
     serves, at any F (core.py:429-439 of the JAX package).  Keyed on size
     alone, as binned_fits is."""
     return nitems >= BINNED_MIN_ITEMS and k <= BINNED_MAX_K
+
+
+def lambda_aware_topk(queries, query_lambdas, items, item_lambdas, alpha,
+                      *, k: int):
+    """Exact λ-aware top-k of a corpus on one device, by the engine its
+    size takes: the binned kernel (K1) with exact repair where
+    binned_fits holds, the exact merge kernel (K3) where only merge_fits
+    does, else the plain scan.  (scores (B, k), ids (B, k)) tensors."""
+    n, f = items.shape
+    if binned_fits(n, k, f):
+        return binned_topk_with_repair(queries, query_lambdas, items,
+                                       item_lambdas, alpha, k=k)
+    if merge_fits(n, k):
+        return fused_lambda_topk(queries, query_lambdas, items, item_lambdas,
+                                 alpha, k=k)
+    return batched_lambda_aware_topk(queries, query_lambdas, items,
+                                     item_lambdas, alpha, k=k)
 
 
 class ArrowItem:
@@ -292,14 +309,8 @@ class ArrowSpace:
             if not torch.is_tensor(query_lambdas) else query_lambdas
         q = q.to(device=self.device, dtype=self.dtype)
         ql = ql.to(device=self.device, dtype=self.dtype)
-        if binned_fits(self.nitems, k_eff, self.nfeatures):
-            return binned_topk_with_repair(q, ql, self.data, self.lambdas,
-                                           alpha, k=k_eff)
-        if merge_fits(self.nitems, k_eff):
-            return fused_lambda_topk(q, ql, self.data, self.lambdas, alpha,
-                                     k=k_eff)
-        return batched_lambda_aware_topk(q, ql, self.data, self.lambdas,
-                                         alpha, k=k_eff)
+        return lambda_aware_topk(q, ql, self.data, self.lambdas, alpha,
+                                 k=k_eff)
 
     # ------------------------------------------------------------------
     # Access and mutation (core.py:241-360 of the JAX package)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .builder import ArrowSpaceBuilder
+from .config import numpy_dtype
 from .core import ArrowItem, ArrowSpace, binned_fits, merge_fits
 from .graph import GraphLaplacian
 from .ops.bin_repair import BinnedEnergyTopK, BinnedTopK
@@ -79,7 +80,7 @@ def stream_search(step, batches, batch_size: int, depth: int, device,
     (BinnedTopK.repair) returns its host results with the flagged rows
     repaired.  A short batch (a stream tail) is padded to batch_size and
     sliced back."""
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    np_dtype = numpy_dtype(dtype)
     cuda = torch.device(device).type == "cuda"
 
     def launch(qb):
@@ -517,6 +518,35 @@ class ArrowIndex:
                             depth: int = 2) -> SearchSession:
         """Streaming search for serving, ``depth`` batches in flight."""
         return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth)
+
+    def make_pruned_session(self, batch_size: int = 16, k: int = 10,
+                            alpha: float = 0.9, cap: int = 256,
+                            m_cells: Optional[int] = None,
+                            margin: float = 1e-3, seed: int = 0,
+                            m_vote: int = 8,
+                            union_cells: Optional[int] = None,
+                            auto_budget: bool = False,
+                            engine: str = "host",
+                            n_clusters: Optional[int] = None,
+                            lloyd_sample: Optional[int] = None):
+        """Exact cell-screened search (pruned.PrunedSearchSession): a
+        query scores only the corpus units whose bound can reach its
+        top-k, and one the bounds cannot certify re-runs through the full
+        scan.  B <= 16 gathers units per query, B in (16, 512] scores one
+        union of voted units per batch.  auto_budget=True grows the
+        budget while more than 5 % of a full window of queries flag.
+        engine="device" builds the layout on the device
+        (pruned.build_cells_device, for large corpora); n_clusters (2-4x
+        the corpus's expected cluster count) and lloyd_sample tune the
+        Lloyd pass."""
+        from .pruned import PrunedSearchSession
+        return PrunedSearchSession(self, batch_size, k=k, alpha=alpha,
+                                   cap=cap, m_cells=m_cells, margin=margin,
+                                   seed=seed, m_vote=m_vote,
+                                   union_cells=union_cells,
+                                   auto_budget=auto_budget, engine=engine,
+                                   n_clusters=n_clusters,
+                                   lloyd_sample=lloyd_sample)
 
     def make_live_session(self, batch_size: int, k: int = 10,
                           alpha: float = 0.9, depth: int = 2,

@@ -28,13 +28,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import numpy_dtype
 from .bintopk import binned_lambda_topk, prepare_binned_corpus
 from .energy_approx import (binned_energy_topk_approx,
                             prepare_energy_chord_sample)
 from .energy_bintopk import (binned_energy_topk, dtype_scalar, energy_u,
                              energy_topk_chunked,
                              prepare_binned_energy_corpus)
-from .search import INT_MAX, NEG_INF, prepare_query, safe_unit, two_key_topk
+from .search import (INT_MAX, NEG_INF, prepare_query, row_dots, safe_unit,
+                     two_key_topk)
 
 __all__ = ["strided_lambda_repair", "strided_energy_repair",
            "repair_flagged", "fired_bins_host", "MAX_FIRED", "BinnedTopK",
@@ -90,15 +92,6 @@ def _candidates(fired, out_idx, n, k, bins):
     return cand, valid, torch.where(valid, cand, torch.zeros_like(cand))
 
 
-def _row_dots(q, rows):
-    """(R, C) dots of each query row with its (R, C, F) candidate rows:
-    a product-sum on the CPU (per-row uniform rounding, as dot_plane), a
-    batched product on CUDA."""
-    if q.device.type == "cpu":
-        return (rows * q[:, None, :]).sum(dim=-1)
-    return torch.bmm(rows, q[:, :, None])[:, :, 0]
-
-
 def _merge(scores, cand, valid, k):
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     ids = torch.where(valid, cand, torch.full_like(cand, INT_MAX))
@@ -109,7 +102,7 @@ def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins):
     """Rescore one chunk of flagged λ-aware rows over their candidates.
     Returns shifted scores and ids of the exact top-k."""
     cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
-    acos = _row_dots(qhat, xhat[safe])
+    acos = row_dots(qhat, xhat[safe])
     dl = (qlam[:, None] - xlam[safe]).abs().clamp_max(1.0)
     return _merge(acos - c1 * dl, cand, valid, k)
 
@@ -121,7 +114,7 @@ def _energy_repair_chunk(zq, qlam, fired, out_idx, zx, xlam, xn, wl, wd, n,
     Returns shifted scores and ids of the exact top-k."""
     cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
     qn = (zq * zq).sum(dim=1)
-    d2 = (qn[:, None] + xn[safe]) - 2.0 * _row_dots(zq, zx[safe])
+    d2 = (qn[:, None] + xn[safe]) - 2.0 * row_dots(zq, zx[safe])
     scores = energy_u(d2, wd) - wl * (qlam[:, None] - xlam[safe]).abs()
     return _merge(scores, cand, valid, k)
 
@@ -199,7 +192,7 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     per_row = (MAX_FIRED * -(-n // bins) + k) * xhat.shape[1] \
         * xhat.element_size()
     return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
-                           fallback, _np_dtype(dt), k, rescore, per_row)
+                           fallback, numpy_dtype(dt), k, rescore, per_row)
 
 
 strided_lambda_repair.calls = 0
@@ -232,14 +225,10 @@ def strided_energy_repair(zq_rows, qlam_rows, det_rows, kth, out_idx_rows,
     per_row = (MAX_FIRED * -(-n // bins) + k) * zx.shape[1] \
         * zx.element_size()
     return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
-                           fallback, _np_dtype(dt), k, rescore, per_row)
+                           fallback, numpy_dtype(dt), k, rescore, per_row)
 
 
 strided_energy_repair.calls = 0
-
-
-def _np_dtype(dt):
-    return torch.empty((), dtype=dt).numpy().dtype
 
 
 def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,

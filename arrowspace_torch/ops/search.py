@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "INT_MAX", "safe_unit", "dot_plane", "prepare_query",
-           "shifted_lambda_plane", "two_key_topk", "exact_topk",
+__all__ = ["NEG_INF", "INT_MAX", "safe_unit", "dot_plane", "row_dots",
+           "prepare_query", "shifted_lambda_plane", "two_key_topk", "exact_topk",
            "batched_lambda_aware_topk", "binned_topk_with_repair",
            "rescore_topk_f64", "hybrid_search_device_fused"]
 
@@ -59,6 +59,16 @@ def dot_plane(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             out[b0:b0 + rows, n0:n0 + cols] = (
                 a[b0:b0 + rows, None, :] * bb[None, :, :]).sum(dim=-1)
     return out
+
+
+def row_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(R, C) dots of each query row of q (R, F) with its own candidate
+    rows (R, C, F), by the rule of dot_plane: a product-sum on the CPU
+    (every row reduced alike, so identical rows tie bitwise), one batched
+    float32 product on CUDA."""
+    if q.device.type == "cpu":
+        return (rows * q[:, None, :]).sum(dim=-1)
+    return torch.bmm(rows, q[:, :, None])[:, :, 0]
 
 
 def prepare_query(queries: torch.Tensor, alpha: float, dtype=None):

@@ -63,6 +63,27 @@ sessions:
   signals graph against a float64 numpy build, λ (one K2 launch)
   against a float64 λ, then a SearchSession.
 
+Five phases cover the pruned sessions and out-of-core streaming:
+
+- [4e] the pruned sessions on the seeded cosine index: the cells built
+  on the host and on the card (cap 256), a B=16 session and a B=256
+  union session over 64 batches of corpus rows x 1.02 each, every batch
+  held against the plain full scan, timed beside a SearchSession at the
+  same B; a batch of Gaussian queries, which flag and re-run through K1;
+  an auto-budget union session from 8 units, which grows; the cells
+  saved, loaded and served bitwise; a zero-row corpus built on the card
+  against the host build;
+- [4f] the JAX package's own pruned corpus (1024 centres, noise 0.03,
+  benchmarks/pruned_crossover.py:37-58) at 1M x 128, built with
+  ArrowIndex.build, B=16 and B=256 sessions on 16 hot regions beside a
+  SearchSession at the same B;
+- [10c] a B=16 pruned session on the wide 1M x 768 projected index;
+- [4g] and [13c] streaming from host memory in chunks of 2^18 rows
+  through pinned, double-buffered copies: λ (K2; K4 and K5 at 1536)
+  against the build's, and the top-k of a 2048-query batch (K1 with its
+  repair; K3 at 1536) against the index's session, with the upload rate
+  and the share of copy time hidden behind compute.
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -243,7 +264,8 @@ def _host(t) -> np.ndarray:
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
 
-def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL) -> float:
+def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL,
+          quiet=False) -> float:
     """Hold (scores, ids), row by row, against a reference's.
 
     Scores lie within ``tol`` of the reference's and, when given, of the
@@ -279,8 +301,9 @@ def agree(name, s, i, ref_s, ref_i, exact=None, tol=TOL) -> float:
             swaps += 1
         else:
             bad += 1
-    log(f"  {name}: max_abs_err={err:.3e} id_mismatches={bad} "
-        f"near_tie_swaps={swaps}")
+    if not quiet:
+        log(f"  {name}: max_abs_err={err:.3e} id_mismatches={bad} "
+            f"near_tie_swaps={swaps}")
     check(bad == 0, f"{name}: {bad} ids differ from the reference's "
           "outside near-ties")
     return err
@@ -1171,11 +1194,13 @@ def x_kernels_vs_plain(torch, index, batches, dev):
 
 
 def where_time_goes(torch, sessions, batches, step,
-                    n_batches=N_PROFILE) -> None:
+                    n_batches=N_PROFILE, drive=None) -> None:
     """Device time by kernel over the first ``n_batches`` batches of
     each session (torch.profiler), and the device's idle share of that
-    window: 1 - (summed kernel time) / wall time.  A measurement only:
-    where the profiler records no device time it prints so."""
+    window: 1 - (summed kernel time) / wall time.  ``drive(session,
+    batches)`` serves the batches (default: the session's stream).  A
+    measurement only: where the profiler records no device time it
+    prints so."""
     from torch.profiler import ProfilerActivity, profile
     log(f"[{step}] where the time goes (torch.profiler)")
     for name, session in sessions:
@@ -1183,7 +1208,10 @@ def where_time_goes(torch, sessions, batches, step,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            list(session.search_stream(batches[:n_batches]))
+            if drive is None:
+                list(session.search_stream(batches[:n_batches]))
+            else:
+                drive(session, batches[:n_batches])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.key_averages()
@@ -2028,6 +2056,376 @@ def live_merge_phase(torch, counters, index, batches, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The pruned sessions and out-of-core streaming
+# ---------------------------------------------------------------------------
+
+# Pruned sessions: batches a session, the union session's batch, the
+# auto-budget session's first union and batches; the JAX package's pruned
+# corpus (benchmarks/pruned_crossover.py:37-58): centres, noise, hot
+# regions; rows a streamed chunk.
+P_BATCHES, P_UNION, P_AUTO_START, P_AUTO_BATCHES = 64, 256, 8, 8
+J_CENTRES, J_NOISE, J_HOT, J_BATCHES = 1024, 0.03, 16, 16
+STREAM_CHUNK = 1 << 18
+
+
+def cell_arrays(c):
+    return (c.x, c.lam, c.ids, c.cent, c.radius, c.cosr, c.sinr, c.lam_lo,
+            c.lam_hi)
+
+
+def check_partition(torch, cells, n: int, name: str) -> None:
+    ids = cells.ids[cells.ids >= 0]
+    check(ids.numel() == n and bool(torch.equal(
+        torch.sort(ids.long()).values,
+        torch.arange(n, device=ids.device))),
+          f"{name}: the units do not partition the corpus")
+
+
+def build_cells_timed(torch, dev, fn, a, name):
+    """A cell build of the index's corpus, timed, with its stage seconds,
+    real and padded units and the grouped bytes."""
+    stages = {}
+    cells, secs = timed(torch, dev, lambda: fn(a.data, a.lambdas, cap=256,
+                                               seed=SEED, stages=stages))
+    grouped = nbytes(cells.x, cells.lam, cells.ids)
+    log(f"  {name} build: {secs:.3f} s (" + " ".join(
+        f"{k}_s={v:.3f}" for k, v in stages.items()) + f"); units "
+        f"{cells.n_units} real, {cells.cent.shape[0]} padded; grouped "
+        f"{grouped / 2**30:.3f} GiB")
+    check_partition(torch, cells, a.nitems, name)
+    return cells, secs
+
+
+def pruned_stream(torch, dev, counters, index, session, batches, name):
+    """The batches through a pruned session, one after another (each
+    search returns to the host); the launch counts of K1 and K3 (the
+    fallback and its repair) are read right after, then every batch is
+    held against the plain full scan (agree, with the query λ of the
+    session's preparation).  Returns (results, ms a batch, this stream's
+    flag rate, launches)."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+
+    f0, q0 = session.flagged_total, session.queries_total
+    results, secs = timed(torch, dev,
+                          lambda: [session.search(q) for q in batches])
+    launches = {k: counters[k].launches for k in ("k1", "k3")}
+    rate = (session.flagged_total - f0) / (session.queries_total - q0)
+    a = index.aspace
+    prepare = _query_prep(a, index.gl)[1]
+    err = 0.0
+    for q, (s, i) in zip(batches, results):
+        qt = torch.as_tensor(q, device=dev, dtype=torch.float32)
+        _, qlam = prepare(qt)
+        ps, pi = batched_lambda_aware_topk(qt, qlam, a.data, a.lambdas,
+                                           ALPHA, k=K)
+        err = max(err, agree(name, s, i, ps, pi, exact=true_scores(
+            qt, qlam, a.data, a.lambdas, torch.as_tensor(i, device=dev)),
+            quiet=True))
+    ms = secs / len(batches) * 1e3
+    log(f"  {name}: {len(batches)} batches of {batches[0].shape[0]}, "
+        f"{ms:.3f} ms a batch, flag rate {rate:.4f}, launches {launches}; "
+        f"every batch agrees with the plain full scan (max_abs_err "
+        f"{err:.3e})")
+    return results, ms, rate, launches
+
+
+def search_session_ms(torch, dev, index, batches) -> float:
+    """ms a batch of a SearchSession at the batches' size on the index,
+    after its warm-up (its launches are not counted to any path)."""
+    sess = index.make_search_session(batch_size=batches[0].shape[0], k=K,
+                                     alpha=ALPHA)
+    sess.warmup()
+    return stream_ms(torch, dev, sess, batches)[1]
+
+
+def zero_row_repro(torch, dev) -> None:
+    """The device build of a 60-row corpus with a zero row, and the query
+    anti-aligned with the zero row's cluster (the zero row is the true
+    top-1; a cap from 1 - d²/2 would prune it): its certified top-1 is
+    the host build's."""
+    from arrowspace_torch.pruned import (build_cells, build_cells_device,
+                                         pruned_topk)
+    rng = np.random.default_rng(91)
+    u = np.zeros(8)
+    u[:4] = 0.5
+    w = 0.3 * u + np.sqrt(1 - 0.09) * np.eye(8)[7]
+    x = np.vstack([u + rng.normal(0, 0.01, (30, 8)),
+                   w + rng.normal(0, 0.01, (30, 8))]).astype(np.float32)
+    x[5] = 0.0
+    lam = rng.uniform(0, 1, 60).astype(np.float32)
+    q = torch.as_tensor(-u[None, :], dtype=torch.float32, device=dev)
+    ql = torch.as_tensor(lam[:1], device=dev)
+    kw = dict(cap=64, seed=2, n_clusters=2, iters=4)
+    tops = []
+    for build in (build_cells, build_cells_device):
+        c = build(torch.as_tensor(x, device=dev),
+                  torch.as_tensor(lam, device=dev), **kw)
+        s, i, fl = pruned_topk(q, ql, *cell_arrays(c), 1.0, k=1, m_cells=1,
+                               cap=64, margin=1e-3)
+        tops.append((int(i[0, 0]), bool(fl[0])))
+    log(f"  zero-row repro (60 rows): host build top-1 {tops[0]}, device "
+        f"build {tops[1]} (id, flagged)")
+    check(tops[0] == tops[1] == (5, False),
+          "zero-row repro: the device build's top-1 is not the host build's")
+
+
+def zero_rows_at_scale(torch, dev, index, cells_kw) -> None:
+    """The first 131072 corpus rows with 64 of them zeroed, both builds on
+    the card, and 16 queries anti-aligned with the corpus mean (every real
+    row scores below 0, the zero rows 0): each build's certified rows
+    agree with the plain full scan and hold zero rows only."""
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+    from arrowspace_torch.pruned import (build_cells, build_cells_device,
+                                         pruned_topk)
+    a = index.aspace
+    n = 131_072
+    x = a.data[:n].clone()
+    zero = torch.arange(0, n, 2048, device=dev)
+    x[zero] = 0.0
+    lam = a.lambdas[:n]
+    rng = np.random.default_rng(SEED + 31)
+    q = -x.mean(dim=0)[None, :] + torch.as_tensor(
+        rng.normal(0, 0.01, (16, x.shape[1])), dtype=torch.float32,
+        device=dev)
+    ql = lam[torch.as_tensor(rng.integers(0, n, 16), device=dev)]
+    ps, pi = batched_lambda_aware_topk(q, ql, x, lam, ALPHA, k=K)
+    check(bool(torch.isin(pi, zero).all()),
+          "zero rows: the plain scan's top-k is not the zero rows")
+    for name, build in (("host", build_cells), ("device", build_cells_device)):
+        c = build(x, lam, **cells_kw)
+        s, i, fl = pruned_topk(q, ql, *cell_arrays(c), ALPHA, k=K,
+                               m_cells=32, cap=c.cap, margin=1e-3)
+        ok = ~fl
+        log(f"  zero rows at {n} rows ({name} build): {int(ok.sum())} of 16 "
+            f"certified")
+        check(bool(ok.any()), f"zero rows ({name} build): nothing certified")
+        agree(f"zero rows ({name} build) vs plain full scan", s[ok], i[ok],
+              ps[ok], pi[ok])
+
+
+def pruned_phase(torch, counters, index, rows, dev):
+    """[4e] The pruned sessions on the seeded cosine index: both cell
+    builds, a B=16 session (host-built cells) and a B=256 union session
+    (device-built cells) over 64 batches of corpus rows x 1.02 each,
+    every batch held against the plain full scan, their ms beside a
+    SearchSession at the same B; a batch of Gaussian queries, which must
+    flag and re-run through K1; an auto-budget union session from 8
+    units; the cells saved, loaded and served bitwise; and the zero-row
+    cases.  Returns the launches by path."""
+    from arrowspace_torch.pruned import (PrunedSearchSession, build_cells,
+                                         build_cells_device, load_cells,
+                                         save_cells)
+    log("[4e] pruned sessions on the seeded cosine index")
+    a = index.aspace
+    n = a.nitems
+    host, t_host = build_cells_timed(torch, dev, build_cells, a, "host")
+    card, t_card = build_cells_timed(torch, dev, build_cells_device, a,
+                                     "device")
+    rng = np.random.default_rng(SEED + 20)
+    q16 = [rows[rng.integers(0, n, 16)] * 1.02 for _ in range(P_BATCHES)]
+    q256 = [rows[rng.integers(0, n, P_UNION)] * 1.02
+            for _ in range(P_BATCHES)]
+    by_path = {"k1": {}, "k3": {}}
+
+    def record(path, launches):
+        for key in by_path:
+            by_path[key][path] = launches[key]
+
+    reset(counters)
+    s16 = PrunedSearchSession(index, 16, k=K, alpha=ALPHA, cells=host)
+    s16.warmup()
+    res16, ms16, rate16, l16 = pruned_stream(
+        torch, dev, counters, index, s16, q16, "pruned B=16 (host cells)")
+    record("pruned_cosine_b16", l16)
+    reset(counters)
+    s256 = PrunedSearchSession(index, P_UNION, k=K, alpha=ALPHA, cells=card)
+    s256.warmup()
+    res256, ms256, rate256, l256 = pruned_stream(
+        torch, dev, counters, index, s256, q256,
+        "pruned union B=256 (device cells)")
+    record("pruned_cosine_b256", l256)
+    ss16 = search_session_ms(torch, dev, index, q16)
+    ss256 = search_session_ms(torch, dev, index, q256)
+    log(f"  timing ({card_line()}): B=16 pruned {ms16:.3f} ms a batch (flag "
+        f"rate {rate16:.4f}) vs SearchSession {ss16:.3f}; B=256 union "
+        f"{ms256:.3f} ({rate256:.4f}) vs SearchSession {ss256:.3f}; "
+        f"m_cells={s16.m_cells} union_cells={s256.union_cells}")
+
+    reset(counters)
+    qn = [rng.normal(size=(16, a.nfeatures))]
+    f0 = s16.flagged_total
+    _, _, _, ln = pruned_stream(torch, dev, counters, index, s16, qn,
+                                "Gaussian queries (B=16)")
+    record("pruned_cosine_gaussian", ln)
+    check(s16.flagged_total - f0 == 16, "the Gaussian queries did not flag")
+    check(ln["k1"] > 0, "the fallback of the flagged rows launched no K1")
+
+    reset(counters)
+    auto = PrunedSearchSession(index, P_UNION, k=K, alpha=ALPHA, cells=card,
+                               union_cells=P_AUTO_START, auto_budget=True)
+    auto.warmup()
+    trail = []
+    for _ in range(P_AUTO_BATCHES):
+        q = rows[rng.integers(0, n, P_UNION)] * 1.02
+        f0 = auto.flagged_total
+        _, _, _, la = pruned_stream(torch, dev, counters, index, auto, [q],
+                                    "auto-budget union")
+        trail.append((auto.flagged_total - f0, auto.union_cells))
+    record("pruned_cosine_auto", la)
+    log(f"  auto-budget union from {P_AUTO_START} units: (flags, "
+        f"union_cells) per batch {trail}; growths {auto.budget_growths}")
+    check(auto.budget_growths >= 1 and auto.union_cells > P_AUTO_START,
+          "the auto-budget session did not grow")
+
+    path = artifacts_dir() / "cells"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _, t_save = timed(torch, dev, lambda: save_cells(card, str(path)))
+    loaded, t_load = timed(torch, dev,
+                           lambda: load_cells(str(path), device=dev))
+    check(all(bool(torch.equal(getattr(loaded, f), getattr(card, f)))
+              for f in ("x", "lam", "ids", "cent", "radius", "cosr",
+                        "sinr", "lam_lo", "lam_hi")),
+          "the reloaded cells differ")
+    again = PrunedSearchSession(index, P_UNION, k=K, alpha=ALPHA,
+                                cells=loaded)
+    same_results("session on reloaded cells vs the original",
+                 [again.search(q) for q in q256[:8]], res256[:8])
+    size = path.with_suffix(".npz").stat().st_size
+    log(f"  cells saved in {t_save:.3f} s and loaded onto the card in "
+        f"{t_load:.3f} s ({size / 2**20:.1f} MiB)")
+    zero_row_repro(torch, dev)
+    zero_rows_at_scale(torch, dev, index, dict(cap=256, seed=SEED))
+    del host, card, loaded
+    return by_path
+
+
+def jax_corpus_phase(torch, counters, dev):
+    """[4f] The JAX package's pruned corpus (benchmarks/pruned_crossover.py:
+    37-58) at 1M x 128, built with ArrowIndex.build, then a B=16 and a
+    B=256 pruned session (make_pruned_session, device-built cells) over
+    16 batches each of rows x 1.002 from 16 hot regions, every batch held
+    against the plain full scan, beside a SearchSession at the same B.
+    Returns the launches by path."""
+    from arrowspace_torch.index import ArrowIndex
+    from arrowspace_torch.pruned import PrunedSearchSession
+    log(f"[4f] the JAX package's pruned corpus: {N_ROWS}x{N_FEAT}, "
+        f"{J_CENTRES} centres, noise {J_NOISE}")
+    rng = np.random.default_rng(7)
+    cents = rng.uniform(0.2, 0.8, (J_CENTRES, N_FEAT)).astype(np.float32)
+    assign = rng.integers(0, J_CENTRES, N_ROWS)
+    rows = cents[assign] + rng.normal(0, J_NOISE, (N_ROWS, N_FEAT)).astype(
+        np.float32)
+    index, t_build = timed(torch, dev, lambda: ArrowIndex.build(
+        rows, eps=EPS, seed=SEED, device=dev))
+    log(f"  build_s={t_build:.3f} clusters={index.aspace.n_clusters}")
+    hot = np.nonzero(assign < J_HOT)[0]
+    by_path = {"k1": {}, "k3": {}}
+    for b in (16, P_UNION):
+        batches = [rows[rng.choice(hot, b, replace=False)] * 1.002
+                   for _ in range(J_BATCHES)]
+        reset(counters)
+        sess, t_make = timed(torch, dev, lambda: index.make_pruned_session(
+            batch_size=b, k=K, alpha=ALPHA, engine="device"))
+        sess.warmup()
+        _, ms, rate, launches = pruned_stream(
+            torch, dev, counters, index, sess, batches,
+            f"JAX corpus pruned B={b}")
+        for key in by_path:
+            by_path[key][f"pruned_jax_corpus_b{b}"] = launches[key]
+        ss = search_session_ms(torch, dev, index, batches)
+        eager = PrunedSearchSession(index, b, k=K, alpha=ALPHA,
+                                    cells=sess.cells, cuda_graph=False)
+        eager.warmup()
+        got, ms_eager = timed(torch, dev, lambda: [eager.search(q)
+                                                   for q in batches])
+        same_results(f"B={b} step op by op vs graph-replayed", got,
+                     [sess.search(q) for q in batches])
+        log(f"  timing ({card_line()}): B={b} pruned {ms:.3f} ms a batch "
+            f"(flag rate {rate:.4f}, cells {t_make:.3f} s; the step op by "
+            f"op {ms_eager / len(batches) * 1e3:.3f}) vs SearchSession "
+            f"{ss:.3f}")
+        where_time_goes(torch, ((f"JAX corpus pruned B={b}", sess),),
+                        batches, step="4f", drive=lambda s, qs: [
+                            s.search(q) for q in qs])
+    del index
+    return by_path
+
+
+def wide_pruned_phase(torch, counters, index, batches, dev):
+    """[10c] A B=16 pruned session (device-built cells) on the wide 1M x
+    768 projected index: 16 batches of the wide session's queries, each
+    held against the plain full scan, beside the wide SearchSession at
+    B=16.  Returns the launches."""
+    log("[10c] pruned B=16 session on the wide projected index")
+    q16 = [b[:16] for b in batches]
+    reset(counters)
+    sess, t_make = timed(torch, dev, lambda: index.make_pruned_session(
+        batch_size=16, k=K, alpha=ALPHA, engine="device"))
+    sess.warmup()
+    _, ms, rate, launches = pruned_stream(torch, dev, counters, index, sess,
+                                          q16, "wide pruned B=16")
+    ss = search_session_ms(torch, dev, index, q16)
+    log(f"  timing ({card_line()}): pruned {ms:.3f} ms a batch (flag rate "
+        f"{rate:.4f}, cells {t_make:.3f} s) vs SearchSession {ss:.3f}")
+    return launches
+
+
+def log_stream(name, prof) -> None:
+    log(f"  {name}: {prof['chunks']} chunks, wall {prof['wall_s']:.3f} s, "
+        f"upload {prof['bytes'] / 2**30:.3f} GiB at "
+        f"{prof['upload_gb_s']:.3f} GB/s ({prof['copy_ms']:.3f} ms of "
+        f"copies), compute {prof['compute_ms']:.3f} ms, copy hidden behind "
+        f"compute {prof['hidden_share']:.4f}")
+
+
+def streaming_phase(torch, counters, index, session, host, batches, dev,
+                    step, kernels_lam, kernels_topk):
+    """[4g]/[13c] Out-of-core streaming over ``host`` (the index's rows in
+    host memory) in chunks of 2^18 rows from pinned buffers: streamed λ
+    against the build's (within TOL), then the streamed top-k of batch 0
+    against the index's ``session`` (agree).  Returns the launches of
+    each stream."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.streaming import (streamed_lambda_topk,
+                                                streamed_taumode_lambdas)
+    a = index.aspace
+    log(f"[{step}] streaming {host.shape[0]}x{host.shape[1]} ({host.dtype}) "
+        f"from host memory, chunks of {STREAM_CHUNK} rows ({card_line()})")
+    reset(counters)
+    prof = {}
+    lam = streamed_taumode_lambdas(host, a.lambda_graph(index.gl), a.taumode,
+                                   chunk=STREAM_CHUNK, device=dev,
+                                   profile=prof)
+    l_lam = {k: counters[k].launches for k in kernels_lam}
+    ref = a.lambdas.cpu().numpy()
+    err = float((np.abs(lam - ref) / np.maximum(np.abs(ref), 1.0)).max())
+    log_stream("streamed λ", prof)
+    log(f"  streamed λ vs the build's: max_abs_err={err:.3e}; launches "
+        f"{l_lam}")
+    check(err <= TOL, f"streamed λ differs from the build's by {err}")
+
+    q = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
+    _, qlam = _query_prep(a, index.gl)[1](q)
+    reset(counters)
+    prof = {}
+    s, i = streamed_lambda_topk(batches[0], qlam.cpu().numpy(), host, ref,
+                                ALPHA, K, chunk=STREAM_CHUNK, device=dev,
+                                profile=prof)
+    l_topk = {k: counters[k].launches for k in kernels_topk}
+    log_stream(f"streamed top-k (B={BATCH})", prof)
+    rs, ri = list(session.search_stream(batches[:1]))[0]
+    agree(f"streamed top-k vs the index's session (launches {l_topk})",
+          s, i, rs, ri, exact=true_scores(q, qlam, a.data, a.lambdas,
+                                          torch.as_tensor(i, device=dev)))
+    check(all(v > 0 for v in l_lam.values())
+          and all(l_topk[k] > 0 for k in kernels_topk[:1]),
+          f"a kernel of the streamed paths never launched: {l_lam} {l_topk}")
+    return l_lam, l_topk
+
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -2107,6 +2505,11 @@ def main() -> int:
         del ref
         spectral = spectral_path(torch, counters, rows, canon, dev)
         torch.cuda.empty_cache()
+        pruned = pruned_phase(torch, counters, index, rows, dev)
+        s128_lam, s128_topk = streaming_phase(
+            torch, counters, index, session, rows.astype(np.float32),
+            batches, dev, "4g", ("k2",), ("k1", "k3"))
+        torch.cuda.empty_cache()
         api_phase(torch, counters, index, batches, dev)
         small_reference(torch, dev)
         del index, session, batches
@@ -2115,6 +2518,8 @@ def main() -> int:
         index = unseeded_path(torch, counters, rows, canon, dev)
         chunked_engine_vs_host(torch, index, rows, dev)
         del index
+        torch.cuda.empty_cache()
+        jax_corpus = jax_corpus_phase(torch, counters, dev)
         torch.cuda.empty_cache()
 
         index, exact, approx, batches, e_launches, res_e, res_a = \
@@ -2141,6 +2546,7 @@ def main() -> int:
                         batches, step=11)
         k1_snapshot = wide_snapshot_phase(torch, counters, index, batches,
                                           dev)
+        wide_pruned = wide_pruned_phase(torch, counters, index, batches, dev)
         del index, session, batches
         torch.cuda.empty_cache()
 
@@ -2155,6 +2561,9 @@ def main() -> int:
         where_time_goes(torch, (("1536-wide plain session", plain),),
                         batches, step=14, n_batches=2)
         del plain
+        x_lam, x_topk = streaming_phase(
+            torch, counters, index, session, index.aspace.host_rows, batches,
+            dev, "13c", ("k4", "k5"), ("k3",))
         k3_live = live_merge_phase(torch, counters, index, batches, dev)
         k5 = rec["lambda_batch"]
         k5["max_abs_err"] = max(k5["max_abs_err"], k5_x["max_abs_err"])
@@ -2168,7 +2577,8 @@ def main() -> int:
         k4["launches_by_path"] = {
             "energy": launches["select_tau"],
             "wide_768": w_launches["select_tau"],
-            "wide_1536": x_launches["select_tau"]}
+            "wide_1536": x_launches["select_tau"],
+            "streamed_1536": x_lam["k4"]}
         k3 = rec["merge_topk"]
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
@@ -2187,11 +2597,22 @@ def main() -> int:
                             "live_cosine": k1_live,
                             "spectral": spectral["bintopk"],
                             "wide_768": w_launches["bintopk"],
-                            "reloaded_wide_snapshot": k1_snapshot},
+                            "reloaded_wide_snapshot": k1_snapshot,
+                            **pruned["k1"], **jax_corpus["k1"],
+                            "pruned_wide_768_b16": wide_pruned["k1"],
+                            "streamed_128": s128_topk["k1"]},
                 "taulambda": {"cosine": launches["taulambda"],
-                              "spectral": spectral["taulambda"]},
+                              "spectral": spectral["taulambda"],
+                              "streamed_128": s128_lam["k2"]},
                 "merge_topk": {"spectral": spectral["merge_topk"],
-                               "live_merge_1536": k3_live},
+                               "live_merge_1536": k3_live,
+                               **pruned["k3"], **jax_corpus["k3"],
+                               "pruned_wide_768_b16": wide_pruned["k3"],
+                               "streamed_128": s128_topk["k3"],
+                               "streamed_1536": x_topk["k3"]},
+                "lambda_batch": {"wide_768": w_launches["lambda_batch"],
+                                 "wide_1536": x_launches["lambda_batch"],
+                                 "streamed_1536": x_lam["k5"]},
                 "energy_bintopk": {"exact_energy": launches["energy_bintopk"],
                                    "live_energy": k6_live}}.items():
             rec[name].setdefault("launches_by_path", {}).update(by_path)

@@ -3,7 +3,11 @@ merge top-k, K4 τ selection, K5 λ given τ, K6 binned energy top-k, K7
 chord-surrogate energy fold) against their plain PyTorch versions on the
 card, at small edge shapes: ragged corpora and query blocks, F not a
 multiple of the 32-feature staging slice, every bin count and depth,
-non-finite rows, and the 768-wide rows of the projected build.
+non-finite rows, and the 768-wide rows of the projected build.  Then the
+pruned screens on the card against their CPU run (ties among identical
+rows bitwise, the zero-row device build, the graph-replayed step against
+the step op by op) and the double-buffered streaming against a copy on
+the compute stream.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -1339,3 +1343,245 @@ def test_live_energy_session_on_card_after_mutations(dev):
     ref = sess._ids[ei.cpu().numpy()]
     gap = (u64(i) - u64(ref)).abs()[torch.as_tensor(i != ref, device=dev)]
     assert gap.numel() == 0 or float(gap.max()) <= 2 * e_tol
+
+
+# ----------------------------------------------------------------------
+# The pruned sessions' screens and the out-of-core streaming on the card.
+# ----------------------------------------------------------------------
+
+def _cell_arrays(c):
+    return (c.x, c.lam, c.ids, c.cent, c.radius, c.cosr, c.sinr, c.lam_lo,
+            c.lam_hi)
+
+
+def _cells_to(cells, dev):
+    from arrowspace_torch.pruned import PrunedCells
+    return PrunedCells(*(getattr(cells, f).to(dev) for f in (
+        "x", "lam", "ids", "cent", "radius", "cosr", "sinr", "lam_lo",
+        "lam_hi")), cap=cells.cap, n_units=cells.n_units)
+
+
+def _screen_inputs(seed, n=6000, f=40, centres=40):
+    """Float32 rows, λ, their host-built cells (cap 32, on the CPU), and
+    two query batches with λ: 16 perturbed corpus rows and 64 around three
+    hot rows (the union's regime), each led by 4 Gaussian queries, which
+    flag."""
+    from arrowspace_torch.pruned import build_cells
+    rng = np.random.default_rng(seed)
+    rows = _blobs(seed, n, f, centres).astype(np.float32)
+    lam = rng.uniform(0, 1, n).astype(np.float32)
+    cells = build_cells(rows, lam, cap=32, seed=1, iters=4, device="cpu")
+    q16 = rows[rng.integers(0, n, 16)] * 1.02
+    hot = [5, n // 2, n - 7]
+    q64 = np.repeat(rows[hot], 22, axis=0)[:64] \
+        * (1.0 + 0.02 * rng.uniform(size=(64, 1)))
+    batches = []
+    for q in (q16, q64):
+        q[:4] = rng.normal(size=(4, f))
+        batches.append((torch.as_tensor(q.astype(np.float32)),
+                        torch.as_tensor(lam[:q.shape[0]])))
+    return rows, lam, cells, batches
+
+
+def _same_screen(out, ref, xhat, xlam, q, ql):
+    """A screen's card output against its CPU run.  Rows certified on
+    both sides: scores within TOL, and an id may differ only where both
+    ids' float64 scores lie within 2·TOL (a near-tie).  Returns the
+    number of rows flagged on one side only (bound or k-th score near
+    the margin, or a near-tie in the unit order)."""
+    s, i, fl = (t.cpu() for t in out)
+    rs, ri, rfl = ref
+    both = ~fl & ~rfl
+    assert float((s - rs)[both].abs().max()) <= TOL
+    qh = torch.nn.functional.normalize(q.double(), dim=-1)
+
+    def f64(ids):
+        ids = ids.long()
+        return 0.9 * (xhat[ids] * qh[:, None, :]).sum(-1) - 0.1 * (
+            ql.double()[:, None] - xlam[ids]).abs().clamp_max(1.0)
+    gap = (f64(i) - f64(ri)).abs()[both[:, None] & (i != ri)]
+    assert gap.numel() == 0 or float(gap.max()) <= 2 * TOL
+    return int((fl != rfl).sum())
+
+
+def test_pruned_screens_on_card_match_cpu(dev):
+    """pruned_topk (B = 16) and pruned_topk_union (B = 64) on the card
+    (the batched product, the unit gather, the extraction) against their
+    CPU run on the same float32 cells and queries."""
+    from arrowspace_torch.pruned import pruned_topk, pruned_topk_union
+    rows, lam, cells, batches = _screen_inputs(41)
+    xhat = torch.nn.functional.normalize(torch.as_tensor(rows).double(),
+                                         dim=-1)
+    xlam = torch.as_tensor(lam).double()
+    gc = _cells_to(cells, dev)
+    for (q, ql), fn, kw in zip(batches, (pruned_topk, pruned_topk_union),
+                               (dict(m_cells=8), dict(m_vote=6,
+                                                      s_cells=60))):
+        ref = fn(q, ql, *_cell_arrays(cells), 0.9, k=10, cap=32,
+                 margin=1e-3, **kw)
+        out = fn(q.to(dev), ql.to(dev), *_cell_arrays(gc), 0.9, k=10,
+                 cap=32, margin=1e-3, **kw)
+        assert _same_screen(out, ref, xhat, xlam, q, ql) <= 1
+        assert bool(ref[2][:4].all())               # the Gaussian queries
+        assert int(ref[2][4:].sum()) <= 2           # the rest certify
+
+
+def test_pruned_duplicate_rows_tie_bitwise_on_card(dev):
+    """Copies of a row in several units of a gathered set score bitwise
+    alike in the per-query product (bmm) and the union's (matmul), and
+    come back in ascending id order (cap 4 spreads them over units)."""
+    from arrowspace_torch.pruned import (build_cells, pruned_topk,
+                                         pruned_topk_union)
+    rows = _blobs(43, 4000, 40, 160).astype(np.float32)
+    copies = [17, 900, 1800, 2500, 3999]
+    rows[copies] = rows[321]
+    lam = np.random.default_rng(43).uniform(0, 1, 4000).astype(np.float32)
+    lam[copies] = lam[321]
+    cells = _cells_to(build_cells(rows, lam, cap=4, seed=2, iters=4,
+                                  device="cpu"), dev)
+    units = {int(u) for u in torch.nonzero(torch.isin(
+        cells.ids, torch.tensor(copies + [321], device=dev,
+                                dtype=torch.int32)))[:, 0] // 4}
+    assert len(units) >= 2
+    u = cells.cent.shape[0]
+    q = torch.as_tensor(np.repeat(rows[321:322] * 1.01, 20, axis=0),
+                        device=dev)
+    ql = torch.as_tensor(np.repeat(lam[321:322], 20), device=dev)
+    arrays = _cell_arrays(cells)
+    for s, i, fl in (
+            pruned_topk(q[:8], ql[:8], *arrays, 0.9, k=10, m_cells=u,
+                        cap=4, margin=1e-3),
+            pruned_topk_union(q, ql, *arrays, 0.9, k=10, m_vote=8,
+                              s_cells=u, cap=4, margin=1e-3)):
+        assert not bool(fl.any())
+        top = i[0, :6].tolist()
+        assert top == sorted(copies + [321])
+        assert bool((s[0, :6] == s[0, 0]).all())
+
+
+def test_device_build_zero_row_on_card(dev):
+    """The device build on the card, float32, of a corpus with a zero row
+    and an anti-aligned query (the zero row is the true top-1): its cap
+    keeps the zero vector, and the certified top-1 is the host build's
+    and the full scan's."""
+    from arrowspace_torch.pruned import (build_cells, build_cells_device,
+                                         pruned_topk)
+    rng = np.random.default_rng(91)
+    f = 8
+    u = np.zeros(f)
+    u[:4] = 0.5
+    w = 0.3 * u + np.sqrt(1 - 0.09) * np.eye(f)[7]
+    rows = np.vstack([u + rng.normal(0, 0.01, (30, f)),
+                      w + rng.normal(0, 0.01, (30, f))]).astype(np.float32)
+    rows[5] = 0.0
+    lam = rng.uniform(0, 1, 60).astype(np.float32)
+    kw = dict(cap=64, seed=2, n_clusters=2, iters=4)
+    host = build_cells(rows, lam, device=dev, **kw)
+    card = build_cells_device(torch.as_tensor(rows, device=dev),
+                              torch.as_tensor(lam, device=dev), **kw)
+    assert torch.equal(card.ids, host.ids)
+    q = torch.as_tensor(-u[None, :], dtype=torch.float32, device=dev)
+    ql = torch.as_tensor(lam[:1], device=dev)
+    for c in (host, card):
+        s, i, fl = pruned_topk(q, ql, *_cell_arrays(c), 1.0, k=1,
+                               m_cells=1, cap=64, margin=1e-3)
+        assert not bool(fl[0]) and int(i[0, 0]) == 5
+    zero_unit = int(torch.nonzero(card.ids == 5)[0, 0]) // 64
+    assert float(card.cosr[zero_unit]) <= 0.0
+
+
+def test_pruned_session_on_card_matches_full_scan(dev):
+    """A B = 16 and a B = 64 (union) session on a 70000-row card index:
+    flagged rows re-run through K1 with its repair (the launches grow),
+    and every result equals the plain full scan within TOL, ids outside
+    near-ties."""
+    rows = _blobs(47, 70_000, 16, 24)
+    idx = ArrowIndex.build(rows, eps=1.0, seed=5, device=dev)
+    a = idx.aspace
+    rng = np.random.default_rng(47)
+    for b in (16, 64):
+        sess = idx.make_pruned_session(batch_size=b, k=10, alpha=0.9,
+                                       engine="device")
+        q = rows[rng.integers(0, 70_000, b)] * 1.02
+        q[0] = rng.normal(size=16)
+        k1 = bt.binned_topk_pool.launches
+        s, i = sess.search(q)
+        assert sess.flagged_total >= 1
+        assert bt.binned_topk_pool.launches > k1 or dev.type == "cpu"
+        qt = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        _, qlam = sess._prepare(qt)
+        es, ei = batched_lambda_aware_topk(qt, qlam, a.data, a.lambdas, 0.9,
+                                           k=10)
+        assert float(np.abs(s - es.cpu().numpy()).max()) <= TOL
+        xh = torch.nn.functional.normalize(a.data.double(), dim=-1)
+        qh = torch.nn.functional.normalize(qt.double(), dim=-1)
+
+        def score(ids):
+            ids = torch.as_tensor(ids, device=dev)
+            return 0.9 * (xh[ids] * qh[:, None, :]).sum(-1) - 0.1 * (
+                qlam.double()[:, None] - a.lambdas[ids].double()
+            ).abs().clamp_max(1.0)
+        diff = torch.as_tensor(i != ei.cpu().numpy(), device=dev)
+        gap = (score(i) - score(ei.cpu().numpy())).abs()[diff]
+        assert gap.numel() == 0 or float(gap.max()) <= 2 * TOL
+
+
+def test_double_buffered_streaming_matches_single_stream(dev):
+    """The streamed λ (K2 per chunk) and top-k (K1 with its repair per
+    chunk, the 2464-row tail through the plain scan) with the copies on a
+    side stream equal, bitwise, the same calls copying on the compute
+    stream; the profile covers every chunk."""
+    from arrowspace_torch.ops.streaming import (streamed_lambda_topk,
+                                                streamed_taumode_lambdas)
+    rows = _blobs(53, 3 * 65_536 + 2464, 64, 24).astype(np.float32)
+    rng = np.random.default_rng(53)
+    w = np.triu(rng.uniform(0.1, 1, (64, 64)) * (rng.uniform(
+        size=(64, 64)) < 0.1), 1)
+    lap = np.diag((w + w.T).sum(axis=1)) - (w + w.T)
+    q = rows[rng.integers(0, rows.shape[0], 32)] * 1.02
+    runs = []
+    for double in (True, False):
+        prof = {}
+        lam = streamed_taumode_lambdas(rows, lap, TauMode.median(),
+                                       chunk=65_536, device=dev,
+                                       double_buffer=double, profile=prof)
+        s, i = streamed_lambda_topk(q, lam[:32], rows, lam, 0.9, 10,
+                                    chunk=65_536, device=dev,
+                                    double_buffer=double)
+        runs.append((lam, s, i))
+        if double and dev.type == "cuda":
+            assert prof["chunks"] == 4 and prof["bytes"] == rows.nbytes
+            assert 0.0 <= prof["hidden_share"] <= 1.0 + 1e-6
+            assert prof["upload_gb_s"] > 0
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b)
+    es, ei = batched_lambda_aware_topk(
+        torch.as_tensor(q, device=dev), torch.as_tensor(runs[0][0][:32],
+                                                        device=dev),
+        torch.as_tensor(rows, device=dev),
+        torch.as_tensor(runs[0][0], device=dev), 0.9, k=10)
+    assert float(np.abs(runs[0][1] - es.cpu().numpy()).max()) <= TOL
+
+
+def test_pruned_graph_replay_matches_eager(dev):
+    """The session's step replayed as a CUDA graph gives bitwise the
+    eager step's results, at B = 16 and through the union at B = 64,
+    and again after an auto-budget growth recaptures it."""
+    from arrowspace_torch.pruned import PrunedSearchSession
+    rows = _blobs(59, 70_000, 16, 24)
+    idx = ArrowIndex.build(rows, eps=1.0, seed=5, device=dev)
+    rng = np.random.default_rng(59)
+    for b, kw in ((16, {}), (64, dict(union_cells=2, auto_budget=True))):
+        graph = idx.make_pruned_session(batch_size=b, k=10, **kw)
+        eager = PrunedSearchSession(idx, b, k=10, cells=graph.cells,
+                                    cuda_graph=False, **kw)
+        assert graph.cuda_graph == (dev.type == "cuda")
+        graph.auto_window = eager.auto_window = b
+        for _ in range(3):
+            q = rows[rng.integers(0, 70_000, b)] * 1.02
+            for a, e in zip(graph.search(q), eager.search(q)):
+                assert np.array_equal(a, e)
+            assert (graph.m_cells, graph.union_cells) == \
+                (eager.m_cells, eager.union_cells)
+        if kw:
+            assert graph.budget_growths >= 1
