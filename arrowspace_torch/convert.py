@@ -7,6 +7,12 @@ build, the F×r projection matrix and the tall-graph flag) and returns
 this package's ArrowIndex on a given device, so an index built once can
 be served here.  It needs nothing of
 the JAX package: a τ policy is anything with ``kind`` and ``value``.
+
+``sharded_from_jax_state`` does the same and then splits the corpus and
+λ over a mesh's shards (parallel.mesh.shard_rows), for the distributed
+functions and the mesh sessions; ``ensemble_from_jax`` carries an
+ensemble of the JAX package (hypergraph.build_ensemble's list of
+(GraphLaplacian, λ), as numpy arrays) across.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from .index import ArrowIndex
 from .reduction import ImplicitProjection
 from .taumode import TauMode
 
-__all__ = ["from_jax_state"]
+__all__ = ["from_jax_state", "sharded_from_jax_state", "ensemble_from_jax"]
 
 
 def from_jax_state(data, lambdas, laplacian, taumode, *,
@@ -81,3 +87,50 @@ def from_jax_state(data, lambdas, laplacian, taumode, *,
         structural_nnz=int(np.count_nonzero(lap)),
     )
     return ArrowIndex(aspace, gl)
+
+
+def sharded_from_jax_state(data, lambdas, laplacian, taumode, mesh,
+                           **kwargs):
+    """(ArrowIndex, items ShardedTensor, λ ShardedTensor): from_jax_state
+    on the mesh's first device (``kwargs`` as there), then the corpus and
+    its λ split over the mesh's shards; a shard on the index's device is
+    a view of the index's tensor, not a copy."""
+    from .parallel.mesh import shard_rows
+    kwargs.setdefault("device", mesh.first_device)
+    index = from_jax_state(data, lambdas, laplacian, taumode, **kwargs)
+    a = index.aspace
+    return index, shard_rows(a.data, mesh), shard_rows(a.lambdas, mesh)
+
+
+def _graph_params(gp):
+    """A GraphParams of this package from either package's (None stays
+    None)."""
+    from .graph import GraphParams
+    if gp is None:
+        return None
+    return GraphParams(eps=gp.eps, k=gp.k, topk=gp.topk, p=gp.p,
+                       sigma=gp.sigma, normalise=gp.normalise,
+                       sparsity_check=gp.sparsity_check)
+
+
+def ensemble_from_jax(ensemble, *, device=None, dtype=None):
+    """An ensemble of the JAX package (hypergraph.build_ensemble's list
+    of (GraphLaplacian, λ)) as this package's, on ``device`` in
+    ``dtype``: each graph's matrix, init data, node count, parameters and
+    structural nnz, and each λ vector, carried as numpy."""
+    dev, dt = resolve(device, dtype)
+    out = []
+    for gl, lam in ensemble:
+        out.append((GraphLaplacian(
+            init_data=torch.tensor(np.asarray(gl.init_data,
+                                              dtype=np.float64)).to(
+                device=dev, dtype=dt),
+            matrix=torch.tensor(np.asarray(gl.matrix,
+                                           dtype=np.float64)).to(
+                device=dev, dtype=dt),
+            nnodes=int(gl.nnodes),
+            graph_params=_graph_params(gl.graph_params),
+            structural_nnz=int(gl.structural_nnz)),
+            torch.tensor(np.asarray(lam, dtype=np.float64)).to(
+                device=dev, dtype=dt)))
+    return out

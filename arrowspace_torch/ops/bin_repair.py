@@ -69,21 +69,33 @@ def fired_bins_host(det_rows: np.ndarray, kth: np.ndarray):
     return fired, ok
 
 
-def _candidates(fired, out_idx, n, k, bins):
-    """Candidate ids of one repair chunk: the fired bins' rows
-    (g = b + j·bins < n) followed by the current top-k ids that no fired
-    bin covers (and no earlier slot repeats).  Returns (cand (R, C),
-    valid (R, C), safe (R, C): cand with invalid slots at row 0)."""
+def _candidates(fired, out_idx, n, k, bins, shard_n=0):
+    """Candidate ids of one repair chunk: the fired bins' rows followed
+    by the current top-k ids that no fired bin covers (and no earlier
+    slot repeats).  Single-chip (``shard_n`` 0 or n) column b is bin b,
+    whose rows are g = b + j·bins < n.  A mesh det plane (per-shard det
+    planes gathered along the columns, shards of ``shard_n`` rows) has
+    column c = s·bins + b for local bin b of shard s, whose rows are
+    g = s·shard_n + b + j·bins < min((s+1)·shard_n, n) (bin_repair.py:
+    299-310 of the JAX package).  Returns (cand (R, C), valid (R, C),
+    safe (R, C): cand with invalid slots at row 0)."""
     dev = out_idx.device
     r, n_fired = fired.shape
-    m = -(-n // bins)
+    if not shard_n or shard_n >= n:
+        shard_n = n
+    m = -(-shard_n // bins)
     j = torch.arange(m, device=dev)
-    base = fired.long()
-    gidx = base.clamp_min(0)[:, :, None] + j[None, None, :] * bins
-    valid_g = (base[:, :, None] >= 0) & (gidx < n)
+    col = fired.long()
+    c0 = col.clamp_min(0)
+    shard = c0 // bins
+    base = shard * shard_n + c0 % bins
+    limit = ((shard + 1) * shard_n).clamp_max(n)
+    gidx = base[:, :, None] + j[None, None, :] * bins
+    valid_g = (col[:, :, None] >= 0) & (gidx < limit[:, :, None])
     out_i = out_idx.long()
-    in_fired = ((base[:, None, :] >= 0)
-                & (out_i[:, :, None] % bins == base[:, None, :])).any(dim=2)
+    out_col = (out_i // shard_n) * bins + (out_i % shard_n) % bins
+    in_fired = ((col[:, None, :] >= 0)
+                & (out_col[:, :, None] == col[:, None, :])).any(dim=2)
     earlier = torch.ones(k, k, dtype=torch.bool, device=dev).tril(-1)
     rep = ((out_i[:, :, None] == out_i[:, None, :]) & earlier).any(dim=2)
     valid_o = ~in_fired & ~rep & (out_i >= 0) & (out_i < n)
@@ -92,30 +104,49 @@ def _candidates(fired, out_idx, n, k, bins):
     return cand, valid, torch.where(valid, cand, torch.zeros_like(cand))
 
 
+def _rows_at(parts, idx, shard_n: int):
+    """parts[idx]: rows of one corpus tensor, or of a mesh's shards (a
+    list; global row g lies in shard g // shard_n at g % shard_n), each
+    gathered from the shard that holds it onto the first shard's
+    device."""
+    if torch.is_tensor(parts):
+        return parts[idx]
+    dev = parts[0].device
+    shard, loc = idx // shard_n, idx % shard_n
+    out = parts[0].new_empty(tuple(idx.shape) + tuple(parts[0].shape[1:]))
+    for s, p in enumerate(parts):
+        sel = shard == s
+        out[sel] = p[loc[sel].to(p.device)].to(dev)
+    return out
+
+
 def _merge(scores, cand, valid, k):
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     ids = torch.where(valid, cand, torch.full_like(cand, INT_MAX))
     return two_key_topk(scores, ids, k)
 
 
-def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins):
+def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins,
+                  shard_n=0):
     """Rescore one chunk of flagged λ-aware rows over their candidates.
     Returns shifted scores and ids of the exact top-k."""
-    cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
-    acos = row_dots(qhat, xhat[safe])
-    dl = (qlam[:, None] - xlam[safe]).abs().clamp_max(1.0)
+    cand, valid, safe = _candidates(fired, out_idx, n, k, bins, shard_n)
+    acos = row_dots(qhat, _rows_at(xhat, safe, shard_n))
+    dl = (qlam[:, None] - _rows_at(xlam, safe, shard_n)).abs().clamp_max(1.0)
     return _merge(acos - c1 * dl, cand, valid, k)
 
 
 def _energy_repair_chunk(zq, qlam, fired, out_idx, zx, xlam, xn, wl, wd, n,
-                         k, bins):
+                         k, bins, shard_n=0):
     """Rescore one chunk of flagged energy rows over their candidates
     with K6's shifted score (bin_repair.py:245-274 of the JAX package).
     Returns shifted scores and ids of the exact top-k."""
-    cand, valid, safe = _candidates(fired, out_idx, n, k, bins)
+    cand, valid, safe = _candidates(fired, out_idx, n, k, bins, shard_n)
     qn = (zq * zq).sum(dim=1)
-    d2 = (qn[:, None] + xn[safe]) - 2.0 * row_dots(zq, zx[safe])
-    scores = energy_u(d2, wd) - wl * (qlam[:, None] - xlam[safe]).abs()
+    d2 = (qn[:, None] + _rows_at(xn, safe, shard_n)) \
+        - 2.0 * row_dots(zq, _rows_at(zx, safe, shard_n))
+    scores = energy_u(d2, wd) - wl * (
+        qlam[:, None] - _rows_at(xlam, safe, shard_n)).abs()
     return _merge(scores, cand, valid, k)
 
 
@@ -160,7 +191,8 @@ def _strided_repair(det_rows, kth, out_idx_rows, cur_scores, fallback,
 
 def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
                           items, item_lambdas, alpha, *, k: int, n: int,
-                          prepared: bool, fallback=None, cur_scores=None):
+                          prepared: bool, fallback=None, cur_scores=None,
+                          shard_n: int = 0):
     """Exact repair of flagged λ-aware queries through their fired bins.
 
     q_rows (R, F) raw queries and qlam_rows (R,) (tensors or arrays),
@@ -170,13 +202,32 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     (prepare_binned_corpus) when prepared=True, else raw rows.
     fallback(rel_rows) -> (scores, ids) serves rows whose fired-bin count
     exceeds MAX_FIRED.  cur_scores (R, k), when given, lets zero-fired
-    rows pass through untouched.  Returns host (scores (R, k),
-    ids (R, k) int64)."""
+    rows pass through untouched.
+
+    ``shard_n`` > 0 (and < n) marks a mesh det plane: the per-shard det
+    planes of shards of shard_n rows gathered along the columns, and
+    items / item_lambdas the lists of this mesh's shards (each prepared
+    or raw as ``prepared`` says); the rescore gathers each candidate row
+    from the shard that holds it.  A true top-k row missing from the
+    merged result was dropped by its own shard's pool, so its shard's
+    det >= its score >= the merged kth: its column fired.  Returns host
+    (scores (R, k), ids (R, k) int64)."""
     strided_lambda_repair.calls += 1
     bins = np.shape(det_rows)[1]
-    dev, dt = items.device, items.dtype
-    xhat = items if prepared else safe_unit(items)
-    xlam = item_lambdas.to(dt)
+    mesh = isinstance(items, (list, tuple))
+    if mesh:
+        assert shard_n and bins % (-(-n // shard_n)) == 0, (
+            np.shape(det_rows), n, shard_n)
+        bins //= -(-n // shard_n)
+        first = items[0]
+        xhat = list(items) if prepared else [safe_unit(p) for p in items]
+        xlam = [lam.to(first.dtype) for lam in item_lambdas]
+    else:
+        shard_n = 0
+        first = items
+        xhat = items if prepared else safe_unit(items)
+        xlam = item_lambdas.to(items.dtype)
+    dev, dt = first.device, first.dtype
     oi_all = np.asarray(out_idx_rows)
 
     def rescore(rows, fired):
@@ -186,11 +237,11 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
         qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
         s, i = _repair_chunk(qhat, qlam, torch.as_tensor(fired, device=dev),
                              torch.as_tensor(oi_all[rows], device=dev),
-                             xhat, xlam, c1, n, k, bins)
+                             xhat, xlam, c1, n, k, bins, shard_n)
         return s + c1, i
 
-    per_row = (MAX_FIRED * -(-n // bins) + k) * xhat.shape[1] \
-        * xhat.element_size()
+    per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * first.shape[1] \
+        * first.element_size()
     return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
                            fallback, numpy_dtype(dt), k, rescore, per_row)
 
@@ -200,16 +251,27 @@ strided_lambda_repair.calls = 0
 
 def strided_energy_repair(zq_rows, qlam_rows, det_rows, kth, out_idx_rows,
                           zx, xlam, xn, wl: float, wd: float, *, k: int,
-                          n: int, fallback=None, cur_scores=None):
+                          n: int, fallback=None, cur_scores=None,
+                          shard_n: int = 0):
     """Exact repair of flagged energy queries through their fired bins
     (bin_repair.py:434-492 of the JAX package), over a prepared corpus
     (ops/energy_bintopk.prepare_binned_energy_corpus).  zq_rows (R, G)
     are the flagged queries in z-space; the rest as in
-    strided_lambda_repair, with scores on the true scale.  Returns host
-    (scores (R, k), ids (R, k) int64)."""
+    strided_lambda_repair, with scores on the true scale.  ``shard_n`` >
+    0 (and < n) marks a mesh det plane, with zx, xlam and xn the lists of
+    the mesh's prepared shards, as in strided_lambda_repair.  Returns
+    host (scores (R, k), ids (R, k) int64)."""
     strided_energy_repair.calls += 1
     bins = np.shape(det_rows)[1]
-    dev, dt = zx.device, zx.dtype
+    if isinstance(zx, (list, tuple)):
+        assert shard_n and bins % (-(-n // shard_n)) == 0, (
+            np.shape(det_rows), n, shard_n)
+        bins //= -(-n // shard_n)
+        first = zx[0]
+    else:
+        shard_n = 0
+        first = zx
+    dev, dt = first.device, first.dtype
     oi_all = np.asarray(out_idx_rows)
 
     def rescore(rows, fired):
@@ -219,11 +281,11 @@ def strided_energy_repair(zq_rows, qlam_rows, det_rows, kth, out_idx_rows,
         s, i = _energy_repair_chunk(
             zq, qlam, torch.as_tensor(fired, device=dev),
             torch.as_tensor(oi_all[rows], device=dev), zx, xlam, xn, wl, wd,
-            n, k, bins)
+            n, k, bins, shard_n)
         return s - wd, i
 
-    per_row = (MAX_FIRED * -(-n // bins) + k) * zx.shape[1] \
-        * zx.element_size()
+    per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * first.shape[1] \
+        * first.element_size()
     return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
                            fallback, numpy_dtype(dt), k, rescore, per_row)
 

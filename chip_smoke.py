@@ -84,6 +84,35 @@ Five phases cover the pruned sessions and out-of-core streaming:
   repair; K3 at 1536) against the index's session, with the upload rate
   and the share of copy time hidden behind compute.
 
+Six phases cover the ensembles and the mesh, the mesh as MESH_SHARDS =
+4 shards on the one card (shards sharing a card measure the per-shard
+launches and the merge, not how a mesh of cards scales):
+
+- [4h] a λτ-graph ensemble on the seeded cosine index: build_ensemble
+  over ensemble_params (6 variants, τ once by K4), the (dk=0, fe=1.0)
+  variant's λ against the index's, ensemble_topk_batch at B=2048 over
+  16 batches against a float64 fused score;
+- [4i] the mesh on the cosine index: the sharded λ (K2 per shard)
+  against the build's, binned (K1 per shard, the mesh repair and its K3
+  exact pass) and merge (K3 per shard) DistributedSearchSessions over
+  the 16 batches held to the single-chip session, the (2, 2)
+  hierarchical merge against the 1-D one, and the cell screen of [4e]
+  over the mesh, whose flagged rows re-run through the mesh's K3;
+- [5c] distributed_build_step on the 1M x 128 corpus at the unseeded
+  build's K and radius, its assignments held row for row to the same
+  sharded scan in float64 on a CPU mesh, beside the single-chip chunked
+  scan;
+- [4j] the multi-process dry run in a worker process, NCCL at world
+  size 1 on the card, four shards at 262144 x 64, its binned sessions
+  through the strided mesh repair;
+- [8c] a mesh energy session (K6 per shard, the mesh energy repair)
+  held to the single-chip exact session;
+- [13d] a mesh merge session over the 1536-wide index (K3 per shard),
+  4 batches held to the single-chip merge session.
+
+Each prints its ms a batch beside the single-chip session's and the
+merge's share of device time under torch.profiler.
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -2213,7 +2242,7 @@ def pruned_phase(torch, counters, index, rows, dev):
     SearchSession at the same B; a batch of Gaussian queries, which must
     flag and re-run through K1; an auto-budget union session from 8
     units; the cells saved, loaded and served bitwise; and the zero-row
-    cases.  Returns the launches by path."""
+    cases.  Returns the launches by path and the device-built cells."""
     from arrowspace_torch.pruned import (PrunedSearchSession, build_cells,
                                          build_cells_device, load_cells,
                                          save_cells)
@@ -2297,8 +2326,8 @@ def pruned_phase(torch, counters, index, rows, dev):
         f"{t_load:.3f} s ({size / 2**20:.1f} MiB)")
     zero_row_repro(torch, dev)
     zero_rows_at_scale(torch, dev, index, dict(cap=256, seed=SEED))
-    del host, card, loaded
-    return by_path
+    del host, loaded
+    return by_path, card
 
 
 def jax_corpus_phase(torch, counters, dev):
@@ -2425,6 +2454,464 @@ def streaming_phase(torch, counters, index, session, host, batches, dev,
     return l_lam, l_topk
 
 
+# The mesh phases: four shards of the smoke's indexes on one card, as the
+# JAX package's tests run eight virtual CPU devices.  Shards sharing one
+# card launch one after another, so these phases measure the cost of the
+# per-shard launches and of the merge, not how a mesh of cards scales.
+MESH_SHARDS = 4
+MESH_1536_BATCHES = 4
+MESH_PRUNED_BATCHES = 4
+MP_ROWS, MP_FEAT = 262_144, 64
+# [5c]: the sharded scan on the card against the same scan in float64 on
+# a CPU mesh.  Rows at a float32 rounding of the radius or of a second
+# centroid may decide otherwise, and the running means then move by a
+# rounding.  At 1M x 128, K 317, the CPU's float32 scan differs from
+# float64 in 109 rows (tools/scan_precision.py) and the card's in 106,
+# no cluster's size by more than 3 in either: the bounds are about three
+# and two times those readings.
+BUILD_STEP_ROWS_TOL = 300
+BUILD_STEP_SIZE_TOL = 6
+
+
+def merge_share(torch, name, run, key) -> None:
+    """Device time of the ranges named ``key`` (the merge) against all
+    device time of ``run()`` under torch.profiler; a measurement only,
+    printed as not measured where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_time(e, self_only):
+        for attr in (("self_device_time_total", "self_cuda_time_total")
+                     if self_only else ("device_time_total",
+                                        "cuda_time_total")):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+    total = sum(dev_time(e, True) for e in events
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA)
+    merge = sum(dev_time(e, False) for e in events if e.key == key)
+    if total <= 0.0 or merge <= 0.0:
+        log(f"  {name}: merge share not measured (no device time recorded)")
+        return
+    log(f"  {name} (torch.profiler): {key} {merge / 1e3:.3f} ms of "
+        f"{total / 1e3:.3f} ms device time, share {merge / total:.4f}")
+
+
+def hypergraph_phase(torch, counters, index, batches, ms_single, dev):
+    """[4h] A λτ-graph ensemble on the seeded cosine index: build_ensemble
+    over ensemble_params(base) (6 variants, τ once: K4), the (dk=0,
+    fe=1.0) variant's λ against the index's, then ensemble_topk_batch
+    (B=2048, k=10, α=0.9) over 16 batches, timed beside the single-chip
+    session, 256 queries of batch 0 held to a float64 fused score.
+    Returns the launches."""
+    from arrowspace_torch.hypergraph import (build_ensemble, ensemble_params,
+                                             ensemble_query_lambdas,
+                                             ensemble_topk_batch)
+    from arrowspace_torch.ops.search import exact_topk, safe_unit
+    log(f"[4h] hypergraph ensemble on the seeded cosine index "
+        f"({card_line()})")
+    a, gl = index.aspace, index.gl
+    base = gl.graph_params
+    grid = ensemble_params(base)
+    # the centroids the index's graph was built from (normalise=False)
+    cent = gl.init_data.T.double()
+    reset(counters)
+    ens, t_build = timed(torch, dev, lambda: build_ensemble(a, cent, grid))
+    k4_build = counters["k4"].launches
+    check(len(ens) == 6, f"{len(ens)} ensemble variants, not 6")
+    same = [j for j, p in enumerate(grid) if p.k == base.k
+            and p.topk == base.topk and p.eps == base.eps]
+    err = float((ens[same[0]][1] - a.lambdas).abs().max())
+    spread = float(torch.stack([lam for _, lam in ens]).std(dim=0).mean())
+    log(f"  build_ensemble: {len(ens)} variants in {t_build:.3f} s, K4 "
+        f"launches {k4_build}; the (dk=0, fe=1.0) variant's λ vs the "
+        f"index's max_abs_err={err:.3e}; mean λ spread across variants "
+        f"{spread:.4e}")
+    check(k4_build == 1, f"build_ensemble launched K4 {k4_build} times")
+    check(err <= TOL, f"the (dk=0, fe=1.0) variant's λ differs by {err}")
+    lam_v = torch.stack([lam for _, lam in ens])
+
+    def run(qbs):
+        out = []
+        for qb in qbs:
+            q = torch.as_tensor(qb, device=dev, dtype=torch.float32)
+            ql = ensemble_query_lambdas(q, ens, a.taumode)
+            s, i = ensemble_topk_batch(q, ql, a.data, lam_v, ALPHA, k=K)
+            out.append((s, i, ql))
+        return out
+    run(batches[:1])                              # first-call costs
+    reset(counters)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    res = run(batches)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    k4_serve = counters["k4"].launches
+    log(f"  ensemble_topk_batch: {len(batches)} batches of {BATCH}, "
+        f"{ms:.3f} ms a batch beside the single-chip session's "
+        f"{ms_single:.3f} ({card_line()}); K4 launches in query "
+        f"preparation {k4_serve}")
+    s, i, ql = res[0]
+    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float64)
+    qh, xh = safe_unit(q) * ALPHA, safe_unit(a.data.double())
+    lam64, ql64 = lam_v.double(), ql[:, :256].double()
+
+    def fused(rows=None):
+        x = xh if rows is None else xh[rows]
+        lam = lam64 if rows is None else lam64[:, rows]
+        if rows is None:
+            cos = qh @ x.T
+            dl = sum((ql64[v][:, None] - lam[v][None, :]).abs()
+                     .clamp_max(1.0) for v in range(len(ens)))
+        else:
+            cos = (x * qh[:, None, :]).sum(-1)
+            dl = sum((ql64[v][:, None] - lam[v]).abs().clamp_max(1.0)
+                     for v in range(len(ens)))
+        return cos + (1.0 - ALPHA) * (1.0 - dl / len(ens))
+    ref_s, ref_i = exact_topk(fused(), K)
+    agree("ensemble_topk_batch vs a float64 fused score (256 queries)",
+          s[:256], i[:256], ref_s, ref_i, exact=fused(i[:256]))
+    check(all(r[0].shape == (BATCH, K) and bool(torch.isfinite(r[0]).all())
+              for r in res), "ensemble output shape/finiteness")
+    merge_share(torch, "ensemble_topk_batch, 2 batches",
+                lambda: run(batches[:2]), "arrowspace::ensemble_select")
+    del ens, lam_v, xh
+    return {"select_tau": k4_build + k4_serve}
+
+
+def mesh_stream(torch, counters, name, sess, batches, ref, dev, exact=None):
+    """Warm-up, then the stream of a mesh session, its launches read right
+    after it (counters set to 0 before the warm-up); every batch held to
+    ``ref`` (the single-chip session's results) by agree, batch 0 with
+    the float64 scores ``exact(ids)`` of its returned ids when given.
+    Returns (launches, ms a batch, stream repairs)."""
+    reset(counters)
+    sess.warmup()
+    rep0 = (counters["repair"].calls, counters["erepair"].calls)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    res = list(sess.search_stream(batches))
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    launches = {key: counters[key].launches
+                for key in ("k1", "k2", "k3", "k4", "k6")}
+    reps = (counters["repair"].calls - rep0[0],
+            counters["erepair"].calls - rep0[1])
+    tol = E_TOL if sess.__class__.__name__.startswith("DistributedEnergy") \
+        else TOL
+    err = 0.0
+    for b, ((s, i), (rs, ri)) in enumerate(zip(res, ref)):
+        err = max(err, agree(f"{name} batch {b}", s, i, rs, ri, tol=tol,
+                             exact=exact(i) if exact and b == 0 else None,
+                             quiet=b > 0))
+    log(f"  {name}: {len(batches)} batches of {BATCH}, {ms:.3f} ms a batch; "
+        f"launches {launches}; repairs in the stream (cosine, energy) "
+        f"{reps}; max_abs_err vs single-chip over all batches {err:.3e}")
+    return launches, ms, reps
+
+
+def mesh_phase(torch, counters, index, ref, ms_single, batches, cells,
+               dev):
+    """[4i] The seeded cosine index on a mesh of MESH_SHARDS shards on one
+    card: the sharded λ (K2 per shard), a binned and a merge
+    DistributedSearchSession (16 batches each, held to the single-chip
+    session, the planted duplicates of batch 0 through the mesh repair
+    and its K3 exact pass), the (2, 2) hierarchical merge against the
+    1-D one, and the cell screen of [4e] over the mesh, whose flagged
+    rows re-run through the mesh's K3.  Returns the launches by path."""
+    from arrowspace_torch import parallel as par
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+    a = index.aspace
+    mesh = par.make_mesh(devices=[dev] * MESH_SHARDS)
+    shard_n = a.nitems // MESH_SHARDS
+    log(f"[4i] mesh of {MESH_SHARDS} shards on {dev} (shard {shard_n} rows; "
+        f"shards on one card measure launch and merge cost, not scaling; "
+        f"{card_line()})")
+    out = {}
+    reset(counters)
+    lam, t_lam = timed(torch, dev, lambda: par.sharded_compute_taumode_lambdas(
+        a.data, a.lambda_graph(index.gl), a.taumode, mesh, use_pallas=True))
+    out["mesh_lambda"] = {"k2": counters["k2"].launches}
+    err = float((lam.local() - a.lambdas).abs().max())
+    log(f"  sharded λ (K2 per shard) in {t_lam:.3f} s, launches "
+        f"{out['mesh_lambda']}; vs the build's λ max_abs_err={err:.3e}")
+    check(out["mesh_lambda"]["k2"] == MESH_SHARDS,
+          "the sharded λ did not launch K2 once per shard")
+    check(err <= TOL, f"the sharded λ differs from the build's by {err}")
+    del lam
+
+    prep = _query_prep(a, index.gl)[1]
+    q0 = torch.as_tensor(batches[0], device=dev, dtype=torch.float32)
+    _, qlam0 = prep(q0)
+
+    def exact(ids):
+        return true_scores(q0, qlam0, a.data, a.lambdas,
+                           torch.as_tensor(ids, device=dev))
+    for kind in ("binned", "merge"):
+        sess = par.DistributedSearchSession.from_index(
+            index, mesh, BATCH, k=K, alpha=ALPHA, kernel=kind)
+        check(sess.kernel == kind, f"mesh session kernel {sess.kernel}")
+        launches, ms, reps = mesh_stream(
+            torch, counters, f"mesh {kind} session", sess, batches, ref,
+            dev, exact=exact)
+        log(f"  mesh {kind} session {ms:.3f} ms a batch beside the "
+            f"single-chip session's {ms_single:.3f}")
+        if kind == "binned":
+            check(launches["k1"] == MESH_SHARDS * (N_BATCHES + 1),
+                  f"the mesh binned session launched K1 {launches['k1']} "
+                  "times, not once per shard, batch and warm-up")
+            check(reps[0] >= 1, "the mesh binned stream repaired no row")
+            check(launches["k3"] >= MESH_SHARDS,
+                  "the overflowing row took no K3 exact pass")
+        else:
+            check(launches["k3"] == MESH_SHARDS * (N_BATCHES + 1)
+                  and launches["k1"] == 0,
+                  f"the mesh merge session launched {launches}")
+        out[f"mesh_cosine_{kind}"] = launches
+        merge_share(torch, f"mesh {kind} session, {N_PROFILE} batches",
+                    lambda: list(sess.search_stream(batches[:N_PROFILE])),
+                    "arrowspace::mesh_merge")
+        del sess
+
+    q = q0[:256]
+    ql = qlam0[:256]
+    mesh2 = par.make_mesh_2d(2, MESH_SHARDS // 2, devices=[dev] * MESH_SHARDS)
+    (s1, i1), t1 = timed(torch, dev, lambda: par.distributed_lambda_aware_topk(
+        q, ql, a.data, a.lambdas, ALPHA, K, mesh))
+    (s2, i2), t2 = timed(torch, dev,
+                         lambda: par.distributed_lambda_aware_topk_2d(
+                             q, ql, a.data, a.lambdas, ALPHA, K, mesh2))
+    log(f"  (2, {MESH_SHARDS // 2}) hierarchical merge of 256 queries in "
+        f"{t2:.3f} s vs the 1-D merge's {t1:.3f} s: ids equal "
+        f"{bool(torch.equal(i1, i2))}, scores equal "
+        f"{bool(torch.equal(s1, s2))}")
+    check(bool(torch.equal(i1, i2) and torch.equal(s1, s2)),
+          "the hierarchical merge differs from the 1-D merge")
+
+    # the queries and their λ are made before the timed window, and the
+    # plain reference is computed after it: the window holds the screen
+    # and its K3 fallback alone
+    rng = np.random.default_rng(SEED + 40)
+    screen_q = []
+    for _ in range(MESH_PRUNED_BATCHES):
+        qb = a.data[torch.as_tensor(rng.integers(0, a.nitems, 16),
+                                    device=dev)] * 1.02
+        screen_q.append((qb, prep(qb)[1]))
+    reset(counters)
+    flagged, results = 0, []
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for qb, qlb in screen_q:
+        s, i, fl = par.distributed_pruned_topk(qb, qlb, cells, ALPHA, K,
+                                               mesh)
+        rows = torch.nonzero(fl)[:, 0]
+        flagged += int(rows.numel())
+        if rows.numel():
+            fs, fi = par.distributed_lambda_aware_topk(
+                qb[rows], qlb[rows], a.data, a.lambdas, ALPHA, K, mesh,
+                kernel="merge")
+            s[rows], i[rows] = fs.to(s.dtype), fi
+        results.append((s, i))
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / MESH_PRUNED_BATCHES * 1e3
+    for b, ((qb, qlb), (s, i)) in enumerate(zip(screen_q, results)):
+        ps, pi = batched_lambda_aware_topk(qb, qlb, a.data, a.lambdas,
+                                           ALPHA, k=K)
+        agree(f"mesh pruned batch {b} (B=16) vs the plain full scan", s, i,
+              ps, pi, exact=true_scores(qb, qlb, a.data, a.lambdas, i),
+              quiet=True)
+    out["mesh_pruned"] = {"k1": counters["k1"].launches,
+                          "k3": counters["k3"].launches}
+    log(f"  mesh cell screen ([4e] device cells, m_cells=8 per shard): "
+        f"{MESH_PRUNED_BATCHES} batches of 16, {flagged} of "
+        f"{16 * MESH_PRUNED_BATCHES} rows flagged and re-run through the "
+        f"mesh's K3, {ms:.3f} ms a batch; launches {out['mesh_pruned']}")
+    return out
+
+
+def mesh_energy_phase(torch, counters, index, exact, batches, dev):
+    """[8c] A DistributedEnergySearchSession of MESH_SHARDS shards over the
+    energy index: the z-plane made per shard, K6 per shard, the planted
+    duplicates of batch 0 through the mesh energy repair; every batch
+    held to the single-chip exact session.  Returns the launches."""
+    from arrowspace_torch import parallel as par
+    mesh = par.make_mesh(devices=[dev] * MESH_SHARDS)
+    log(f"[8c] mesh energy session: {MESH_SHARDS} shards on {dev} "
+        f"({card_line()})")
+    ref, ms_single = stream_ms(torch, dev, exact, batches)
+    sess = par.DistributedEnergySearchSession.from_index(
+        index, mesh, BATCH, k=K, w_lambda=E_WL, w_dirichlet=E_WD)
+    check(sess.kernel == "binned", f"mesh energy kernel {sess.kernel}")
+    launches, ms, reps = mesh_stream(torch, counters, "mesh energy session",
+                                     sess, batches, ref, dev)
+    log(f"  mesh energy session {ms:.3f} ms a batch beside the single-chip "
+        f"exact session's {ms_single:.3f}")
+    check(launches["k6"] == MESH_SHARDS * (N_BATCHES + 1),
+          f"the mesh energy session launched K6 {launches['k6']} times")
+    check(reps[1] >= 1, "the mesh energy stream repaired no row")
+    merge_share(torch, f"mesh energy session, {N_PROFILE} batches",
+                lambda: list(sess.search_stream(batches[:N_PROFILE])),
+                "arrowspace::mesh_merge")
+    return launches
+
+
+def mesh_1536_phase(torch, counters, index, session, batches, dev):
+    """[13d] A "merge" DistributedSearchSession of MESH_SHARDS shards over
+    the 1536-wide index (K3 per shard), MESH_1536_BATCHES batches held to
+    the single-chip "merge" session.  Returns the launches."""
+    from arrowspace_torch import parallel as par
+    mesh = par.make_mesh(devices=[dev] * MESH_SHARDS)
+    log(f"[13d] mesh merge session over the 1536-wide index: "
+        f"{MESH_SHARDS} shards on {dev} ({card_line()})")
+    qbs = batches[:MESH_1536_BATCHES]
+    ref, ms_single = stream_ms(torch, dev, session, qbs)
+    sess = par.DistributedSearchSession.from_index(index, mesh, BATCH, k=K,
+                                                   alpha=ALPHA)
+    check(sess.kernel == "merge", f"1536 mesh session kernel {sess.kernel}")
+    launches, ms, _ = mesh_stream(torch, counters, "1536 mesh merge session",
+                                  sess, qbs, ref, dev)
+    log(f"  1536 mesh merge session {ms:.3f} ms a batch beside the "
+        f"single-chip merge session's {ms_single:.3f}")
+    check(launches["k3"] == MESH_SHARDS * (MESH_1536_BATCHES + 1)
+          and launches["k1"] == 0,
+          f"the 1536 mesh session launched {launches}")
+    merge_share(torch, "1536 mesh merge session, 2 batches",
+                lambda: list(sess.search_stream(qbs[:2])),
+                "arrowspace::mesh_merge")
+    return launches
+
+
+def build_step_phase(torch, counters, index, rows, canon, dev):
+    """[5c] distributed_build_step on the 1M x 128 corpus over
+    MESH_SHARDS shards, without sampling, at the unseeded build's K and
+    radius.  Its scan is held to the same sharded scan run in float64 on
+    a CPU mesh of MESH_SHARDS shards (the same serialisation, so the
+    same centroid order): equal n_c, at most BUILD_STEP_ROWS_TOL rows
+    assigned otherwise and no cluster's size off by more than
+    BUILD_STEP_SIZE_TOL; the sizes sum to the assigned rows.  The
+    single-chip chunked scan at the same K, radius and sampling (its
+    engine on the card) is printed beside it (another serialisation; at
+    the cap the scan's rules drop a row beyond the relaxed radius of its
+    nearest centroid, on one chip as on the mesh).  Then the sharded λ
+    (K2 per shard) and the top-k of 16 queries; its seconds.  Returns
+    the launches."""
+    from arrowspace_torch import parallel as par
+    from arrowspace_torch.builder import ArrowSpaceBuilder
+    from arrowspace_torch.clustering import _incremental_clustering_chunked
+    from arrowspace_torch.sampling import SamplerType
+    from arrowspace_torch.taumode import TauMode
+    a, b = index.aspace, index.builder
+    n = a.nitems
+    mesh = par.make_mesh(devices=[dev] * MESH_SHARDS)
+    k_max, radius = b.cluster_max_clusters, b.cluster_radius
+    log(f"[5c] distributed_build_step {n}x{a.nfeatures} over "
+        f"{MESH_SHARDS} shards on {dev}, K={k_max} radius={radius:.6g}, "
+        f"no sampling ({card_line()})")
+    builder = ArrowSpaceBuilder(device=dev)
+    builder.sampling = None
+    info = {}
+    q = rows[:16] * 1.01
+    reset(counters)
+    (cent, lam, s, i), t = timed(
+        torch, dev, lambda: par.distributed_build_step(
+            a.data, builder, q, TauMode.median(), index.gl.graph_params, K,
+            mesh, max_clusters=k_max, radius=radius, clustering=info))
+    launches = {key: counters[key].launches for key in ("k1", "k2", "k3")}
+    assign = info["assignments"].array
+    sizes = np.asarray(info["sizes"])
+    assigned = int((assign >= 0).sum())
+    hits = int((canon[i[:, 0].cpu().numpy()] == canon[:16]).sum())
+
+    ref_builder = ArrowSpaceBuilder(device="cpu")
+    ref_builder.sampling = None
+    t0 = time.perf_counter()
+    c64, a64, s64 = par.sharded_incremental_clustering(
+        a.data.cpu().double(), ref_builder, k_max, radius,
+        SamplerType.simple(1.0).make(seed=1),
+        par.make_mesh(devices=["cpu"] * MESH_SHARDS))
+    t64 = time.perf_counter() - t0
+    a64, s64 = a64.array, np.asarray(s64)
+    same_nc = cent.shape[0] == c64.shape[0]
+    rows_off = int((assign != a64).sum())
+    size_off = int(np.abs(sizes - s64).max()) if same_nc else -1
+
+    one = ArrowSpaceBuilder(device=dev)
+    one.sampling = None
+    (c1, a1, _s1), t1 = timed(torch, dev, lambda: (
+        _incremental_clustering_chunked(
+            one, rows, a.nfeatures, k_max, radius,
+            SamplerType.simple(1.0).make(seed=1), device_data=a.data)))
+    assigned1 = int((a1.array >= 0).sum())
+    log(f"  build step {t:.3f} s (sharded clustering {info['seconds']:.3f} "
+        f"s): n_c={cent.shape[0]}, assigned {assigned} of {n}, sizes sum "
+        f"{int(sizes.sum())}; the float64 CPU mesh scan {t64:.3f} s: n_c="
+        f"{c64.shape[0]}, assigned {int((a64 >= 0).sum())}, {rows_off} "
+        f"rows assigned otherwise (at most {BUILD_STEP_ROWS_TOL}), largest "
+        f"size difference {size_off} (at most {BUILD_STEP_SIZE_TOL}); "
+        f"single-chip chunked scan {t1:.3f} s: n_c={c1.shape[0]}, assigned "
+        f"{assigned1}; the unseeded build's n_c {a.n_clusters} (sampling "
+        f"0.6); self-match {hits}/16; launches {launches}")
+    check(bool(((assign == -1) | ((assign >= 0) & (assign < cent.shape[0])))
+               .all()) and int(sizes.sum()) == assigned,
+          "the sharded build's assignments and sizes disagree")
+    check(same_nc and rows_off <= BUILD_STEP_ROWS_TOL
+          and size_off <= BUILD_STEP_SIZE_TOL,
+          "the sharded build differs from its float64 CPU mesh scan")
+    check(launches["k2"] == MESH_SHARDS,
+          "the build step's λ did not launch K2 once per shard")
+    check(hits == 16, f"build step self-match {hits}/16")
+    check(bool(torch.isfinite(s).all()) and bool(
+        torch.isfinite(lam.local()).all()), "build step output not finite")
+    return launches
+
+
+def multiprocess_phase(torch, dev):
+    """[4j] The multi-process runtime with one process (NCCL refuses two
+    ranks on one card): run_multiprocess_dryrun launches one mp_worker
+    that joins an NCCL group of world size 1 on cuda:0 and runs the
+    sharded build, λ, the hierarchical top-k and the mesh sessions on
+    four shards at MP_ROWS x MP_FEAT, every check asserted inside it.
+    Returns its launches."""
+    from arrowspace_torch import parallel as par
+    log(f"[4j] multi-process runtime: 1 process, NCCL, 4 shards on "
+        f"cuda:0, {MP_ROWS}x{MP_FEAT} ({card_line()})")
+    t0 = time.perf_counter()
+    try:
+        r = par.run_multiprocess_dryrun(
+            num_processes=1, local_devices=4, n_rows=MP_ROWS, f=MP_FEAT,
+            timeout=300, device=f"cuda:{dev.index}")
+    except RuntimeError as exc:
+        raise SmokeFailure(f"the multi-process dry run failed: {exc}")
+    wall = time.perf_counter() - t0
+    log(f"  worker: process_count={r['process_count']} shards="
+        f"{r['global_devices']} centroids={r['centroids']} build_s="
+        f"{r['build_s']} self_match={r['self_match']} session="
+        f"{r['session_self_match']} binned={r['binned_self_match']} "
+        f"hierarchical_equal={r['hierarchical_topk_equal']}; launches "
+        f"{r['launches']}; {wall:.3f} s with the process start")
+    check(r["ok"] and r["process_count"] == 1 and r["device"].startswith(
+        "cuda"), "the dry run reported " + str(
+            {k: v for k, v in r.items() if not k.endswith("_ids")}))
+    check(r["self_match"] == r["session_self_match"] ==
+          r["binned_self_match"] == "16/16", "dry run self-match below 16/16")
+    check(r["launches"]["bintopk"] > 0 and r["launches"]["taulambda"] > 0
+          and r["launches"]["energy_bintopk"] > 0,
+          f"the dry run launched {r['launches']}")
+    # one process holds every shard: its binned sessions repair through
+    # the strided mesh repair, as [4i] and [8c] do
+    log(f"  strided mesh repairs in the worker: {r['strided_repairs']}")
+    check(r["strided_repairs"]["lambda"] > 0
+          and r["strided_repairs"]["energy"] > 0,
+          "the dry run never took the strided mesh repair")
+    return r["launches"]
+
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -2502,10 +2989,16 @@ def main() -> int:
             torch, counters, index, batches, dev)
         k1_live = live_phase(torch, counters, index, rows, canon, batches,
                              ref, ms_static, dev)
-        del ref
         spectral = spectral_path(torch, counters, rows, canon, dev)
         torch.cuda.empty_cache()
-        pruned = pruned_phase(torch, counters, index, rows, dev)
+        pruned, cells = pruned_phase(torch, counters, index, rows, dev)
+        hyper = hypergraph_phase(torch, counters, index, batches, ms_static,
+                                 dev)
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(torch, counters, index, ref, ms_static, batches,
+                          cells, dev)
+        del ref, cells
+        torch.cuda.empty_cache()
         s128_lam, s128_topk = streaming_phase(
             torch, counters, index, session, rows.astype(np.float32),
             batches, dev, "4g", ("k2",), ("k1", "k3"))
@@ -2517,7 +3010,11 @@ def main() -> int:
 
         index = unseeded_path(torch, counters, rows, canon, dev)
         chunked_engine_vs_host(torch, index, rows, dev)
+        build_step = build_step_phase(torch, counters, index, rows, canon,
+                                      dev)
         del index
+        torch.cuda.empty_cache()
+        mp = multiprocess_phase(torch, dev)
         torch.cuda.empty_cache()
         jax_corpus = jax_corpus_phase(torch, counters, dev)
         torch.cuda.empty_cache()
@@ -2533,6 +3030,8 @@ def main() -> int:
                         step=8)
         k6_live = live_energy_phase(torch, counters, index, exact, rows,
                                     canon, batches, res_e, dev)
+        mesh_e = mesh_energy_phase(torch, counters, index, exact, batches,
+                                   dev)
         del index, exact, approx, batches, res_e, res_a, rows
         torch.cuda.empty_cache()
 
@@ -2565,6 +3064,8 @@ def main() -> int:
             torch, counters, index, session, index.aspace.host_rows, batches,
             dev, "13c", ("k4", "k5"), ("k3",))
         k3_live = live_merge_phase(torch, counters, index, batches, dev)
+        mesh_x = mesh_1536_phase(torch, counters, index, session, batches,
+                                 dev)
         k5 = rec["lambda_batch"]
         k5["max_abs_err"] = max(k5["max_abs_err"], k5_x["max_abs_err"])
         k5["max_abs_err_f64"] = max(k5["max_abs_err_f64"],
@@ -2578,7 +3079,8 @@ def main() -> int:
             "energy": launches["select_tau"],
             "wide_768": w_launches["select_tau"],
             "wide_1536": x_launches["select_tau"],
-            "streamed_1536": x_lam["k4"]}
+            "streamed_1536": x_lam["k4"],
+            "hypergraph": hyper["select_tau"]}
         k3 = rec["merge_topk"]
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
@@ -2600,21 +3102,37 @@ def main() -> int:
                             "reloaded_wide_snapshot": k1_snapshot,
                             **pruned["k1"], **jax_corpus["k1"],
                             "pruned_wide_768_b16": wide_pruned["k1"],
-                            "streamed_128": s128_topk["k1"]},
+                            "streamed_128": s128_topk["k1"],
+                            "mesh_cosine": mesh["mesh_cosine_binned"]["k1"],
+                            "mesh_pruned": mesh["mesh_pruned"]["k1"],
+                            "multiprocess_nccl": mp["bintopk"]},
                 "taulambda": {"cosine": launches["taulambda"],
                               "spectral": spectral["taulambda"],
-                              "streamed_128": s128_lam["k2"]},
+                              "streamed_128": s128_lam["k2"],
+                              "mesh_lambda": mesh["mesh_lambda"]["k2"],
+                              "mesh_build_step": build_step["k2"],
+                              "multiprocess_nccl": mp["taulambda"]},
                 "merge_topk": {"spectral": spectral["merge_topk"],
                                "live_merge_1536": k3_live,
                                **pruned["k3"], **jax_corpus["k3"],
                                "pruned_wide_768_b16": wide_pruned["k3"],
                                "streamed_128": s128_topk["k3"],
-                               "streamed_1536": x_topk["k3"]},
+                               "streamed_1536": x_topk["k3"],
+                               "mesh_cosine_repair":
+                                   mesh["mesh_cosine_binned"]["k3"],
+                               "mesh_cosine_merge":
+                                   mesh["mesh_cosine_merge"]["k3"],
+                               "mesh_pruned": mesh["mesh_pruned"]["k3"],
+                               "mesh_1536": mesh_x["k3"],
+                               "multiprocess_nccl": mp["merge_topk"]},
                 "lambda_batch": {"wide_768": w_launches["lambda_batch"],
                                  "wide_1536": x_launches["lambda_batch"],
                                  "streamed_1536": x_lam["k5"]},
                 "energy_bintopk": {"exact_energy": launches["energy_bintopk"],
-                                   "live_energy": k6_live}}.items():
+                                   "live_energy": k6_live,
+                                   "mesh_energy": mesh_e["k6"],
+                                   "multiprocess_nccl":
+                                       mp["energy_bintopk"]}}.items():
             rec[name].setdefault("launches_by_path", {}).update(by_path)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)

@@ -6,8 +6,9 @@ multiple of the 32-feature staging slice, every bin count and depth,
 non-finite rows, and the 768-wide rows of the projected build.  Then the
 pruned screens on the card against their CPU run (ties among identical
 rows bitwise, the zero-row device build, the graph-replayed step against
-the step op by op) and the double-buffered streaming against a copy on
-the compute stream.
+the step op by op), the double-buffered streaming against a copy on
+the compute stream, and the mesh: four shards on the card against one
+shard and the float64 CPU mesh, the strided mesh repairs included.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -1585,3 +1586,116 @@ def test_pruned_graph_replay_matches_eager(dev):
                 (eager.m_cells, eager.union_cells)
         if kw:
             assert graph.budget_growths >= 1
+
+
+# ------------------------------------------------------------------ mesh
+
+def _mesh_storm(f=32, shard_n=65536, shards=4, seed=53):
+    """A clustered corpus of shards x shard_n rows with the copies that
+    make batch row 0 flag on shard 1 (depth + 2 copies in one local bin:
+    the strided mesh repair) and row 1 overflow MAX_FIRED (depth + 1
+    copies in three bins of shards 2 and 3: the exact pass, K3)."""
+    from arrowspace_torch.ops.bin_repair import MAX_FIRED
+    rows = _blobs(seed, shards * shard_n, f, 32)
+    bins, depth = bt.bins_target(10), bt.binned_topk_depth_for(10)
+    for j in range(depth + 2):
+        rows[shard_n + 7 + j * bins] = rows[0]
+    for s, b in ((2, 11), (2, 90), (3, 11))[:MAX_FIRED + 1]:
+        for j in range(depth + 1):
+            rows[s * shard_n + b + j * bins] = rows[1]
+    return rows
+
+
+def _same_or_near(s, i, ref_s, ref_i, score):
+    """Scores within TOL; ids equal wherever the two sides' float64
+    scores are not tied within 2·TOL."""
+    assert float(np.abs(s - ref_s).max()) <= TOL
+    diff = i != ref_i
+    if diff.any():
+        gap = np.abs(score(i) - score(ref_i))[diff]
+        assert float(gap.max()) <= 2 * TOL
+
+
+@pytest.mark.parametrize("kernel", ["binned", "merge"])
+def test_mesh_session_on_card_matches_one_shard_and_cpu(dev, kernel):
+    """A 4-shard mesh on cuda:0 (K1 or K3 per shard, the binned one's
+    flagged rows through the strided mesh repair and its K3 exact pass)
+    against a 1-shard mesh on the card and the same 4-shard session in
+    float64 on the CPU."""
+    from arrowspace_torch import parallel as par
+    from arrowspace_torch.ops import bin_repair as br
+    from arrowspace_torch.taumode import (select_tau_batch,
+                                          synthetic_lambda_batch)
+    rows = _mesh_storm()
+    idx = ArrowIndex.build(rows, eps=1.0, seed=5, device=dev)
+    a = idx.aspace
+    q = rows[[0, 1] + list(range(2, 2 * 64, 2))[:62]] * 1.02
+    outs = {}
+    for name, mesh_devs, device, dt in (
+            ("card4", [dev] * 4, dev, torch.float32),
+            ("card1", [dev], dev, torch.float32),
+            ("cpu64", ["cpu"] * 4, "cpu", torch.float64)):
+        mesh = par.make_mesh(devices=mesh_devs)
+        x = a.data.to(device=device, dtype=dt)
+        lam = a.lambdas.to(device=device, dtype=dt)
+        sess = par.DistributedSearchSession(
+            x, lam, idx.gl.matrix.to(device=device, dtype=dt), mesh,
+            batch_size=64, k=10, alpha=0.9, taumode=a.taumode,
+            kernel=kernel)
+        k1, k3 = bt.binned_topk_pool.launches, tk.merge_topk_partial.launches
+        rep = br.strided_lambda_repair.calls
+        (s, i), = list(sess.search_stream([q]))
+        outs[name] = (s, i, bt.binned_topk_pool.launches - k1,
+                      tk.merge_topk_partial.launches - k3,
+                      br.strided_lambda_repair.calls - rep)
+    s4, i4, l1, l3, reps = outs["card4"]
+    if kernel == "binned":
+        # the overflowing row's exact pass is K3 per shard
+        assert l1 == 4 and reps == 1 and l3 == 4
+    else:
+        assert l1 == 0 and l3 == 4
+    qt = torch.as_tensor(q, dtype=torch.float64)
+    lap = idx.gl.matrix.double().cpu()
+    qlam = synthetic_lambda_batch(qt, lap, select_tau_batch(qt, a.taumode))
+    xh = torch.nn.functional.normalize(a.data.double().cpu(), dim=-1)
+    qh = torch.nn.functional.normalize(qt, dim=-1)
+    lam64 = a.lambdas.double().cpu()
+
+    def score(ids):
+        ids = torch.as_tensor(ids)
+        return (0.9 * (xh[ids] * qh[:, None, :]).sum(-1) + 0.1 * (
+            1.0 - (qlam[:, None] - lam64[ids]).abs().clamp_max(1.0))).numpy()
+    for ref in ("card1", "cpu64"):
+        _same_or_near(s4, i4, outs[ref][0], outs[ref][1], score)
+    assert list(i4[0][:5]) == [0] + [65536 + 7 + j * 128 for j in range(4)]
+
+
+def test_mesh_energy_session_on_card_matches_cpu(dev):
+    """A 4-shard energy mesh session on cuda:0 (K6 per shard, the mesh
+    energy repair) against the same session in float64 on the CPU."""
+    from arrowspace_torch import parallel as par
+    from arrowspace_torch.ops import bin_repair as br
+    rows = _mesh_storm(f=32)
+    lam = np.full(rows.shape[0], 0.3)          # rank by distance alone
+    lap = torch.as_tensor(_graph(32, 5), dtype=torch.float64)
+    q = rows[[0, 1] + list(range(3, 3 * 128, 3))[:126]] * 1.02
+    outs = {}
+    for name, mesh_devs, dt in (("card4", [dev] * 4, torch.float32),
+                                ("cpu64", ["cpu"] * 4, torch.float64)):
+        mesh = par.make_mesh(devices=mesh_devs)
+        d = mesh.first_device
+        sess = par.DistributedEnergySearchSession(
+            torch.as_tensor(rows).to(d, dt), torch.as_tensor(lam).to(d, dt),
+            lap.to(d, dt), mesh, batch_size=128, k=10, kernel="binned",
+            taumode=TauMode.median())
+        k6 = eb.binned_energy_pool.launches
+        rep = br.strided_energy_repair.calls
+        (s, i), = list(sess.search_stream([q]))
+        outs[name] = (s, i, eb.binned_energy_pool.launches - k6,
+                      br.strided_energy_repair.calls - rep)
+    s4, i4, l6, reps = outs["card4"]
+    assert l6 == 4 and reps == 1
+    s64, i64, _, _ = outs["cpu64"]
+    assert float(np.abs(s4 - s64).max()) <= 5e-5
+    assert float(np.mean(i4 == i64)) >= 0.99
+    assert list(i4[0][:5]) == list(i64[0][:5])
