@@ -16,6 +16,7 @@ from .core import ArrowItem, ArrowSpace  # noqa: F401
 from .graph import GraphFactory, GraphLaplacian, GraphParams  # noqa: F401
 from .builder import ArrowSpaceBuilder, ConfigValue  # noqa: F401
 from .sampling import SamplerType  # noqa: F401
+from .reduction import ImplicitProjection, compute_jl_dimension  # noqa: F401
 from . import eigenmaps  # noqa: F401  (attaches the staged API)
 from .index import ArrowIndex, SearchSession  # noqa: F401
 from .live import LiveEnergySearchSession, LiveSearchSession  # noqa: F401

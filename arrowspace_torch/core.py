@@ -43,13 +43,14 @@ BINNED_MIN_ITEMS = 65536
 BINNED_MAX_K = 128
 
 
-def binned_fits(nitems: int, k: int, f: int) -> bool:
+def binned_fits(nitems: int, k: int, f: int, use_bf16: bool = False) -> bool:
     """Whether the binned kernel (K1) with exact repair serves this size:
     at least BINNED_MIN_ITEMS rows, k up to BINNED_MAX_K and F within
-    K1's shared-memory gate.  An engine gate of both search and the
-    serving session, keyed on size alone: a CPU index runs the same engine
-    as a CUDA one, through the kernels' plain versions."""
-    return merge_fits(nitems, k) and bintopk_fits(f)
+    K1's gate (its shared memory; in bf16 also F <= 1536, the JAX
+    session's binned limit).  An engine gate of both search and the
+    serving session, keyed on size and dtype alone: a CPU index runs the
+    same engine as a CUDA one, through the kernels' plain versions."""
+    return merge_fits(nitems, k) and bintopk_fits(f, use_bf16)
 
 
 def merge_fits(nitems: int, k: int) -> bool:
@@ -62,18 +63,22 @@ def merge_fits(nitems: int, k: int) -> bool:
 
 
 def lambda_aware_topk(queries, query_lambdas, items, item_lambdas, alpha,
-                      *, k: int):
+                      *, k: int, use_bf16: bool = False):
     """Exact λ-aware top-k of a corpus on one device, by the engine its
     size takes: the binned kernel (K1) with exact repair where
     binned_fits holds, the exact merge kernel (K3) where only merge_fits
-    does, else the plain scan.  (scores (B, k), ids (B, k)) tensors."""
+    does, else the plain scan.  With ``use_bf16`` K1 and K3 take bf16
+    operands (their bf16 modes); the plain scan stays in the index dtype,
+    as the JAX package's "xla" route does.  (scores (B, k), ids (B, k))
+    tensors."""
     n, f = items.shape
-    if binned_fits(n, k, f):
+    if binned_fits(n, k, f, use_bf16):
         return binned_topk_with_repair(queries, query_lambdas, items,
-                                       item_lambdas, alpha, k=k)
+                                       item_lambdas, alpha, k=k,
+                                       use_bf16=use_bf16)
     if merge_fits(n, k):
         return fused_lambda_topk(queries, query_lambdas, items, item_lambdas,
-                                 alpha, k=k)
+                                 alpha, k=k, use_bf16=use_bf16)
     return batched_lambda_aware_topk(queries, query_lambdas, items,
                                      item_lambdas, alpha, k=k)
 
@@ -299,9 +304,10 @@ class ArrowSpace:
                 zip(idx[0].tolist(), scores[0].tolist())]
 
     def search_lambda_aware_batch(self, queries, query_lambdas, k: int,
-                                  alpha: float):
+                                  alpha: float, use_bf16: bool = False):
         """Batched λ-aware top-k: (B, F) queries -> (scores (B,k),
-        ids (B,k)) tensors on the index device."""
+        ids (B,k)) tensors on the index device; ``use_bf16`` gives the
+        streaming kernels bf16 operands (lambda_aware_topk)."""
         k_eff = min(k, self.nitems)
         q = torch.as_tensor(np.asarray(queries, dtype=np.float64)) \
             if not torch.is_tensor(queries) else queries
@@ -310,7 +316,7 @@ class ArrowSpace:
         q = q.to(device=self.device, dtype=self.dtype)
         ql = ql.to(device=self.device, dtype=self.dtype)
         return lambda_aware_topk(q, ql, self.data, self.lambdas, alpha,
-                                 k=k_eff)
+                                 k=k_eff, use_bf16=use_bf16)
 
     # ------------------------------------------------------------------
     # Access and mutation (core.py:241-360 of the JAX package)

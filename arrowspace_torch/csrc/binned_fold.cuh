@@ -15,10 +15,21 @@
 //   split keeps float32's accuracy (within 1e-5 of the plain version at
 //   the serving shapes), and every column runs the same instruction
 //   sequence, so identical corpus rows get bitwise identical dot products.
+// - K1's and K3's bf16 mode (mma_kstep_bf16): mma.sync m16n8k16 bf16
+//   with fp32 accumulation, one product per 16 features and no split
+//   (every product of two bf16 values is exact in fp32), on slices staged
+//   as bf16 (stage_slice / stage_rows on __nv_bfloat16: 16-byte copies of
+//   8 values, rows of 64 features at a stride of 72 bf16, 36 32-bit words
+//   ≡ 4 mod 8, so fragment loads are as free of bank conflicts as at 68
+//   floats).  cp.async copies 4, 8 or 16 bytes, never 2, so bf16 operands
+//   come with F a multiple of 8 and 16-byte aligned rows (the wrappers
+//   zero-pad and check).
 // The tensor core's accumulate truncates rather than rounds, so a kernel
 // sums a bounded run of k-steps into a zeroed partial and folds it into
 // its running dot product with one rounded fp32 add.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -30,18 +41,39 @@ constexpr int kThreads = 256;
 constexpr int kTileFK = 64;
 constexpr int kTileXS = 68;
 
+// What a k-step of each operand type takes: float32 (3×TF32) or bf16.
+// kStep features a k-step; kPad elements of row padding of a staged slice
+// or query block (a row stride ≡ 4 mod 8 32-bit words); kLane elements
+// between the fragment columns of lanes t and t + 1.
+template <typename T>
+struct Operand;
+template <>
+struct Operand<float> {
+  static constexpr int kStep = 8, kPad = 4, kLane = 1;
+};
+template <>
+struct Operand<__nv_bfloat16> {
+  static constexpr int kStep = 16, kPad = 8, kLane = 2;
+};
+
+// The row stride of a staged 64-feature slice of T (68 floats, 72 bf16).
+template <typename T>
+__host__ __device__ constexpr int tile_stride() {
+  return kTileFK + Operand<T>::kPad;
+}
+
 // Features staged per step, and the row stride of a staged slice in
-// floats (4 of padding keep fragment and float4 reads conflict-free).
+// elements (padding keeps fragment and 16-byte reads conflict-free).
 template <int BINS>
 __host__ __device__ constexpr int slice_features() {
   return BINS >= 512 ? 32 : 64;
 }
-template <int BINS>
+template <int BINS, typename T = float>
 __host__ __device__ constexpr int slice_stride() {
-  return slice_features<BINS>() + 4;
+  return slice_features<BINS>() + Operand<T>::kPad;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -70,7 +102,7 @@ __device__ __forceinline__ void stage_slice(float* dst,
                                             const float* __restrict__ xrows,
                                             int64_t g0, int F, int f0,
                                             bool vec, int tid) {
-  constexpr int kXS = slice_stride<BINS>();
+  constexpr int kXS = slice_stride<BINS, float>();
   constexpr int kC4 = slice_features<BINS>() / 4;
   for (int idx = tid; idx < BINS * kC4; idx += kThreads) {
     const int b = idx / kC4, c = idx % kC4;
@@ -91,6 +123,25 @@ __device__ __forceinline__ void stage_slice(float* dst,
           d[e] = 0.0f;
       }
     }
+  }
+}
+
+// The same for bf16 rows (F a multiple of 8, rows 16-byte aligned): 8
+// values a 16-byte copy, into dst[BINS][slice_stride<BINS, bf16>].
+template <int BINS>
+__device__ __forceinline__ void stage_slice(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ xrows, int64_t g0,
+    int F, int f0, bool /*vec*/, int tid) {
+  constexpr int kXS = slice_stride<BINS, __nv_bfloat16>();
+  constexpr int kC8 = slice_features<BINS>() / 8;
+  for (int idx = tid; idx < BINS * kC8; idx += kThreads) {
+    const int b = idx / kC8, c = idx % kC8;
+    const int f = f0 + 8 * c;
+    __nv_bfloat16* d = dst + b * kXS + 8 * c;
+    if (f < F)
+      cp_async16(d, xrows + (g0 + b) * F + f);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -126,6 +177,25 @@ __device__ __forceinline__ void stage_rows(float* dst,
           d[e] = 0.0f;
       }
     }
+  }
+}
+
+// The same for bf16 rows (F a multiple of 8, rows 16-byte aligned), into
+// dst[ROWS][tile_stride<bf16>()].
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int r0,
+    int r_end, int F, int f0, bool /*vec*/, int tid) {
+  constexpr int kXS = tile_stride<__nv_bfloat16>();
+  constexpr int kC8 = kTileFK / 8;
+  for (int idx = tid; idx < ROWS * kC8; idx += kThreads) {
+    const int r = idx / kC8, c = idx % kC8;
+    const int f = f0 + 8 * c;
+    __nv_bfloat16* d = dst + r * kXS + 8 * c;
+    if (r0 + r < r_end && f < F)
+      cp_async16(d, src + (size_t)(r0 + r) * F + f);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -175,6 +245,57 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[NT][4],
     mma_tf32(acc[j], ahi, blo0, blo1);
     mma_tf32(acc[j], ahi, bhi0, bhi1);
   }
+}
+
+// d += a · b on one m16n8k16 tile of bf16, fp32 accumulation; a
+// row-major 16×16, b column-major 16×8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two consecutive bf16 values, the lower index in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One k-step of 16 features for a warp's 16 queries × 8·NT bins, bf16
+// operands: qa points at the thread's A pair (query g, features 2t and
+// 2t + 1) in rows of stride QS, xb at its B pair (bin g of n-tile 0,
+// features 2t and 2t + 1) in a staged slice of stride tile_stride<bf16>.
+template <int NT>
+__device__ __forceinline__ void mma_kstep_bf16(float (&acc)[NT][4],
+                                               const __nv_bfloat16* qa,
+                                               int QS,
+                                               const __nv_bfloat16* xb) {
+  constexpr int kXS = tile_stride<__nv_bfloat16>();
+  uint32_t a[4];
+  a[0] = bf16_pair(qa);               // (g,     2t)
+  a[1] = bf16_pair(qa + 8 * QS);      // (g + 8, 2t)
+  a[2] = bf16_pair(qa + 8);           // (g,     2t + 8)
+  a[3] = bf16_pair(qa + 8 * QS + 8);  // (g + 8, 2t + 8)
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const __nv_bfloat16* xj = xb + j * 8 * kXS;
+    mma_bf16(acc[j], a, bf16_pair(xj), bf16_pair(xj + 8));  // k = 2t, 2t + 8
+  }
+}
+
+// The k-step of each operand type, for kernels templated on it.
+template <int NT>
+__device__ __forceinline__ void kstep(float (&acc)[NT][4], const float* qa,
+                                      int QS, const float* xb) {
+  mma_kstep<NT>(acc, qa, QS, xb);
+}
+template <int NT>
+__device__ __forceinline__ void kstep(float (&acc)[NT][4],
+                                      const __nv_bfloat16* qa, int QS,
+                                      const __nv_bfloat16* xb) {
+  mma_kstep_bf16<NT>(acc, qa, QS, xb);
 }
 
 }  // namespace asp_fold

@@ -48,6 +48,18 @@
 // zeros (F padded to a multiple of 8) and add exact zeros.  The λ term is
 // rounded with __fsub_rn/__fmul_rn (common.cuh) as the PyTorch expression
 // rounds it.  wgmma and TMA rings are later work.
+//
+// bf16 mode (asp_bintopk_bf16; the TPU kernel's use_bf16): the same kernel
+// on bf16 query and corpus operands, T = __nv_bfloat16.  Its product is
+// mma.sync m16n8k16 bf16 with fp32 accumulation, one instruction per 16
+// features and no split (binned_fold.cuh mma_kstep_bf16): 2·B·N·F dense
+// bf16 operations, 0.53 ms at 1M×128 and B = 2048 at 989.4 TFLOP/s, and
+// half the corpus bytes.  The query block is staged as bf16 at a row
+// stride of FP + 8 (FP = F rounded up to 16 features), the corpus slices
+// at 72 bf16 by 16-byte cp.async (F a multiple of 8); the λ term, the
+// fold and the zeroed partial per 64-feature slice are the float32 mode's,
+// so identical bf16 rows score bitwise alike, and a shared memory of
+// 216,064 bytes at QB = 64 admits F = 1536 (the gate, ops/bintopk.py).
 #include "binned_fold.cuh"
 
 namespace {
@@ -55,27 +67,32 @@ namespace {
 constexpr int kThreads = asp_fold::kThreads;  // 8 warps (stage_slice's)
 constexpr int kPairs = 4096;  // (query, bin) pairs a CTA holds: 16 a thread
 constexpr int kFK = 64;       // features a staged slice holds
-constexpr int kXS = 68;       // row stride of a staged slice (floats)
-static_assert(kFK == asp_fold::kTileFK && kXS == asp_fold::kTileXS,
-              "mma_kstep's slice");
+static_assert(kFK == asp_fold::kTileFK, "mma_kstep's slice");
 constexpr size_t kSmemLimit = 227 * 1024;
+
+using bf16 = __nv_bfloat16;
+using asp_fold::Operand;
 
 // A CTA holds QB queries × BG = kPairs / QB bins (QB 32, 64 or 128); each
 // warp a 16-query × 32-bin tile.  Its shared memory: the query block at
-// row stride FP + 4, and two corpus slices of BG rows.
+// row stride FP + kPad (FP = F rounded up to whole k-steps), and two
+// corpus slices of BG rows at stride tile_stride<T>.
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int F, int QB) {
-  return (size_t)(QB * (((F + 7) & ~7) + 4) + 2 * (kPairs / QB) * kXS) *
-         sizeof(float);
+  constexpr int kK = Operand<T>::kStep;
+  return (size_t)(QB * ((F + kK - 1) / kK * kK + Operand<T>::kPad) +
+                  2 * (kPairs / QB) * asp_fold::tile_stride<T>()) *
+         sizeof(T);
 }
 
-// The 3×TF32 k-step and the cp.async wait of binned_fold.cuh.
+// The cp.async wait of binned_fold.cuh.
 using asp_fold::cp_async_wait_all;
-using asp_fold::mma_kstep;
 
+template <typename T>
 struct Args {
-  const float* qrows;
+  const T* qrows;
   const float* qlam;
-  const float* xrows;
+  const T* xrows;
   const float* xlam;
   float c1;
   int n, B, F, bins, n_chunks, tiles_per_chunk;
@@ -84,19 +101,52 @@ struct Args {
   float* det;
 };
 
-template <int DEPTH, int QB>
+// Stages the query block's rows q0 .. q0+QB-1, features 0 .. FP-1, into
+// qs[QB][QS]; rows at or past B and features at or past F as zeros.
+template <int QB>
+__device__ __forceinline__ void stage_queries(float* qs, const Args<float>& a,
+                                              int q0, int FP, int QS,
+                                              int tid) {
+  for (int idx = tid; idx < QB * FP; idx += kThreads) {
+    const int q = idx / FP, f = idx % FP;
+    const int gq = q0 + q;
+    qs[q * QS + f] =
+        (gq < a.B && f < a.F) ? a.qrows[(size_t)gq * a.F + f] : 0.0f;
+  }
+}
+
+// bf16 rows (F a multiple of 8, rows 16-byte aligned): 8 values a load.
+template <int QB>
+__device__ __forceinline__ void stage_queries(bf16* qs, const Args<bf16>& a,
+                                              int q0, int FP, int QS,
+                                              int tid) {
+  const int c8 = FP / 8;
+  for (int idx = tid; idx < QB * c8; idx += kThreads) {
+    const int q = idx / c8, f = 8 * (idx % c8);
+    const int gq = q0 + q;
+    *reinterpret_cast<uint4*>(qs + q * QS + f) =
+        (gq < a.B && f < a.F)
+            ? __ldg(reinterpret_cast<const uint4*>(a.qrows +
+                                                   (size_t)gq * a.F + f))
+            : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <int DEPTH, int QB, typename T>
 __global__ void __launch_bounds__(kThreads)
-    bintopk_kernel(const Args a, int n_tiles, bool vec) {
+    bintopk_kernel(const Args<T> a, int n_tiles, bool vec) {
   constexpr int kBG = kPairs / QB;  // bins per CTA
   constexpr int kBW = kBG / 32;     // warps along the bins
+  constexpr int kXS = asp_fold::tile_stride<T>();  // staged slice's stride
+  constexpr int kK = Operand<T>::kStep;            // features a k-step
   static_assert(asp_fold::slice_features<kBG>() == kFK &&
-                    asp_fold::slice_stride<kBG>() == kXS,
+                    asp_fold::slice_stride<kBG, T>() == kXS,
                 "stage_slice's layout");
   extern __shared__ float4 smem4[];
-  const int FP = (a.F + 7) & ~7;  // F rounded up to whole k-steps
-  const int QS = FP + 4;          // row stride of the staged queries
-  float* qs = reinterpret_cast<float*>(smem4);  // [QB][QS]
-  float* xs = qs + QB * QS;                    // [2][kBG][kXS]
+  const int FP = (a.F + kK - 1) / kK * kK;  // F rounded up to whole k-steps
+  const int QS = FP + Operand<T>::kPad;     // row stride of the staged queries
+  T* qs = reinterpret_cast<T*>(smem4);  // [QB][QS]
+  T* xs = qs + QB * QS;                 // [2][kBG][kXS]
 
   const int bins = a.bins;
   const int tid = threadIdx.x;
@@ -117,12 +167,7 @@ __global__ void __launch_bounds__(kThreads)
                                a.F, 0, vec, tid);
   asp_fold::cp_async_commit();
 
-  for (int idx = tid; idx < QB * FP; idx += kThreads) {
-    const int q = idx / FP, f = idx % FP;
-    const int gq = q0 + q;
-    qs[q * QS + f] =
-        (gq < a.B && f < a.F) ? a.qrows[(size_t)gq * a.F + f] : 0.0f;
-  }
+  stage_queries<QB>(qs, a, q0, FP, QS, tid);
   float ql[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -174,16 +219,19 @@ __global__ void __launch_bounds__(kThreads)
         }
     }
 
-    const float* xb = xs + (step & 1) * kBG * kXS + (wcol + g) * kXS + t4;
-    const float* qa = qs + (mrow + g) * QS + sl * kFK + t4;
+    const int lane_k = Operand<T>::kLane * t4;  // the thread's column
+    const T* xb = xs + (step & 1) * kBG * kXS + (wcol + g) * kXS + lane_k;
+    const T* qa = qs + (mrow + g) * QS + sl * kFK + lane_k;
     const int fk = min(kFK, FP - sl * kFK);
     float part[4][4] = {};
     if (fk == kFK) {
 #pragma unroll
-      for (int kk = 0; kk < kFK; kk += 8) mma_kstep(part, qa + kk, QS, xb + kk);
+      for (int kk = 0; kk < kFK; kk += kK)
+        asp_fold::kstep(part, qa + kk, QS, xb + kk);
     } else {
 #pragma unroll 2
-      for (int kk = 0; kk < fk; kk += 8) mma_kstep(part, qa + kk, QS, xb + kk);
+      for (int kk = 0; kk < fk; kk += kK)
+        asp_fold::kstep(part, qa + kk, QS, xb + kk);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -245,17 +293,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DEPTH, int QB>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.F, QB);
-  const cudaError_t err = asp_allow_smem(bintopk_kernel<DEPTH, QB>, smem);
+template <int DEPTH, int QB, typename T>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(a.F, QB);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      asp_allow_smem(bintopk_kernel<DEPTH, QB, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const bool vec =
       a.F % 4 == 0 && reinterpret_cast<uintptr_t>(a.xrows) % 16 == 0;
   const int n_tiles = (a.n + a.bins - 1) / a.bins;
   const dim3 grid((a.B + QB - 1) / QB, a.n_chunks, a.bins / (kPairs / QB));
-  bintopk_kernel<DEPTH, QB><<<grid, kThreads, smem, stream>>>(a, n_tiles,
-                                                              vec);
+  bintopk_kernel<DEPTH, QB, T><<<grid, kThreads, smem, stream>>>(a, n_tiles,
+                                                                 vec);
   return (int)cudaGetLastError();
 }
 
@@ -263,19 +313,44 @@ int launch(const Args& a, cudaStream_t stream) {
 // at this F and that B, rounded up to a multiple of 32, fills.  A larger
 // block reads each corpus slice for more queries (ops/bintopk.py
 // query_block is the same rule).
+template <typename T>
 inline int query_block(int F, int B) {
   const int cap = (B + 31) / 32 * 32;
   for (int qb = 128; qb > 32; qb /= 2)
-    if (qb <= cap && smem_bytes(F, qb) <= kSmemLimit) return qb;
+    if (qb <= cap && smem_bytes<T>(F, qb) <= kSmemLimit) return qb;
   return 32;
 }
 
-template <int DEPTH>
-int launch_qb(const Args& a, cudaStream_t stream) {
-  switch (query_block(a.F, a.B)) {
+template <int DEPTH, typename T>
+int launch_qb(const Args<T>& a, cudaStream_t stream) {
+  switch (query_block<T>(a.F, a.B)) {
     case 128: return launch<DEPTH, 128>(a, stream);
     case 64: return launch<DEPTH, 64>(a, stream);
     default: return launch<DEPTH, 32>(a, stream);
+  }
+}
+
+template <typename T>
+int bintopk(const void* qhat, const void* qlam, const void* xhat,
+            const void* xlam, float c1, int n, int B, int F, int bins,
+            int depth, int n_chunks, int tiles_per_chunk, void* pool_s,
+            void* pool_i, void* det, void* stream) {
+  if (B <= 0 || n <= 0) return 0;
+  if (bins != 128 && bins != 256 && bins != 512)
+    return (int)cudaErrorInvalidValue;
+  const Args<T> a{static_cast<const T*>(qhat),
+                  static_cast<const float*>(qlam),
+                  static_cast<const T*>(xhat),
+                  static_cast<const float*>(xlam),
+                  c1, n, B, F, bins, n_chunks, tiles_per_chunk,
+                  static_cast<float*>(pool_s), static_cast<int*>(pool_i),
+                  static_cast<float*>(det)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (depth) {
+    case 2: return launch_qb<2>(a, s);
+    case 3: return launch_qb<3>(a, s);
+    case 4: return launch_qb<4>(a, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -286,21 +361,23 @@ extern "C" int asp_bintopk(const void* qhat, const void* qlam,
                            int n, int B, int F, int bins, int depth,
                            int n_chunks, int tiles_per_chunk, void* pool_s,
                            void* pool_i, void* det, void* stream) {
-  if (B <= 0 || n <= 0) return 0;
-  if (bins != 128 && bins != 256 && bins != 512)
+  return bintopk<float>(qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth,
+                        n_chunks, tiles_per_chunk, pool_s, pool_i, det,
+                        stream);
+}
+
+// bf16 operands: F a multiple of 8, qhat and xhat 16-byte aligned (the
+// 16-byte copies); qlam, xlam and the outputs float32.
+extern "C" int asp_bintopk_bf16(const void* qhat, const void* qlam,
+                                const void* xhat, const void* xlam, float c1,
+                                int n, int B, int F, int bins, int depth,
+                                int n_chunks, int tiles_per_chunk,
+                                void* pool_s, void* pool_i, void* det,
+                                void* stream) {
+  if (F % 8 != 0 || reinterpret_cast<uintptr_t>(qhat) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xhat) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{static_cast<const float*>(qhat),
-               static_cast<const float*>(qlam),
-               static_cast<const float*>(xhat),
-               static_cast<const float*>(xlam),
-               c1, n, B, F, bins, n_chunks, tiles_per_chunk,
-               static_cast<float*>(pool_s), static_cast<int*>(pool_i),
-               static_cast<float*>(det)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (depth) {
-    case 2: return launch_qb<2>(a, s);
-    case 3: return launch_qb<3>(a, s);
-    case 4: return launch_qb<4>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bintopk<bf16>(qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth,
+                       n_chunks, tiles_per_chunk, pool_s, pool_i, det,
+                       stream);
 }

@@ -45,6 +45,15 @@
 // (the repair merges K3's rows with K1's).  Features past F are staged as
 // zeros and add exact zeros; the λ term rounds as common.cuh's
 // asp_shifted_score.
+//
+// bf16 mode (asp_merge_topk_bf16; the TPU kernel's use_bf16): the same
+// kernel on bf16 query and corpus slices (T = __nv_bfloat16, 72 bf16 a
+// staged row, 16-byte cp.async, F a multiple of 8), multiplied by K1's
+// bf16 k-step (binned_fold.cuh mma_kstep_bf16: mma.sync m16n8k16, fp32
+// accumulation, no split), so K1's and K3's bf16 modes score a (query,
+// row) pair bitwise alike too.  It is the exact fallback of K1's bf16
+// repair and serves bf16 search above K1's gate; its slices take half
+// the shared memory, so two CTAs share an SM up to k = 88.
 #include "binned_fold.cuh"
 
 namespace {
@@ -53,24 +62,29 @@ constexpr int kThreads = asp_fold::kThreads;  // 8 warps (stage_rows')
 constexpr int kPairs = 4096;  // (query, row) pairs a CTA holds: 16 a thread
 constexpr int kNT = 4;        // n-tiles of 8 rows a warp
 constexpr int kFK = asp_fold::kTileFK;  // features a staged slice holds
-constexpr int kXS = asp_fold::kTileXS;  // row stride of a staged slice
 constexpr int kMaxK = 128;
 constexpr size_t kSmemLimit = 227 * 1024;
 
+using bf16 = __nv_bfloat16;
+using asp_fold::Operand;
+
 // Shared memory of a CTA of QB queries at this k: two query slices and
-// two corpus slices of kPairs / QB rows, each query's top-k list and
-// candidate buffer (one tile's rows) as (score, id), its k-th entry and
-// its candidate count.
+// two corpus slices of kPairs / QB rows (of T, at stride tile_stride<T>),
+// each query's top-k list and candidate buffer (one tile's rows) as
+// (score, id), its k-th entry and its candidate count.
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int QB, int k) {
-  return ((size_t)2 * (QB + kPairs / QB) * kXS + (size_t)2 * QB * k +
-          (size_t)2 * QB * (kPairs / QB) + 3 * QB) *
-         sizeof(float);
+  return (size_t)2 * (QB + kPairs / QB) * asp_fold::tile_stride<T>() *
+             sizeof(T) +
+         ((size_t)2 * QB * k + (size_t)2 * QB * (kPairs / QB) + 3 * QB) *
+             sizeof(float);
 }
 
+template <typename T>
 struct Args {
-  const float* qrows;
+  const T* qrows;
   const float* qlam;
-  const float* xrows;
+  const T* xrows;
   const float* xlam;
   float c1;
   int n, B, F, k, n_chunks, rows_per_chunk;
@@ -149,17 +163,19 @@ __device__ __forceinline__ void merge_query(float* ls, int* li,
 // Two CTAs fit an SM where their shared memory does (k <= 24 at QB = 64,
 // ops/topk.py merge_ctas_per_sm); the launch bounds keep the registers
 // within that.
-template <int QB>
+template <int QB, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    merge_topk_kernel(const Args a, bool xvec, bool qvec) {
+    merge_topk_kernel(const Args<T> a, bool xvec, bool qvec) {
   constexpr int kTR = kPairs / QB;     // corpus rows a tile
   constexpr int kBW = kTR / (8 * kNT);  // warps along the rows
+  constexpr int kXS = asp_fold::tile_stride<T>();  // staged slice's stride
+  constexpr int kK = Operand<T>::kStep;            // features a k-step
   static_assert((QB / 16) * kBW == kThreads / 32, "8 warps tile the CTA");
   extern __shared__ float4 smem4[];
   const int k = a.k;
-  float* qs = reinterpret_cast<float*>(smem4);  // [2][QB][kXS]
-  float* xs = qs + 2 * QB * kXS;                // [2][kTR][kXS]
-  float* ls = xs + 2 * kTR * kXS;               // [QB][k] list scores
+  T* qs = reinterpret_cast<T*>(smem4);  // [2][QB][kXS]
+  T* xs = qs + 2 * QB * kXS;            // [2][kTR][kXS]
+  float* ls = reinterpret_cast<float*>(xs + 2 * kTR * kXS);  // [QB][k] list scores
   int* li = reinterpret_cast<int*>(ls + QB * k);  // [QB][k] list ids
   float* cs = reinterpret_cast<float*>(li + QB * k);  // [QB][kTR]
   int* ci = reinterpret_cast<int*>(cs + QB * kTR);    // [QB][kTR]
@@ -177,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int r0 = ch * a.rows_per_chunk;
   const int r1 = min(a.n, r0 + a.rows_per_chunk);
 
-  const int FP = (a.F + 7) & ~7;  // F rounded up to whole k-steps
+  const int FP = (a.F + kK - 1) / kK * kK;  // F rounded up to whole k-steps
   const int n_slices = (FP + kFK - 1) / kFK;
   const int steps = max(0, (r1 - r0 + kTR - 1) / kTR) * n_slices;
   if (steps > 0) {
@@ -242,18 +258,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 
     const int buf = step & 1;
-    const float* xb = xs + buf * kTR * kXS + (wcol + g) * kXS + t4;
-    const float* qa = qs + buf * QB * kXS + (mrow + g) * kXS + t4;
+    const int lane_k = Operand<T>::kLane * t4;  // the thread's column
+    const T* xb = xs + buf * kTR * kXS + (wcol + g) * kXS + lane_k;
+    const T* qa = qs + buf * QB * kXS + (mrow + g) * kXS + lane_k;
     const int fk = min(kFK, FP - sl * kFK);
     float part[kNT][4] = {};
     if (fk == kFK) {
 #pragma unroll
-      for (int kk = 0; kk < kFK; kk += 8)
-        asp_fold::mma_kstep(part, qa + kk, kXS, xb + kk);
+      for (int kk = 0; kk < kFK; kk += kK)
+        asp_fold::kstep(part, qa + kk, kXS, xb + kk);
     } else {
 #pragma unroll 2
-      for (int kk = 0; kk < fk; kk += 8)
-        asp_fold::mma_kstep(part, qa + kk, kXS, xb + kk);
+      for (int kk = 0; kk < fk; kk += kK)
+        asp_fold::kstep(part, qa + kk, kXS, xb + kk);
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
@@ -313,24 +330,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int QB>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(QB, a.k);
+template <int QB, typename T>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(QB, a.k);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = asp_allow_smem(merge_topk_kernel<QB>, smem);
+  const cudaError_t err = asp_allow_smem(merge_topk_kernel<QB, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const bool xvec =
       a.F % 4 == 0 && reinterpret_cast<uintptr_t>(a.xrows) % 16 == 0;
   const bool qvec =
       a.F % 4 == 0 && reinterpret_cast<uintptr_t>(a.qrows) % 16 == 0;
   const dim3 grid((a.B + QB - 1) / QB, a.n_chunks);
-  merge_topk_kernel<QB><<<grid, kThreads, smem, stream>>>(a, xvec, qvec);
+  merge_topk_kernel<QB, T><<<grid, kThreads, smem, stream>>>(a, xvec, qvec);
   return (int)cudaGetLastError();
 }
 
 // The query block: 64 where the batch, rounded up to a multiple of 32,
 // fills it, else 32 (ops/topk.py merge_query_block is the same rule).
 inline int query_block(int B) { return (B + 31) / 32 * 32 >= 64 ? 64 : 32; }
+
+template <typename T>
+int merge_topk(const void* qhat, const void* qlam, const void* xhat,
+               const void* xlam, float c1, int n, int B, int F, int k,
+               int n_chunks, int rows_per_chunk, void* out_s, void* out_i,
+               void* stream) {
+  if (k < 1 || k > kMaxK || F < 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0) return 0;
+  const Args<T> a{static_cast<const T*>(qhat),
+                  static_cast<const float*>(qlam),
+                  static_cast<const T*>(xhat),
+                  static_cast<const float*>(xlam),
+                  c1, n, B, F, k, n_chunks, rows_per_chunk,
+                  static_cast<float*>(out_s), static_cast<int*>(out_i)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return query_block(B) == 64 ? launch<64>(a, s) : launch<32>(a, s);
+}
 
 }  // namespace
 
@@ -339,14 +373,20 @@ extern "C" int asp_merge_topk(const void* qhat, const void* qlam,
                               int n, int B, int F, int k, int n_chunks,
                               int rows_per_chunk, void* out_s, void* out_i,
                               void* stream) {
-  if (k < 1 || k > kMaxK || F < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || n <= 0) return 0;
-  const Args a{static_cast<const float*>(qhat),
-               static_cast<const float*>(qlam),
-               static_cast<const float*>(xhat),
-               static_cast<const float*>(xlam),
-               c1, n, B, F, k, n_chunks, rows_per_chunk,
-               static_cast<float*>(out_s), static_cast<int*>(out_i)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return query_block(B) == 64 ? launch<64>(a, s) : launch<32>(a, s);
+  return merge_topk<float>(qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks,
+                           rows_per_chunk, out_s, out_i, stream);
+}
+
+// bf16 operands: F a multiple of 8, qhat and xhat 16-byte aligned (the
+// 16-byte copies); qlam, xlam and the outputs float32.
+extern "C" int asp_merge_topk_bf16(const void* qhat, const void* qlam,
+                                   const void* xhat, const void* xlam,
+                                   float c1, int n, int B, int F, int k,
+                                   int n_chunks, int rows_per_chunk,
+                                   void* out_s, void* out_i, void* stream) {
+  if (F % 8 != 0 || reinterpret_cast<uintptr_t>(qhat) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xhat) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return merge_topk<bf16>(qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks,
+                          rows_per_chunk, out_s, out_i, stream);
 }

@@ -7,6 +7,9 @@ PyTorch counterpart of ``arrowspace_tpu.index``:
     session = index.make_search_session(batch_size=2048, k=10, alpha=0.9)
     session.warmup()
     for scores, ids in session.search_stream(batches): ...
+    # bf16 operands in K1 and K3 (float32 accumulation, λ and scores):
+    index.make_search_session(2048, precision="bf16")
+    index.search(queries, precision="bf16")
 
     energy = ArrowIndex.build_energy(rows, EnergyParams(
         allow_tall_graphs=True), seed=11, device="cuda")
@@ -53,15 +56,21 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.index")
 
 __all__ = ["ArrowIndex", "SearchSession", "EnergySearchSession",
-           "session_kernel_kind", "energy_session_config", "stream_search"]
+           "session_kernel_kind", "energy_session_config", "stream_search",
+           "PRECISIONS", "check_precision"]
 
 
-def session_kernel_kind(nitems: int, k: int, f: int) -> str:
-    """The serving step's top-k engine, keyed on size, never on the
-    device: "binned" (K1 plus exact repair) where core.binned_fits admits
-    the size, "merge" (K3, exact, no repair) where only core.merge_fits
-    does (F above K1's gate), else "plain"."""
-    if binned_fits(nitems, k, f):
+PRECISIONS = ("f32", "bf16")
+
+
+def session_kernel_kind(nitems: int, k: int, f: int,
+                        use_bf16: bool = False) -> str:
+    """The serving step's top-k engine, keyed on size and operand dtype,
+    never on the device: "binned" (K1 plus exact repair) where
+    core.binned_fits admits the size (in bf16 up to F = 1536), "merge"
+    (K3, exact, no repair) where only core.merge_fits does (F above K1's
+    gate), else "plain"."""
+    if binned_fits(nitems, k, f, use_bf16):
         return "binned"
     return "merge" if merge_fits(nitems, k) else "plain"
 
@@ -149,6 +158,15 @@ def _query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
     return project, prepare
 
 
+def check_precision(precision: str) -> bool:
+    """Whether a session's ``precision`` asks for bf16; ValueError unless
+    it is one of PRECISIONS (index.py:404-405 of the JAX package)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unsupported precision {precision!r}; one of "
+                         f"{PRECISIONS}")
+    return precision == "bf16"
+
+
 class SearchSession:
     """Pipelined streaming search for serving.
 
@@ -157,10 +175,18 @@ class SearchSession:
     once, here.  On the binned kernel flagged rows are repaired through
     the strided repair, with the exact merge kernel (K3) for rows whose
     fired bins overflow; the merge kernel is exact and flags nothing
-    (index.py:94-98 of the JAX package)."""
+    (index.py:94-98 of the JAX package).
+
+    ``precision="bf16"`` gives K1 and K3 bf16 operands wherever one of
+    them serves (its repair and K3 fallback included): the session holds
+    one bf16 prepared corpus, λ, c1 and the scores stay float32.  The
+    plain engine serves the index dtype (index.py:429-445 of the JAX
+    package); ``self.precision`` says what the session serves."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
-                 alpha: float = 0.9, depth: int = 2):
+                 alpha: float = 0.9, depth: int = 2,
+                 precision: str = "f32"):
+        want_bf16 = check_precision(precision)
         aspace, gl = index.aspace, index.gl
         self.batch_size = int(batch_size)
         self.k = min(int(k), index.nitems)
@@ -169,14 +195,18 @@ class SearchSession:
         self.device, self.dtype = aspace.device, aspace.dtype
         self._dim = aspace.nfeatures
         self.kernel = session_kernel_kind(index.nitems, self.k,
-                                          aspace.nfeatures)
+                                          aspace.nfeatures, want_bf16)
+        use_bf16 = want_bf16 and self.kernel != "plain"
+        self.precision = "bf16" if use_bf16 else "f32"
         k_eff, alpha_f = self.k, self.alpha
         _, prepare = _query_prep(aspace, gl)
         data, lambdas = aspace.data, aspace.lambdas
-        engine = BinnedTopK(data, lambdas, alpha_f, k_eff) \
+        engine = BinnedTopK(data, lambdas, alpha_f, k_eff,
+                            use_bf16=use_bf16) \
             if self.kernel == "binned" else None
         if self.kernel == "merge":
-            xhat, xlam = prepare_binned_corpus(data, lambdas)
+            xhat, xlam = prepare_binned_corpus(data, lambdas,
+                                               use_bf16=use_bf16)
             n_items = index.nitems
 
             def exact(q, qlam):
@@ -472,7 +502,11 @@ class ArrowIndex:
         """Batched λ-aware search: (B, F) -> host (scores (B, k),
         ids (B, k)).  precision="f64_rescore" re-ranks a candidate pool
         of max(4k, k+32) (or rescore_pool) against the original float64
-        rows on the host."""
+        rows on the host.  precision="bf16" gives K1 (with its repair)
+        or, above K1's bf16 gate, K3 bf16 operands with float32
+        accumulation; scores then differ from float32's in the third
+        decimal.  Below the streaming kernels' size it serves the plain
+        scan in the index dtype, as the JAX package does off a TPU."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
         qlam = self.aspace.prepare_query_items_batch(queries, self.gl)
         if precision == "f64_rescore":
@@ -487,11 +521,9 @@ class ArrowIndex:
                 queries, qlam.cpu().numpy(), self.aspace.host_rows,
                 self.aspace.lambdas.cpu().numpy(), alpha, cand.cpu().numpy(),
                 min(k, self.aspace.nitems))
-        if precision != "f32":
-            raise NotImplementedError(f"precision {precision!r} is not "
-                                      "ported yet")
+        use_bf16 = check_precision(precision)
         scores, ids = self.aspace.search_lambda_aware_batch(
-            queries, qlam, k, alpha)
+            queries, qlam, k, alpha, use_bf16=use_bf16)
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_one(self, query, k: int = 10, alpha: float = 0.9
@@ -514,10 +546,12 @@ class ArrowIndex:
         return self.aspace.range_search_sorted(lo, hi, limit)
 
     def make_search_session(self, batch_size: int, k: int = 10,
-                            alpha: float = 0.9,
-                            depth: int = 2) -> SearchSession:
-        """Streaming search for serving, ``depth`` batches in flight."""
-        return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth)
+                            alpha: float = 0.9, depth: int = 2,
+                            precision: str = "f32") -> SearchSession:
+        """Streaming search for serving, ``depth`` batches in flight;
+        precision "f32" or "bf16" (SearchSession)."""
+        return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth,
+                             precision=precision)
 
     def make_pruned_session(self, batch_size: int = 16, k: int = 10,
                             alpha: float = 0.9, cap: int = 256,
@@ -550,14 +584,17 @@ class ArrowIndex:
 
     def make_live_session(self, batch_size: int, k: int = 10,
                           alpha: float = 0.9, depth: int = 2,
-                          capacity: Optional[int] = None):
+                          capacity: Optional[int] = None,
+                          precision: str = "f32"):
         """Serving session with add/update/delete: the corpus lives in a
         capacity buffer on the device and the live row count reaches the
         kernels as their ``n`` (live.LiveSearchSession).  Results carry
-        stable external ids."""
+        stable external ids.  precision="bf16" serves bf16 operands on
+        the binned engine."""
         from .live import LiveSearchSession
         return LiveSearchSession(self, batch_size, k=k, alpha=alpha,
-                                 depth=depth, capacity=capacity)
+                                 depth=depth, capacity=capacity,
+                                 precision=precision)
 
     def make_live_energy_session(self, batch_size: int, k: int = 10,
                                  w_lambda: float = 1.0,

@@ -39,12 +39,13 @@ import numpy as np
 import torch
 
 from .index import (ArrowIndex, _energy_query_prep, _query_prep,
-                    energy_session_config, energy_z_plane,
+                    check_precision, energy_session_config, energy_z_plane,
                     session_kernel_kind, stream_search)
 from .ops.bin_repair import BinnedEnergyTopK, BinnedTopK
-from .ops.bintopk import CORPUS_ALIGN, bins_target, prepare_binned_corpus
+from .ops.bintopk import (CORPUS_ALIGN, bins_target, prepare_binned_corpus,
+                          prepared_rows)
 from .ops.energy_bintopk import energy_topk_chunked
-from .ops.search import batched_lambda_aware_topk, safe_unit
+from .ops.search import batched_lambda_aware_topk
 from .ops.topk import fused_lambda_topk
 from .utils.log import get_logger
 
@@ -273,11 +274,18 @@ class LiveSearchSession(_LiveBase):
     0..n-1, ``add`` returns fresh ones.  ``capacity`` (default: the index
     size) bounds the live row count and is rounded up to CORPUS_ALIGN
     rows; ``grow()`` reallocates.  A query's λ is prepared against the
-    build graph as in SearchSession."""
+    build graph as in SearchSession.
+
+    ``precision="bf16"`` serves bf16 operands on the binned engine only
+    (live.py:530 of the JAX package): the capacity buffer is then bf16,
+    and ``add`` / ``update`` write rows by prepared_rows, so an added row
+    scores bitwise as a prepared one; the other engines serve the index
+    dtype (``self.precision`` says which)."""
 
     def __init__(self, index: ArrowIndex, batch_size: int, k: int = 10,
                  alpha: float = 0.9, depth: int = 2,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, precision: str = "f32"):
+        want_bf16 = check_precision(precision)
         aspace, gl = index.aspace, index.gl
         n0 = index.nitems
         cap = max(int(capacity or n0), n0)
@@ -291,7 +299,9 @@ class LiveSearchSession(_LiveBase):
         self._dim = aspace.nfeatures
         self._aspace, self._gl = aspace, gl
         self._project, self._prepare = _query_prep(aspace, gl)
-        self.kernel = session_kernel_kind(cap, self.k, self._dim)
+        self.kernel = session_kernel_kind(cap, self.k, self._dim, want_bf16)
+        use_bf16 = want_bf16 and self.kernel == "binned"
+        self.precision = "bf16" if use_bf16 else "f32"
         cap_rows = _capacity_rows(cap)
         self._init_ids(n0, cap_rows)
 
@@ -301,7 +311,8 @@ class LiveSearchSession(_LiveBase):
         self._engine = None
         if self.kernel in ("binned", "merge"):
             self._xhat, self._xlam = prepare_binned_corpus(
-                aspace.data, aspace.lambdas, rows=cap_rows)
+                aspace.data, aspace.lambdas, rows=cap_rows,
+                use_bf16=use_bf16)
         if self.kernel == "binned":
             self._engine = BinnedTopK(self._xhat, self._xlam, self.alpha,
                                       self.k, prepared=True, n=n0)
@@ -329,14 +340,15 @@ class LiveSearchSession(_LiveBase):
     def _ingest_rows(self, rows: np.ndarray, pos: np.ndarray) -> None:
         """λ as a query's (project, τ, λ against the build graph), then
         the rows written in place; xhat by prepare_binned_corpus's
-        arithmetic, so an added copy of a row scores bitwise as it."""
+        arithmetic (prepared_rows), so an added copy of a row scores
+        bitwise as it."""
         r = torch.as_tensor(rows).to(device=self.device, dtype=self.dtype)
         _, lam = self._prepare(r)
         p = self._positions(pos)
         self._raw.index_copy_(0, p, r)
         self._lam.index_copy_(0, p, lam)
         if self._xhat is not None:
-            self._xhat.index_copy_(0, p, safe_unit(r).to(self._xhat.dtype))
+            self._xhat.index_copy_(0, p, prepared_rows(r, self._xhat))
             self._xlam.index_copy_(0, p, lam.to(self._xlam.dtype))
 
     def _row_arrays(self):

@@ -46,10 +46,16 @@ SIGNATURES = {
     # tiles_per_chunk, pool_s, pool_i, det, stream
     "asp_bintopk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P),
+    # the same with bf16 qhat and xhat
+    "asp_bintopk_bf16": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P),
     # qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks, rows_per_chunk,
     # out_s, out_i, stream
     "asp_merge_topk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P),
+    # the same with bf16 qhat and xhat
+    "asp_merge_topk_bf16": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P),
     # x, L, W, W2, d_r, d_c, d2_r, d2_c, N, F, n, kind, pct, fixed,
     # lam_out, tau_out, stream
     "asp_taulambda": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -17,6 +17,11 @@ Current top-k entries whose bin fired are dropped (the strided block
 rescores them).  Rows with more than MAX_FIRED fired bins go to the
 caller's fallback, the exact merge kernel (K3).
 
+On a bf16 prepared corpus (``use_bf16``) the rescore multiplies the
+same bf16 operands as K1's bf16 mode, the query prescaled in float32
+(the scoring dtype) before its cast, in float32 (row_dots), and the
+overflow fallback is K3's bf16 mode, as the JAX session's is.
+
 The energy kernels (K6, and K7's exact fallback) keep the same bins and
 det, so ``strided_energy_repair`` is the same argument with the energy
 score.  Counterpart of ``arrowspace_tpu.ops.bin_repair``
@@ -29,14 +34,14 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
-from .bintopk import binned_lambda_topk, prepare_binned_corpus
+from .bintopk import (binned_lambda_topk, prepare_binned_corpus,
+                      prepared_rows)
 from .energy_approx import (binned_energy_topk_approx,
                             prepare_energy_chord_sample)
 from .energy_bintopk import (binned_energy_topk, dtype_scalar, energy_u,
                              energy_topk_chunked,
                              prepare_binned_energy_corpus)
-from .search import (INT_MAX, NEG_INF, prepare_query, row_dots, safe_unit,
-                     two_key_topk)
+from .search import INT_MAX, NEG_INF, operand_query, row_dots, two_key_topk
 
 __all__ = ["strided_lambda_repair", "strided_energy_repair",
            "repair_flagged", "fired_bins_host", "MAX_FIRED", "BinnedTopK",
@@ -128,8 +133,9 @@ def _merge(scores, cand, valid, k):
 
 def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins,
                   shard_n=0):
-    """Rescore one chunk of flagged λ-aware rows over their candidates.
-    Returns shifted scores and ids of the exact top-k."""
+    """Rescore one chunk of flagged λ-aware rows over their candidates
+    (bf16 operands multiplied in float32).  Returns shifted scores and
+    ids of the exact top-k."""
     cand, valid, safe = _candidates(fired, out_idx, n, k, bins, shard_n)
     acos = row_dots(qhat, _rows_at(xhat, safe, shard_n))
     dl = (qlam[:, None] - _rows_at(xlam, safe, shard_n)).abs().clamp_max(1.0)
@@ -192,14 +198,17 @@ def _strided_repair(det_rows, kth, out_idx_rows, cur_scores, fallback,
 def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
                           items, item_lambdas, alpha, *, k: int, n: int,
                           prepared: bool, fallback=None, cur_scores=None,
-                          shard_n: int = 0):
+                          shard_n: int = 0, use_bf16: bool = False):
     """Exact repair of flagged λ-aware queries through their fired bins.
 
     q_rows (R, F) raw queries and qlam_rows (R,) (tensors or arrays),
     det_rows (R, bins) and kth (R,) on the host from the flush (c1 shift
     restored), out_idx_rows (R, k) the rows' current ids.  items /
     item_lambdas are the corpus on its device: the prepared corpus
-    (prepare_binned_corpus) when prepared=True, else raw rows.
+    (prepare_binned_corpus, bf16 when it was prepared so) when
+    prepared=True, else raw rows, which ``use_bf16`` rescores as bf16
+    operands.  Scores are in the scoring dtype: the prepared λ's, or the
+    raw rows' dtype.
     fallback(rel_rows) -> (scores, ids) serves rows whose fired-bin count
     exceeds MAX_FIRED.  cur_scores (R, k), when given, lets zero-fired
     rows pass through untouched.
@@ -215,25 +224,32 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     strided_lambda_repair.calls += 1
     bins = np.shape(det_rows)[1]
     mesh = isinstance(items, (list, tuple))
+    parts = list(items) if mesh else [items]
+    lams = list(item_lambdas) if mesh else [item_lambdas]
+    # the scoring dtype: the prepared λ's, else the raw rows'
+    dt = lams[0].dtype if prepared else parts[0].dtype
+    if not prepared:
+        like = parts[0].new_empty(
+            (0, parts[0].shape[1]),
+            dtype=torch.bfloat16 if use_bf16 else dt)
+        parts = [prepared_rows(p, like) for p in parts]
+    lams = [lam.to(dt) for lam in lams]
     if mesh:
         assert shard_n and bins % (-(-n // shard_n)) == 0, (
             np.shape(det_rows), n, shard_n)
         bins //= -(-n // shard_n)
-        first = items[0]
-        xhat = list(items) if prepared else [safe_unit(p) for p in items]
-        xlam = [lam.to(first.dtype) for lam in item_lambdas]
+        xhat, xlam = parts, lams
     else:
         shard_n = 0
-        first = items
-        xhat = items if prepared else safe_unit(items)
-        xlam = item_lambdas.to(items.dtype)
-    dev, dt = first.device, first.dtype
+        xhat, xlam = parts[0], lams[0]
+    first = parts[0]
+    dev = first.device
     oi_all = np.asarray(out_idx_rows)
 
     def rescore(rows, fired):
         rt = torch.as_tensor(rows)
         q = torch.as_tensor(q_rows)[rt].to(dev)
-        qhat, c1 = prepare_query(q, alpha, dtype=dt)
+        qhat, c1 = operand_query(q, alpha, dt, first)
         qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
         s, i = _repair_chunk(qhat, qlam, torch.as_tensor(fired, device=dev),
                              torch.as_tensor(oi_all[rows], device=dev),
@@ -297,7 +313,8 @@ def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,
                    xhat, xlam, alpha, *, k: int, n: int):
     """Exact top-k of flagged rows on a prepared corpus
     (prepare_binned_corpus): the strided repair, with the exact merge
-    kernel (K3) for rows whose fired bins overflow MAX_FIRED.
+    kernel (K3) for rows whose fired bins overflow MAX_FIRED; on a bf16
+    corpus both in bf16.
 
     q_rows (R, F) raw queries and qlam_rows (R,), as tensors or arrays;
     det_rows (R, bins), scores_rows and ids_rows (R, k) host arrays from
@@ -330,16 +347,19 @@ class BinnedTopK:
     are, of which the first ``n`` rows are served: a live session's
     capacity buffers, whose owner writes rows in place and sets ``n``
     (K1, the strided repair and K3 read it as their row count and never
-    score a row at or past it)."""
+    score a row at or past it).  Otherwise the corpus is prepared here,
+    in bf16 with ``use_bf16``; a bf16 prepared corpus serves K1, the
+    repair and K3 in bf16."""
 
     def __init__(self, items, item_lambdas, alpha: float, k: int, *,
-                 prepared: bool = False, n: int = 0):
+                 prepared: bool = False, n: int = 0, use_bf16: bool = False):
         self.alpha, self.k = float(alpha), int(k)
         if prepared:
             self.n, self.xhat, self.xlam = int(n), items, item_lambdas
         else:
             self.n = items.shape[0]
-            self.xhat, self.xlam = prepare_binned_corpus(items, item_lambdas)
+            self.xhat, self.xlam = prepare_binned_corpus(
+                items, item_lambdas, use_bf16=use_bf16)
 
     def step(self, q, qlam):
         """(scores (B,k), ids (B,k), flags (B,), det (B, bins)), on the

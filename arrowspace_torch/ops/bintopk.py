@@ -27,6 +27,14 @@ keep the same pool layout.
 
 Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
 dot product is α·cos, and c1 is added back after the flush.
+
+bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): the
+prepared corpus and the query operand are bf16, zero-padded to a
+multiple of 8 features (a 16-byte copy holds 8 bf16), and the kernel
+multiplies them on the tensor cores as bf16 ``mma.sync`` with float32
+accumulation (``asp_bintopk_bf16``, counted by
+``binned_topk_pool.launches_bf16``); λ, c1, the scores and det stay
+float32.  Its plain version upcasts the bf16 operands to float32.
 """
 
 from __future__ import annotations
@@ -34,13 +42,14 @@ from __future__ import annotations
 import torch
 
 from ._build import check, lib, stream_of
-from .search import (INT_MAX, NEG_INF, dot_plane, lambda_term,
-                     prepare_query, safe_unit, two_key_topk)
+from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
+                     operand_query, safe_unit, two_key_topk)
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
-           "bintopk_fits", "query_block", "grid_ctas", "wave_chunks",
-           "binned_topk_pool", "binned_topk_pool_plain", "fold_pool_plain",
-           "flush_pool", "binned_lambda_topk"]
+           "prepared_rows", "bintopk_fits", "query_block", "grid_ctas",
+           "wave_chunks", "check_operands", "binned_topk_pool",
+           "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
+           "binned_lambda_topk"]
 
 # Prepared corpora are zero-padded to a multiple of the widest bin count,
 # so one prepared copy serves every k.
@@ -51,6 +60,12 @@ _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block can use
 # K1's CTA holds _PAIRS (query, bin) pairs, 16 a thread, as a block of
 # query_block() queries × _PAIRS / query_block() bins (csrc/bintopk.cu)
 _PAIRS = 4096
+# The bf16 kernel's widest F: the JAX session's binned limit
+# (arrowspace_tpu/index.py:214); its shared memory would admit more.
+BF16_MAX_F = 1536
+# Features of a bf16 operand row are padded to a multiple of this: one
+# 16-byte cp.async carries 8 bf16 (cp.async copies 4, 8 or 16 bytes).
+BF16_ALIGN = 8
 
 
 def binned_topk_depth_for(k: int) -> int:
@@ -74,50 +89,72 @@ def bins_target(k: int) -> int:
     return 512
 
 
-def _bintopk_smem(f: int, qb: int) -> int:
+def _bintopk_smem(f: int, qb: int, use_bf16: bool = False) -> int:
     """K1's shared memory (csrc smem_bytes): the query block's rows,
-    unsplit, padded to whole 8-feature k-steps (row stride FP + 4), and
-    two corpus slices of _PAIRS / qb rows × 64 features at stride 68."""
-    return (qb * (-(-f // 8) * 8 + 4) + 2 * (_PAIRS // qb) * 68) * 4
+    unsplit, padded to whole k-steps (float32: 8 features, row stride
+    FP + 4; bf16: 16 features, FP + 8), and two corpus slices of
+    _PAIRS / qb rows × 64 features at stride 68 (bf16: 72)."""
+    step, qpad, xs, size = (16, 8, 72, 2) if use_bf16 else (8, 4, 68, 4)
+    return (qb * (-(-f // step) * step + qpad)
+            + 2 * (_PAIRS // qb) * xs) * size
 
 
-def query_block(f: int, bsz: int) -> int:
+def query_block(f: int, bsz: int, use_bf16: bool = False) -> int:
     """Queries per CTA of K1 (csrc query_block, the same rule): the
     largest of 128, 64 and 32 whose shared memory fits at this F and
     that the batch, rounded up to a multiple of 32, fills.  A larger
     block reads each corpus slice once for more queries."""
     cap = -(-bsz // 32) * 32
     for qb in (128, 64):
-        if qb <= cap and _bintopk_smem(f, qb) <= _SMEM_LIMIT:
+        if qb <= cap and _bintopk_smem(f, qb, use_bf16) <= _SMEM_LIMIT:
             return qb
     return 32
 
 
-def grid_ctas(bsz: int, bins: int, f: int) -> int:
+def grid_ctas(bsz: int, bins: int, f: int, use_bf16: bool = False) -> int:
     """CTAs per corpus chunk of K1: one per query block and group of
     _PAIRS / query_block bins."""
-    qb = query_block(f, bsz)
+    qb = query_block(f, bsz, use_bf16)
     return -(-bsz // qb) * (bins * qb // _PAIRS)
 
 
-def bintopk_fits(f: int) -> bool:
+def bintopk_fits(f: int, use_bf16: bool = False) -> bool:
     """Whether K1's shared memory fits a block at its smallest query
-    block (32): the same at every bin count."""
-    return f >= 1 and _bintopk_smem(f, 32) <= _SMEM_LIMIT
+    block (32): the same at every bin count.  The bf16 kernel is capped
+    at BF16_MAX_F, the JAX session's binned limit."""
+    if use_bf16:
+        f = -(-f // BF16_ALIGN) * BF16_ALIGN
+        if f > BF16_MAX_F:
+            return False
+    return f >= 1 and _bintopk_smem(f, 32, use_bf16) <= _SMEM_LIMIT
+
+
+def prepared_rows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Corpus rows as a prepared corpus ``like`` holds them: safe_unit in
+    the rows' dtype, then as_operand (the cast to like's dtype, zero
+    padding to its width)."""
+    return as_operand(safe_unit(rows), like)
 
 
 def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor,
-                          rows: int = 0):
+                          rows: int = 0, use_bf16: bool = False):
     """Unit-normalised corpus and its λ, zero-padded to a multiple of
     CORPUS_ALIGN rows, and to at least ``rows`` (a live session's
-    capacity): float32 on CUDA (what the kernel reads), the corpus dtype
-    on the CPU.  Sessions do this once; a row written later by the same
-    arithmetic (safe_unit in the corpus dtype, then the cast) scores
-    bitwise as a prepared row would."""
+    capacity).  λ is in the scoring dtype: float32 on CUDA (what the
+    kernels read), the corpus dtype on the CPU; so is the corpus, or
+    with ``use_bf16`` bf16, its features zero-padded to a multiple of
+    BF16_ALIGN (the JAX package's ``_unit_padded(..., jnp.bfloat16)``).
+    Sessions do this once; a row written later by prepared_rows (safe_unit
+    in the corpus dtype, then the cast) scores bitwise as a prepared row
+    would."""
     dt = torch.float32 if items.is_cuda else items.dtype
-    n = items.shape[0]
+    n, f = items.shape
     pad = (-max(n, rows)) % CORPUS_ALIGN + max(0, rows - n)
-    xhat = torch.nn.functional.pad(safe_unit(items).to(dt), (0, 0, 0, pad))
+    width = -(-f // BF16_ALIGN) * BF16_ALIGN if use_bf16 else f
+    like = items.new_empty((0, width),
+                           dtype=torch.bfloat16 if use_bf16 else dt)
+    xhat = torch.nn.functional.pad(prepared_rows(items, like),
+                                   (0, 0, 0, pad))
     xlam = torch.nn.functional.pad(item_lambdas.to(dt), (0, pad))
     return xhat.contiguous(), xlam.contiguous()
 
@@ -156,7 +193,9 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     qhat (B, F) α-prescaled unit queries, qlam (B,), xhat/xlam the
     prepared corpus (at least ceil(n/bins)·bins rows), c1 = 1-α.
     Returns pool_s (B, chunks, depth, bins), pool_i (same, int32 global
-    row ids, INT_MAX in empty slots) and det (B, chunks, bins).
+    row ids, INT_MAX in empty slots) and det (B, chunks, bins).  bf16
+    qhat and xhat (F a multiple of BF16_ALIGN, 16-byte aligned) take the
+    bf16 kernel; qlam, xlam and the outputs are float32 either way.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
@@ -165,17 +204,13 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                                       depth=depth, bins=bins, chunks=chunks)
     bsz, f = qhat.shape
     n_tiles = -(-n // bins)
-    for t in (qhat, qlam, xhat, xlam):
-        if not (t.is_cuda and t.dtype == torch.float32
-                and t.is_contiguous()):
-            raise ValueError("binned_topk_pool: CUDA float32 contiguous "
-                             "tensors required")
+    bf16 = check_operands("binned_topk_pool", qhat, qlam, xhat, xlam)
     if bins not in KERNEL_BINS or depth not in KERNEL_DEPTHS:
         raise ValueError(f"binned_topk_pool: unsupported bins={bins} "
                          f"depth={depth}")
-    if not bintopk_fits(f):
+    if not bintopk_fits(f, bf16):
         raise ValueError(f"binned_topk_pool: F={f} exceeds the kernel's "
-                         "shared-memory budget")
+                         "gate")
     if xhat.shape[0] < n_tiles * bins or xhat.shape[1] != f:
         raise ValueError("binned_topk_pool: corpus not padded to whole "
                          "bin tiles")
@@ -189,22 +224,50 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                       dtype=torch.float32)
     if bsz == 0 or n <= 0:
         return pool_s, pool_i, det
-    rc = lib().asp_bintopk(
+    entry = "asp_bintopk_bf16" if bf16 else "asp_bintopk"
+    rc = getattr(lib(), entry)(
         qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(), xlam.data_ptr(),
         c1, n, bsz, f, bins, depth, chunks, tiles_per_chunk,
         pool_s.data_ptr(), pool_i.data_ptr(), det.data_ptr(),
         stream_of(qhat))
-    check(rc, "asp_bintopk")
-    binned_topk_pool.launches += 1
+    check(rc, entry)
+    if bf16:
+        binned_topk_pool.launches_bf16 += 1
+    else:
+        binned_topk_pool.launches += 1
     return pool_s, pool_i, det
 
 
 binned_topk_pool.launches = 0
+binned_topk_pool.launches_bf16 = 0
+
+
+def check_operands(name: str, qhat, qlam, xhat, xlam) -> bool:
+    """Raise unless the tensors are what K1's and K3's kernels read:
+    CUDA, contiguous, qlam and xlam float32, and qhat and xhat both
+    float32 or both bf16 (then F a multiple of BF16_ALIGN and both
+    16-byte aligned, for the 16-byte copies).  Returns whether the
+    operands are bf16."""
+    for t in (qhat, qlam, xhat, xlam):
+        if not (t.is_cuda and t.is_contiguous()):
+            raise ValueError(f"{name}: CUDA contiguous tensors required")
+    bf16 = qhat.dtype == torch.bfloat16
+    want = torch.bfloat16 if bf16 else torch.float32
+    if (qhat.dtype != want or xhat.dtype != want
+            or qlam.dtype != torch.float32 or xlam.dtype != torch.float32):
+        raise ValueError(f"{name}: qhat and xhat both float32 or both "
+                         "bf16, qlam and xlam float32 required")
+    if bf16 and (qhat.shape[1] % BF16_ALIGN or qhat.data_ptr() % 16
+                 or xhat.data_ptr() % 16):
+        raise ValueError(f"{name}: bf16 operands need F a multiple of "
+                         f"{BF16_ALIGN} and 16-byte aligned rows")
+    return bf16
 
 
 def binned_topk_pool_plain(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                            depth: int, bins: int, chunks: int):
-    """Plain PyTorch version of the K1 kernel, same outputs and layout."""
+    """Plain PyTorch version of the K1 kernel, same outputs and layout;
+    bf16 operands are multiplied in float32 (dot_plane)."""
     x_n, l_n = xhat[:n], xlam[:n]
 
     def scores(b0, b1):
@@ -285,24 +348,32 @@ def flush_pool(pool_s, pool_i, det, k: int, shift: float):
 
 
 def binned_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
-                       *, k: int, prepared: bool = False, n_items: int = 0):
+                       *, k: int, prepared: bool = False, n_items: int = 0,
+                       use_bf16: bool = False):
     """Binned λ-aware top-k: (scores (B,k), ids (B,k), flags (B,),
     det (B, bins)).  Flagged rows may miss a top-k element to a deep bin
     collision and must be repaired by the caller (ops/bin_repair);
     unflagged rows are exact.
 
     ``prepared=True`` takes items/item_lambdas from prepare_binned_corpus
-    and the true row count from n_items."""
+    (bf16 when that corpus is) and the true row count from n_items;
+    otherwise the corpus is prepared here, in bf16 with ``use_bf16``.
+    The query is prescaled in the scoring dtype (item_lambdas') and only
+    then cast to the corpus's dtype; λ and c1 stay in the scoring
+    dtype."""
     if not prepared:
         n_items = items.shape[0]
-        items, item_lambdas = prepare_binned_corpus(items, item_lambdas)
+        items, item_lambdas = prepare_binned_corpus(items, item_lambdas,
+                                                    use_bf16=use_bf16)
     n = n_items
     depth, bins = binned_topk_depth_for(k), bins_target(k)
-    dt = items.dtype
-    qhat, c1 = prepare_query(queries, alpha, dtype=dt)
+    dt = item_lambdas.dtype
+    qhat, c1 = operand_query(queries, alpha, dt, items)
     qlam = query_lambdas.to(dt).contiguous()
-    chunks = _default_chunks(grid_ctas(qhat.shape[0], bins, qhat.shape[1]),
-                             -(-n // bins), qhat.device)
+    chunks = _default_chunks(
+        grid_ctas(qhat.shape[0], bins, qhat.shape[1],
+                  qhat.dtype == torch.bfloat16),
+        -(-n // bins), qhat.device)
     pool_s, pool_i, det = binned_topk_pool(qhat, qlam, items, item_lambdas,
                                            c1, n, depth=depth, bins=bins,
                                            chunks=chunks)

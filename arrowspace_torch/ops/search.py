@@ -10,6 +10,13 @@ Two rules hold everywhere in this package:
   ``torch.topk``, whose tie order is unspecified;
 - on the CPU a score plane is computed so that bitwise-identical corpus
   rows get bitwise-identical scores (see ``dot_plane``).
+
+In bf16 serving (``precision="bf16"``) only the product's operands are
+bf16: the query is normalised and α-prescaled in the scoring dtype
+(float32 on CUDA, the index dtype on the CPU) and then cast
+(``operand_query``), the product upcasts both operands to float32, as the
+kernels accumulate bf16 products in float32, and λ, c1 and the scores
+stay in the scoring dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["NEG_INF", "INT_MAX", "safe_unit", "dot_plane", "row_dots",
-           "prepare_query", "shifted_lambda_plane", "two_key_topk", "exact_topk",
+           "prepare_query", "as_operand", "operand_query",
+           "shifted_lambda_plane", "two_key_topk", "exact_topk",
            "batched_lambda_aware_topk", "binned_topk_with_repair",
            "rescore_topk_f64", "hybrid_search_device_fused"]
 
@@ -39,14 +47,25 @@ def safe_unit(rows: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(rows))
 
 
+def _f32_operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """bf16 operands upcast to float32 (every product of two bf16 values
+    is exact in float32), as the bf16 kernels' tensor cores accumulate
+    them; any other pair unchanged.  A bf16 matmul would return bf16 and
+    may reduce in reduced precision: not the kernels' function."""
+    if torch.bfloat16 in (a.dtype, b.dtype):
+        return a.float(), b.float()
+    return a, b
+
+
 def dot_plane(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, F)·(N, F)ᵀ -> (B, N).
+    """(B, F)·(N, F)ᵀ -> (B, N); bf16 operands give a float32 plane.
 
     On the CPU the blocked BLAS product can round bitwise-identical
     corpus rows one ulp apart (they land in different SIMD remainder
     lanes), which breaks the duplicate-row tie order the reference pins.
     There the plane is a product-sum along F, which reduces every row the
     same way.  On CUDA it is one full-float32 matmul (TF32 is off)."""
+    a, b = _f32_operands(a, b)
     if a.device.type != "cpu":
         return a @ b.T
     out = a.new_empty((a.shape[0], b.shape[0]))
@@ -65,7 +84,8 @@ def row_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """(R, C) dots of each query row of q (R, F) with its own candidate
     rows (R, C, F), by the rule of dot_plane: a product-sum on the CPU
     (every row reduced alike, so identical rows tie bitwise), one batched
-    float32 product on CUDA."""
+    float32 product on CUDA; bf16 operands are upcast to float32 first."""
+    q, rows = _f32_operands(q, rows)
     if q.device.type == "cpu":
         return (rows * q[:, None, :]).sum(dim=-1)
     return torch.bmm(rows, q[:, :, None])[:, :, 0]
@@ -85,6 +105,25 @@ def prepare_query(queries: torch.Tensor, alpha: float, dtype=None):
     c1 = float(1.0 - a)
     qhat = (safe_unit(queries).to(dt) * a).to(dt)
     return qhat.contiguous(), c1
+
+
+def as_operand(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """rows cast to like's dtype and zero-padded to its width, as the
+    kernels read a prepared corpus ``like`` (a bf16 corpus pads F to
+    whole 16-byte rows; zeros add nothing to a dot product)."""
+    out = rows.to(like.dtype)
+    pad = like.shape[1] - out.shape[1]
+    return torch.nn.functional.pad(out, (0, pad)) if pad else out
+
+
+def operand_query(queries: torch.Tensor, alpha: float, dtype,
+                  corpus: torch.Tensor):
+    """(the kernels' query operand, c1) for a prepared corpus
+    (ops.bintopk.prepare_binned_corpus): α·q̂ prescaled in the scoring
+    dtype ``dtype`` by prepare_query, then as_operand.  c1 is a Python
+    float of the scoring dtype, never of bf16."""
+    qhat, c1 = prepare_query(queries, alpha, dtype=dtype)
+    return as_operand(qhat, corpus).contiguous(), c1
 
 
 def lambda_term(qlam: torch.Tensor, xlam: torch.Tensor,
@@ -179,7 +218,8 @@ def hybrid_search_device_fused(query, query_lambda, items, item_lambdas,
     return s[0], i[0]
 
 
-def binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, *, k: int):
+def binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, *, k: int,
+                            use_bf16: bool = False):
     """Binned streaming top-k (K1) plus exact repair of flagged rows.
 
     The binned kernel is exact except where more than `depth` true top-k
@@ -189,9 +229,11 @@ def binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, *, k: int):
     fallback for rows with more than MAX_FIRED fired bins, so the result
     equals the full-scan top-k.  The flag check synchronises with the
     device; serving sessions overlap it with the next batch instead (both
-    run ops.bin_repair.BinnedTopK)."""
+    run ops.bin_repair.BinnedTopK).  ``use_bf16`` runs K1, the repair and
+    K3 on bf16 operands."""
     from .bin_repair import BinnedTopK
-    return BinnedTopK(items, item_lambdas, alpha, k)(q, qlam)
+    return BinnedTopK(items, item_lambdas, alpha, k,
+                      use_bf16=use_bf16)(q, qlam)
 
 
 def rescore_topk_f64(queries, query_lambdas, host_rows, item_lambdas,

@@ -113,6 +113,23 @@ launches and the merge, not how a mesh of cards scales):
 Each prints its ms a batch beside the single-chip session's and the
 merge's share of device time under torch.profiler.
 
+Three phases cover bf16 serving (the bf16 modes of K1 and K3, bf16
+operands with float32 accumulation), each on an index above:
+
+- [3b], [11b], [14b] a bf16 SearchSession on the cosine, wide and
+  1536-wide indexes beside the float32 session, both timed over the 16
+  batches in this run; every one resolves "binned" (K1's bf16 gate
+  admits F <= 1536) and must launch K1's bf16 mode once a batch (and K3's
+  for batch 0's overflowing repair) and no float32 K1 or K3; 256 queries
+  of batch 0 are held against the plain bf16 full scan (the same bf16
+  operands, a float32 product, the stable two-key sort), and the top-10
+  overlap with the float32 session is logged, not gated; then K1's bf16
+  mode against its plain version at that width, and on the cosine index
+  K3's at the whole batch and at a repair's single row;
+- [3d] a live bf16 session on the cosine index: 4 batches bitwise the
+  static bf16 session's, then 4096 rows added and 2 batches held by
+  buffer position against the plain bf16 scan of the live rows.
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -135,7 +152,11 @@ wide repair's shape; for K2 and K5 their λ error against a float64 plain
 λ, K2's record at the cosine build's shape and K5's at the 1536-wide
 build's row window, each held against its plain version) and the time of a
 PyTorch call computing the same function (null where none does), then
-the last line {"ok": true, "device": ...}.
+the last line {"ok": true, "device": ...}.  The bf16 modes have their own
+entries, bintopk_bf16 (launches on the cosine bf16 session's path; its
+records at_768 and at_1536) and merge_topk_bf16 (its record at_repair),
+their bounds at the dense bf16 peak, their matmul_ms the time of the
+bf16 product alone.
 """
 
 from __future__ import annotations
@@ -174,6 +195,11 @@ E_TOL = 5e-5
 # dense TF32 on the tensor cores (the 3×TF32 products of K1, K3, K6, K7).
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
+# Dense bf16 on the tensor cores (K1's and K3's bf16 modes).
+PEAK_BF16_FLOPS = 989.4e12
+# The live bf16 session: batches held bitwise to the static bf16 session,
+# rows added, then batches held to the plain bf16 scan of the live rows.
+BF16_LIVE_BATCHES, BF16_LIVE_ADD, BF16_LIVE_AFTER = 4, 4096, 2
 
 
 class SmokeFailure(Exception):
@@ -249,12 +275,14 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, n_bytes: float, tf32_ops: float = 0.0) -> tuple:
+def bound(ops: float, n_bytes: float, tf32_ops: float = 0.0,
+          bf16_ops: float = 0.0) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for work
     of ``ops`` float32 operations on the CUDA cores and ``tf32_ops`` TF32
-    operations on the tensor cores that must move ``n_bytes`` (each input
-    read once, each output written once)."""
-    t_ops = max(ops / PEAK_F32_FLOPS, tf32_ops / PEAK_TF32_FLOPS) * 1e3
+    (``bf16_ops`` bf16) operations on the tensor cores that must move
+    ``n_bytes`` (each input read once, each output written once)."""
+    t_ops = max(ops / PEAK_F32_FLOPS, tf32_ops / PEAK_TF32_FLOPS,
+                bf16_ops / PEAK_BF16_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -488,6 +516,13 @@ def tc_bounds(b: int, n: int, f: int, tail: int, n_bytes: int) -> tuple:
     return b_ms, b_by, bound(b * n * (2.0 * f + tail), n_bytes)[0]
 
 
+def bf16_bounds(b: int, n: int, f: int, tail: int, n_bytes: int) -> tuple:
+    """(bound_ms, bound_by) of K1's and K3's bf16 modes: the 2F bf16
+    products a pair at the dense bf16 peak beside ``tail`` fp32
+    operations a pair of the score, and the bytes."""
+    return bound(tail * b * n, n_bytes, bf16_ops=2.0 * b * n * f)
+
+
 def lambda_bounds(rows: int, n: int, f: int, n_bytes: int) -> tuple:
     """The two bounds of K2 and K5, whose five n×n quadratic forms a row
     run on the tensor cores as 3×TF32 (lambda_tile.cuh): (bound_ms,
@@ -629,11 +664,13 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
     chunk) partial top-k held against its plain version as one row and
     its scores against float64; its time, the plain version's, its TF32
     and fp32 bounds (the 3·2F TF32 products
-    and 5 fp32 operations of the λ term a pair) and torch.matmul's time
-    for the product alone, as context."""
+    and 5 fp32 operations of the λ term a pair; with bf16 operands the
+    2F bf16 products, bf16_bounds) and torch.matmul's time for the
+    product alone, as context."""
     from arrowspace_torch.ops import topk as tk
     bsz, f = qhat.shape
-    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K)
+    bf16 = qhat.dtype == torch.bfloat16
+    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K, bf16)
     args = (qhat, qlam, xhat, xlam, c1, n)
     kw = dict(k=K, rows_per_chunk=rows_pc)
     s_k, i_k = tk.merge_topk_partial(*args, **kw)
@@ -646,8 +683,11 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
                                    qlam.repeat_interleave(chunks, 0), xhat,
                                    xlam, c1, i_k.reshape(-1, K).long()))
     del s_p, i_p
-    b_ms, b_by, b32_ms = tc_bounds(
-        bsz, n, f, 5, nbytes(qhat, qlam, xhat[:n], xlam[:n], s_k, i_k))
+    moved = nbytes(qhat, qlam, xhat[:n], xlam[:n], s_k, i_k)
+    if bf16:
+        (b_ms, b_by), b32_ms = bf16_bounds(bsz, n, f, 5, moved), None
+    else:
+        b_ms, b_by, b32_ms = tc_bounds(bsz, n, f, 5, moved)
     out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                bound_fp32_ms=b32_ms, library_ms=None,
                ms=cuda_ms(lambda: tk.merge_topk_partial(*args, **kw),
@@ -655,9 +695,13 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
                plain_ms=cuda_ms(lambda: tk.merge_topk_partial_plain(
                    *args, **kw), reps=2),
                matmul_ms=matmul_ms(torch, qhat, xhat[:n]))
+    if bf16:
+        del out["bound_fp32_ms"]
+    b32 = "none" if b32_ms is None else f"{b32_ms:.3f}"
     log(f"    {name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
-        f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32_ms:.3f} "
-        f"matmul context ({bsz}x{n}x{f}) {out['matmul_ms']:.3f} ms")
+        f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32} "
+        f"matmul context ({bsz}x{n}x{f}, {qhat.dtype}) "
+        f"{out['matmul_ms']:.3f} ms")
     return out
 
 
@@ -2913,6 +2957,184 @@ def multiprocess_phase(torch, dev):
     return r["launches"]
 
 
+def bf16_operands(torch, xh, q_np, qlam, dev):
+    """The bf16 operands of a query batch against a prepared bf16 corpus
+    xh (prepare_binned_corpus(use_bf16=True)): (qh, qlam, c1), α·q̂
+    prescaled in float32 and then cast, as the wrappers do."""
+    from arrowspace_torch.ops.search import operand_query
+    q = torch.as_tensor(q_np, device=dev, dtype=torch.float32)
+    qh, c1 = operand_query(q, ALPHA, torch.float32, xh)
+    return qh, qlam.float().contiguous(), c1
+
+
+def bf16_scan(torch, xh, xl, n, qh, qlam, c1):
+    """The plain bf16 full scan: the same bf16 operands, a float32
+    product (dot_plane), the stable two-key sort; (scores, ids) with c1
+    restored."""
+    from arrowspace_torch.ops.search import dot_plane, exact_topk, \
+        lambda_term
+    s, i = exact_topk(dot_plane(qh, xh[:n]) - lambda_term(qlam, xl[:n], c1),
+                      K)
+    return s + c1, i
+
+
+def bf16_session(torch, counters, index, session, batches, dev, step, name):
+    """A bf16 SearchSession of the index beside its float32 session
+    ``session``: both timed over the same 16 batches in this call (the
+    float32 one first), the bf16 one with the counters set to 0 just
+    before its construction and read right after its stream.  It must
+    resolve "binned" (K1's bf16 gate admits F <= 1536) and launch K1's
+    bf16 mode once a batch and for its warm-up, K3's bf16 mode for batch
+    0's overflowing repair, and no float32 K1 or K3.  256 queries of
+    batch 0 are held against the plain bf16 full scan (agree, scores
+    against float64 of the bf16 operands too); the top-10 overlap with
+    the float32 session is logged, not gated.  Returns (session, its
+    launches, ms a batch, the float32 session's ms)."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops import bintopk as bt
+
+    log(f"[{step}] bf16 session on the {name} index")
+    ref, ms32 = stream_ms(torch, dev, session, batches)
+    reset(counters)
+    sess = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA,
+                                     precision="bf16")
+    check((sess.kernel, sess.precision) == ("binned", "bf16"),
+          f"bf16 session: {sess.kernel} {sess.precision}")
+    sess.warmup()
+    got, ms16 = stream_ms(torch, dev, sess, batches)
+    launches = {key: counters[c].launches for key, c in (
+        ("bintopk_bf16", "k1b"), ("merge_topk_bf16", "k3b"),
+        ("bintopk", "k1"), ("merge_topk", "k3"))}
+    log(f"  launches: {launches}; ms a batch: bf16 {ms16:.3f}, float32 "
+        f"{ms32:.3f}")
+    check(launches["bintopk_bf16"] == N_BATCHES + 1,
+          "K1's bf16 mode did not launch once a batch and for the warm-up")
+    check(launches["merge_topk_bf16"] >= 1,
+          "batch 0's repair never reached K3's bf16 mode")
+    check(launches["bintopk"] == 0 and launches["merge_topk"] == 0,
+          "the bf16 session launched a float32 kernel")
+    check(all(r[0].shape == (BATCH, K) and np.isfinite(r[0]).all()
+              for r in got), "bf16 session output shape/finiteness")
+    a = index.aspace
+    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
+    _, qlam = _query_prep(a, index.gl)[1](q)
+    xh, xl = bt.prepare_binned_corpus(a.data, a.lambdas, use_bf16=True)
+    qh, qlam, c1 = bf16_operands(torch, xh, batches[0][:256], qlam, dev)
+    ps, pi = bf16_scan(torch, xh, xl, a.nitems, qh, qlam, c1)
+    s0, i0 = got[0][0][:256], got[0][1][:256]
+    agree(f"bf16 session vs plain bf16 full scan ({name}, 256 queries)",
+          s0, i0, ps, pi, exact=exact_scores(
+              qh, qlam, xh, xl, c1, torch.as_tensor(i0, device=dev)) + c1)
+    overlap = np.mean([len(set(r16) & set(r32)) / K for r16, r32 in zip(
+        np.concatenate([g[1] for g in got]),
+        np.concatenate([r[1] for r in ref]))])
+    gap = max(float(np.abs(g[0] - r[0]).max()) for g, r in zip(got, ref))
+    log(f"  top-{K} overlap with the float32 session over {N_BATCHES} "
+        f"batches: {overlap:.4f}; max |score bf16 - float32| {gap:.3e}")
+    return sess, launches, ms16, ms32
+
+
+def k1_bf16_vs_plain(torch, index, batches, dev, name):
+    """K1's bf16 mode against its plain version on batch 0 of the index
+    (the session's shapes), flushed, det too; its time, the plain
+    version's, its bound (bf16_bounds) and torch.matmul of the bf16
+    product alone, as context.  Returns (record, the operands)."""
+    from arrowspace_torch.ops import bintopk as bt
+
+    log(f"  bf16 kernels against their plain versions ({name})")
+    a = index.aspace
+    n = a.nitems
+    xh, xl = bt.prepare_binned_corpus(a.data, a.lambdas, use_bf16=True)
+    qlam = a.prepare_query_items_batch(batches[0], index.gl)
+    qh, qlam, c1 = bf16_operands(torch, xh, batches[0], qlam, dev)
+    depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
+    chunks = bt._default_chunks(bt.grid_ctas(BATCH, bins, qh.shape[1], True),
+                                -(-n // bins), dev)
+    args = (qh, qlam, xh, xl, c1, n)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    out_k = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), K, c1)
+    out_p = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw), K, c1)
+    err = agree(f"K1 bf16 {name} {BATCH}x{n}x{qh.shape[1]} chunks={chunks}",
+                out_k[0], out_k[1], out_p[0], out_p[1],
+                exact=exact_scores(qh, qlam, xh, xl, c1, out_k[1]) + c1)
+    det_err = float((out_k[3] - out_p[3]).abs().max())
+    check(det_err <= TOL, f"K1 bf16 det disagrees at {name}: {det_err}")
+    pool = bt.binned_topk_pool(*args, **kw)
+    b_ms, b_by = bf16_bounds(BATCH, n, qh.shape[1], 5,
+                             nbytes(qh, qlam, xh[:n], xl[:n], *pool))
+    rec = dict(max_abs_err=max(err, det_err), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
+               ms=cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)),
+               plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
+                   *args, **kw), reps=2),
+               matmul_ms=matmul_ms(torch, qh, xh[:n]))
+    log(f"    K1 bf16 {name}: ms={rec['ms']:.3f} plain_ms="
+        f"{rec['plain_ms']:.3f} bound_ms={b_ms:.3f} ({b_by}) bf16 matmul "
+        f"context {rec['matmul_ms']:.3f} ms; flags kernel="
+        f"{int(out_k[2].sum())} plain={int(out_p[2].sum())}")
+    return rec, args
+
+
+def k3_bf16_vs_plain(torch, qh, qlam, xh, xl, c1, n):
+    """K3's bf16 mode against its plain version on the whole batch and at
+    a repair's single row (k3_vs_plain): its record, without launches."""
+    k3 = k3_vs_plain(torch, qh, qlam, xh, xl, c1, n, "K3 bf16 merge_topk")
+    k3["at_repair"] = k3_vs_plain(torch, qh[:1], qlam[:1], xh, xl, c1, n,
+                                  "K3 bf16 merge_topk at a repair's row")
+    return k3
+
+
+def live_bf16_phase(torch, counters, index, static, batches, rows, dev):
+    """A live bf16 session on the cosine index (capacity n + 8192): its
+    first BF16_LIVE_BATCHES batches bitwise the static bf16 session's,
+    then BF16_LIVE_ADD rows added, then BF16_LIVE_AFTER batches held by
+    buffer position against the plain bf16 scan of the live rows (bf16
+    operands made anew from the live raw rows and λ).  Counters are read
+    around each stream.  Returns its K1 bf16 launches."""
+    from arrowspace_torch.ops import bintopk as bt
+
+    n0 = index.nitems
+    log(f"[3d] live bf16 session on the cosine index, capacity {n0 + 8192}")
+    live = index.make_live_session(batch_size=BATCH, k=K, alpha=ALPHA,
+                                   capacity=n0 + 8192, precision="bf16")
+    check((live.kernel, live.precision) == ("binned", "bf16"),
+          f"live bf16 session: {live.kernel} {live.precision}")
+    live.warmup()
+    ref = list(static.search_stream(batches[:BF16_LIVE_BATCHES]))
+    reset(counters)
+    got, ms = stream_ms(torch, dev, live, batches[:BF16_LIVE_BATCHES])
+    k1b = counters["k1b"].launches
+    check(k1b == BF16_LIVE_BATCHES and counters["k1"].launches == 0,
+          f"live bf16 stream: K1 bf16 {k1b}, float32 "
+          f"{counters['k1'].launches}")
+    same_results("live bf16 session vs the static bf16 session", got, ref)
+    added = more_rows(BF16_LIVE_ADD, N_FEAT, SEED + 20)
+    _, t = timed(torch, dev, lambda: live.add(added))
+    qb = live_batches(np.concatenate([rows[:4096], added]), SEED + 21,
+                      BF16_LIVE_AFTER)
+    reset(counters)
+    res = list(live.search_stream(qb))
+    check(counters["k1b"].launches == BF16_LIVE_AFTER,
+          "live bf16 after add: K1 bf16 not once a batch")
+    k1b += counters["k1b"].launches
+    n = live.nitems
+    xh, xl = bt.prepare_binned_corpus(live._raw[:n], live._lam[:n],
+                                      use_bf16=True)
+    for b, (q_np, r) in enumerate(zip(qb, res)):
+        q = torch.as_tensor(q_np[:256], device=dev, dtype=torch.float32)
+        _, qlam = live._prepare(q)
+        qh, qlam, c1 = bf16_operands(torch, xh, q_np[:256], qlam, dev)
+        ps, pi = bf16_scan(torch, xh, xl, n, qh, qlam, c1)
+        pos = live_positions(live, r[1][:256])
+        agree(f"live bf16 after add {BF16_LIVE_ADD}, batch {b} vs plain "
+              "bf16 scan of the live rows", r[0][:256], pos, ps, pi,
+              exact=exact_scores(qh, qlam, xh, xl, c1,
+                                 torch.as_tensor(pos, device=dev)) + c1)
+    log(f"  live bf16: {ms:.3f} ms a batch; add {BF16_LIVE_ADD} rows "
+        f"{t * 1e3:.3f} ms; nitems={n}")
+    return k1b
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -2929,7 +3151,28 @@ KERNELS = {
                        "arrowspace_tpu/ops/pallas_bintopk.py:934"),
     "energy_chord": ("arrowspace_torch/csrc/energy_chord.cu",
                      "arrowspace_tpu/ops/energy_approx.py:404"),
+    # the bf16 modes (the TPU kernels' use_bf16=True)
+    "bintopk_bf16": ("arrowspace_torch/csrc/bintopk.cu",
+                     "arrowspace_tpu/ops/pallas_bintopk.py:667"),
+    "merge_topk_bf16": ("arrowspace_torch/csrc/merge_topk.cu",
+                        "arrowspace_tpu/ops/pallas_topk.py:263"),
 }
+
+
+class Bf16Count:
+    """The bf16 launch count of a wrapper (``launches_bf16``) under the
+    ``launches`` name the counters are read and reset by."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_bf16 = value
 
 
 def main() -> int:
@@ -2959,7 +3202,9 @@ def main() -> int:
                 "k6": energy_bintopk.binned_energy_pool,
                 "k7": energy_approx.binned_energy_approx_pool,
                 "repair": bin_repair.strided_lambda_repair,
-                "erepair": bin_repair.strided_energy_repair}
+                "erepair": bin_repair.strided_energy_repair,
+                "k1b": Bf16Count(bintopk.binned_topk_pool),
+                "k3b": Bf16Count(topk.merge_topk_partial)}
     try:
         card = card_line()
         log(f"[1] card: {card}; torch {torch.__version__} cuda "
@@ -2983,8 +3228,18 @@ def main() -> int:
         index, session, batches, launches = main_path(torch, counters, rows,
                                                       canon, dev)
         rec = kernels_vs_plain(torch, index, batches, dev)
-        where_time_goes(torch, (("cosine session", session),), batches,
-                        step=4)
+        bf16_sess, l16, _, _ = bf16_session(torch, counters, index, session,
+                                            batches, dev, "3b", "cosine")
+        rec["bintopk_bf16"], ops16 = k1_bf16_vs_plain(torch, index, batches,
+                                                      dev, "cosine")
+        rec["merge_topk_bf16"] = k3_bf16_vs_plain(torch, *ops16)
+        del ops16
+        k1b_live = live_bf16_phase(torch, counters, index, bf16_sess,
+                                   batches, rows, dev)
+        where_time_goes(torch, (("cosine session", session),
+                                ("cosine bf16 session", bf16_sess)),
+                        batches, step=4)
+        del bf16_sess
         ref, ms_static, k1_reloaded = persistence_phase(
             torch, counters, index, batches, dev)
         k1_live = live_phase(torch, counters, index, rows, canon, batches,
@@ -3041,8 +3296,14 @@ def main() -> int:
         k5_rec, k3_wide, k4_wide = wide_kernels_vs_plain(torch, index,
                                                          batches, dev)
         rec.update(k5_rec)
-        where_time_goes(torch, (("wide projected session", session),),
+        w16_sess, w16, _, _ = bf16_session(torch, counters, index, session,
+                                           batches, dev, "11b", "wide 768")
+        k1b_768, _ = k1_bf16_vs_plain(torch, index, batches, dev,
+                                      "wide 768")
+        where_time_goes(torch, (("wide projected session", session),
+                                ("wide bf16 session", w16_sess)),
                         batches, step=11)
+        del w16_sess
         k1_snapshot = wide_snapshot_phase(torch, counters, index, batches,
                                           dev)
         wide_pruned = wide_pruned_phase(torch, counters, index, batches, dev)
@@ -3052,6 +3313,14 @@ def main() -> int:
         index, session, batches, x_launches, x_ms = x_path(torch, counters,
                                                            dev)
         k4_x, k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
+        x16_sess, x16, _, _ = bf16_session(torch, counters, index, session,
+                                           batches, dev, "14b", "1536-wide")
+        k1b_1536, _ = k1_bf16_vs_plain(torch, index, batches, dev,
+                                       "1536-wide")
+        where_time_goes(torch, (("1536-wide bf16 session", x16_sess),),
+                        batches, step=14)
+        del x16_sess
+        torch.cuda.empty_cache()
         plain, plain_ms = x_plain_session(torch, index, batches, dev)
         log(f"  1536-wide sessions: merge {x_ms:.3f} ms a batch, plain "
             f"{plain_ms:.3f} ms a batch")
@@ -3093,6 +3362,23 @@ def main() -> int:
             "wide_768": w_launches["merge_topk"],
             "wide_1536": x_launches["merge_topk"]}
         launches["merge_topk"] = x_launches["merge_topk"]
+        k1b = rec["bintopk_bf16"]
+        k1b["max_abs_err"] = max(k1b["max_abs_err"], k1b_768["max_abs_err"],
+                                 k1b_1536["max_abs_err"])
+        k1b["at_768"], k1b["at_1536"] = k1b_768, k1b_1536
+        k3b = rec["merge_topk_bf16"]
+        k3b["max_abs_err"] = max(k3b["max_abs_err"],
+                                 k3b["at_repair"]["max_abs_err"])
+        launches["bintopk_bf16"] = l16["bintopk_bf16"]
+        launches["merge_topk_bf16"] = l16["merge_topk_bf16"]
+        k1b["launches_by_path"] = {
+            "cosine": l16["bintopk_bf16"], "live_cosine": k1b_live,
+            "wide_768": w16["bintopk_bf16"],
+            "wide_1536": x16["bintopk_bf16"]}
+        k3b["launches_by_path"] = {
+            "cosine": l16["merge_topk_bf16"],
+            "wide_768": w16["merge_topk_bf16"],
+            "wide_1536": x16["merge_topk_bf16"]}
         for name, by_path in {
                 "bintopk": {"cosine": launches["bintopk"],
                             "reloaded_cosine": k1_reloaded,
@@ -3147,7 +3433,7 @@ def main() -> int:
                     "library_ms")},
                 **{key: v for key, v in rec[name].items()
                    if key in ("bound_fp32_ms", "matmul_ms", "at_768",
-                              "at_1536", "wide_repair_768",
+                              "at_1536", "wide_repair_768", "at_repair",
                               "launches_by_path", "max_abs_err_f64",
                               "at_build")}}
                for name, (src, rep) in KERNELS.items()]

@@ -9,6 +9,9 @@ rows bitwise, the zero-row device build, the graph-replayed step against
 the step op by op), the double-buffered streaming against a copy on
 the compute stream, and the mesh: four shards on the card against one
 shard and the float64 CPU mesh, the strided mesh repairs included.
+Last, the bf16 modes of K1 and K3 against their plain versions (the
+same bf16 operands, a float32 product), bf16 rows tied by id, and the
+bf16 static and live sessions on the card.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -1699,3 +1702,191 @@ def test_mesh_energy_session_on_card_matches_cpu(dev):
     assert float(np.abs(s4 - s64).max()) <= 5e-5
     assert float(np.mean(i4 == i64)) >= 0.99
     assert list(i4[0][:5]) == list(i64[0][:5])
+
+
+# bf16 modes of K1 and K3 (asp_bintopk_bf16, asp_merge_topk_bf16): the
+# kernels multiply bf16 operands, exact products accumulated in float32,
+# so they are held to their plain versions (the same bf16 operands in a
+# float32 product) and to float64 scores of those operands within TOL.
+
+def _inputs_bf16(dev, n, f, b, seed):
+    """The bf16 operands of a random corpus and batch, as the wrappers
+    make them: (qhat, qlam, xhat, xlam, c1), F padded to a multiple of
+    8."""
+    from arrowspace_torch.ops.search import operand_query
+    rng = np.random.default_rng(seed)
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (rng.uniform(0.1, 1.0, (b, f)),
+                              rng.uniform(0, 1, b),
+                              rng.uniform(0.1, 1.0, (n, f)),
+                              rng.uniform(0, 1, n)))
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    return qh, ql, xh, xlh, c1
+
+
+@pytest.mark.parametrize("f", [128, 40, 7, 768, 1536])
+@pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4)])
+def test_k1_bf16_pool_matches_plain(dev, f, bins, depth):
+    n, b = 5003, 37
+    args = _inputs_bf16(dev, n, f, b, seed=f + bins)
+    assert args[0].dtype == torch.bfloat16 and args[0].shape[1] % 8 == 0
+    f32, b16 = bt.binned_topk_pool.launches, bt.binned_topk_pool.launches_bf16
+    kw = dict(depth=depth, bins=bins, chunks=3)
+    ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
+    rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
+    torch.cuda.synchronize()
+    assert bt.binned_topk_pool.launches_bf16 == b16 + 1
+    assert bt.binned_topk_pool.launches == f32
+    assert ps.dtype == torch.float32 and ps.shape == rs.shape
+    _assert_scored_ids(ps, pi, rs, args)
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    assert float((det - rdet).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("f", [128, 768])
+def test_k1_bf16_rows_rounding_alike_tie_by_id(dev, f):
+    """Distinct float32 rows whose bf16 unit rows are equal score bitwise
+    alike in K1's bf16 mode and come back in ascending id order, as in
+    its plain version."""
+    n, b, chunks = 5003, 19, 3
+    rng = np.random.default_rng(f)
+    q, ql = rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b)
+    x, xl = rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)
+    ids = [3, 38, 1700, 1828, 4000, 4999]
+    x[ids] = q[0] * (1.0 + 1e-6 * rng.standard_normal((len(ids), f)))
+    xl[ids] = ql[0]
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (q, ql, x, xl))
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+    from arrowspace_torch.ops.search import operand_query
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    assert not torch.equal(x[ids[0]], x[ids[1]])
+    assert bool((xh[ids] == xh[ids[0]]).all())
+    args = (qh, ql, xh, xlh, c1, n)
+    kw = dict(depth=3, bins=128, chunks=chunks)
+    s, i, _, _ = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), 10, c1)
+    rs, ri, _, _ = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw),
+                                 10, c1)
+    torch.cuda.synchronize()
+    assert i[0, :len(ids)].tolist() == ids == ri[0, :len(ids)].tolist()
+    assert bool((s[0, :len(ids)] == s[0, 0]).all())
+
+
+@pytest.mark.parametrize("f", [40, 768, 1536])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_k3_bf16_partial_matches_plain(dev, f, k):
+    n, b = 5003, 70
+    args = _inputs_bf16(dev, n, f, b, seed=f + k)
+    rpc = tk._chunk_rows(b, n, dev, k, True)
+    f32, b16 = (tk.merge_topk_partial.launches,
+                tk.merge_topk_partial.launches_bf16)
+    s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rpc)
+    rs, ri = tk.merge_topk_partial_plain(*args, n, k=k, rows_per_chunk=rpc)
+    torch.cuda.synchronize()
+    assert tk.merge_topk_partial.launches_bf16 == b16 + 1
+    assert tk.merge_topk_partial.launches == f32
+    assert s.shape == rs.shape == (b, -(-n // rpc), k)
+    _assert_scored_ids(s, i, rs, args)
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
+
+
+@pytest.mark.parametrize("f", [128, 768])
+def test_k1_and_k3_bf16_score_a_pair_bitwise_alike(dev, f):
+    """K1's and K3's bf16 modes run one k-step sequence a pair, so every
+    row both return for a query scores bitwise alike."""
+    n, b = 20_000, 64
+    args = _inputs_bf16(dev, n, f, b, seed=f)
+    pool_s, pool_i, _ = bt.binned_topk_pool(*args, n, depth=3, bins=128,
+                                            chunks=2)
+    s, i = tk.merge_topk_partial(*args, n, k=128, rows_per_chunk=tk._chunk_rows(
+        b, n, dev, 128, True))
+    torch.cuda.synchronize()
+    dense = torch.full((b, n + 1), float("nan"), device=dev)
+    pi = pool_i.reshape(b, -1).long().clamp_max(n)
+    dense.scatter_(1, pi, pool_s.reshape(b, -1))
+    got = dense.gather(1, i.reshape(b, -1).long().clamp_max(n))
+    both = ~torch.isnan(got) & (i.reshape(b, -1) != INT_MAX)
+    assert int(both.sum()) >= b * 100
+    assert torch.equal(got[both], s.reshape(b, -1)[both])
+
+
+def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    qh, ql, xh, xlh, c1 = _inputs_bf16(dev, 600, 16, 4, seed=1)
+    kw = dict(depth=3, bins=128, chunks=1)
+    with pytest.raises(ValueError):          # mixed operand dtypes
+        bt.binned_topk_pool(qh.float(), ql, xh, xlh, c1, 600, **kw)
+    with pytest.raises(ValueError):          # F not a multiple of 8
+        bt.binned_topk_pool(qh[:, :12].contiguous(), ql,
+                            xh[:, :12].contiguous(), xlh, c1, 600, **kw)
+    with pytest.raises(ValueError):          # rows not 16-byte aligned
+        rows = xh.shape[0] - 1
+        bt.binned_topk_pool(qh, ql, xh.reshape(-1)[4:4 + rows * 16].reshape(
+            rows, 16), xlh, c1, 600, **kw)
+    with pytest.raises(ValueError):          # above the bf16 gate
+        big = _inputs_bf16(dev, 600, 1544, 4, seed=2)
+        bt.binned_topk_pool(*big, 600, **kw)
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh, ql.double(), xh, xlh, c1, 600, k=10,
+                              rows_per_chunk=256)
+
+
+def test_bf16_sessions_on_card(dev):
+    """A 70000 x 128 build on the card: the bf16 session launches K1's
+    bf16 mode a batch (and its repair K3's, for a query with copies in
+    three bins), never the float32 kernels, and equals the plain bf16
+    full scan; a live bf16 session returns the static session's results
+    bitwise, and an added copy of a row scores bitwise as that row."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.search import operand_query
+    rng = np.random.default_rng(12)
+    c = rng.uniform(0.2, 0.8, (24, 128))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
+                                                       (70_000, 128))
+    for b in (5, 17, 29):                    # 4 copies of row 0 a bin
+        rows[b + 128 * (2 + np.arange(4))] = rows[0]
+    idx = ArrowIndex.build(rows, eps=1.0, seed=12, device=dev)
+    sess = idx.make_search_session(batch_size=64, k=10, alpha=0.9,
+                                   precision="bf16")
+    assert sess.kernel == "binned" and sess.precision == "bf16"
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    queries[0] = rows[0] * 1.02
+    counts = lambda: (bt.binned_topk_pool.launches,          # noqa: E731
+                      bt.binned_topk_pool.launches_bf16,
+                      tk.merge_topk_partial.launches,
+                      tk.merge_topk_partial.launches_bf16)
+    before = counts()
+    (gs, gi), = list(sess.search_stream([queries]))
+    after = counts()
+    assert (after[0] - before[0], after[2] - before[2]) == (0, 0)
+    assert after[1] - before[1] == 1 and after[3] - before[3] >= 1
+    q = torch.tensor(queries, dtype=torch.float32, device=dev)
+    _, qlam = _query_prep(idx.aspace, idx.gl)[1](q)
+    xh, xlh = bt.prepare_binned_corpus(idx.aspace.data, idx.aspace.lambdas,
+                                       use_bf16=True)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    from arrowspace_torch.ops.search import exact_topk, dot_plane, \
+        lambda_term
+    n = idx.nitems
+    ps, pi = exact_topk(dot_plane(qh, xh[:n])
+                        - lambda_term(qlam, xlh[:n], c1), 10)
+    ps, pi = (ps + c1).cpu().numpy(), pi.cpu().numpy()
+    err = float(np.abs(gs - ps).max())
+    assert err <= TOL
+    for r, j in zip(*np.nonzero(gi != pi)):
+        pos = np.nonzero(pi[r] == gi[r, j])[0]
+        other = ps[r, pos[0]] if pos.size else ps[r, -1]
+        assert abs(other - ps[r, j]) <= 2.0 * err
+    live = idx.make_live_session(batch_size=64, k=10, alpha=0.9,
+                                 capacity=n + 4096, precision="bf16")
+    assert live.precision == "bf16"
+    ls, li = live.search(queries)
+    assert np.array_equal(ls, gs) and np.array_equal(li, gi)
+    live = idx.make_live_session(batch_size=64, k=10, alpha=1.0,
+                                 capacity=n + 4096, precision="bf16")
+    new = live.add(rows[[7, 8]])
+    assert torch.equal(live._xhat[n:n + 2], xh[[7, 8]])
+    ls, li = live.search(rows[[7]] * 1.02)
+    hit = list(li[0])
+    a, b = hit.index(7), hit.index(int(new[0]))
+    assert ls[0][a] == ls[0][b] and a < b

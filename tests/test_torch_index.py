@@ -196,15 +196,21 @@ def test_builder_options_not_ported_raise():
     assert (b.use_dims_reduction, b.rp_eps) == (jb.use_dims_reduction,
                                                jb.rp_eps)
     # persistence is ported: the builder records (name, path) as the JAX
-    # builder does; bf16 serving is not, and still raises
+    # builder does; bf16 serving is ported too: below the streaming
+    # kernels' size it serves the plain scan in the index dtype, as the
+    # JAX package does off a TPU, and an unknown precision raises
     b.with_persistence("/nonexistent", "x")
     assert b.persistence == JBuilder().with_persistence("/nonexistent",
                                                         "x").persistence
     assert JBuilder().lambda_k == b.lambda_k
     rows = _clustered(2, 60, 8)
-    with pytest.raises(NotImplementedError):
-        ArrowIndex.build(rows, eps=1.0, seed=3, **CPU64).search(
-            rows[:2], k=3, precision="bf16")
+    idx = ArrowIndex.build(rows, eps=1.0, seed=3, **CPU64)
+    s16, i16 = idx.search(rows[:2], k=3, precision="bf16")
+    s32, i32 = idx.search(rows[:2], k=3)
+    np.testing.assert_array_equal(i16, i32)
+    np.testing.assert_array_equal(s16, s32)
+    with pytest.raises(ValueError):
+        idx.search(rows[:2], k=3, precision="fp8")
 
 
 def test_package_imports_without_jax():
@@ -217,7 +223,11 @@ def test_package_imports_without_jax():
             "arrowspace_torch.ops.select_tau, "
             "arrowspace_torch.ops.energy_bintopk, "
             "arrowspace_torch.ops.energy_approx, arrowspace_torch.live, "
-            "arrowspace_torch.storage.parquet; "
+            "arrowspace_torch.storage.parquet, "
+            "arrowspace_torch.sparsification, "
+            "arrowspace_torch.utils.quality, "
+            "arrowspace_torch.utils.profiling, "
+            "arrowspace_torch.precompile, arrowspace_torch.__main__; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     root = pathlib.Path(__file__).resolve().parent.parent
