@@ -15,15 +15,19 @@
 //   split keeps float32's accuracy (within 1e-5 of the plain version at
 //   the serving shapes), and every column runs the same instruction
 //   sequence, so identical corpus rows get bitwise identical dot products.
-// - K1's and K3's bf16 mode (mma_kstep_bf16): mma.sync m16n8k16 bf16
-//   with fp32 accumulation, one product per 16 features and no split
-//   (every product of two bf16 values is exact in fp32), on slices staged
-//   as bf16 (stage_slice / stage_rows on __nv_bfloat16: 16-byte copies of
-//   8 values, rows of 64 features at a stride of 72 bf16, 36 32-bit words
-//   ≡ 4 mod 8, so fragment loads are as free of bank conflicts as at 68
-//   floats).  cp.async copies 4, 8 or 16 bytes, never 2, so bf16 operands
-//   come with F a multiple of 8 and 16-byte aligned rows (the wrappers
-//   zero-pad and check).
+// - K3's bf16 mode (mma_kstep_bf16): mma.sync m16n8k16 bf16 with fp32
+//   accumulation, one product per 16 features and no split (every
+//   product of two bf16 values is exact in fp32), on slices staged as
+//   bf16 (stage_rows on __nv_bfloat16: 16-byte copies of 8 values, rows
+//   of 64 features at a stride of 72 bf16, 36 32-bit words ≡ 4 mod 8, so
+//   fragment loads are as free of bank conflicts as at 68 floats).
+//   cp.async copies 4, 8 or 16 bytes, never 2, so bf16 operands come
+//   with F a multiple of 8 and 16-byte aligned rows (the wrappers
+//   zero-pad and check).  These serve K3's bf16 mode only: K1's bf16
+//   mode is a kernel of its own (bintopk_bf16.cu: wgmma from shared
+//   memory, fed by a TMA ring), whose 64-feature partials equal these
+//   bitwise on the card (tests/test_torch_cuda.py
+//   test_k1_and_k3_bf16_score_a_pair_bitwise_alike).
 // The tensor core's accumulate truncates rather than rounds, so a kernel
 // sums a bounded run of k-steps into a zeroed partial and folds it into
 // its running dot product with one rounded fp32 add.
@@ -123,25 +127,6 @@ __device__ __forceinline__ void stage_slice(float* dst,
           d[e] = 0.0f;
       }
     }
-  }
-}
-
-// The same for bf16 rows (F a multiple of 8, rows 16-byte aligned): 8
-// values a 16-byte copy, into dst[BINS][slice_stride<BINS, bf16>].
-template <int BINS>
-__device__ __forceinline__ void stage_slice(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ xrows, int64_t g0,
-    int F, int f0, bool /*vec*/, int tid) {
-  constexpr int kXS = slice_stride<BINS, __nv_bfloat16>();
-  constexpr int kC8 = slice_features<BINS>() / 8;
-  for (int idx = tid; idx < BINS * kC8; idx += kThreads) {
-    const int b = idx / kC8, c = idx % kC8;
-    const int f = f0 + 8 * c;
-    __nv_bfloat16* d = dst + b * kXS + 8 * c;
-    if (f < F)
-      cp_async16(d, xrows + (g0 + b) * F + f);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 

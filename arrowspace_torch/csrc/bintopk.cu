@@ -49,17 +49,8 @@
 // rounded with __fsub_rn/__fmul_rn (common.cuh) as the PyTorch expression
 // rounds it.  wgmma and TMA rings are later work.
 //
-// bf16 mode (asp_bintopk_bf16; the TPU kernel's use_bf16): the same kernel
-// on bf16 query and corpus operands, T = __nv_bfloat16.  Its product is
-// mma.sync m16n8k16 bf16 with fp32 accumulation, one instruction per 16
-// features and no split (binned_fold.cuh mma_kstep_bf16): 2·B·N·F dense
-// bf16 operations, 0.53 ms at 1M×128 and B = 2048 at 989.4 TFLOP/s, and
-// half the corpus bytes.  The query block is staged as bf16 at a row
-// stride of FP + 8 (FP = F rounded up to 16 features), the corpus slices
-// at 72 bf16 by 16-byte cp.async (F a multiple of 8); the λ term, the
-// fold and the zeroed partial per 64-feature slice are the float32 mode's,
-// so identical bf16 rows score bitwise alike, and a shared memory of
-// 216,064 bytes at QB = 64 admits F = 1536 (the gate, ops/bintopk.py).
+// The bf16 mode (asp_bintopk_bf16, the TPU kernel's use_bf16) is a kernel
+// of its own, bintopk_bf16.cu: wgmma from shared memory fed by a TMA ring.
 #include "binned_fold.cuh"
 
 namespace {
@@ -70,7 +61,6 @@ constexpr int kFK = 64;       // features a staged slice holds
 static_assert(kFK == asp_fold::kTileFK, "mma_kstep's slice");
 constexpr size_t kSmemLimit = 227 * 1024;
 
-using bf16 = __nv_bfloat16;
 using asp_fold::Operand;
 
 // A CTA holds QB queries × BG = kPairs / QB bins (QB 32, 64 or 128); each
@@ -112,23 +102,6 @@ __device__ __forceinline__ void stage_queries(float* qs, const Args<float>& a,
     const int gq = q0 + q;
     qs[q * QS + f] =
         (gq < a.B && f < a.F) ? a.qrows[(size_t)gq * a.F + f] : 0.0f;
-  }
-}
-
-// bf16 rows (F a multiple of 8, rows 16-byte aligned): 8 values a load.
-template <int QB>
-__device__ __forceinline__ void stage_queries(bf16* qs, const Args<bf16>& a,
-                                              int q0, int FP, int QS,
-                                              int tid) {
-  const int c8 = FP / 8;
-  for (int idx = tid; idx < QB * c8; idx += kThreads) {
-    const int q = idx / c8, f = 8 * (idx % c8);
-    const int gq = q0 + q;
-    *reinterpret_cast<uint4*>(qs + q * QS + f) =
-        (gq < a.B && f < a.F)
-            ? __ldg(reinterpret_cast<const uint4*>(a.qrows +
-                                                   (size_t)gq * a.F + f))
-            : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -364,20 +337,4 @@ extern "C" int asp_bintopk(const void* qhat, const void* qlam,
   return bintopk<float>(qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth,
                         n_chunks, tiles_per_chunk, pool_s, pool_i, det,
                         stream);
-}
-
-// bf16 operands: F a multiple of 8, qhat and xhat 16-byte aligned (the
-// 16-byte copies); qlam, xlam and the outputs float32.
-extern "C" int asp_bintopk_bf16(const void* qhat, const void* qlam,
-                                const void* xhat, const void* xlam, float c1,
-                                int n, int B, int F, int bins, int depth,
-                                int n_chunks, int tiles_per_chunk,
-                                void* pool_s, void* pool_i, void* det,
-                                void* stream) {
-  if (F % 8 != 0 || reinterpret_cast<uintptr_t>(qhat) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(xhat) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  return bintopk<bf16>(qhat, qlam, xhat, xlam, c1, n, B, F, bins, depth,
-                       n_chunks, tiles_per_chunk, pool_s, pool_i, det,
-                       stream);
 }

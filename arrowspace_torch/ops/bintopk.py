@@ -30,14 +30,17 @@ dot product is α·cos, and c1 is added back after the flush.
 
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): the
 prepared corpus and the query operand are bf16, zero-padded to a
-multiple of 8 features (a 16-byte copy holds 8 bf16), and the kernel
-multiplies them on the tensor cores as bf16 ``mma.sync`` with float32
-accumulation (``asp_bintopk_bf16``, counted by
-``binned_topk_pool.launches_bf16``); λ, c1, the scores and det stay
-float32.  Its plain version upcasts the bf16 operands to float32.
+multiple of 8 features (a TMA row stride is a multiple of 16 bytes), and
+a kernel of its own (csrc/bintopk_bf16.cu, ``asp_bintopk_bf16``, counted
+by ``binned_topk_pool.launches_bf16``) multiplies them with ``wgmma``
+from shared memory, float32 accumulation, the corpus slices arriving by
+TMA into a ring of ``bf16_stages`` stages; λ, c1, the scores and det
+stay float32.  Its plain version upcasts the bf16 operands to float32.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -47,7 +50,8 @@ from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
            "prepared_rows", "bintopk_fits", "query_block", "grid_ctas",
-           "wave_chunks", "check_operands", "binned_topk_pool",
+           "bf16_stages", "bf16_config", "wave_chunks", "check_operands",
+           "binned_topk_pool",
            "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
            "binned_lambda_topk"]
 
@@ -63,9 +67,17 @@ _PAIRS = 4096
 # The bf16 kernel's widest F: the JAX session's binned limit
 # (arrowspace_tpu/index.py:214); its shared memory would admit more.
 BF16_MAX_F = 1536
-# Features of a bf16 operand row are padded to a multiple of this: one
-# 16-byte cp.async carries 8 bf16 (cp.async copies 4, 8 or 16 bytes).
+# Features of a bf16 operand row are padded to a multiple of this: a
+# tensor map's row stride is a multiple of 16 bytes (K3's bf16 mode
+# copies 8 bf16 a 16-byte cp.async).
 BF16_ALIGN = 8
+# The bf16 kernel's shared memory (csrc/bintopk_bf16.cu): 1024 bytes to
+# align the 128-byte-swizzled tiles, the query block as ceil(F/64) tiles
+# of qb rows × 128 bytes, and a ring of 3 to 16 stages of _PAIRS / qb
+# corpus rows × 128 bytes, each with two 8-byte barriers (one more for
+# the query block).
+_BF16_ROW, _BF16_ALIGN_SMEM = 128, 1024
+_BF16_MIN_STAGES, _BF16_MAX_STAGES = 3, 16
 
 
 def binned_topk_depth_for(k: int) -> int:
@@ -89,26 +101,41 @@ def bins_target(k: int) -> int:
     return 512
 
 
+def bf16_stages(f: int, qb: int) -> int:
+    """Stages of the bf16 kernel's ring at query block qb (csrc stages):
+    as many as fit beside the query block, at most 16; 0 when none
+    does."""
+    room = _SMEM_LIMIT - _bf16_smem(f, qb, 0)
+    return max(0, min(_BF16_MAX_STAGES,
+                      room // ((_PAIRS // qb) * _BF16_ROW + 16)))
+
+
+def _bf16_smem(f: int, qb: int, stages: int) -> int:
+    return (_BF16_ALIGN_SMEM + -(-f // 64) * qb * _BF16_ROW
+            + stages * ((_PAIRS // qb) * _BF16_ROW + 16) + 8)
+
+
 def _bintopk_smem(f: int, qb: int, use_bf16: bool = False) -> int:
-    """K1's shared memory (csrc smem_bytes): the query block's rows,
-    unsplit, padded to whole k-steps (float32: 8 features, row stride
-    FP + 4; bf16: 16 features, FP + 8), and two corpus slices of
-    _PAIRS / qb rows × 64 features at stride 68 (bf16: 72)."""
-    step, qpad, xs, size = (16, 8, 72, 2) if use_bf16 else (8, 4, 68, 4)
-    return (qb * (-(-f // step) * step + qpad)
-            + 2 * (_PAIRS // qb) * xs) * size
+    """K1's shared memory (csrc smem_bytes).  float32: the query block's
+    rows, unsplit, padded to whole 8-feature k-steps at row stride FP + 4,
+    and two corpus slices of _PAIRS / qb rows × 64 features at stride 68.
+    bf16: the query block unpadded and its ring of bf16_stages stages, at
+    least 3 (so the block fits exactly when this is within the limit)."""
+    if use_bf16:
+        return _bf16_smem(f, qb, max(_BF16_MIN_STAGES, bf16_stages(f, qb)))
+    return (qb * (-(-f // 8) * 8 + 4) + 2 * (_PAIRS // qb) * 68) * 4
 
 
 def query_block(f: int, bsz: int, use_bf16: bool = False) -> int:
     """Queries per CTA of K1 (csrc query_block, the same rule): the
-    largest of 128, 64 and 32 whose shared memory fits at this F and
-    that the batch, rounded up to a multiple of 32, fills.  A larger
-    block reads each corpus slice once for more queries."""
+    largest of 128, 64 and 32 (bf16: 128 and 64) whose shared memory fits
+    at this F and that the batch, rounded up to a multiple of 32, fills.
+    A larger block reads each corpus slice once for more queries."""
     cap = -(-bsz // 32) * 32
     for qb in (128, 64):
         if qb <= cap and _bintopk_smem(f, qb, use_bf16) <= _SMEM_LIMIT:
             return qb
-    return 32
+    return 64 if use_bf16 else 32
 
 
 def grid_ctas(bsz: int, bins: int, f: int, use_bf16: bool = False) -> int:
@@ -120,13 +147,27 @@ def grid_ctas(bsz: int, bins: int, f: int, use_bf16: bool = False) -> int:
 
 def bintopk_fits(f: int, use_bf16: bool = False) -> bool:
     """Whether K1's shared memory fits a block at its smallest query
-    block (32): the same at every bin count.  The bf16 kernel is capped
-    at BF16_MAX_F, the JAX session's binned limit."""
+    block (float32 32, bf16 64): the same at every bin count.  The bf16
+    kernel is capped at BF16_MAX_F, the JAX session's binned limit."""
     if use_bf16:
         f = -(-f // BF16_ALIGN) * BF16_ALIGN
         if f > BF16_MAX_F:
             return False
-    return f >= 1 and _bintopk_smem(f, 32, use_bf16) <= _SMEM_LIMIT
+    return f >= 1 and _bintopk_smem(f, 64 if use_bf16 else 32,
+                                     use_bf16) <= _SMEM_LIMIT
+
+
+def bf16_config(f: int, bsz: int, depth: int) -> dict:
+    """What the bf16 kernel runs at (F, B, depth), from the library
+    (CUDA only): query block, ring stages, dynamic shared bytes, and the
+    instantiation's registers, spilled bytes a thread and largest
+    block."""
+    out = (ctypes.c_int * 6)()
+    check(lib().asp_bintopk_bf16_config(f, bsz, depth, out),
+          "asp_bintopk_bf16_config")
+    keys = ("query_block", "stages", "smem_bytes", "registers",
+            "spill_bytes", "max_threads")
+    return dict(zip(keys, out))
 
 
 def prepared_rows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

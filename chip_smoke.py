@@ -124,8 +124,11 @@ operands with float32 accumulation), each on an index above:
   of batch 0 are held against the plain bf16 full scan (the same bf16
   operands, a float32 product, the stable two-key sort), and the top-10
   overlap with the float32 session is logged, not gated; then K1's bf16
-  mode against its plain version at that width, and on the cosine index
-  K3's at the whole batch and at a repair's single row;
+  mode (wgmma fed by a TMA ring, csrc/bintopk_bf16.cu) against its plain
+  version at that width, with what its launch runs (query block, ring
+  stages, shared bytes, registers; a ring below 3 stages or a spilled
+  register fails) and the corpus bytes it reads from L2 a batch, and on
+  the cosine index K3's at the whole batch and at a repair's single row;
 - [3d] a live bf16 session on the cosine index: 4 batches bitwise the
   static bf16 session's, then 4096 rows added and 2 batches held by
   buffer position against the plain bf16 scan of the live rows.
@@ -153,8 +156,9 @@ wide repair's shape; for K2 and K5 their λ error against a float64 plain
 build's row window, each held against its plain version) and the time of a
 PyTorch call computing the same function (null where none does), then
 the last line {"ok": true, "device": ...}.  The bf16 modes have their own
-entries, bintopk_bf16 (launches on the cosine bf16 session's path; its
-records at_768 and at_1536) and merge_topk_bf16 (its record at_repair),
+entries, bintopk_bf16 (source csrc/bintopk_bf16.cu; launches on the
+cosine bf16 session's path; its records at_768 and at_1536) and
+merge_topk_bf16 (its record at_repair),
 their bounds at the dense bf16 peak, their matmul_ms the time of the
 bf16 product alone.
 """
@@ -3038,7 +3042,9 @@ def k1_bf16_vs_plain(torch, index, batches, dev, name):
     """K1's bf16 mode against its plain version on batch 0 of the index
     (the session's shapes), flushed, det too; its time, the plain
     version's, its bound (bf16_bounds) and torch.matmul of the bf16
-    product alone, as context.  Returns (record, the operands)."""
+    product alone, as context; what the launch runs (``config``: query
+    block, ring stages, shared bytes, registers and spilled bytes, from
+    the library).  Returns (record, the operands)."""
     from arrowspace_torch.ops import bintopk as bt
 
     log(f"  bf16 kernels against their plain versions ({name})")
@@ -3067,11 +3073,18 @@ def k1_bf16_vs_plain(torch, index, batches, dev, name):
                ms=cuda_ms(lambda: bt.binned_topk_pool(*args, **kw)),
                plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
                    *args, **kw), reps=2),
-               matmul_ms=matmul_ms(torch, qh, xh[:n]))
+               matmul_ms=matmul_ms(torch, qh, xh[:n]),
+               config=bt.bf16_config(qh.shape[1], BATCH, depth))
     log(f"    K1 bf16 {name}: ms={rec['ms']:.3f} plain_ms="
         f"{rec['plain_ms']:.3f} bound_ms={b_ms:.3f} ({b_by}) bf16 matmul "
         f"context {rec['matmul_ms']:.3f} ms; flags kernel="
         f"{int(out_k[2].sum())} plain={int(out_p[2].sum())}")
+    qb = rec["config"]["query_block"]
+    l2 = -(-BATCH // qb) * n * qh.shape[1] * 2
+    log(f"    K1 bf16 {name} launch: {rec['config']}; corpus read from L2 "
+        f"{l2 / 1e9:.3f} GB a batch, {l2 / rec['ms'] / 1e9:.3f} TB/s")
+    check(rec["config"]["stages"] >= 3 and rec["config"]["spill_bytes"] == 0,
+          f"K1 bf16 {name}: ring below 3 stages or spilled registers")
     return rec, args
 
 
@@ -3152,7 +3165,7 @@ KERNELS = {
     "energy_chord": ("arrowspace_torch/csrc/energy_chord.cu",
                      "arrowspace_tpu/ops/energy_approx.py:404"),
     # the bf16 modes (the TPU kernels' use_bf16=True)
-    "bintopk_bf16": ("arrowspace_torch/csrc/bintopk.cu",
+    "bintopk_bf16": ("arrowspace_torch/csrc/bintopk_bf16.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
     "merge_topk_bf16": ("arrowspace_torch/csrc/merge_topk.cu",
                         "arrowspace_tpu/ops/pallas_topk.py:263"),
@@ -3365,7 +3378,9 @@ def main() -> int:
         k1b = rec["bintopk_bf16"]
         k1b["max_abs_err"] = max(k1b["max_abs_err"], k1b_768["max_abs_err"],
                                  k1b_1536["max_abs_err"])
-        k1b["at_768"], k1b["at_1536"] = k1b_768, k1b_1536
+        k1b["at_768"], k1b["at_1536"] = (
+            {key: v for key, v in r.items() if key != "config"}
+            for r in (k1b_768, k1b_1536))
         k3b = rec["merge_topk_bf16"]
         k3b["max_abs_err"] = max(k3b["max_abs_err"],
                                  k3b["at_repair"]["max_abs_err"])

@@ -403,13 +403,62 @@ def test_bf16_gates_and_precision_names():
     assert bt.query_block(1536, 2048, True) == 64
     assert bt.query_block(768, 2048, True) == 128
     assert bt.query_block(768, 2048) == 64
-    assert bt._bintopk_smem(1536, 64, True) == 216_064
+    assert bt._bintopk_smem(1536, 64, True) == 230_472
     idx = ArrowIndex.build(_clustered(300, 8, 1), eps=1.0, seed=1, **CPU32)
     for make in (idx.make_search_session, idx.make_live_session):
         with pytest.raises(ValueError):
             make(batch_size=4, precision="fp8")
     with pytest.raises(ValueError):
         idx.search(np.ones((1, 8)), precision="fp8")
+
+
+@pytest.mark.parametrize("f,qb,stages", [(8, 128, 16), (72, 128, 16),
+                                          (128, 128, 16), (136, 128, 16),
+                                          (768, 128, 8), (832, 128, 4),
+                                          (896, 64, 14), (1000, 64, 12),
+                                          (1536, 64, 4)])
+def test_k1_bf16_ring_rule(f, qb, stages):
+    """K1's bf16 kernel keeps its query block resident and unpadded:
+    ceil(F/64) tiles of qb rows × 128 bytes (one 64-feature bf16 row is
+    the 128-byte swizzle), after 1024 bytes that align them; beside it a
+    ring of as many stages of 4096/qb corpus rows × 128 bytes as fit
+    (at most 16), each with two 8-byte barriers, plus the query block's.
+    The query block is 128 where that ring has 3 stages, else 64; the
+    shared memory stays within 232,448 bytes; the grid has one CTA per
+    query block and group of 4096/qb bins."""
+    assert bt.query_block(f, 2048, True) == qb
+    assert bt.bf16_stages(f, qb) == stages >= 3
+    smem = bt._bintopk_smem(f, qb, True)
+    assert smem == (1024 + -(-f // 64) * qb * 128
+                    + stages * ((4096 // qb) * 128 + 16) + 8)
+    assert smem <= 232_448 and bt.bintopk_fits(f, True)
+    if qb == 64:     # the 128-query block's ring would hold fewer than 3
+        assert bt.bf16_stages(f, 128) < 3
+        assert bt._bintopk_smem(f, 128, True) > 232_448
+    for bsz in (1, 63, 64, 96, 97, 2048):
+        want = 128 if qb == 128 and bsz > 96 else 64
+        assert bt.query_block(f, bsz, True) == want
+        for bins in (128, 256, 512):
+            assert bt.grid_ctas(bsz, bins, f, True) == \
+                -(-bsz // want) * (bins // (4096 // want))
+
+
+def test_k1_bf16_gate_and_the_float32_rule():
+    """The bf16 gate stops at BF16_MAX_F = 1536 (the JAX session's binned
+    limit), though a 3-stage ring would still fit at 1544; the float32
+    rule is the tensor-core layout's (rows at stride ceil8(F) + 4, two
+    slices of 4096/qb rows at stride 68), untouched by the bf16
+    kernel's."""
+    assert bt.bintopk_fits(1536, True) and bt.bintopk_fits(1530, True)
+    assert not bt.bintopk_fits(1544, True)
+    assert bt.bf16_stages(1544, 64) == 3
+    assert bt.bintopk_fits(1) and bt.bintopk_fits(1264)
+    assert not bt.bintopk_fits(1265)
+    for f, qb in ((128, 128), (768, 64), (1264, 32)):
+        assert bt.query_block(f, 2048) == qb
+        assert bt._bintopk_smem(f, qb) == (
+            qb * (-(-f // 8) * 8 + 4) + 2 * (4096 // qb) * 68) * 4
+    assert bt.query_block(768, 1) == 32 and bt.query_block(768, 1, True) == 64
 
 
 @pytest.mark.parametrize("alpha", [0.9, 1.0])

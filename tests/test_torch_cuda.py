@@ -10,8 +10,10 @@ the step op by op), the double-buffered streaming against a copy on
 the compute stream, and the mesh: four shards on the card against one
 shard and the float64 CPU mesh, the strided mesh repairs included.
 Last, the bf16 modes of K1 and K3 against their plain versions (the
-same bf16 operands, a float32 product), bf16 rows tied by id, and the
-bf16 static and live sessions on the card.
+same bf16 operands, a float32 product), K1's TMA ring at its edges
+(ragged last slices, partial query blocks, fewer rows than a stage,
+chunks without tiles, poisoned rows past n), bf16 rows tied by id, and
+the bf16 static and live sessions on the card.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -45,7 +47,8 @@ from arrowspace_torch.ops import select_tau as st
 from arrowspace_torch.ops import taulambda as tl
 from arrowspace_torch.ops import topk as tk
 from arrowspace_torch.ops._build import lib
-from arrowspace_torch.ops.search import (INT_MAX, batched_lambda_aware_topk,
+from arrowspace_torch.ops.search import (INT_MAX, NEG_INF,
+                                         batched_lambda_aware_topk,
                                          binned_topk_with_repair,
                                          prepare_query)
 from arrowspace_torch.taumode import TauMode
@@ -1725,7 +1728,7 @@ def _inputs_bf16(dev, n, f, b, seed):
     return qh, ql, xh, xlh, c1
 
 
-@pytest.mark.parametrize("f", [128, 40, 7, 768, 1536])
+@pytest.mark.parametrize("f", [128, 40, 7, 768, 1536, 8, 72, 136, 1000])
 @pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4)])
 def test_k1_bf16_pool_matches_plain(dev, f, bins, depth):
     n, b = 5003, 37
@@ -1742,6 +1745,125 @@ def test_k1_bf16_pool_matches_plain(dev, f, bins, depth):
     _assert_scored_ids(ps, pi, rs, args)
     assert torch.equal(pi == INT_MAX, ri == INT_MAX)
     assert float((det - rdet).abs().max()) <= TOL
+
+
+def _k1_bf16_vs_plain(args, n, **kw):
+    ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
+    rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
+    torch.cuda.synchronize()
+    assert ps.shape == rs.shape and det.shape == rdet.shape
+    _assert_scored_ids(ps, pi, rs, args)
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    assert float((det - rdet).abs().max()) <= TOL
+    return ps, pi, det
+
+
+@pytest.mark.parametrize("f", [136, 768, 1536])
+@pytest.mark.parametrize("b", [1, 63, 2048])
+def test_k1_bf16_partial_and_full_query_blocks(dev, f, b):
+    """A batch below one query block (the rows past B arrive as zeros
+    from the query map and are never written), one short of 64, and a
+    full 2048-query batch, at F on both sides of the 128-query block's
+    limit (768: 128, 8 stages; 1536: 64, 4 stages)."""
+    n = 5003
+    args = _inputs_bf16(dev, n, f, b, seed=f + b)
+    cfg = bt.bf16_config(f, b, 3)
+    assert cfg["query_block"] == bt.query_block(f, b, True)
+    _k1_bf16_vs_plain(args, n, depth=3, bins=128, chunks=3)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 130])
+@pytest.mark.parametrize("f", [72, 1536])
+def test_k1_bf16_fewer_rows_than_a_stage(dev, n, f):
+    """A corpus of fewer rows than one stage's 32 or 64 bins (and than
+    one tile): the stage's rows past n arrive as zeros and never enter a
+    pool."""
+    args = _inputs_bf16(dev, n, f, 70, seed=n + f)
+    for bins, depth in ((128, 3), (512, 4)):
+        _k1_bf16_vs_plain(args, n, depth=depth, bins=bins, chunks=2)
+
+
+def test_k1_bf16_chunks_without_tiles(dev):
+    """Chunks past the last tile (steps == 0: no copy is started) hold
+    empty pools, NEG_INF det and INT_MAX ids; the others equal the plain
+    version's pools at their own chunking."""
+    n, b, f, bins, depth = 300, 40, 136, 128, 3
+    qh, ql, xh, xlh, c1 = _inputs_bf16(dev, n, f, b, seed=5)
+    chunks = 5                          # 3 tiles, one a chunk, 2 empty
+    shape = (b, chunks, depth, bins)
+    ps = torch.empty(shape, device=dev)
+    pi = torch.empty(shape, device=dev, dtype=torch.int32)
+    det = torch.empty((b, chunks, bins), device=dev)
+    rc = lib().asp_bintopk_bf16(
+        qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1, n,
+        b, f, bins, depth, chunks, 1, ps.data_ptr(), pi.data_ptr(),
+        det.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    rs, ri, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
+                                             depth=depth, bins=bins,
+                                             chunks=3)
+    _assert_scored_ids(ps[:, :3], pi[:, :3], rs, (qh, ql, xh, xlh, c1))
+    assert torch.equal(pi[:, :3] == INT_MAX, ri == INT_MAX)
+    assert float((det[:, :3] - rdet).abs().max()) <= TOL
+    assert bool((ps[:, 3:] == NEG_INF).all())
+    assert bool((pi[:, 3:] == INT_MAX).all())
+    assert bool((det[:, 3:] == NEG_INF).all())
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan", "huge"])
+@pytest.mark.parametrize("f,bins,depth", [(136, 128, 3), (40, 256, 2),
+                                          (1536, 512, 4)])
+def test_k1_bf16_never_scores_a_row_past_n(dev, fill, f, bins, depth):
+    """A capacity buffer whose rows past n hold copies of the queries,
+    NaN or 1e30 (in bf16): the corpus map ends at row n, so none of them
+    reaches a score, a pool or det."""
+    from arrowspace_torch.ops.search import operand_query
+    rng = np.random.default_rng(f + bins)
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.uniform(0.1, 1.0, (37, f)), rng.uniform(0, 1, 37),
+                     rng.uniform(0.1, 1.0, (CAP, f)), rng.uniform(0, 1, CAP)))
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    if fill == "huge":
+        xh[N_LIVE:], xlh[N_LIVE:] = 1e30, 1e30
+    else:
+        _poison(xh, N_LIVE, qh / qh.float().norm(dim=1, keepdim=True).to(
+            qh.dtype), fill)
+        _poison(xlh, N_LIVE, ql, fill)
+    ps, pi, det = _k1_bf16_vs_plain((qh, ql, xh, xlh, c1), N_LIVE,
+                                    depth=depth, bins=bins, chunks=3)
+    _no_row_past_n(pi)
+    assert bool(torch.isfinite(ps).all() and torch.isfinite(det).all())
+
+
+def test_k1_bf16_config_matches_the_wrapper_rule(dev):
+    """The library's account of each launch (query block, stages, shared
+    bytes) is the wrapper's rule, every instantiation keeps its state in
+    registers (no spilled bytes) with 256 threads, and a launch that the
+    rule refuses (F = 2048: no 3-stage ring beside the 64-query block)
+    raises from the wrapper instead of falling back."""
+    for f in (8, 136, 768, 832, 896, 1536):
+        for b in (1, 2048):
+            for depth in (2, 3, 4):
+                cfg = bt.bf16_config(f, b, depth)
+                qb = bt.query_block(f, b, True)
+                assert cfg["query_block"] == qb
+                assert cfg["stages"] == bt.bf16_stages(f, qb)
+                assert cfg["smem_bytes"] == bt._bintopk_smem(f, qb, True)
+                assert cfg["spill_bytes"] == 0
+                assert cfg["max_threads"] >= 256
+    args = _inputs_bf16(dev, 600, 2048, 4, seed=3)
+    assert bt.bf16_config(2048, 4, 3)["stages"] < 3
+    with pytest.raises(ValueError):          # the wrapper's gate
+        bt.binned_topk_pool(*args, 600, depth=3, bins=128, chunks=1)
+    mp = pytest.MonkeyPatch()                # past the gate: the library's
+    mp.setattr(bt, "bintopk_fits", lambda f, use_bf16=False: True)
+    try:
+        with pytest.raises(RuntimeError):
+            bt.binned_topk_pool(*args, 600, depth=3, bins=128, chunks=1)
+    finally:
+        mp.undo()
 
 
 @pytest.mark.parametrize("f", [128, 768])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K3
-(csrc/merge_topk.cu), K6 (csrc/energy_bintopk.cu), K7
+"""Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K1's bf16
+mode (csrc/bintopk_bf16.cu), K3 (csrc/merge_topk.cu), K6
+(csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
 (csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
 and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
@@ -8,7 +9,7 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ablation.py [--kernels k1,k3,k6,k7,k2,k5,k4]
+    python3 tools/kernel_ablation.py [--kernels k1,k1bf16,k3,k6,k7,k2,k5,k4]
                                      [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
@@ -18,6 +19,11 @@ fails) and times each copy on the same inputs at the serving shapes:
 
 - K1: 1,000,000 clustered unit rows at F = 128 and F = 768, B = 2048
   α-scaled queries, 128 bins, depth 3;
+- K1's bf16 mode (``--kernels k1bf16``): the same rows at F = 128, 768
+  and 1536 as the bf16 sessions' operands, B = 2048, 128 bins, depth 3,
+  with its query block, ring stages and shared bytes, its bound (2·B·N·F
+  bf16 operations at 989.4 TFLOP/s) and the corpus bytes every query
+  block reads from L2, (B / QB)·N·F·2, with the rate they imply;
 - K3: the same rows at F = 128 and F = 1536, k = 10, at the wrapper's
   chunking;
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
@@ -43,8 +49,10 @@ fails) and times each copy on the same inputs at the serving shapes:
 
 Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
 network or det; for K3 no selection: no candidate is appended, so no
-merge runs), "no_staging" (the first slice only), "no_product",
-"product_only", "staging_only"; K1 also "one_tf32" and "lo_truncated";
+merge runs), "no_staging" (the first slice only; K1's bf16 mode: no
+refill of its ring, each step multiplying what its stage holds),
+"no_product", "product_only", "staging_only"; K1 also "one_tf32" and
+"lo_truncated";
 K6 and K7 also "partial_8/16/64" (the truncating accumulate summed in
 zeroed partials of 8, 16 or 64 features instead of the shipped 32); K2
 and K5 (fold: the epilogue that multiplies the products by the rows'
@@ -73,6 +81,9 @@ directory (DIR), for instance the fp32 fold of an earlier commit
 unpacked with ``git archive``; its C entry points must be the same.  For
 K1 it builds DIR's kernel beside this one, times both, and compares
 their machine code (cuobjdump -sass) instantiation by instantiation; for
+K1's bf16 mode it times DIR's ``asp_bintopk_bf16`` as shipped (from
+DIR's bintopk_bf16.cu, or its bintopk.cu where the bf16 mode was an
+instantiation of the float32 kernel); for
 K3 it times DIR's kernel as shipped, at its own chunking (the fp32
 kernel of earlier commits: 8 queries a CTA, two CTAs per SM); for K2 and
 K5 it times DIR's kernel as shipped and reports its float64 error beside
@@ -109,7 +120,8 @@ from arrowspace_torch.ops import energy_bintopk as eb  # noqa: E402
 from arrowspace_torch.ops import topk as tk  # noqa: E402
 from arrowspace_torch.ops._build import (CSRC, FLAGS, SIGNATURES,  # noqa
                                          _nvcc)
-from arrowspace_torch.ops.search import INT_MAX, prepare_query  # noqa: E402
+from arrowspace_torch.ops.search import (INT_MAX, operand_query,  # noqa
+                                         prepare_query)
 from arrowspace_torch.reduction import ImplicitProjection  # noqa: E402
 from arrowspace_torch.taumode import TauMode, select_tau_sorted  # noqa: E402
 
@@ -120,13 +132,26 @@ CANCEL_SPREADS = (0.05, 0.01)   # K2's and K5's rows 0.5 ± spread
 
 # (file, old, new) substitutions of each part, by kernel and design
 K1_PARTS = {
-    "product": [("bintopk.cu", "mma_kstep(part, qa + kk, QS, xb + kk);",
+    "product": [("bintopk.cu", "asp_fold::kstep(part, qa + kk, QS, xb + kk);",
                  "(void)0;")],
     "fold": [("bintopk.cu", "if (gr < a.n) {",
               "if (gr < a.n && a.c1 > 1e30f) {")],
     "staging": [("bintopk.cu",
                  "    if (step + 1 < steps) {\n      const bool wrap",
                  "    if (false) {\n      const bool wrap")],
+}
+K1BF16_PARTS = {   # K1's bf16 mode (csrc/bintopk_bf16.cu)
+    "product": [("bintopk_bf16.cu", "wgmma_m64n32k16_bf16(part,",
+                 "if (false) wgmma_m64n32k16_bf16(part,")],
+    "fold": [("bintopk_bf16.cu", "if (gr < n) {",
+              "if (gr < n && c1 > 1e30f) {")],
+    # no refill: each step multiplies whatever its stage holds, waiting
+    # only for the prologue's copies
+    "staging": [("bintopk_bf16.cu",
+                 "if (tid == 0 && step > 0 && step - 1 + S < total) {",
+                 "if (false) {"),
+                ("bintopk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
+                 "    if (step < S) mbar_wait(full + 8 * st, phase);")],
 }
 TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
     "product": [("energy_tile.cuh", "      tile_product_full<NT>(acc, qa, xb);",
@@ -141,7 +166,7 @@ TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
 }
 K3_PARTS = {
     "product": [("merge_topk.cu",
-                 "        asp_fold::mma_kstep(part, qa + kk, kXS, xb + kk);",
+                 "        asp_fold::kstep(part, qa + kk, kXS, xb + kk);",
                  "        (void)0;")],
     "fold": [("merge_topk.cu",
               "if (live_q[i] && gr < r1 && ahead(sc, gr, kth_s, kth_i)) {",
@@ -192,6 +217,7 @@ LAMBDA_PARTS = {   # the λ body of K2 and K5 (csrc/lambda_tile.cuh)
                  "    if (step + 1 < steps) {\n      const int p1",
                  "    if (false) {\n      const int p1")],
 }
+K1BF16_VARIANTS = variants(K1BF16_PARTS, {})
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
 K3_VARIANTS = variants(K3_PARTS, {})
 LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
@@ -251,19 +277,23 @@ SELECT_VARIANTS = {
                                    ("redux_count", "false", "false"),
                                    ("redux_bounded", "false", "true"))}}
 K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
-SOURCES = {"k1": "bintopk.cu", "k3": "merge_topk.cu",
+SOURCES = {"k1": "bintopk.cu", "k1bf16": "bintopk_bf16.cu",
+           "k3": "merge_topk.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
            "k2": "taulambda.cu", "k5": "lambda_batch.cu",
            "k4": "select_tau.cu"}
-ENTRY = {"k1": "asp_bintopk", "k3": "asp_merge_topk",
+ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
+         "k3": "asp_merge_topk",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
          "k2": "asp_taulambda", "k5": "asp_lambda_batch",
          "k4": "asp_select_tau"}
 
 
-def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
-    """One shared library per variant, all nvcc runs started together;
-    prints each variant's registers and spills by instantiation."""
+def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str,
+          source: str = "") -> dict:
+    """One shared library per variant, all nvcc runs started together,
+    from ``source`` (default SOURCES[kernel]); prints each variant's
+    registers and spills by instantiation."""
     procs = {}
     for name, subs in table.items():
         src = OUT / f"{tag}_{kernel}_{name}"
@@ -279,7 +309,7 @@ def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
             path.write_text(text.replace(old, new))
         procs[name] = subprocess.Popen(
             [_nvcc(), *FLAGS, "-shared", "-I", str(src), "-o",
-             str(src / "lib.so"), str(src / SOURCES[kernel])],
+             str(src / "lib.so"), str(src / (source or SOURCES[kernel]))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -302,10 +332,13 @@ def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str) -> dict:
 
 
 def short(mangled: str) -> str:
-    """'depth,query block' (K4: 'slots,vector loads') of a mangled
-    kernel instantiation."""
+    """'depth,query block' (K4: 'slots,vector loads'; ',bf16' for a bf16
+    instantiation of a kernel templated on the operand type) of a
+    mangled kernel instantiation."""
     nums = re.findall(r"ILi(\d+)EL[ib](\d+)E", mangled)
-    return ",".join(nums[0]) if nums else mangled[:40]
+    if not nums:
+        return mangled[:40]
+    return ",".join(nums[0]) + (",bf16" if "nv_bfloat16" in mangled else "")
 
 
 def chunking(ctas: int, dev) -> tuple:
@@ -391,6 +424,60 @@ def run_k1(libs, dev, tag: str = "now") -> None:
                 if err > 1e-5:
                     print(line, flush=True)
                     raise SystemExit("K1 disagrees with its plain version")
+            print(line, flush=True)
+        del qh, ql, xh, xlh, ps, pi, det
+        torch.cuda.empty_cache()
+
+
+def run_k1bf16(libs, dev, tag: str = "now") -> None:
+    """K1's bf16 mode at F = 128, 768 and 1536 (the bf16 sessions'
+    widths), B = 2048, 128 bins, depth 3, at the wrapper's chunking, on
+    the bf16 operands the sessions make; the bound (2·B·N·F bf16
+    operations at 989.4 TFLOP/s) and the corpus bytes every query block
+    reads from L2, (B / QB)·N·F·2, with the rate they imply."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for f in (128, 768, 1536):
+        x, gen = clustered(dev, N, f, seed=f)
+        xl = torch.rand(N, device=dev, generator=gen) * 0.2
+        xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+        qh, c1 = operand_query(x[:B] * 1.02, 0.9, torch.float32, xh)
+        ql = xl[:B].contiguous()
+        del x
+        chunks, tpc = chunking(bt.grid_ctas(B, BINS, f, True), dev)
+        ps = torch.empty((B, chunks, DEPTH, BINS), device=dev)
+        pi = torch.empty_like(ps, dtype=torch.int32)
+        det = torch.empty((B, chunks, BINS), device=dev)
+        qb = bt.query_block(f, B, True)
+        l2 = -(-B // qb) * N * f * 2
+        if tag == "now":
+            print(f"k1bf16 F={f}: query block {qb}, {bt.bf16_stages(f, qb)} "
+                  f"stages, {bt._bintopk_smem(f, qb, True)} shared bytes; "
+                  f"bound {2.0 * B * N * f / 989.4e12 * 1e3:.3f} ms "
+                  f"(operations); corpus read from L2 {l2 / 1e9:.3f} GB a "
+                  "batch", flush=True)
+        for name, fn in libs.items():
+            def call():
+                rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                        xlh.data_ptr(), c1, N, B, f, BINS, DEPTH, chunks,
+                        tpc, ps.data_ptr(), pi.data_ptr(), det.data_ptr(),
+                        stream)
+                if rc != 0:
+                    raise SystemExit(f"{tag} k1bf16 {name}: launch failed "
+                                     f"({rc})")
+            ms = time_ms(call)
+            line = f"{tag} k1bf16 F={f} {name}: {ms:.3f} ms"
+            if name == "kernel":
+                rs, _, rdet = bt.binned_topk_pool_plain(
+                    qh, ql, xh, xlh, c1, N, depth=DEPTH, bins=BINS,
+                    chunks=chunks)
+                err = max(float((ps - rs).abs().max()),
+                          float((det - rdet).abs().max()))
+                line += (f" (max_abs_err vs plain {err:.3e}; L2 corpus "
+                         f"reads {l2 / ms / 1e9:.3f} TB/s)")
+                if err > 1e-5:
+                    print(line, flush=True)
+                    raise SystemExit("K1 bf16 disagrees with its plain "
+                                     "version")
             print(line, flush=True)
         del qh, ql, xh, xlh, ps, pi, det
         torch.cuda.empty_cache()
@@ -747,6 +834,15 @@ def main() -> int:
                       flush=True)
             run_k1(old, dev, "before")
         run_k1(libs, dev)
+    if "k1bf16" in kernels:
+        libs = build("k1bf16", CSRC, K1BF16_VARIANTS, "now")
+        if args.before is not None:
+            before = args.before.resolve()
+            src = ("bintopk_bf16.cu" if (before / "bintopk_bf16.cu").exists()
+                   else "bintopk.cu")
+            run_k1bf16(build("k1bf16", before, {"kernel": []}, "before",
+                             src), dev, "before")
+        run_k1bf16(libs, dev)
     if "k3" in kernels:
         libs = build("k3", CSRC, K3_VARIANTS, "now")
         if args.before is not None:
