@@ -1,8 +1,9 @@
-// Hopper's asynchronous pieces, as K1's bf16 mode (bintopk_bf16.cu) uses
-// them: TMA tensor copies of 2-D bf16 tiles into shared memory in the
-// 128-byte swizzle, mbarriers that count their bytes and the warps that
-// release a buffer, and wgmma m64n32k16 bf16 products whose operands both
-// lie in shared memory, named by matrix descriptors.
+// Hopper's asynchronous pieces, as the bf16 modes of K1 (bintopk_bf16.cu)
+// and K3 (merge_topk_bf16.cu) use them: TMA tensor copies of 2-D bf16
+// tiles into shared memory in the 128-byte swizzle, mbarriers that count
+// their bytes and the warps that release a buffer, named barriers over
+// some of a CTA's warps, and wgmma m64n32k16 and m64n64k16 bf16 products
+// whose operands both lie in shared memory, named by matrix descriptors.
 //
 // A tile here is rows of 64 bf16 features, 128 bytes each: exactly the
 // span of the 128-byte swizzle, so a row is never padded.  TMA writes row
@@ -84,6 +85,25 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1LL << 35)) __trap();
 }
 
+// Waits at named barrier id (1-15; 0 is __syncthreads) until `threads`
+// threads, whole warps, have arrived.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The same barrier, returning on every thread whether any thread's v
+// was true.
+__device__ __forceinline__ bool bar_sync_or(int id, int threads, bool v) {
+  uint32_t any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 q, %1, 0;\n"
+      " bar.red.or.pred p, %2, %3, q;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any)
+      : "r"((uint32_t)v), "r"(id), "r"(threads)
+      : "memory");
+  return any != 0;
+}
+
 // ---- TMA ----
 
 // Copies the box at (c0 = feature, c1 = row) of the map's tensor into
@@ -130,6 +150,10 @@ __device__ __forceinline__ void fence_operands(float (&d)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 // d = a · bᵀ (+ d when accumulate): A 64 rows × 16 features, B 32 rows ×
 // 16 features, both K-major bf16 in shared memory, fp32 accumulators.
@@ -148,6 +172,28 @@ __device__ __forceinline__ void wgmma_m64n32k16_bf16(float (&d)[16],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with B 64 rows × 16 features: d[4j + 2i + c] = row 16w + g +
+// 8i, column 8j + 2t + c over eight n8 blocks.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
+                                                     uint64_t a, uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

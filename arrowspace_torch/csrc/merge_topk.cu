@@ -46,15 +46,11 @@
 // zeros and add exact zeros; the λ term rounds as common.cuh's
 // asp_shifted_score.
 //
-// bf16 mode (asp_merge_topk_bf16; the TPU kernel's use_bf16): the same
-// kernel on bf16 query and corpus slices (T = __nv_bfloat16, 72 bf16 a
-// staged row, 16-byte cp.async, F a multiple of 8), multiplied by K1's
-// bf16 k-step (binned_fold.cuh mma_kstep_bf16: mma.sync m16n8k16, fp32
-// accumulation, no split), so K1's and K3's bf16 modes score a (query,
-// row) pair bitwise alike too.  It is the exact fallback of K1's bf16
-// repair and serves bf16 search above K1's gate; its slices take half
-// the shared memory, so two CTAs share an SM up to k = 88.
+// The bf16 mode (asp_merge_topk_bf16, the TPU kernel's use_bf16) is a
+// kernel of its own, merge_topk_bf16.cu: wgmma from shared memory fed by
+// a TMA ring, with this kernel's selection (merge_select.cuh).
 #include "binned_fold.cuh"
+#include "merge_select.cuh"
 
 namespace {
 
@@ -62,11 +58,12 @@ constexpr int kThreads = asp_fold::kThreads;  // 8 warps (stage_rows')
 constexpr int kPairs = 4096;  // (query, row) pairs a CTA holds: 16 a thread
 constexpr int kNT = 4;        // n-tiles of 8 rows a warp
 constexpr int kFK = asp_fold::kTileFK;  // features a staged slice holds
-constexpr int kMaxK = 128;
 constexpr size_t kSmemLimit = 227 * 1024;
 
-using bf16 = __nv_bfloat16;
 using asp_fold::Operand;
+using asp_merge::ahead;
+using asp_merge::kMaxK;
+using asp_merge::merge_query;
 
 // Shared memory of a CTA of QB queries at this k: two query slices and
 // two corpus slices of kPairs / QB rows (of T, at stride tile_stride<T>),
@@ -91,74 +88,6 @@ struct Args {
   float* out_s;
   int* out_i;
 };
-
-// (sa, ia) before (sb, ib) in the order of the top-k: higher score, then
-// lower id.
-__device__ __forceinline__ bool ahead(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// One warp merges a query's n_c candidates (cs, ci: unsorted, distinct
-// rows, none in the list) into its sorted top-k list (ls, li) by rank:
-// a list entry at p lands at p plus the candidates ahead of it, a
-// candidate at the list entries ahead of it (a binary search: the list is
-// sorted) plus the candidates ahead of it; ranks past k drop out.  The
-// list's empty slots (NEG_INF, INT_MAX) lose to every row and keep their
-// order among themselves, so the ranks are a permutation.
-template <int CAP>
-__device__ __forceinline__ void merge_query(float* ls, int* li,
-                                            const float* cs, const int* ci,
-                                            int k, int n_c, int lane) {
-  constexpr int kLM = kMaxK / 32, kCM = CAP / 32;
-  float vs[kLM], ws[kCM];
-  int vi[kLM], vr[kLM], wi[kCM], wr[kCM];
-#pragma unroll
-  for (int m = 0; m < kLM; ++m) {
-    const int p = m * 32 + lane;
-    vr[m] = kMaxK;
-    if (p < k) {
-      vs[m] = ls[p];
-      vi[m] = li[p];
-      int r = p;
-      for (int c = 0; c < n_c; ++c) r += ahead(cs[c], ci[c], vs[m], vi[m]);
-      vr[m] = r;
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kCM; ++m) {
-    const int c = m * 32 + lane;
-    wr[m] = kMaxK;
-    if (c < n_c) {
-      ws[m] = cs[c];
-      wi[m] = ci[c];
-      int lo = 0, hi = k;  // list entries ahead of it: a prefix
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (ahead(ls[mid], li[mid], ws[m], wi[m]))
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      int r = lo;
-      for (int d = 0; d < n_c; ++d) r += ahead(cs[d], ci[d], ws[m], wi[m]);
-      wr[m] = r;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int m = 0; m < kLM; ++m)
-    if (vr[m] < k) {
-      ls[vr[m]] = vs[m];
-      li[vr[m]] = vi[m];
-    }
-#pragma unroll
-  for (int m = 0; m < kCM; ++m)
-    if (wr[m] < k) {
-      ls[wr[m]] = ws[m];
-      li[wr[m]] = wi[m];
-    }
-  __syncwarp();
-}
 
 // Two CTAs fit an SM where their shared memory does (k <= 24 at QB = 64,
 // ops/topk.py merge_ctas_per_sm); the launch bounds keep the registers
@@ -375,18 +304,4 @@ extern "C" int asp_merge_topk(const void* qhat, const void* qlam,
                               void* stream) {
   return merge_topk<float>(qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks,
                            rows_per_chunk, out_s, out_i, stream);
-}
-
-// bf16 operands: F a multiple of 8, qhat and xhat 16-byte aligned (the
-// 16-byte copies); qlam, xlam and the outputs float32.
-extern "C" int asp_merge_topk_bf16(const void* qhat, const void* qlam,
-                                   const void* xhat, const void* xlam,
-                                   float c1, int n, int B, int F, int k,
-                                   int n_chunks, int rows_per_chunk,
-                                   void* out_s, void* out_i, void* stream) {
-  if (F % 8 != 0 || reinterpret_cast<uintptr_t>(qhat) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(xhat) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  return merge_topk<bf16>(qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks,
-                          rows_per_chunk, out_s, out_i, stream);
 }

@@ -31,11 +31,11 @@ __all__ = ["build", "lib", "check", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bintopk.cu", "bintopk_bf16.cu", "merge_topk.cu", "taulambda.cu",
-           "select_tau.cu", "lambda_batch.cu", "energy_bintopk.cu",
-           "energy_chord.cu")
-HEADERS = ("common.cuh", "binned_fold.cuh", "hopper.cuh", "energy_tile.cuh",
-           "lambda_tile.cuh")
+SOURCES = ("bintopk.cu", "bintopk_bf16.cu", "merge_topk.cu",
+           "merge_topk_bf16.cu", "taulambda.cu", "select_tau.cu",
+           "lambda_batch.cu", "energy_bintopk.cu", "energy_chord.cu")
+HEADERS = ("common.cuh", "binned_fold.cuh", "hopper.cuh", "merge_select.cuh",
+           "energy_tile.cuh", "lambda_tile.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,6 +60,10 @@ SIGNATURES = {
     # the same with bf16 qhat and xhat
     "asp_merge_topk_bf16": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P),
+    # F, k, out[8]: the bf16 kernel's query block, tile rows, stages,
+    # shared bytes, registers, spilled bytes, query residency and CTAs an
+    # SM at that launch
+    "asp_merge_topk_bf16_config": (_I, _I, _P),
     # x, L, W, W2, d_r, d_c, d2_r, d2_c, N, F, n, kind, pct, fixed,
     # lam_out, tau_out, stream
     "asp_taulambda": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

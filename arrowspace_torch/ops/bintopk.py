@@ -68,8 +68,8 @@ _PAIRS = 4096
 # (arrowspace_tpu/index.py:214); its shared memory would admit more.
 BF16_MAX_F = 1536
 # Features of a bf16 operand row are padded to a multiple of this: a
-# tensor map's row stride is a multiple of 16 bytes (K3's bf16 mode
-# copies 8 bf16 a 16-byte cp.async).
+# tensor map's row stride is a multiple of 16 bytes (both bf16 kernels,
+# K1's and K3's, read their rows by tensor map).
 BF16_ALIGN = 8
 # The bf16 kernel's shared memory (csrc/bintopk_bf16.cu): 1024 bytes to
 # align the 128-byte-swizzled tiles, the query block as ceil(F/64) tiles
@@ -212,12 +212,12 @@ def _default_chunks(ctas: int, n_tiles: int, device) -> int:
     return wave_chunks(ctas, n_tiles, sms)
 
 
-def wave_chunks(ctas: int, n_tiles: int, sms: int) -> int:
-    """The fewest chunks (at most 64, at most one per tile) whose last
-    wave over ``sms`` SMs is at least 90 % full, else the fullest.  Fewer
-    chunks also keep the pool the flush sorts small."""
+def wave_chunks(ctas: int, n_tiles: int, sms: int, cap: int = 64) -> int:
+    """The fewest chunks (at most ``cap``, at most one per tile) whose
+    last wave over ``sms`` SMs is at least 90 % full, else the fullest.
+    Fewer chunks also keep the pool the flush sorts small."""
     best, best_fill = 1, 0.0
-    for c in range(1, max(1, min(n_tiles, 64)) + 1):
+    for c in range(1, max(1, min(n_tiles, cap)) + 1):
         total = ctas * c
         fill = total / (-(-total // sms) * sms)
         if fill >= 0.9:
@@ -287,7 +287,7 @@ def check_operands(name: str, qhat, qlam, xhat, xlam) -> bool:
     """Raise unless the tensors are what K1's and K3's kernels read:
     CUDA, contiguous, qlam and xlam float32, and qhat and xhat both
     float32 or both bf16 (then F a multiple of BF16_ALIGN and both
-    16-byte aligned, for the 16-byte copies).  Returns whether the
+    16-byte aligned, for the tensor maps).  Returns whether the
     operands are bf16."""
     for t in (qhat, qlam, xhat, xlam):
         if not (t.is_cuda and t.is_contiguous()):

@@ -17,12 +17,18 @@ sort merges the partials.  ``merge_topk_partial_plain`` is the same
 computation in plain PyTorch.
 
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): bf16 query
-and corpus operands, multiplied as bf16 ``mma.sync`` with float32
-accumulation (``asp_merge_topk_bf16``, counted by
-``merge_topk_partial.launches_bf16``), scores float32, as K1's bf16 mode.
+and corpus operands, a kernel of its own (csrc/merge_topk_bf16.cu,
+``asp_merge_topk_bf16``, counted by ``merge_topk_partial.launches_bf16``)
+that multiplies them with ``wgmma`` from shared memory, float32
+accumulation, the slices arriving by TMA into a ring whose depth, tile
+rows and query residency ``merge_bf16_plan`` gives at each (F, k); λ, c1
+and the scores stay float32, and a (query, row) pair scores bitwise as in
+K1's bf16 mode.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,65 +38,144 @@ from .search import (INT_MAX, NEG_INF, dot_plane, exact_topk, lambda_term,
                      operand_query, two_key_topk)
 
 __all__ = ["merge_topk_partial", "merge_topk_partial_plain",
-           "fused_lambda_topk", "merge_query_block", "merge_smem_bytes",
-           "merge_ctas_per_sm", "merge_rows_per_chunk"]
+           "fused_lambda_topk", "merge_query_block", "merge_bf16_plan",
+           "merge_tile_rows", "merge_smem_bytes", "merge_ctas_per_sm",
+           "merge_rows_per_chunk", "merge_bf16_config"]
 
 MAX_K = 128
 _PAIRS = 4096              # (query, row) pairs a CTA holds (csrc kPairs)
 _SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block can use
 _SMEM_SM = 228 * 1024      # shared memory of an SM, 1 KB of it per block
 _SORT_ELEMS = 1 << 27      # plain version: plane elements per sort
+# The bf16 kernel (csrc/merge_topk_bf16.cu): 64 queries × 128 corpus rows
+# a CTA, rows in 128-byte-swizzled slices of 64 features (a query slice
+# 64 × 128 bytes), a ring of 3 to 8 stages.
+_BF16_QB, _BF16_TR, _BF16_ROW, _BF16_ALIGN_SMEM = 64, 128, 128, 1024
+_BF16_QSLICE = _BF16_QB * _BF16_ROW
+_BF16_MIN_STAGES, _BF16_MAX_STAGES = 3, 8
 
 
-def merge_query_block(bsz: int) -> int:
+def merge_query_block(bsz: int, use_bf16: bool = False) -> int:
     """Queries per CTA of K3 (csrc query_block, the same rule): 64 where
-    the batch, rounded up to a multiple of 32, fills it, else 32."""
+    the batch, rounded up to a multiple of 32, fills it, else 32; the
+    bf16 kernel always 64 (wgmma's M)."""
+    if use_bf16:
+        return _BF16_QB
     return 64 if -(-bsz // 32) * 32 >= 64 else 32
 
 
-def merge_smem_bytes(bsz: int, k: int, use_bf16: bool = False) -> int:
-    """K3's shared memory (csrc smem_bytes): two query and two corpus
-    slices of 64 features at stride 68 floats (bf16: 72 bf16), and per
-    query a top-k list and a one-tile candidate buffer of (score, id),
-    its k-th entry and its candidate count: within a block's budget at
-    every k <= MAX_K."""
+def _bf16_stage(resident: bool) -> int:
+    return _BF16_TR * _BF16_ROW + (0 if resident else _BF16_QSLICE)
+
+
+def _bf16_smem(f: int, k: int, resident: bool, stages: int) -> int:
+    """The bf16 kernel's shared memory (csrc smem_bytes): 1024 bytes to
+    align the swizzled tiles, the resident query block (ceil(F/64)
+    slices), the stages and their two 8-byte barriers (one more for the
+    query block), and per query its k-th (score, id), top-k list,
+    candidate buffer of one tile's rows and count."""
+    return (_BF16_ALIGN_SMEM
+            + (-(-f // 64) * _BF16_QSLICE if resident else 0)
+            + stages * _bf16_stage(resident) + (2 * stages + 1) * 8
+            + _BF16_QB * 8 + _BF16_QB * k * 8 + _BF16_QB * _BF16_TR * 8
+            + _BF16_QB * 4)
+
+
+def merge_bf16_plan(f: int, k: int) -> tuple:
+    """What the bf16 kernel runs at (F, k) (csrc plan, the same rule):
+    (query block resident, ring stages).  The query block is resident
+    where a ring of 3 stages fits beside it and the selection state,
+    which grows with k; the ring is as deep as the shared memory allows,
+    at most 8.  Streamed, a ring of 3 stages fits at every F and every
+    k <= MAX_K."""
+    for resident in (True, False):
+        room = _SMEM_LIMIT - _bf16_smem(f, k, resident, 0)
+        stages = max(0, min(_BF16_MAX_STAGES,
+                            room // (_bf16_stage(resident) + 16)))
+        if stages >= _BF16_MIN_STAGES:
+            return resident, stages
+    return False, 0
+
+
+def _need_f(f, use_bf16: bool) -> None:
+    if use_bf16 and not f:
+        raise ValueError("the bf16 merge rule needs F")
+
+
+def merge_tile_rows(bsz: int, k: int, use_bf16: bool = False,
+                    f: int = 0) -> int:
+    """Corpus rows of a K3 tile: _PAIRS / query block (float32); the
+    bf16 kernel's two warpgroups' 64 rows each."""
+    _need_f(f, use_bf16)
+    if use_bf16:
+        return _BF16_TR
+    return _PAIRS // merge_query_block(bsz)
+
+
+def merge_smem_bytes(bsz: int, k: int, use_bf16: bool = False,
+                     f: int = 0) -> int:
+    """K3's shared memory (csrc smem_bytes).  float32: two query and two
+    corpus slices of 64 features at stride 68 floats, and per query a
+    top-k list and a one-tile candidate buffer of (score, id), its k-th
+    entry and its candidate count: within a block's budget at every
+    k <= MAX_K.  bf16: _bf16_smem at merge_bf16_plan's choice."""
+    _need_f(f, use_bf16)
+    if use_bf16:
+        return _bf16_smem(f, k, *merge_bf16_plan(f, k))
     qb = merge_query_block(bsz)
     tr = _PAIRS // qb
-    slices = 2 * (qb + tr) * (144 if use_bf16 else 272)
-    return slices + 4 * (2 * qb * k + 2 * qb * tr + 3 * qb)
+    return 2 * (qb + tr) * 272 + 4 * (2 * qb * k + 2 * qb * tr + 3 * qb)
 
 
-def merge_ctas_per_sm(bsz: int, k: int, use_bf16: bool = False) -> int:
+def merge_ctas_per_sm(bsz: int, k: int, use_bf16: bool = False,
+                      f: int = 0) -> int:
     """K3 CTAs resident on one SM: two where their shared memory fits
     (float32: k <= 24 at 64-query blocks; the kernel's launch bounds keep
-    its registers within two CTAs), else one."""
-    return 2 if 2 * (merge_smem_bytes(bsz, k, use_bf16) + 1024) \
+    its registers within two CTAs), else one (bf16: always, its ring
+    fills the SM)."""
+    return 2 if 2 * (merge_smem_bytes(bsz, k, use_bf16, f) + 1024) \
         <= _SMEM_SM else 1
 
 
 def merge_rows_per_chunk(bsz: int, n: int, sms: int, k: int,
-                         use_bf16: bool = False) -> int:
-    """Corpus rows per chunk of K3: whole tiles, the chunk count from
-    ops.bintopk.wave_chunks over the grid's ceil(B / query block) CTAs a
-    chunk, so that the grid fills the resident CTA slots of ``sms`` SMs
-    (merge_ctas_per_sm each) in whole waves.  A tile is _PAIRS / query
-    block rows."""
-    tr = _PAIRS // merge_query_block(bsz)
+                         use_bf16: bool = False, f: int = 0) -> int:
+    """Corpus rows per chunk of K3: whole tiles (merge_tile_rows), the
+    chunk count from ops.bintopk.wave_chunks over the grid's
+    ceil(B / query block) CTAs a chunk, so that the grid fills the
+    resident CTA slots of ``sms`` SMs (merge_ctas_per_sm each) in whole
+    waves: at most 64 chunks, or for the bf16 kernel as many as the
+    slots (a batch of one query block, a repair's rows, then fills every
+    SM)."""
+    tr = merge_tile_rows(bsz, k, use_bf16, f)
     n_tiles = max(1, -(-n // tr))
-    ctas = -(-bsz // merge_query_block(bsz))
-    chunks = wave_chunks(ctas, n_tiles,
-                         sms * merge_ctas_per_sm(bsz, k, use_bf16))
+    ctas = -(-bsz // merge_query_block(bsz, use_bf16))
+    slots = sms * merge_ctas_per_sm(bsz, k, use_bf16, f)
+    chunks = wave_chunks(ctas, n_tiles, slots,
+                         max(64, slots) if use_bf16 else 64)
     return -(-n_tiles // chunks) * tr
 
 
 def _chunk_rows(bsz: int, n: int, device, k: int,
-                use_bf16: bool = False) -> int:
+                use_bf16: bool = False, f: int = 0) -> int:
     """merge_rows_per_chunk on the SMs of ``device`` (one on the CPU)."""
     if device.type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     else:
         sms = 1
-    return merge_rows_per_chunk(bsz, n, sms, k, use_bf16)
+    return merge_rows_per_chunk(bsz, n, sms, k, use_bf16, f)
+
+
+def merge_bf16_config(f: int, k: int) -> dict:
+    """What the bf16 kernel runs at (F, k), from the library (CUDA
+    only): query block, tile rows, ring stages, dynamic shared bytes,
+    the instantiation's registers and spilled bytes a thread, whether
+    the query block is resident, and the CTAs an SM holds."""
+    out = (ctypes.c_int * 8)()
+    check(lib().asp_merge_topk_bf16_config(f, k, out),
+          "asp_merge_topk_bf16_config")
+    keys = ("query_block", "tile_rows", "stages", "smem_bytes", "registers",
+            "spill_bytes", "resident", "ctas_per_sm")
+    return dict(zip(keys, out))
 
 
 def merge_topk_partial(qhat, qlam, xhat, xlam, c1: float, n: int, *,
@@ -110,7 +195,7 @@ def merge_topk_partial(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     bf16 = check_operands("merge_topk_partial", qhat, qlam, xhat, xlam)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"merge_topk_partial: k={k} outside [1, {MAX_K}]")
-    if merge_smem_bytes(bsz, k, bf16) > _SMEM_LIMIT:
+    if merge_smem_bytes(bsz, k, bf16, f) > _SMEM_LIMIT:
         raise ValueError(f"merge_topk_partial: B={bsz}, F={f}, k={k} "
                          "exceeds the kernel's shared-memory budget")
     if xhat.shape[0] < n or xhat.shape[1] != f or rows_per_chunk < 1:
@@ -184,7 +269,8 @@ def fused_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
     qhat, c1 = operand_query(queries, alpha, dt, items)
     qlam = query_lambdas.to(dt).contiguous()
     rows_per_chunk = rows_per_chunk or _chunk_rows(
-        qhat.shape[0], n, qhat.device, k, qhat.dtype == torch.bfloat16)
+        qhat.shape[0], n, qhat.device, k, qhat.dtype == torch.bfloat16,
+        qhat.shape[1])
     part_s, part_i = merge_topk_partial(qhat, qlam, items, item_lambdas, c1,
                                         n, k=k,
                                         rows_per_chunk=rows_per_chunk)

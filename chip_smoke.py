@@ -131,7 +131,15 @@ operands with float32 accumulation), each on an index above:
   the cosine index K3's at the whole batch and at a repair's single row;
 - [3d] a live bf16 session on the cosine index: 4 batches bitwise the
   static bf16 session's, then 4096 rows added and 2 batches held by
-  buffer position against the plain bf16 scan of the live rows.
+  buffer position against the plain bf16 scan of the live rows;
+- [14c] a bf16 session on the 1536-wide index that resolves "merge" (the
+  kind bf16 sessions take above K1's bf16 gate, F > 1536): its 16
+  batches through K3's bf16 mode (wgmma fed by a TMA ring,
+  csrc/merge_topk_bf16.cu), timed beside the [14b] session's, 256
+  queries of batch 0 held against the plain bf16 full scan; then K3's
+  bf16 mode against its plain version at 1M x 1536, with what its launch
+  runs (a ring below 3 stages or a spilled register fails) and the bytes
+  it reads from L2 a batch.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
@@ -158,7 +166,8 @@ PyTorch call computing the same function (null where none does), then
 the last line {"ok": true, "device": ...}.  The bf16 modes have their own
 entries, bintopk_bf16 (source csrc/bintopk_bf16.cu; launches on the
 cosine bf16 session's path; its records at_768 and at_1536) and
-merge_topk_bf16 (its record at_repair),
+merge_topk_bf16 (source csrc/merge_topk_bf16.cu; its records at_repair
+and at_1536, the latter with the [14c] session's ms a batch),
 their bounds at the dense bf16 peak, their matmul_ms the time of the
 bf16 product alone.
 """
@@ -674,7 +683,7 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
     from arrowspace_torch.ops import topk as tk
     bsz, f = qhat.shape
     bf16 = qhat.dtype == torch.bfloat16
-    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K, bf16)
+    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K, bf16, f)
     args = (qhat, qlam, xhat, xlam, c1, n)
     kw = dict(k=K, rows_per_chunk=rows_pc)
     s_k, i_k = tk.merge_topk_partial(*args, **kw)
@@ -3088,13 +3097,94 @@ def k1_bf16_vs_plain(torch, index, batches, dev, name):
     return rec, args
 
 
+def k3_bf16_record(torch, qh, qlam, xh, xl, c1, n, name):
+    """K3's bf16 mode against its plain version (k3_vs_plain), with what
+    its launch runs (``config``: query block, tile rows, ring stages,
+    shared bytes, registers, spilled bytes, query residency, CTAs an SM,
+    from the library; a ring below 3 stages or a spilled register fails)
+    and the bytes its CTAs read from L2 a batch: the corpus (B / 64)·N·F·2
+    and, where the query block is streamed, its slices B·N·F·2 / (tile
+    rows)."""
+    from arrowspace_torch.ops import topk as tk
+    bsz, f = qh.shape
+    rec = k3_vs_plain(torch, qh, qlam, xh, xl, c1, n, name)
+    rec["config"] = cfg = tk.merge_bf16_config(f, K)
+    l2 = -(-bsz // cfg["query_block"]) * n * f * 2
+    if not cfg["resident"]:
+        l2 += bsz * n * f * 2 / cfg["tile_rows"]
+    log(f"    {name} launch: {cfg}; read from L2 {l2 / 1e9:.3f} GB a "
+        f"batch, {l2 / rec['ms'] / 1e9:.3f} TB/s")
+    check(cfg["stages"] >= 3 and cfg["spill_bytes"] == 0,
+          f"{name}: ring below 3 stages or spilled registers")
+    return rec
+
+
 def k3_bf16_vs_plain(torch, qh, qlam, xh, xl, c1, n):
     """K3's bf16 mode against its plain version on the whole batch and at
-    a repair's single row (k3_vs_plain): its record, without launches."""
-    k3 = k3_vs_plain(torch, qh, qlam, xh, xl, c1, n, "K3 bf16 merge_topk")
-    k3["at_repair"] = k3_vs_plain(torch, qh[:1], qlam[:1], xh, xl, c1, n,
-                                  "K3 bf16 merge_topk at a repair's row")
+    a repair's single row (k3_bf16_record): its record, without
+    launches."""
+    k3 = k3_bf16_record(torch, qh, qlam, xh, xl, c1, n, "K3 bf16 merge_topk")
+    k3["at_repair"] = k3_bf16_record(torch, qh[:1], qlam[:1], xh, xl, c1, n,
+                                     "K3 bf16 merge_topk at a repair's row")
     return k3
+
+
+def merge_bf16_phase(torch, counters, index, batches, ops, ms_binned, dev):
+    """[14c] A bf16 session on the 1536-wide index that resolves "merge",
+    the kind a bf16 session takes above K1's bf16 gate (F > 1536): made
+    through make_search_session with the gate answering "merge", so each
+    batch runs ops.topk.fused_lambda_topk(use_bf16=True, prepared=True)
+    as such a session does.  The counters are set to 0 just before the
+    session is made and read right after its 16-batch stream: K3's bf16
+    mode once a batch and for the warm-up, no other top-k kernel.  256
+    queries of batch 0 are held against the plain bf16 full scan; then
+    K3's bf16 mode against its plain version at 1M x 1536 on batch 0's
+    bf16 operands ``ops`` (k3_bf16_record).  Returns (its launches, ms a
+    batch, the record)."""
+    import arrowspace_torch.index as index_mod
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops import bintopk as bt
+
+    log("[14c] bf16 \"merge\" session on the 1536-wide index (K3's bf16 "
+        "mode)")
+    reset(counters)
+    gate = index_mod.session_kernel_kind
+    index_mod.session_kernel_kind = lambda *a: "merge"
+    try:
+        sess = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA,
+                                         precision="bf16")
+    finally:
+        index_mod.session_kernel_kind = gate
+    check((sess.kernel, sess.precision) == ("merge", "bf16"),
+          f"bf16 merge session: {sess.kernel} {sess.precision}")
+    sess.warmup()
+    got, ms = stream_ms(torch, dev, sess, batches)
+    launches = {key: counters[c].launches for key, c in (
+        ("merge_topk_bf16", "k3b"), ("bintopk_bf16", "k1b"),
+        ("bintopk", "k1"), ("merge_topk", "k3"))}
+    log(f"  launches: {launches}; ms a batch: bf16 merge {ms:.3f}, bf16 "
+        f"binned (K1) {ms_binned:.3f}")
+    check(launches["merge_topk_bf16"] == N_BATCHES + 1,
+          "K3's bf16 mode did not launch once a batch and for the warm-up")
+    check(launches["bintopk_bf16"] == launches["bintopk"]
+          == launches["merge_topk"] == 0,
+          "the bf16 merge session launched another top-k kernel")
+    check(all(r[0].shape == (BATCH, K) and np.isfinite(r[0]).all()
+              for r in got), "bf16 merge session output shape/finiteness")
+    a = index.aspace
+    q = torch.as_tensor(batches[0][:256], device=dev, dtype=torch.float32)
+    _, qlam = _query_prep(a, index.gl)[1](q)
+    xh, xl = bt.prepare_binned_corpus(a.data, a.lambdas, use_bf16=True)
+    qh, qlam, c1 = bf16_operands(torch, xh, batches[0][:256], qlam, dev)
+    ps, pi = bf16_scan(torch, xh, xl, a.nitems, qh, qlam, c1)
+    s0, i0 = got[0][0][:256], got[0][1][:256]
+    agree("bf16 merge session vs plain bf16 full scan (1536-wide, 256 "
+          "queries)", s0, i0, ps, pi, exact=exact_scores(
+              qh, qlam, xh, xl, c1, torch.as_tensor(i0, device=dev)) + c1)
+    del sess, xh, xl, ps, pi
+    torch.cuda.empty_cache()
+    rec = k3_bf16_record(torch, *ops, "K3 bf16 merge_topk at 1536")
+    return launches["merge_topk_bf16"], ms, rec
 
 
 def live_bf16_phase(torch, counters, index, static, batches, rows, dev):
@@ -3167,7 +3257,7 @@ KERNELS = {
     # the bf16 modes (the TPU kernels' use_bf16=True)
     "bintopk_bf16": ("arrowspace_torch/csrc/bintopk_bf16.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
-    "merge_topk_bf16": ("arrowspace_torch/csrc/merge_topk.cu",
+    "merge_topk_bf16": ("arrowspace_torch/csrc/merge_topk_bf16.cu",
                         "arrowspace_tpu/ops/pallas_topk.py:263"),
 }
 
@@ -3326,13 +3416,17 @@ def main() -> int:
         index, session, batches, x_launches, x_ms = x_path(torch, counters,
                                                            dev)
         k4_x, k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
-        x16_sess, x16, _, _ = bf16_session(torch, counters, index, session,
-                                           batches, dev, "14b", "1536-wide")
-        k1b_1536, _ = k1_bf16_vs_plain(torch, index, batches, dev,
-                                       "1536-wide")
+        x16_sess, x16, x16_ms, _ = bf16_session(
+            torch, counters, index, session, batches, dev, "14b", "1536-wide")
+        k1b_1536, ops1536 = k1_bf16_vs_plain(torch, index, batches, dev,
+                                             "1536-wide")
         where_time_goes(torch, (("1536-wide bf16 session", x16_sess),),
                         batches, step=14)
         del x16_sess
+        torch.cuda.empty_cache()
+        k3b_merge, k3b_merge_ms, k3b_1536 = merge_bf16_phase(
+            torch, counters, index, batches, ops1536, x16_ms, dev)
+        del ops1536
         torch.cuda.empty_cache()
         plain, plain_ms = x_plain_session(torch, index, batches, dev)
         log(f"  1536-wide sessions: merge {x_ms:.3f} ms a batch, plain "
@@ -3383,7 +3477,11 @@ def main() -> int:
             for r in (k1b_768, k1b_1536))
         k3b = rec["merge_topk_bf16"]
         k3b["max_abs_err"] = max(k3b["max_abs_err"],
-                                 k3b["at_repair"]["max_abs_err"])
+                                 k3b["at_repair"]["max_abs_err"],
+                                 k3b_1536["max_abs_err"])
+        k3b["at_1536"] = {key: k3b_1536[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms")}
+        k3b["at_1536"]["session_ms_per_batch"] = k3b_merge_ms
         launches["bintopk_bf16"] = l16["bintopk_bf16"]
         launches["merge_topk_bf16"] = l16["merge_topk_bf16"]
         k1b["launches_by_path"] = {
@@ -3393,7 +3491,8 @@ def main() -> int:
         k3b["launches_by_path"] = {
             "cosine": l16["merge_topk_bf16"],
             "wide_768": w16["merge_topk_bf16"],
-            "wide_1536": x16["merge_topk_bf16"]}
+            "wide_1536": x16["merge_topk_bf16"],
+            "merge_1536": k3b_merge}
         for name, by_path in {
                 "bintopk": {"cosine": launches["bintopk"],
                             "reloaded_cosine": k1_reloaded,

@@ -185,12 +185,18 @@ def test_k1_bf16_plain_matches_jax_kernel(n, k):
     assert torch.equal(s, s2) and torch.equal(i, i2)
 
 
-@pytest.mark.parametrize("n,k,rows_per_chunk", [(1000, 8, 256),
-                                                (2048, 8, 512),
-                                                (777, 8, 128),
-                                                (300, 20, 64)])
-def test_k3_bf16_plain_matches_jax_kernel(n, k, rows_per_chunk):
-    q, ql, x, xl = _data(n, 32, 4)
+@pytest.mark.parametrize("n,k,rows_per_chunk,f", [
+    pytest.param(1000, 8, 256, 32, id="1000-8-256"),
+    pytest.param(2048, 8, 512, 32, id="2048-8-512"),
+    pytest.param(777, 8, 128, 32, id="777-8-128"),
+    pytest.param(300, 20, 64, 32, id="300-20-64"),
+    pytest.param(300, 10, 128, 1544, id="300-10-128-f1544"),
+    pytest.param(400, 20, 0, 2048, id="400-20-rule-f2048")])
+def test_k3_bf16_plain_matches_jax_kernel(n, k, rows_per_chunk, f):
+    """K3's bf16 plain version against the JAX kernel in interpret mode,
+    at F = 32 and above K1's bf16 gate (F = 1544, 2048; rows_per_chunk 0
+    takes the wrapper's rule)."""
+    q, ql, x, xl = _data(n, f, 4)
     js, ji = j_merge(*_j(q, ql, x, xl), 0.9, k=k, tile=256, interpret=True,
                      use_bf16=True)
     s, i = tk.fused_lambda_topk(*_t(q, ql, x, xl), 0.9, k=k,
@@ -459,6 +465,78 @@ def test_k1_bf16_gate_and_the_float32_rule():
         assert bt._bintopk_smem(f, qb) == (
             qb * (-(-f // 8) * 8 + 4) + 2 * (4096 // qb) * 68) * 4
     assert bt.query_block(768, 1) == 32 and bt.query_block(768, 1, True) == 64
+
+
+@pytest.mark.parametrize("f,k,resident,stages", [
+    (8, 10, True, 8), (128, 10, True, 8), (128, 64, True, 7),
+    (128, 128, True, 5), (136, 128, True, 4), (768, 1, True, 4),
+    (768, 10, True, 3), (768, 64, False, 5), (1536, 10, False, 6),
+    (1536, 128, False, 4), (3072, 10, False, 6), (4096, 128, False, 4)])
+def test_k3_bf16_merge_rule(f, k, resident, stages):
+    """K3's bf16 kernel: 64 queries × 128 corpus rows a CTA (two
+    warpgroups of wgmma m64n64k16); its shared memory is 1024 bytes to
+    align the 128-byte-swizzled tiles, the resident query block
+    (ceil(F/64) slices of 64 rows × 128 bytes), a ring of stages (the
+    tile's 128 rows × 128 bytes, and the query slice where it is not
+    resident) with two 8-byte barriers each plus the query block's, and
+    per query its k-th word, top-k list and candidate buffer of one tile
+    as (score, id) and its count.  The query block is resident where a
+    3-stage ring fits beside it; the ring is as deep as fits, at most 8;
+    one CTA an SM; rows per chunk are whole tiles, the chunk count whole
+    waves of the grid's CTAs, up to one chunk a slot."""
+    assert tk.merge_bf16_plan(f, k) == (resident, stages)
+    smem = tk.merge_smem_bytes(2048, k, True, f)
+    assert smem == (1024 + (-(-f // 64) * 8192 if resident else 0)
+                    + stages * (128 * 128 + (0 if resident else 8192))
+                    + (2 * stages + 1) * 8 + 64 * 8 + 64 * k * 8
+                    + 64 * 128 * 8 + 64 * 4)
+    assert smem <= 232_448 and 3 <= stages <= 8
+    if not resident:
+        assert tk._bf16_smem(f, k, True, 3) > 232_448
+    if stages < 8:
+        assert tk._bf16_smem(f, k, resident, stages + 1) > 232_448
+    assert tk.merge_tile_rows(2048, k, True, f) == 128
+    assert tk.merge_ctas_per_sm(2048, k, True, f) == 1
+    for bsz, n, sms in ((2048, 1_000_000, 132), (1, 1_000_000, 132),
+                        (97, 5003, 132), (1, 1, 1)):
+        assert tk.merge_query_block(bsz, True) == 64
+        rpc = tk.merge_rows_per_chunk(bsz, n, sms, k, True, f)
+        n_tiles = -(-n // 128)
+        chunks = bt.wave_chunks(-(-bsz // 64), n_tiles, sms, max(64, sms))
+        assert rpc % 128 == 0 and rpc == -(-n_tiles // chunks) * 128
+    # a single query block fills the card: 119 chunks of 66 tiles
+    assert tk.merge_rows_per_chunk(1, 1_000_000, 132, k, True, f) == 66 * 128
+    with pytest.raises(ValueError):            # the bf16 rule needs F
+        tk.merge_rows_per_chunk(2048, 1000, 132, k, True)
+
+
+def test_k3_bf16_rule_admits_every_shape():
+    """Every shape the bf16 merge admits, k = 1..128 at F = 8..4096 (a
+    multiple of 8): a ring of at least 3 stages within 232,448 bytes, so
+    the wrapper refuses none of them."""
+    for f in range(8, 4097, 8):
+        for k in range(1, 129):
+            resident, stages = tk.merge_bf16_plan(f, k)
+            assert stages >= 3
+            assert tk._bf16_smem(f, k, resident, stages) <= 232_448
+
+
+def test_k3_float32_merge_rule_unchanged():
+    """The float32 K3's rule does not read F and is the one it was:
+    64 × 64 (32 × 128 below 33 queries), two CTAs an SM up to k = 24,
+    its shared memory and chunking as before the bf16 kernel."""
+    assert [tk.merge_query_block(b) for b in (1, 32, 33, 64, 2048)] == \
+        [32, 32, 64, 64, 64]
+    assert [tk.merge_tile_rows(b, 10) for b in (1, 2048)] == [128, 64]
+    assert [tk.merge_ctas_per_sm(2048, k) for k in (1, 24, 25, 128)] == \
+        [2, 2, 1, 1]
+    for k in (1, 10, 64, 128):
+        assert tk.merge_smem_bytes(2048, k) == tk.merge_smem_bytes(
+            2048, k, False, 1536) == 4 * (2 * 128 * 68 + 2 * 64 * k
+                                          + 2 * 64 * 64 + 3 * 64)
+        for bsz in (1, 2048):
+            assert tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k) == \
+                tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k, False, 3072)
 
 
 @pytest.mark.parametrize("alpha", [0.9, 1.0])

@@ -10,10 +10,12 @@ the step op by op), the double-buffered streaming against a copy on
 the compute stream, and the mesh: four shards on the card against one
 shard and the float64 CPU mesh, the strided mesh repairs included.
 Last, the bf16 modes of K1 and K3 against their plain versions (the
-same bf16 operands, a float32 product), K1's TMA ring at its edges
-(ragged last slices, partial query blocks, fewer rows than a stage,
-chunks without tiles, poisoned rows past n), bf16 rows tied by id, and
-the bf16 static and live sessions on the card.
+same bf16 operands, a float32 product), both TMA rings at their edges
+(ragged last slices, partial query blocks, fewer rows than a stage or a
+tile, chunks without tiles, poisoned rows past n; K3's at F up to 3072
+and k up to 128, its query block resident or streamed), bf16 rows tied
+by id, each kernel's launch account against its wrapper's rule, and the
+bf16 static, live and "merge" sessions on the card.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  This
 file imports no JAX, so on a machine without JAX run it alone:
@@ -1895,12 +1897,15 @@ def test_k1_bf16_rows_rounding_alike_tie_by_id(dev, f):
     assert bool((s[0, :len(ids)] == s[0, 0]).all())
 
 
-@pytest.mark.parametrize("f", [40, 768, 1536])
+@pytest.mark.parametrize("f", [8, 40, 768, 1536, 1544, 2048, 3072])
 @pytest.mark.parametrize("k", [1, 10, 128])
 def test_k3_bf16_partial_matches_plain(dev, f, k):
+    """K3's bf16 mode with the query block resident or streamed with
+    each stage, rings of 3 to 8 stages, B = 70 (a ragged 64-query block),
+    n = 5003 (a ragged tile), at the wrapper's own chunking."""
     n, b = 5003, 70
     args = _inputs_bf16(dev, n, f, b, seed=f + k)
-    rpc = tk._chunk_rows(b, n, dev, k, True)
+    rpc = tk._chunk_rows(b, n, dev, k, True, f)
     f32, b16 = (tk.merge_topk_partial.launches,
                 tk.merge_topk_partial.launches_bf16)
     s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rpc)
@@ -1913,24 +1918,221 @@ def test_k3_bf16_partial_matches_plain(dev, f, k):
     assert torch.equal(i == INT_MAX, ri == INT_MAX)
 
 
-@pytest.mark.parametrize("f", [128, 768])
+@pytest.mark.parametrize("f", [128, 768, 1536])
 def test_k1_and_k3_bf16_score_a_pair_bitwise_alike(dev, f):
-    """K1's and K3's bf16 modes run one k-step sequence a pair, so every
-    row both return for a query scores bitwise alike."""
+    """K1's and K3's bf16 modes run one step a 64-feature slice (a wgmma
+    chain into a zeroed partial, joined by one rounded add; K1 on 32 rows
+    a warpgroup, K3 on 64), so every row both return for a query scores
+    bitwise alike, at k = 10 and k = 128."""
     n, b = 20_000, 64
     args = _inputs_bf16(dev, n, f, b, seed=f)
     pool_s, pool_i, _ = bt.binned_topk_pool(*args, n, depth=3, bins=128,
                                             chunks=2)
-    s, i = tk.merge_topk_partial(*args, n, k=128, rows_per_chunk=tk._chunk_rows(
-        b, n, dev, 128, True))
-    torch.cuda.synchronize()
-    dense = torch.full((b, n + 1), float("nan"), device=dev)
+    for k in (10, 128):
+        s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=(
+            tk._chunk_rows(b, n, dev, k, True, f)))
+        torch.cuda.synchronize()
+        _same_pair_scores(pool_s, pool_i, s, i, n, b * min(k, 100))
+
+
+def _same_pair_scores(pool_s, pool_i, s, i, n, least):
+    """Every row in both K1's pool and K3's partials scores bitwise
+    alike, over at least ``least`` (query, row) pairs."""
+    b = s.shape[0]
+    dense = torch.full((b, n + 1), float("nan"), device=s.device)
     pi = pool_i.reshape(b, -1).long().clamp_max(n)
     dense.scatter_(1, pi, pool_s.reshape(b, -1))
     got = dense.gather(1, i.reshape(b, -1).long().clamp_max(n))
     both = ~torch.isnan(got) & (i.reshape(b, -1) != INT_MAX)
-    assert int(both.sum()) >= b * 100
+    assert int(both.sum()) >= least
     assert torch.equal(got[both], s.reshape(b, -1)[both])
+
+
+def _k3_bf16_vs_plain(args, n, k, rows_per_chunk):
+    s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rows_per_chunk)
+    rs, ri = tk.merge_topk_partial_plain(*args, n, k=k,
+                                         rows_per_chunk=rows_per_chunk)
+    torch.cuda.synchronize()
+    assert s.shape == rs.shape
+    _assert_scored_ids(s, i, rs, args)
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
+    return s, i
+
+
+@pytest.mark.parametrize("f", [136, 1544])
+@pytest.mark.parametrize("b", [1, 63, 64, 97, 2048])
+def test_k3_bf16_partial_and_full_query_blocks(dev, f, b):
+    """A batch below one 64-query block (the rows past B arrive as zeros
+    from the query map and are never written), one short of it, exactly
+    one, a ragged second block and a full 2048-query batch, with the
+    query block resident (F = 136) and streamed (F = 1544)."""
+    n = 5003
+    args = _inputs_bf16(dev, n, f, b, seed=f + b)
+    _k3_bf16_vs_plain(args, n, 10, tk._chunk_rows(b, n, dev, 10, True, f))
+
+
+@pytest.mark.parametrize("n", [1, 31, 100, 130])
+@pytest.mark.parametrize("f,k", [(72, 10), (2048, 128)])
+def test_k3_bf16_fewer_rows_than_a_tile(dev, n, f, k):
+    """A corpus of fewer rows than one 128-row tile or than one
+    warpgroup's 64: the tile's rows past n arrive as zeros and never
+    become candidates; slots no row fills hold NEG_INF, INT_MAX."""
+    args = _inputs_bf16(dev, n, f, 70, seed=n + f)
+    s, i = _k3_bf16_vs_plain(args, n, k, 4096)
+    assert int((i != INT_MAX).sum(dim=-1).max()) == min(n, k)
+
+
+def test_k3_bf16_chunks_without_tiles(dev):
+    """Chunks past the last tile (no slice is loaded) hold NEG_INF and
+    INT_MAX; the others equal the plain version's partials at their own
+    chunking."""
+    n, b, f, k = 300, 40, 136, 10
+    qh, ql, xh, xlh, c1 = _inputs_bf16(dev, n, f, b, seed=5)
+    rpc = tk.merge_tile_rows(b, k, True, f)
+    chunks = -(-n // rpc) + 2
+    s = torch.empty((b, chunks, k), device=dev)
+    i = torch.empty((b, chunks, k), device=dev, dtype=torch.int32)
+    rc = lib().asp_merge_topk_bf16(
+        qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1, n,
+        b, f, k, chunks, rpc, s.data_ptr(), i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    rs, ri = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, n, k=k,
+                                         rows_per_chunk=rpc)
+    _assert_scored_ids(s[:, :-2], i[:, :-2], rs, (qh, ql, xh, xlh, c1))
+    assert torch.equal(i[:, :-2] == INT_MAX, ri == INT_MAX)
+    assert bool((s[:, -2:] == NEG_INF).all())
+    assert bool((i[:, -2:] == INT_MAX).all())
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan", "huge"])
+@pytest.mark.parametrize("f,k,rows_per_chunk", [(40, 10, 1280),
+                                                (136, 128, 6000),
+                                                (1536, 10, 128),
+                                                (2048, 64, 8192)])
+def test_k3_bf16_never_scores_a_row_past_n(dev, fill, f, k, rows_per_chunk):
+    """A capacity buffer whose rows past n hold copies of the queries,
+    NaN or 1e30 (in bf16): the corpus map ends at row n, so none of them
+    reaches a score, whatever the chunk's length."""
+    from arrowspace_torch.ops.search import operand_query
+    rng = np.random.default_rng(f + k)
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.uniform(0.1, 1.0, (37, f)), rng.uniform(0, 1, 37),
+                     rng.uniform(0.1, 1.0, (CAP, f)), rng.uniform(0, 1, CAP)))
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    if fill == "huge":
+        xh[N_LIVE:], xlh[N_LIVE:] = 1e30, 1e30
+    else:
+        _poison(xh, N_LIVE, qh / qh.float().norm(dim=1, keepdim=True).to(
+            qh.dtype), fill)
+        _poison(xlh, N_LIVE, ql, fill)
+    s, i = _k3_bf16_vs_plain((qh, ql, xh, xlh, c1), N_LIVE, k,
+                             rows_per_chunk)
+    _no_row_past_n(i)
+    assert bool(torch.isfinite(s).all())
+    fs, fi = tk.fused_lambda_topk(q, ql, xh, xlh, 0.9, k=k, prepared=True,
+                                  n_items=N_LIVE)
+    _no_row_past_n(fi)
+
+
+@pytest.mark.parametrize("f", [128, 2048])
+def test_k3_bf16_identical_rows_tie_by_id(dev, f):
+    """Copies of query 0 in several tiles, warpgroups and chunks, two of
+    them adjacent, score bitwise alike in K3's bf16 mode and come back
+    from fused_lambda_topk first, in ascending id order."""
+    n, b = 9001, 19
+    rng = np.random.default_rng(f)
+    q, ql = rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b)
+    x, xl = rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)
+    ids = [3, 4, 70, 101, 2049, 4500, 8999]
+    x[ids], xl[ids] = q[0], ql[0]
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (q, ql, x, xl))
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+    assert bool((xh[ids] == xh[ids[0]]).all())
+    from arrowspace_torch.ops.search import operand_query
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    s, i = tk.merge_topk_partial(qh, ql, xh, xlh, c1, n, k=10,
+                                 rows_per_chunk=2048)
+    torch.cuda.synchronize()
+    copies = torch.isin(i, torch.tensor(ids, device=dev, dtype=i.dtype))
+    assert int(copies[0].sum()) == len(ids)
+    found = s[0][copies[0]]
+    assert bool((found == found[0]).all())
+    fs, fi = tk.fused_lambda_topk(q, ql, xh, xlh, 0.9, k=10, prepared=True,
+                                  n_items=n)
+    assert fi[0, :len(ids)].tolist() == ids
+    assert bool((fs[0, :len(ids)] == fs[0, 0]).all())
+
+
+def test_k3_bf16_config_matches_the_wrapper_rule(dev):
+    """The library's account of each launch (query block, tile rows,
+    stages, shared bytes, query residency, CTAs an SM) is the wrapper's
+    rule, with a ring of at least 3 stages, within 232,448 bytes, and no
+    spilled register, at F up to 4096 and k up to 128."""
+    for f in (8, 136, 768, 1536, 1544, 2048, 3072, 4096):
+        for k in (1, 10, 49, 50, 64, 128):
+            cfg = tk.merge_bf16_config(f, k)
+            resident, stages = tk.merge_bf16_plan(f, k)
+            assert cfg["query_block"] == tk.merge_query_block(2048, True)
+            assert cfg["tile_rows"] == tk.merge_tile_rows(2048, k, True, f)
+            assert cfg["stages"] == stages >= 3
+            assert cfg["resident"] == int(resident)
+            assert cfg["smem_bytes"] == tk.merge_smem_bytes(2048, k, True, f)
+            assert cfg["smem_bytes"] <= 232_448
+            assert cfg["ctas_per_sm"] == tk.merge_ctas_per_sm(2048, k, True,
+                                                              f)
+            assert cfg["spill_bytes"] == 0
+
+
+def test_bf16_merge_session_above_the_gate(dev):
+    """A 70000 x 2048 projected build on the card: a bf16 session
+    resolves "merge" (above K1's bf16 gate), launches K3's bf16 mode once
+    a batch and no other top-k kernel, and equals the plain bf16 full
+    scan: scores within 1e-5, ids equal outside near-ties, the copies of
+    a row first in ascending id order."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.search import (dot_plane, exact_topk,
+                                             lambda_term, operand_query)
+    rng = np.random.default_rng(21)
+    c = rng.uniform(0.2, 0.8, (24, 2048))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
+                                                       (70_000, 2048))
+    rows[[11, 500, 501]] = rows[10]
+    idx = ArrowIndex.build(rows, eps=1.0, dims_reduction=True, seed=21,
+                           device=dev)
+    sess = idx.make_search_session(batch_size=64, k=10, alpha=0.9,
+                                   precision="bf16")
+    assert sess.kernel == "merge" and sess.precision == "bf16"
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    queries[0] = rows[10] * 1.02
+    counts = lambda: (bt.binned_topk_pool.launches,          # noqa: E731
+                      bt.binned_topk_pool.launches_bf16,
+                      tk.merge_topk_partial.launches,
+                      tk.merge_topk_partial.launches_bf16)
+    before = counts()
+    (gs, gi), = list(sess.search_stream([queries]))
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1]
+    q = torch.tensor(queries, dtype=torch.float32, device=dev)
+    _, qlam = _query_prep(idx.aspace, idx.gl)[1](q)
+    xh, xlh = bt.prepare_binned_corpus(idx.aspace.data, idx.aspace.lambdas,
+                                       use_bf16=True)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
+    n = idx.nitems
+    ps, pi = exact_topk(dot_plane(qh, xh[:n])
+                        - lambda_term(qlam.float(), xlh[:n], c1), 10)
+    ps, pi = (ps + c1).cpu().numpy(), pi.cpu().numpy()
+    err = float(np.abs(gs - ps).max())
+    assert err <= TOL
+    copies = [gi[0].tolist().index(v) for v in (10, 11, 500, 501)]
+    assert copies == list(range(copies[0], copies[0] + 4))
+    for r, j in zip(*np.nonzero(gi != pi)):
+        pos = np.nonzero(pi[r] == gi[r, j])[0]
+        other = ps[r, pos[0]] if pos.size else ps[r, -1]
+        assert abs(other - ps[r, j]) <= 2.0 * err
 
 
 def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(dev):

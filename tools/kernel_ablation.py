@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K1's bf16
-mode (csrc/bintopk_bf16.cu), K3 (csrc/merge_topk.cu), K6
-(csrc/energy_bintopk.cu), K7
+mode (csrc/bintopk_bf16.cu), K3 (csrc/merge_topk.cu), K3's bf16 mode
+(csrc/merge_topk_bf16.cu), K6 (csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
 (csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
 and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
@@ -9,8 +9,8 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ablation.py [--kernels k1,k1bf16,k3,k6,k7,k2,k5,k4]
-                                     [--before DIR]
+    python3 tools/kernel_ablation.py
+        [--kernels k1,k1bf16,k3,k3bf16,k6,k7,k2,k5,k4] [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
 a kernel: it compiles copies of the kernel's sources with one part taken
@@ -26,6 +26,14 @@ fails) and times each copy on the same inputs at the serving shapes:
   block reads from L2, (B / QB)·N·F·2, with the rate they imply;
 - K3: the same rows at F = 128 and F = 1536, k = 10, at the wrapper's
   chunking;
+- K3's bf16 mode (``--kernels k3bf16``): the same rows as bf16 operands
+  at 1M x 128, 1M x 1536 and 1M x 3072 (B = 2048, k = 10), at 1M x 1536
+  with k = 128, and the B = 1 repair row at 1M x 128 (the median of 25
+  single launches), at the wrapper's chunking, with what each launch runs
+  (merge_bf16_plan: ring stages, query residency), its
+  bound and the bytes every CTA reads from L2, the corpus (B / 64)·N·F·2
+  and, where the query block is not resident, the query slices
+  B·N·F·2 / (tile rows), with the rate they imply;
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
   clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
@@ -53,8 +61,12 @@ merge runs), "no_staging" (the first slice only; K1's bf16 mode: no
 refill of its ring, each step multiplying what its stage holds),
 "no_product", "product_only", "staging_only"; K1 also "one_tf32" and
 "lo_truncated";
-K6 and K7 also "partial_8/16/64" (the truncating accumulate summed in
-zeroed partials of 8, 16 or 64 features instead of the shipped 32); K2
+K3's bf16 mode "kernel", "no_select" (no candidate appended, so no merge
+runs), "product_only" (no refill of the ring and no selection),
+"staging_only" (no wgmma and no selection) and "n32" (wgmma m64n32k16,
+32 rows a warpgroup, instead of m64n64k16); K6 and K7 also
+"partial_8/16/64" (the truncating accumulate summed in zeroed partials
+of 8, 16 or 64 features instead of the shipped 32); K2
 and K5 (fold: the epilogue that multiplies the products by the rows'
 coordinates; staging: the graph slices) also "no_b_split" (the graph
 operands passed to the tensor core unsplit: what splitting them once
@@ -79,13 +91,17 @@ row's [lo, hi], ⌈log2(hi - lo + 1)⌉ passes at most).  Every variant but
 ``--before DIR`` also ablates the K6 and K7 of another checkout's csrc
 directory (DIR), for instance the fp32 fold of an earlier commit
 unpacked with ``git archive``; its C entry points must be the same.  For
-K1 it builds DIR's kernel beside this one, times both, and compares
-their machine code (cuobjdump -sass) instantiation by instantiation; for
-K1's bf16 mode it times DIR's ``asp_bintopk_bf16`` as shipped (from
-DIR's bintopk_bf16.cu, or its bintopk.cu where the bf16 mode was an
-instantiation of the float32 kernel); for
-K3 it times DIR's kernel as shipped, at its own chunking (the fp32
-kernel of earlier commits: 8 queries a CTA, two CTAs per SM); for K2 and
+K1, K1's bf16 mode and K3 it builds DIR's kernel beside this one,
+times both, and compares their machine code (cuobjdump -sass)
+instantiation by instantiation; for K1's bf16 mode it times DIR's
+``asp_bintopk_bf16`` as shipped (from DIR's bintopk_bf16.cu, or its
+bintopk.cu where the bf16 mode was an instantiation of the float32
+kernel); for K3 it times DIR's kernel as shipped, at its own chunking
+(the fp32 kernel of earlier commits: 8 queries a CTA, two CTAs per SM);
+for K3's bf16 mode DIR's ``asp_merge_topk_bf16`` as shipped (from DIR's
+merge_topk_bf16.cu, or its merge_topk.cu, where the bf16 mode was an
+instantiation of the float32 kernel, at that kernel's chunking), timed
+before and after this one's variants at each shape; for K2 and
 K5 it times DIR's kernel as shipped and reports its float64 error beside
 this one's; for K4 it times DIR's kernel as shipped (and, where DIR's
 gate refuses F, the sort that DIR's builds then take).
@@ -153,6 +169,19 @@ K1BF16_PARTS = {   # K1's bf16 mode (csrc/bintopk_bf16.cu)
                 ("bintopk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
                  "    if (step < S) mbar_wait(full + 8 * st, phase);")],
 }
+K3BF16_PARTS = {   # K3's bf16 mode (csrc/merge_topk_bf16.cu)
+    "product": [("merge_topk_bf16.cu", "wgmma_rows<kN>(p,",
+                 "if (false) wgmma_rows<kN>(p,")],
+    "select": [("merge_topk_bf16.cu",
+                "if (live_q[i] && __fsub_rn(dot, lift) >= kth_s) {",
+                "if (live_q[i] && a.c1 > 1e30f) {")],
+    # no refill: the producer fills the ring once, and each step
+    # multiplies whatever its stage holds
+    "staging": [("merge_topk_bf16.cu", "const int loads = total;",
+                 "const int loads = min(total, S);"),
+                ("merge_topk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
+                 "    if (step < S) mbar_wait(full + 8 * st, phase);")],
+}
 TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
     "product": [("energy_tile.cuh", "      tile_product_full<NT>(acc, qa, xb);",
                  "      (void)0;"),
@@ -218,6 +247,16 @@ LAMBDA_PARTS = {   # the λ body of K2 and K5 (csrc/lambda_tile.cuh)
                  "    if (false) {\n      const int p1")],
 }
 K1BF16_VARIANTS = variants(K1BF16_PARTS, {})
+K3BF16_VARIANTS = {
+    "kernel": [], "no_select": K3BF16_PARTS["select"],
+    "product_only": K3BF16_PARTS["staging"] + K3BF16_PARTS["select"],
+    "staging_only": K3BF16_PARTS["product"] + K3BF16_PARTS["select"],
+    "n32": [("merge_topk_bf16.cu", "constexpr int kN = 64;",
+             "constexpr int kN = 32;")]}
+# K3's bf16 mode at (F, B, k): the serving widths, the 3072-wide
+# embeddings, the deepest k and the repair's single row
+K3BF16_SHAPES = ((128, 2048, 10), (1536, 2048, 10), (3072, 2048, 10),
+                 (1536, 2048, 128), (128, 1, 10))
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
 K3_VARIANTS = variants(K3_PARTS, {})
 LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
@@ -278,15 +317,20 @@ SELECT_VARIANTS = {
                                    ("redux_bounded", "false", "true"))}}
 K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
 SOURCES = {"k1": "bintopk.cu", "k1bf16": "bintopk_bf16.cu",
-           "k3": "merge_topk.cu",
+           "k3": "merge_topk.cu", "k3bf16": "merge_topk_bf16.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
            "k2": "taulambda.cu", "k5": "lambda_batch.cu",
            "k4": "select_tau.cu"}
 ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
-         "k3": "asp_merge_topk",
+         "k3": "asp_merge_topk", "k3bf16": "asp_merge_topk_bf16",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
          "k2": "asp_taulambda", "k5": "asp_lambda_batch",
          "k4": "asp_select_tau"}
+
+
+# the kernels whose machine code --before compares, by function name
+SASS_KERNEL = {"k1": "bintopk_kernel", "k1bf16": "bintopk_bf16_kernel",
+               "k3": "merge_topk_kernel"}
 
 
 def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str,
@@ -332,13 +376,16 @@ def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str,
 
 
 def short(mangled: str) -> str:
-    """'depth,query block' (K4: 'slots,vector loads'; ',bf16' for a bf16
-    instantiation of a kernel templated on the operand type) of a
-    mangled kernel instantiation."""
+    """'depth,query block' (K4: 'slots,vector loads'; K3: 'query block';
+    K3's bf16 mode: 'resident' 1 or 0; ',bf16' for a bf16 instantiation
+    of a kernel templated on the operand type) of a mangled kernel
+    instantiation."""
     nums = re.findall(r"ILi(\d+)EL[ib](\d+)E", mangled)
-    if not nums:
+    one = re.findall(r"IL[ib](\d+)E", mangled)
+    if not nums and not one:
         return mangled[:40]
-    return ",".join(nums[0]) + (",bf16" if "nv_bfloat16" in mangled else "")
+    key = ",".join(nums[0]) if nums else one[0]
+    return key + (",bf16" if "nv_bfloat16" in mangled else "")
 
 
 def chunking(ctas: int, dev) -> tuple:
@@ -380,7 +427,8 @@ def k1_inputs(dev, f: int):
 
 
 def sass(kernel: str, tag: str) -> dict:
-    """{'depth,query block': [instructions]} of a built K1 variant."""
+    """{short(instantiation): [instructions]} of a built variant's
+    SASS_KERNEL[kernel] instantiations."""
     tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(
         OUT / f"{tag}_{kernel}_kernel" / "lib.so")], capture_output=True,
@@ -389,12 +437,21 @@ def sass(kernel: str, tag: str) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            key = short(name) if "bintopk_kernel" in name else None
+            key = short(name) if SASS_KERNEL[kernel] + "I" in name else None
             if key:
                 out[key] = []
         elif key and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             out[key].append(line.split("*/", 1)[1].split(";")[0].strip())
     return out
+
+
+def compare_sass(kernel: str) -> None:
+    """Prints, per instantiation of this checkout's kernel, whether its
+    machine code equals the --before build's."""
+    a, b = sass(kernel, "before"), sass(kernel, "now")
+    for key in sorted(b):
+        print(f"{kernel} {key}: {len(b[key])} instructions, machine code "
+              f"equal to --before's: {a.get(key) == b[key]}", flush=True)
 
 
 def run_k1(libs, dev, tag: str = "now") -> None:
@@ -540,6 +597,114 @@ def run_k3(libs, dev, tag: str = "now") -> None:
             del s2, i2
         del qh, ql, xh, xlh, out_s, out_i
         torch.cuda.empty_cache()
+
+
+def mma_sync_bf16_rows_per_chunk(bsz: int, n: int, sms: int,
+                                  k: int) -> int:
+    """The chunking of K3's bf16 mode before it had a kernel of its own
+    (the float32 kernel's rule on 72-bf16 slices): 64 queries × 64 rows
+    a CTA (32 × 128 below 33 queries), two CTAs an SM where their shared
+    memory fits."""
+    qb = 64 if -(-bsz // 32) * 32 >= 64 else 32
+    tr = 4096 // qb
+    smem = 2 * (qb + tr) * 144 + 4 * (2 * qb * k + 2 * qb * tr + 3 * qb)
+    per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 else 1
+    n_tiles = max(1, -(-n // tr))
+    chunks = bt.wave_chunks(-(-bsz // qb), n_tiles, sms * per_sm)
+    return -(-n_tiles // chunks) * tr
+
+
+def time_median_ms(call, reps: int = 25) -> float:
+    """Median milliseconds of ``reps`` single launches (CUDA events around
+    each), after one warm-up."""
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def run_k3bf16(runs, dev) -> None:
+    """K3's bf16 mode at K3BF16_SHAPES on the bf16 operands the sessions
+    make, each of ``runs`` ((tag, libs): this checkout's variants and, with
+    --before, the other checkout's kernel, timed before and after them),
+    at its own chunking; the kernel held to the plain version, its bound
+    (2·B·N·F bf16 operations at 989.4 TFLOP/s) and the L2 bytes of each
+    CTA's slices with their rate."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    made = None
+    for f, bsz, k in K3BF16_SHAPES:
+        if made is None or made[0] != f:
+            made = None
+            torch.cuda.empty_cache()
+            x, gen = clustered(dev, N, f, seed=f)
+            xl = torch.rand(N, device=dev, generator=gen) * 0.2
+            xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=True)
+            q = x[:B] * 1.02
+            del x
+            made = (f, xh, xlh, q, xl[:B].contiguous())
+        _, xh, xlh, q, ql_all = made
+        qh, c1 = operand_query(q[:bsz], 0.9, torch.float32, xh)
+        ql = ql_all[:bsz].contiguous()
+        resident, stages = tk.merge_bf16_plan(f, k)
+        tr = tk.merge_tile_rows(bsz, k, True, f)
+        bound = 2.0 * bsz * N * f / 989.4e12 * 1e3
+        shape = f"F={f} B={bsz} k={k}"
+        print(f"k3bf16 {shape}: {tr} rows a tile, {stages} stages, "
+              f"query block {'resident' if resident else 'streamed'}, "
+              f"{tk.merge_smem_bytes(bsz, k, True, f)} shared bytes; bound "
+              f"{bound:.3f} ms (operations)", flush=True)
+        order = [r for r in runs if r[0] == "before"][:1] + \
+            [r for r in runs if r[0] == "now"] + \
+            [r for r in runs if r[0] == "before"][:1]
+        for tag, libs in order:
+            if tag == "now":
+                rpc = tk.merge_rows_per_chunk(bsz, N, sms, k, True, f)
+                qbytes = 0 if resident else bsz * N * f * 2 / tr
+                l2 = -(-bsz // 64) * N * f * 2 + qbytes
+            else:
+                rpc = mma_sync_bf16_rows_per_chunk(bsz, N, sms, k)
+                qb = 64 if -(-bsz // 32) * 32 >= 64 else 32
+                l2 = -(-bsz // qb) * N * f * 2 + bsz * N * f * 2 / (4096 // qb)
+            chunks = -(-N // rpc)
+            out_s = torch.empty((bsz, chunks, k), device=dev)
+            out_i = torch.empty((bsz, chunks, k), device=dev,
+                                dtype=torch.int32)
+            for name, fn in libs.items():
+                def call():
+                    rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                            xlh.data_ptr(), c1, N, bsz, f, k, chunks, rpc,
+                            out_s.data_ptr(), out_i.data_ptr(), stream)
+                    if rc != 0:
+                        raise SystemExit(f"{tag} k3bf16 {name}: launch "
+                                         f"failed ({rc})")
+                ms = time_median_ms(call) if bsz == 1 else time_ms(call)
+                line = (f"{tag} k3bf16 {shape} chunks={chunks} {name}: "
+                        f"{ms:.3f} ms")
+                if name == "kernel":
+                    rs, _ = tk.merge_topk_partial_plain(
+                        qh, ql, xh, xlh, c1, N, k=k, rows_per_chunk=rpc)
+                    err = float((out_s - rs).abs().max())
+                    line += (f" (max_abs_err vs plain {err:.3e}; L2 reads "
+                             f"{l2 / 1e9:.3f} GB, {l2 / ms / 1e9:.3f} TB/s; "
+                             f"{ms / bound:.1f}x the bound)")
+                    if err > 1e-5:
+                        print(line, flush=True)
+                        raise SystemExit("K3 bf16 disagrees with its plain "
+                                         "version")
+                print(line, flush=True)
+            del out_s, out_i
+        del qh, ql
+    del made
+    torch.cuda.empty_cache()
 
 
 def energy_plane(dev, centred: bool):
@@ -827,11 +992,7 @@ def main() -> int:
         if args.before is not None:
             old = build("k1", args.before.resolve(), {"kernel": []},
                         "before")
-            a, b = sass("k1", "before"), sass("k1", "now")
-            for key in sorted(b):
-                print(f"k1 {key}: {len(b[key])} instructions, machine code "
-                      f"equal to --before's: {a.get(key) == b[key]}",
-                      flush=True)
+            compare_sass("k1")
             run_k1(old, dev, "before")
         run_k1(libs, dev)
     if "k1bf16" in kernels:
@@ -840,15 +1001,29 @@ def main() -> int:
             before = args.before.resolve()
             src = ("bintopk_bf16.cu" if (before / "bintopk_bf16.cu").exists()
                    else "bintopk.cu")
-            run_k1bf16(build("k1bf16", before, {"kernel": []}, "before",
-                             src), dev, "before")
+            old = build("k1bf16", before, {"kernel": []}, "before", src)
+            if src == "bintopk_bf16.cu":
+                compare_sass("k1bf16")
+            run_k1bf16(old, dev, "before")
         run_k1bf16(libs, dev)
     if "k3" in kernels:
         libs = build("k3", CSRC, K3_VARIANTS, "now")
         if args.before is not None:
-            run_k3(build("k3", args.before.resolve(), {"kernel": []},
-                         "before"), dev, "before")
+            old = build("k3", args.before.resolve(), {"kernel": []},
+                        "before")
+            compare_sass("k3")
+            run_k3(old, dev, "before")
         run_k3(libs, dev)
+    if "k3bf16" in kernels:
+        runs = [("now", build("k3bf16", CSRC, K3BF16_VARIANTS, "now"))]
+        if args.before is not None:
+            before = args.before.resolve()
+            src = ("merge_topk_bf16.cu"
+                   if (before / "merge_topk_bf16.cu").exists()
+                   else "merge_topk.cu")
+            runs.append(("before", build("k3bf16", before, {"kernel": []},
+                                         "before", src)))
+        run_k3bf16(runs, dev)
     for kernel in ("k6", "k7"):
         if kernel not in kernels:
             continue
