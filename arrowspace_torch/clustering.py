@@ -53,8 +53,9 @@ CLUSTERING_SEED = 128  # clustering.rs:30
 __all__ = ["CLUSTERING_SEED", "Assignments", "compute_optimal_k",
            "estimate_intrinsic_dimension", "calinski_harabasz_score",
            "compute_threshold_from_pilot", "kmeans_lloyd",
-           "run_incremental_clustering_with_sampling",
-           "DEVICE_CLUSTERING_MIN_ELEMS", "TWONN_CHUNK", "TWONN_CORPUS_WIN"]
+           "run_incremental_clustering_with_sampling", "euclidean_dist",
+           "nearest_centroid", "DEVICE_CLUSTERING_MIN_ELEMS", "TWONN_CHUNK",
+           "TWONN_CORPUS_WIN"]
 
 # Corpora of at least this many elements (rows x features) run the Two-NN
 # tiles and the chunked scan's distances on the index's tensor; smaller
@@ -84,6 +85,22 @@ class Assignments:
     def __iter__(self):
         for v in self.array.tolist():
             yield None if v < 0 else v
+
+
+def euclidean_dist(a, b) -> float:
+    """Euclidean distance of two rows, in float64."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    return float(np.sqrt(np.sum((a - b) ** 2)))
+
+
+def nearest_centroid(row, centroids) -> Tuple[int, float]:
+    """Linear-scan nearest centroid: (index, squared distance), the first
+    of equal distances (clustering.rs:913-928)."""
+    c = np.asarray(centroids, dtype=np.float64)
+    d2 = np.sum((c - np.asarray(row, dtype=np.float64)[None, :]) ** 2, axis=1)
+    idx = int(np.argmin(d2))
+    return idx, float(d2[idx])
 
 
 def kmeans_lloyd(rows, k: int, max_iter: int, seed: int) -> np.ndarray:

@@ -63,20 +63,34 @@ def merge_fits(nitems: int, k: int) -> bool:
 
 
 def lambda_aware_topk(queries, query_lambdas, items, item_lambdas, alpha,
-                      *, k: int, use_bf16: bool = False):
+                      *, k: int, use_bf16: bool = False,
+                      use_pallas: Optional[bool] = None):
     """Exact λ-aware top-k of a corpus on one device, by the engine its
     size takes: the binned kernel (K1) with exact repair where
     binned_fits holds, the exact merge kernel (K3) where only merge_fits
-    does, else the plain scan.  With ``use_bf16`` K1 and K3 take bf16
-    operands (their bf16 modes); the plain scan stays in the index dtype,
-    as the JAX package's "xla" route does.  (scores (B, k), ids (B, k))
-    tensors."""
+    does, else the plain scan.  ``use_pallas`` (the JAX package's name,
+    core.py:386-441 there) overrides the size gate: False forces the
+    plain scan, True forces the kernels at any row count (K1 with repair
+    where K1 admits F, else K3; both serve k <= BINNED_MAX_K).  With
+    ``use_bf16`` K1 and K3 take bf16 operands (their bf16 modes); the
+    plain scan stays in the index dtype, as the JAX package's "xla"
+    route does.  (scores (B, k), ids (B, k)) tensors."""
     n, f = items.shape
-    if binned_fits(n, k, f, use_bf16):
+    if use_pallas is None:
+        kind = "binned" if binned_fits(n, k, f, use_bf16) else \
+            "merge" if merge_fits(n, k) else "plain"
+    elif use_pallas:
+        if k > BINNED_MAX_K:
+            raise ValueError(f"use_pallas=True: the kernels serve k <= "
+                             f"{BINNED_MAX_K}, not {k}")
+        kind = "binned" if bintopk_fits(f, use_bf16) else "merge"
+    else:
+        kind = "plain"
+    if kind == "binned":
         return binned_topk_with_repair(queries, query_lambdas, items,
                                        item_lambdas, alpha, k=k,
                                        use_bf16=use_bf16)
-    if merge_fits(n, k):
+    if kind == "merge":
         return fused_lambda_topk(queries, query_lambdas, items, item_lambdas,
                                  alpha, k=k, use_bf16=use_bf16)
     return batched_lambda_aware_topk(queries, query_lambdas, items,
@@ -216,6 +230,14 @@ class ArrowSpace:
             host_rows=items,
         )
 
+    from_items = new  # the test-path alias (core.rs:444-453)
+
+    @staticmethod
+    def from_items_default(items, *, device=None,
+                           dtype=None) -> "ArrowSpace":
+        """ArrowSpace.new with the default τ policy (TAUDEFAULT)."""
+        return ArrowSpace.new(items, TAUDEFAULT, device=device, dtype=dtype)
+
     @property
     def device(self) -> torch.device:
         return self.data.device
@@ -304,10 +326,14 @@ class ArrowSpace:
                 zip(idx[0].tolist(), scores[0].tolist())]
 
     def search_lambda_aware_batch(self, queries, query_lambdas, k: int,
-                                  alpha: float, use_bf16: bool = False):
+                                  alpha: float,
+                                  use_pallas: Optional[bool] = None,
+                                  use_bf16: bool = False):
         """Batched λ-aware top-k: (B, F) queries -> (scores (B,k),
-        ids (B,k)) tensors on the index device; ``use_bf16`` gives the
-        streaming kernels bf16 operands (lambda_aware_topk)."""
+        ids (B,k)) tensors on the index device.  ``use_pallas`` None
+        takes the engine the size gates pick, False the plain scan, True
+        the kernels at any row count; ``use_bf16`` gives the kernels bf16
+        operands (lambda_aware_topk)."""
         k_eff = min(k, self.nitems)
         q = torch.as_tensor(np.asarray(queries, dtype=np.float64)) \
             if not torch.is_tensor(queries) else queries
@@ -316,7 +342,8 @@ class ArrowSpace:
         q = q.to(device=self.device, dtype=self.dtype)
         ql = ql.to(device=self.device, dtype=self.dtype)
         return lambda_aware_topk(q, ql, self.data, self.lambdas, alpha,
-                                 k=k_eff, use_bf16=use_bf16)
+                                 k=k_eff, use_bf16=use_bf16,
+                                 use_pallas=use_pallas)
 
     # ------------------------------------------------------------------
     # Access and mutation (core.py:241-360 of the JAX package)

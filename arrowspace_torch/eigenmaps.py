@@ -46,6 +46,8 @@ class ClusteredOutput:
     aspace: ArrowSpace
     centroids: np.ndarray    # X × F′ (F′ = reduced_dim when projected)
     reduced_dim: int
+    n_items: int
+    n_features: int
 
 
 def start_clustering(builder, rows) -> ClusteredOutput:
@@ -111,7 +113,8 @@ def start_clustering(builder, rows) -> ClusteredOutput:
             aspace.reduced_dim = target_dim
             reduced_dim = target_dim
     return ClusteredOutput(aspace=aspace, centroids=centroids,
-                           reduced_dim=reduced_dim)
+                           reduced_dim=reduced_dim, n_items=n_items,
+                           n_features=n_features)
 
 
 def eigenmaps(aspace: ArrowSpace, builder, centroids,

@@ -558,3 +558,17 @@ def build_energy(builder, rows, energy_params: EnergyParams
         name: t[i + 1] - t[i] for i, name in enumerate(
             ("clustering", "subcentroids", "energy_laplacian", "taumode"))}
     return aspace, gl_energy
+
+
+# The reference's trait impls, attached as the JAX package attaches them
+# (energymaps.py:686-694 of the JAX package).
+ArrowSpace.optical_compress_centroids = staticmethod(optical_compress_centroids)
+ArrowSpace.bootstrap_centroid_laplacian = staticmethod(
+    bootstrap_centroid_laplacian)
+ArrowSpace.diffuse_and_split_subcentroids = staticmethod(
+    diffuse_and_split_subcentroids)
+ArrowSpace.search_energy = search_energy
+
+from .builder import ArrowSpaceBuilder  # noqa: E402
+ArrowSpaceBuilder.build_energy = build_energy
+ArrowSpaceBuilder.build_energy_laplacian = build_energy_laplacian

@@ -181,11 +181,20 @@ class SearchSession:
     them serves (its repair and K3 fallback included): the session holds
     one bf16 prepared corpus, λ, c1 and the scores stay float32.  The
     plain engine serves the index dtype (index.py:429-445 of the JAX
-    package); ``self.precision`` says what the session serves."""
+    package); ``self.precision`` says what the session serves.
+
+    ``prepare_corpus=False`` (index.py:393-402 of the JAX package) keeps
+    no prepared copy resident: each step prepares one for K1 or K3 and
+    drops it once the kernel is enqueued, and the strided repair prepares
+    the rows it gathers from the raw corpus.  That trades the
+    preparation's passes over the corpus, every batch, for the copy's
+    memory (N·F·4 bytes in float32, half that in bf16), for example to
+    serve two large indexes from one card; results equal the prepared
+    session's bitwise."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
                  alpha: float = 0.9, depth: int = 2,
-                 precision: str = "f32"):
+                 precision: str = "f32", prepare_corpus: bool = True):
         want_bf16 = check_precision(precision)
         aspace, gl = index.aspace, index.gl
         self.batch_size = int(batch_size)
@@ -201,10 +210,12 @@ class SearchSession:
         k_eff, alpha_f = self.k, self.alpha
         _, prepare = _query_prep(aspace, gl)
         data, lambdas = aspace.data, aspace.lambdas
+        self.prepare_corpus = bool(prepare_corpus)
         engine = BinnedTopK(data, lambdas, alpha_f, k_eff,
-                            use_bf16=use_bf16) \
+                            use_bf16=use_bf16,
+                            prepare_corpus=self.prepare_corpus) \
             if self.kernel == "binned" else None
-        if self.kernel == "merge":
+        if self.kernel == "merge" and self.prepare_corpus:
             xhat, xlam = prepare_binned_corpus(data, lambdas,
                                                use_bf16=use_bf16)
             n_items = index.nitems
@@ -213,6 +224,10 @@ class SearchSession:
                 return fused_lambda_topk(q, qlam, xhat, xlam, alpha_f,
                                          k=k_eff, prepared=True,
                                          n_items=n_items)
+        elif self.kernel == "merge":
+            def exact(q, qlam):
+                return fused_lambda_topk(q, qlam, data, lambdas, alpha_f,
+                                         k=k_eff, use_bf16=use_bf16)
         else:
             def exact(q, qlam):
                 return batched_lambda_aware_topk(q, qlam, data, lambdas,
@@ -309,13 +324,17 @@ class EnergySearchSession:
     exactly when their batch is yielded: K6's deep-collision rows through
     the strided repair (the chunked scan for rows whose fired bins
     overflow), K7's uncertified rows through K6 on a padded block.
-    ``approx=True`` needs the binned engine and raises otherwise
-    (index.py:592-597 of the JAX package).  Results are exact either
-    way."""
+    ``approx=True`` needs the binned engine and a resident prepared
+    z-plane, and raises otherwise (index.py:592-597 of the JAX package).
+    ``prepare_corpus=False`` keeps no centred z-plane resident: each step
+    (and each repair) prepares one and drops it once its kernels are
+    enqueued, with results bitwise the prepared session's.  Results are
+    exact either way."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
                  w_lambda: float = 1.0, w_dirichlet: float = 0.5,
-                 depth: int = 2, approx: bool = False):
+                 depth: int = 2, prepare_corpus: bool = True,
+                 approx: bool = False):
         from .ops.energy_bintopk import energy_topk_chunked
 
         aspace, gl = index.aspace, index.gl
@@ -331,14 +350,17 @@ class EnergySearchSession:
         lambdas = aspace.lambdas
         kernel = energy_session_config(index.nitems, self.k,
                                        z_items.shape[1])
-        if approx and kernel != "binned":
+        if approx and (kernel != "binned" or not prepare_corpus):
             raise ValueError(
                 "approx=True needs the binned energy engine (more than "
-                "65536 rows, k <= 128, a z-width the kernels admit); this "
-                f"session resolved kernel={kernel!r}")
+                "65536 rows, k <= 128, a z-width the kernels admit) on a "
+                f"prepared z-plane; this session resolved kernel={kernel!r}, "
+                f"prepare_corpus={bool(prepare_corpus)}")
         self.kernel = "binned_approx" if approx else kernel
+        self.prepare_corpus = bool(prepare_corpus)
         engine = BinnedEnergyTopK(z_items, lambdas, w_lambda, w_dirichlet,
-                                  self.k, approx=approx, project=to_z) \
+                                  self.k, approx=approx, project=to_z,
+                                  prepare_corpus=self.prepare_corpus) \
             if kernel == "binned" else None
         k_eff = self.k
 
@@ -401,14 +423,19 @@ class ArrowIndex:
               normalise: bool = False,
               sampling: Optional[SamplerType] = SamplerType.simple(0.6),
               dims_reduction: bool = False, rp_eps: Optional[float] = None,
-              seed: Optional[int] = None, device=None,
-              dtype=None) -> "ArrowIndex":
+              seed: Optional[int] = None, spectral: bool = False,
+              device=None, dtype=None) -> "ArrowIndex":
+        """Build an index over the rows (ArrowSpaceBuilder's options by
+        their names there); ``spectral=True`` also builds the
+        signals graph and computes item λ against it (with_spectral)."""
         b = (ArrowSpaceBuilder(device=device, dtype=dtype)
              .with_lambda_graph(eps, k, topk, p, sigma)
              .with_synthesis(taumode)
              .with_normalisation(normalise)
              .with_inline_sampling(sampling)
              .with_dims_reduction(dims_reduction, rp_eps))
+        if spectral:
+            b = b.with_spectral(True)
         if seed is not None:
             b = b.with_seed(seed)
         aspace, gl = b.build(rows)
@@ -498,7 +525,8 @@ class ArrowIndex:
         return cls(aspace, gl)
 
     def search(self, queries, k: int = 10, alpha: float = 0.9,
-               precision: str = "f32", rescore_pool: Optional[int] = None):
+               use_pallas: Optional[bool] = None, precision: str = "f32",
+               rescore_pool: Optional[int] = None):
         """Batched λ-aware search: (B, F) -> host (scores (B, k),
         ids (B, k)).  precision="f64_rescore" re-ranks a candidate pool
         of max(4k, k+32) (or rescore_pool) against the original float64
@@ -506,7 +534,11 @@ class ArrowIndex:
         or, above K1's bf16 gate, K3 bf16 operands with float32
         accumulation; scores then differ from float32's in the third
         decimal.  Below the streaming kernels' size it serves the plain
-        scan in the index dtype, as the JAX package does off a TPU."""
+        scan in the index dtype, as the JAX package does off a TPU.
+        ``use_pallas`` (every precision, the rescore's candidate pool
+        included): None takes the engine the size gates pick, False the
+        plain scan, True the kernels at any row count
+        (ArrowSpace.search_lambda_aware_batch)."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
         qlam = self.aspace.prepare_query_items_batch(queries, self.gl)
         if precision == "f64_rescore":
@@ -516,14 +548,15 @@ class ArrowIndex:
                     "of the index's items dropped them")
             m = min(rescore_pool or max(4 * k, k + 32), self.aspace.nitems)
             _s, cand = self.aspace.search_lambda_aware_batch(
-                queries, qlam, m, alpha)
+                queries, qlam, m, alpha, use_pallas=use_pallas)
             return rescore_topk_f64(
                 queries, qlam.cpu().numpy(), self.aspace.host_rows,
                 self.aspace.lambdas.cpu().numpy(), alpha, cand.cpu().numpy(),
                 min(k, self.aspace.nitems))
         use_bf16 = check_precision(precision)
         scores, ids = self.aspace.search_lambda_aware_batch(
-            queries, qlam, k, alpha, use_bf16=use_bf16)
+            queries, qlam, k, alpha, use_pallas=use_pallas,
+            use_bf16=use_bf16)
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_one(self, query, k: int = 10, alpha: float = 0.9
@@ -547,11 +580,14 @@ class ArrowIndex:
 
     def make_search_session(self, batch_size: int, k: int = 10,
                             alpha: float = 0.9, depth: int = 2,
-                            precision: str = "f32") -> SearchSession:
+                            precision: str = "f32",
+                            prepare_corpus: bool = True) -> SearchSession:
         """Streaming search for serving, ``depth`` batches in flight;
-        precision "f32" or "bf16" (SearchSession)."""
+        precision "f32" or "bf16"; prepare_corpus=False keeps no
+        prepared corpus copy resident (SearchSession)."""
         return SearchSession(self, batch_size, k=k, alpha=alpha, depth=depth,
-                             precision=precision)
+                             precision=precision,
+                             prepare_corpus=prepare_corpus)
 
     def make_pruned_session(self, batch_size: int = 16, k: int = 10,
                             alpha: float = 0.9, cap: int = 256,
@@ -618,13 +654,15 @@ class ArrowIndex:
 
     def make_energy_session(self, batch_size: int, k: int = 10,
                             w_lambda: float = 1.0, w_dirichlet: float = 0.5,
-                            depth: int = 2,
+                            depth: int = 2, prepare_corpus: bool = True,
                             approx: bool = False) -> EnergySearchSession:
         """Streaming energy search for serving, ``depth`` batches in
         flight; approx=True serves through the certified chord-surrogate
-        kernel (K7), whose uncertified rows re-run exactly."""
+        kernel (K7), whose uncertified rows re-run exactly;
+        prepare_corpus=False keeps no centred z-plane resident."""
         return EnergySearchSession(self, batch_size, k=k, w_lambda=w_lambda,
                                    w_dirichlet=w_dirichlet, depth=depth,
+                                   prepare_corpus=prepare_corpus,
                                    approx=approx)
 
     def warmup(self, batch_sizes=(1, 16, 256), k: int = 10,

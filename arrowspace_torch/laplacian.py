@@ -35,7 +35,7 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.laplacian")
 
 __all__ = ["build_laplacian_matrix", "standard_scale_columns",
-           "rectified_cosine_distances"]
+           "rectified_cosine_distances", "adjacency_from_knn"]
 
 
 def standard_scale_columns(m: torch.Tensor) -> torch.Tensor:
@@ -102,6 +102,22 @@ def _build_dense(rows: torch.Tensor, params: GraphParams):
     adj.fill_diagonal_(0.0)
     lap = torch.diag(adj.sum(dim=1)) - adj
     return adj, lap, int((adj > 0).sum())
+
+
+def adjacency_from_knn(rows, params: GraphParams, *, device=None,
+                       dtype=None) -> torch.Tensor:
+    """The dense symmetric adjacency over the rows of ``rows``
+    (laplacian.rs:203-346) that build_laplacian_matrix builds on the way
+    to L = D - A, without normalisation: computed in float64 on
+    ``device``, returned in ``dtype`` (config.resolve; a tensor's own
+    device and dtype by default)."""
+    if torch.is_tensor(rows):
+        device = rows.device if device is None else device
+        dtype = rows.dtype if dtype is None else dtype
+    dev, dt = resolve(device, dtype)
+    x = torch.as_tensor(rows).to(device=dev, dtype=torch.float64)
+    adj, _, _ = _build_dense(x, params)
+    return adj.to(dt)
 
 
 def build_laplacian_matrix(transposed, params: GraphParams,

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
-from .bintopk import (binned_lambda_topk, prepare_binned_corpus,
-                      prepared_rows)
+from .bintopk import (BF16_ALIGN, binned_lambda_topk,
+                      prepare_binned_corpus, prepared_rows, scoring_dtype)
 from .energy_approx import (binned_energy_topk_approx,
                             prepare_energy_chord_sample)
 from .energy_bintopk import (binned_energy_topk, dtype_scalar, energy_u,
@@ -132,12 +132,18 @@ def _merge(scores, cand, valid, k):
 
 
 def _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n, k, bins,
-                  shard_n=0):
+                  shard_n=0, like=None):
     """Rescore one chunk of flagged λ-aware rows over their candidates
-    (bf16 operands multiplied in float32).  Returns shifted scores and
-    ids of the exact top-k."""
+    (bf16 operands multiplied in float32).  With ``like`` the corpus is
+    raw and each gathered row is prepared as a prepared corpus ``like``
+    holds it (prepared_rows: safe_unit row by row, then the cast), so it
+    scores bitwise as its prepared row would.  Returns shifted scores
+    and ids of the exact top-k."""
     cand, valid, safe = _candidates(fired, out_idx, n, k, bins, shard_n)
-    acos = row_dots(qhat, _rows_at(xhat, safe, shard_n))
+    rows = _rows_at(xhat, safe, shard_n)
+    if like is not None:
+        rows = prepared_rows(rows, like)
+    acos = row_dots(qhat, rows)
     dl = (qlam[:, None] - _rows_at(xlam, safe, shard_n)).abs().clamp_max(1.0)
     return _merge(acos - c1 * dl, cand, valid, k)
 
@@ -206,9 +212,11 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     restored), out_idx_rows (R, k) the rows' current ids.  items /
     item_lambdas are the corpus on its device: the prepared corpus
     (prepare_binned_corpus, bf16 when it was prepared so) when
-    prepared=True, else raw rows, which ``use_bf16`` rescores as bf16
-    operands.  Scores are in the scoring dtype: the prepared λ's, or the
-    raw rows' dtype.
+    prepared=True, else raw rows, each gathered row prepared as
+    prepare_binned_corpus would hold it (bf16 with ``use_bf16``), so the
+    rescore equals the prepared one bitwise with no corpus-sized copy.
+    Scores are in the scoring dtype: the prepared λ's, or
+    bintopk.scoring_dtype of the raw rows.
     fallback(rel_rows) -> (scores, ids) serves rows whose fired-bin count
     exceeds MAX_FIRED.  cur_scores (R, k), when given, lets zero-fired
     rows pass through untouched.
@@ -226,13 +234,15 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     mesh = isinstance(items, (list, tuple))
     parts = list(items) if mesh else [items]
     lams = list(item_lambdas) if mesh else [item_lambdas]
-    # the scoring dtype: the prepared λ's, else the raw rows'
-    dt = lams[0].dtype if prepared else parts[0].dtype
+    # the scoring dtype: the prepared λ's, else the one a prepared copy
+    # of the raw rows would have; raw rows are prepared as gathered
+    dt = lams[0].dtype if prepared else scoring_dtype(parts[0])
+    like = None
     if not prepared:
+        f = parts[0].shape[1]
         like = parts[0].new_empty(
-            (0, parts[0].shape[1]),
+            (0, -(-f // BF16_ALIGN) * BF16_ALIGN if use_bf16 else f),
             dtype=torch.bfloat16 if use_bf16 else dt)
-        parts = [prepared_rows(p, like) for p in parts]
     lams = [lam.to(dt) for lam in lams]
     if mesh:
         assert shard_n and bins % (-(-n // shard_n)) == 0, (
@@ -242,8 +252,8 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     else:
         shard_n = 0
         xhat, xlam = parts[0], lams[0]
-    first = parts[0]
-    dev = first.device
+    first = parts[0] if like is None else like
+    dev = parts[0].device
     oi_all = np.asarray(out_idx_rows)
 
     def rescore(rows, fired):
@@ -253,11 +263,11 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
         qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
         s, i = _repair_chunk(qhat, qlam, torch.as_tensor(fired, device=dev),
                              torch.as_tensor(oi_all[rows], device=dev),
-                             xhat, xlam, c1, n, k, bins, shard_n)
+                             xhat, xlam, c1, n, k, bins, shard_n, like)
         return s + c1, i
 
-    per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * first.shape[1] \
-        * first.element_size()
+    per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * \
+        first.shape[1] * max(parts[0].element_size(), first.element_size())
     return _strided_repair(det_rows, kth, out_idx_rows, cur_scores,
                            fallback, numpy_dtype(dt), k, rescore, per_row)
 
@@ -310,11 +320,13 @@ strided_energy_repair.calls = 0
 
 
 def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,
-                   xhat, xlam, alpha, *, k: int, n: int):
-    """Exact top-k of flagged rows on a prepared corpus
-    (prepare_binned_corpus): the strided repair, with the exact merge
-    kernel (K3) for rows whose fired bins overflow MAX_FIRED; on a bf16
-    corpus both in bf16.
+                   xhat, xlam, alpha, *, k: int, n: int, prepared: bool = True,
+                   use_bf16: bool = False):
+    """Exact top-k of flagged rows: the strided repair, with the exact
+    merge kernel (K3) for rows whose fired bins overflow MAX_FIRED.
+    xhat / xlam are a prepared corpus (prepare_binned_corpus; on a bf16
+    corpus both run in bf16) or, with ``prepared=False``, the raw corpus,
+    which both prepare as they read it (bf16 with ``use_bf16``).
 
     q_rows (R, F) raw queries and qlam_rows (R,), as tensors or arrays;
     det_rows (R, bins), scores_rows and ids_rows (R, k) host arrays from
@@ -326,46 +338,58 @@ def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,
         q = torch.as_tensor(q_rows)[rel].to(xhat.device)
         ql = torch.as_tensor(qlam_rows)[rel].to(xhat.device)
         s, i = fused_lambda_topk(q, ql, xhat, xlam, alpha, k=k,
-                                 prepared=True, n_items=n)
+                                 prepared=prepared, n_items=n,
+                                 use_bf16=use_bf16)
         return s.cpu().numpy(), i.cpu().numpy()
 
     scores_rows = np.asarray(scores_rows)
     return strided_lambda_repair(
         q_rows, qlam_rows, det_rows, scores_rows[:, k - 1], ids_rows, xhat,
-        xlam, alpha, k=k, n=n, prepared=True, fallback=full_merge,
-        cur_scores=scores_rows)
+        xlam, alpha, k=k, n=n, prepared=prepared, fallback=full_merge,
+        cur_scores=scores_rows, use_bf16=use_bf16)
 
 
 class BinnedTopK:
-    """The binned engine over one prepared copy of a corpus: ``step`` is
-    K1 plus its flush, ``repair`` the exact repair of the flagged rows.
-    A serving session calls the two apart, so that a batch's repair waits
-    on the host while the next batch runs; calling the engine runs both
-    for one batch.
+    """The binned engine over a corpus: ``step`` is K1 plus its flush,
+    ``repair`` the exact repair of the flagged rows.  A serving session
+    calls the two apart, so that a batch's repair waits on the host
+    while the next batch runs; calling the engine runs both for one
+    batch.
 
     ``prepared=True`` takes the buffers of prepare_binned_corpus as they
     are, of which the first ``n`` rows are served: a live session's
     capacity buffers, whose owner writes rows in place and sets ``n``
     (K1, the strided repair and K3 read it as their row count and never
-    score a row at or past it).  Otherwise the corpus is prepared here,
-    in bf16 with ``use_bf16``; a bf16 prepared corpus serves K1, the
-    repair and K3 in bf16."""
+    score a row at or past it).  Otherwise the corpus is prepared here
+    once, in bf16 with ``use_bf16``; a bf16 prepared corpus serves K1,
+    the repair and K3 in bf16.  With ``prepare_corpus=False`` the engine
+    keeps the raw corpus only: each step prepares a transient copy that
+    is dropped once K1 is enqueued (the caching allocator hands its block
+    to the next step on the same stream), and the repair prepares the
+    rows it gathers.  Results equal the resident engine's bitwise: the
+    same kernels on the same prepared operands."""
 
     def __init__(self, items, item_lambdas, alpha: float, k: int, *,
-                 prepared: bool = False, n: int = 0, use_bf16: bool = False):
+                 prepared: bool = False, n: int = 0, use_bf16: bool = False,
+                 prepare_corpus: bool = True):
         self.alpha, self.k = float(alpha), int(k)
+        self.use_bf16 = use_bf16
+        self.prepared = prepared or prepare_corpus
         if prepared:
             self.n, self.xhat, self.xlam = int(n), items, item_lambdas
-        else:
+        elif prepare_corpus:
             self.n = items.shape[0]
             self.xhat, self.xlam = prepare_binned_corpus(
                 items, item_lambdas, use_bf16=use_bf16)
+        else:
+            self.n, self.xhat, self.xlam = items.shape[0], items, item_lambdas
 
     def step(self, q, qlam):
         """(scores (B,k), ids (B,k), flags (B,), det (B, bins)), on the
         device, of raw queries q (B, F) and their λ."""
         return binned_lambda_topk(q, qlam, self.xhat, self.xlam, self.alpha,
-                                  k=self.k, prepared=True, n_items=self.n)
+                                  k=self.k, prepared=self.prepared,
+                                  n_items=self.n, use_bf16=self.use_bf16)
 
     def repair(self, q, qlam, det, scores, ids, flags):
         """Host (scores, ids) with every flagged row's exact top-k.  q is
@@ -379,7 +403,8 @@ class BinnedTopK:
         scores, ids = scores.copy(), ids.copy()
         scores[rows], ids[rows] = repair_flagged(
             q_rows, qlam[rt], det[rt].cpu().numpy(), scores[rows], ids[rows],
-            self.xhat, self.xlam, self.alpha, k=self.k, n=self.n)
+            self.xhat, self.xlam, self.alpha, k=self.k, n=self.n,
+            prepared=self.prepared, use_bf16=self.use_bf16)
         return scores, ids
 
     def __call__(self, q, qlam):
@@ -396,11 +421,11 @@ class BinnedTopK:
 
 
 class BinnedEnergyTopK:
-    """The binned energy engine over one prepared copy of a z-plane:
-    ``step`` is K6 plus its flush (or, with ``approx``, K7 plus its
-    rescore and certification), ``repair`` the exact repair of the
-    flagged rows.  Shared by EnergySearchSession and
-    energymaps.search_energy_batch, as BinnedTopK is by the cosine path.
+    """The binned energy engine over a z-plane: ``step`` is K6 plus its
+    flush (or, with ``approx``, K7 plus its rescore and certification),
+    ``repair`` the exact repair of the flagged rows.  Shared by
+    EnergySearchSession and energymaps.search_energy_batch, as BinnedTopK
+    is by the cosine path.
 
     ``project`` maps the rows handed to ``repair`` to z-space (the
     session hands it raw query rows); None when they already are z.
@@ -411,31 +436,58 @@ class BinnedEnergyTopK:
     centres every query it is handed: distances are unchanged, and d² =
     (|q|² + |x|²) - 2·q·x, which cancels for near neighbours, rounds
     about ten times less on the serving plane (|z - centre|² ≈ 4 against
-    |z|² ≈ 40), in the kernels and their plain versions alike."""
+    |z|² ≈ 40), in the kernels and their plain versions alike.
+
+    The prepared (centred, padded) plane is made once here, or with
+    ``prepare_corpus=False`` by every step and repair that reads it and
+    dropped once its kernels are enqueued: the engine then holds no
+    corpus-sized tensor of its own, and its results equal the resident
+    engine's bitwise (the same arithmetic on the same operands).  K7's
+    sample is drawn from the resident plane, so ``approx`` needs it."""
 
     # flagged rows re-run through K6 in blocks of this many rows
     FALLBACK_BLOCK = 128
 
     def __init__(self, z_items, item_lambdas, w_lambda: float,
                  w_dirichlet: float, k: int, *, approx: bool = False,
-                 project=None, rows: int = 0):
+                 project=None, rows: int = 0, prepare_corpus: bool = True):
+        if approx and not prepare_corpus:
+            raise ValueError("approx=True needs the resident prepared "
+                             "z-plane (prepare_corpus=True)")
         self.n, self.k, self.approx = z_items.shape[0], int(k), approx
         self._mean = z_items.mean(dim=0)
-        self.zx, self.xlam, self.xn = prepare_binned_energy_corpus(
-            z_items - self._mean, item_lambdas, rows=rows)
-        self.centre = self._mean.to(self.zx.dtype)
-        self.wl = dtype_scalar(w_lambda, self.zx.dtype)
-        self.wd = dtype_scalar(w_dirichlet, self.zx.dtype)
+        self._raw = (z_items, item_lambdas, rows)
+        self.zx = self.xlam = self.xn = None
+        if prepare_corpus:
+            self.zx, self.xlam, self.xn = self._prepare()
+            self._raw = None
+        self.dtype = scoring_dtype(z_items)
+        self.device = z_items.device
+        self.centre = self._mean.to(self.dtype)
+        self.wl = dtype_scalar(w_lambda, self.dtype)
+        self.wd = dtype_scalar(w_dirichlet, self.dtype)
         self.project = project
         self.flagged_rows = 0
         if approx:
             self.z_samp, self.xn_samp = prepare_energy_chord_sample(
                 self.zx, self.xn, self.n)
 
+    def _prepare(self):
+        z_items, item_lambdas, rows = self._raw
+        return prepare_binned_energy_corpus(z_items - self._mean,
+                                            item_lambdas, rows=rows)
+
+    def corpus(self):
+        """(zx, xlam, xn) of the prepared plane: the resident one, or a
+        transient one made now."""
+        if self.zx is None:
+            return self._prepare()
+        return self.zx, self.xlam, self.xn
+
     def centred(self, z_q):
         """Queries in z-space, in the prepared corpus's dtype, centred as
         the corpus is."""
-        return z_q.to(self.zx.dtype) - self.centre
+        return z_q.to(self.dtype) - self.centre
 
     def write_rows(self, pos: torch.Tensor, z_rows, lam_rows) -> None:
         """Write corpus rows ``pos`` of a capacity buffer (``rows`` at
@@ -443,7 +495,7 @@ class BinnedEnergyTopK:
         centre fixed at construction by the arithmetic of the prepared
         rows, with their squared norms and λ.  The centre is never moved,
         so the distances of the other rows stay as they were."""
-        zc = (z_rows - self._mean.to(z_rows.dtype)).to(self.zx.dtype)
+        zc = (z_rows - self._mean.to(z_rows.dtype)).to(self.dtype)
         self.zx.index_copy_(0, pos, zc)
         self.xn.index_copy_(0, pos, (zc * zc).sum(dim=1))
         self.xlam.index_copy_(0, pos, lam_rows.to(self.xlam.dtype))
@@ -458,14 +510,15 @@ class BinnedEnergyTopK:
                 z_q, qlam, self.zx, self.xlam, self.xn, self.z_samp,
                 self.xn_samp, self.wl, self.wd, k=self.k, n=self.n)
             return s, i, flags, None
-        return binned_energy_topk(z_q, qlam, self.zx, self.xlam, self.xn,
-                                  self.wl, self.wd, k=self.k, n=self.n)
+        zx, xlam, xn = self.corpus()
+        return binned_energy_topk(z_q, qlam, zx, xlam, xn, self.wl, self.wd,
+                                  k=self.k, n=self.n)
 
-    def chunked(self, z_rows, qlam_rows):
+    def chunked(self, z_rows, qlam_rows, corpus=None):
         """Host exact top-k of centred rows by the plain chunked scan."""
-        s, i = energy_topk_chunked(z_rows, qlam_rows, self.zx[:self.n],
-                                   self.xlam[:self.n], self.wl, self.wd,
-                                   k=self.k)
+        zx, xlam, _xn = corpus or self.corpus()
+        s, i = energy_topk_chunked(z_rows, qlam_rows, zx[:self.n],
+                                   xlam[:self.n], self.wl, self.wd, k=self.k)
         return s.cpu().numpy(), i.cpu().numpy()
 
     def exact_rows(self, z_rows, qlam_rows):
@@ -496,26 +549,28 @@ class BinnedEnergyTopK:
         if not rows.size:
             return scores, ids
         self.flagged_rows += rows.size
-        dev, dt = self.zx.device, self.zx.dtype
+        dev, dt = self.device, self.dtype
         rt = torch.as_tensor(rows, device=dev)
         q_rows = (q[rt.to(q.device)] if torch.is_tensor(q)
                   else torch.as_tensor(q[rows])).to(device=dev, dtype=dt)
         z = self.centred(q_rows if self.project is None
                          else self.project(q_rows))
-        ql = qlam[rt].to(self.zx.dtype)
+        ql = qlam[rt].to(dt)
         scores, ids = scores.copy(), ids.copy()
         if self.approx:
             scores[rows], ids[rows] = self.exact_rows(z, ql)
             return scores, ids
+        corpus = self.corpus()
+        zx, xlam, xn = corpus
 
         def fallback(rel_rows):
             rel = torch.as_tensor(rel_rows, device=z.device)
-            return self.chunked(z[rel], ql[rel])
+            return self.chunked(z[rel], ql[rel], corpus)
 
         scores[rows], ids[rows] = strided_energy_repair(
             z, ql, det[rt].cpu().numpy(), scores[rows, self.k - 1],
-            ids[rows], self.zx, self.xlam, self.xn, self.wl, self.wd,
-            k=self.k, n=self.n, fallback=fallback, cur_scores=scores[rows])
+            ids[rows], zx, xlam, xn, self.wl, self.wd, k=self.k, n=self.n,
+            fallback=fallback, cur_scores=scores[rows])
         return scores, ids
 
     def __call__(self, z_q, qlam):

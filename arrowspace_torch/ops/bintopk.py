@@ -49,7 +49,8 @@ from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
                      operand_query, safe_unit, two_key_topk)
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
-           "prepared_rows", "bintopk_fits", "query_block", "grid_ctas",
+           "scoring_dtype", "prepared_rows", "bintopk_fits", "query_block",
+           "grid_ctas",
            "bf16_stages", "bf16_config", "wave_chunks", "check_operands",
            "binned_topk_pool",
            "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
@@ -170,6 +171,12 @@ def bf16_config(f: int, bsz: int, depth: int) -> dict:
     return dict(zip(keys, out))
 
 
+def scoring_dtype(items: torch.Tensor) -> torch.dtype:
+    """The dtype the kernels score a corpus in: float32 on CUDA (what
+    they read), the corpus dtype on the CPU."""
+    return torch.float32 if items.is_cuda else items.dtype
+
+
 def prepared_rows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Corpus rows as a prepared corpus ``like`` holds them: safe_unit in
     the rows' dtype, then as_operand (the cast to like's dtype, zero
@@ -188,7 +195,7 @@ def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor,
     Sessions do this once; a row written later by prepared_rows (safe_unit
     in the corpus dtype, then the cast) scores bitwise as a prepared row
     would."""
-    dt = torch.float32 if items.is_cuda else items.dtype
+    dt = scoring_dtype(items)
     n, f = items.shape
     pad = (-max(n, rows)) % CORPUS_ALIGN + max(0, rows - n)
     width = -(-f // BF16_ALIGN) * BF16_ALIGN if use_bf16 else f
@@ -389,25 +396,27 @@ def flush_pool(pool_s, pool_i, det, k: int, shift: float):
 
 
 def binned_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
-                       *, k: int, prepared: bool = False, n_items: int = 0,
-                       use_bf16: bool = False):
+                       *, k: int, depth: int = 0, prepared: bool = False,
+                       n_items: int = 0, use_bf16: bool = False):
     """Binned λ-aware top-k: (scores (B,k), ids (B,k), flags (B,),
     det (B, bins)).  Flagged rows may miss a top-k element to a deep bin
     collision and must be repaired by the caller (ops/bin_repair);
-    unflagged rows are exact.
+    unflagged rows are exact.  ``depth`` 0 takes binned_topk_depth_for(k)
+    (the kernel holds 2, 3 or 4 a bin).
 
     ``prepared=True`` takes items/item_lambdas from prepare_binned_corpus
-    (bf16 when that corpus is) and the true row count from n_items;
-    otherwise the corpus is prepared here, in bf16 with ``use_bf16``.
-    The query is prescaled in the scoring dtype (item_lambdas') and only
-    then cast to the corpus's dtype; λ and c1 stay in the scoring
-    dtype."""
+    (bf16 when that corpus is) and the true row count from n_items (a
+    live session's count, read at each call); otherwise the corpus is
+    prepared here, in bf16 with ``use_bf16``, and dropped when the
+    kernel has been enqueued.  The query is prescaled in the scoring
+    dtype (item_lambdas') and only then cast to the corpus's dtype; λ
+    and c1 stay in the scoring dtype."""
     if not prepared:
         n_items = items.shape[0]
         items, item_lambdas = prepare_binned_corpus(items, item_lambdas,
                                                     use_bf16=use_bf16)
     n = n_items
-    depth, bins = binned_topk_depth_for(k), bins_target(k)
+    depth, bins = depth or binned_topk_depth_for(k), bins_target(k)
     dt = item_lambdas.dtype
     qhat, c1 = operand_query(queries, alpha, dt, items)
     qlam = query_lambdas.to(dt).contiguous()
@@ -419,4 +428,3 @@ def binned_lambda_topk(queries, query_lambdas, items, item_lambdas, alpha,
                                            c1, n, depth=depth, bins=bins,
                                            chunks=chunks)
     return flush_pool(pool_s, pool_i, det, k, c1)
-

@@ -179,18 +179,18 @@ def _flush_rescore_certify(pool_s, pool_i, pool_d, det, qlam, xlam,
 
 def binned_energy_topk_approx(z_q, query_lambdas, zx, xlam, xn, z_samp,
                               xn_samp, wl: float, wd: float, *, k: int,
-                              n: int):
+                              n: int, depth: int = 0):
     """Certified-exact energy top-k over a prepared corpus: (scores (B,k),
     ids (B,k), flags (B,) bool).  An unflagged row equals the exact
     energy top-k; a flagged row failed certification and must be re-run
     exactly by the caller.  wl and wd must be values of the corpus
-    dtype."""
+    dtype; ``depth`` 0 takes binned_topk_depth_for(k)."""
     dt = zx.dtype
     zq = z_q.to(dt).contiguous()
     qlam = query_lambdas.to(dt).contiguous()
     qn = (zq * zq).sum(dim=1)
     ca, cb = _fit_chords(zq, qn, z_samp, xn_samp, wd)
-    depth, bins = binned_topk_depth_for(k), bins_target(k)
+    depth, bins = depth or binned_topk_depth_for(k), bins_target(k)
     chunks = _default_chunks(
         energy_grid_ctas(zq.shape[0], bins, zq.shape[1], K7_PAIRS),
         -(-n // bins), zq.device)

@@ -201,18 +201,19 @@ def binned_energy_pool_plain(zq, qn, qlam, zx, xn, xlam, wl: float,
 
 
 def binned_energy_topk(z_q, query_lambdas, zx, xlam, xn, wl: float,
-                       wd: float, *, k: int, n: int):
+                       wd: float, *, k: int, n: int, depth: int = 0):
     """Binned energy top-k over a prepared corpus
     (prepare_binned_energy_corpus) of n true rows: (scores (B,k), ids
     (B,k), flags (B,), det (B, bins)), scores and det on the true scale.
     Flagged rows may miss a top-k element to a deep bin collision and
     must be repaired by the caller (ops/bin_repair); unflagged rows are
-    exact.  wl and wd must be values of the corpus dtype."""
+    exact.  wl and wd must be values of the corpus dtype; ``depth`` 0
+    takes binned_topk_depth_for(k)."""
     dt = zx.dtype
     zq = z_q.to(dt).contiguous()
     qlam = query_lambdas.to(dt).contiguous()
     qn = (zq * zq).sum(dim=1)
-    depth, bins = binned_topk_depth_for(k), bins_target(k)
+    depth, bins = depth or binned_topk_depth_for(k), bins_target(k)
     chunks = _default_chunks(
         energy_grid_ctas(zq.shape[0], bins, zq.shape[1], K6_PAIRS),
         -(-n // bins), zq.device)

@@ -27,8 +27,11 @@ import torch
 __all__ = ["NEG_INF", "INT_MAX", "safe_unit", "dot_plane", "row_dots",
            "prepare_query", "as_operand", "operand_query",
            "shifted_lambda_plane", "two_key_topk", "exact_topk",
-           "batched_lambda_aware_topk", "binned_topk_with_repair",
-           "rescore_topk_f64", "hybrid_search_device_fused"]
+           "cosine_scores", "lambda_aware_scores",
+           "batched_lambda_aware_topk", "masked_lambda_aware_topk",
+           "binned_topk_with_repair", "pallas_binned_topk_with_repair",
+           "rescore_topk_f64", "hybrid_search_device",
+           "hybrid_search_device_fused"]
 
 NEG_INF = float(np.finfo(np.float32).min)
 INT_MAX = int(np.iinfo(np.int32).max)
@@ -112,7 +115,7 @@ def as_operand(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     kernels read a prepared corpus ``like`` (a bf16 corpus pads F to
     whole 16-byte rows; zeros add nothing to a dot product)."""
     out = rows.to(like.dtype)
-    pad = like.shape[1] - out.shape[1]
+    pad = like.shape[-1] - out.shape[-1]
     return torch.nn.functional.pad(out, (0, pad)) if pad else out
 
 
@@ -165,13 +168,31 @@ def exact_topk(plane: torch.Tensor, k: int):
     return plane.gather(1, order), order
 
 
-def batched_lambda_aware_topk(queries, query_lambdas, items, item_lambdas,
-                              alpha, *, k: int):
-    """Plain full scan: scoring + exact top-k, (scores (B,k), ids (B,k)).
-    Sorts the SHIFTED plane (what the binned kernel's flush sorts) and
-    adds c1 back afterwards; query blocks bound the plane's memory."""
+def cosine_scores(queries: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """(B, F) x (N, F) -> (B, N) cosine similarity through safe_unit:
+    zero rows score 0 (reference: core.rs:229-239)."""
+    return dot_plane(safe_unit(queries), safe_unit(items))
+
+
+def lambda_aware_scores(queries, query_lambdas, items, item_lambdas,
+                        alpha) -> torch.Tensor:
+    """(B, N) scores α·cos + (1-α)·(1 - min(|Δλ|, 1)) (core.rs:135-175),
+    by the arithmetic of shifted_lambda_plane with c1 added back."""
+    plane, c1 = shifted_lambda_plane(queries, query_lambdas, items,
+                                     item_lambdas, alpha)
+    return plane + c1
+
+
+def _scan_topk(queries, query_lambdas, items, item_lambdas, alpha, k: int,
+               n_live=None):
+    """Exact top-k of the SHIFTED plane in query blocks that bound the
+    plane's memory, columns at or past ``n_live`` masked to -inf; c1 is
+    added back afterwards (-inf stays -inf)."""
     n = items.shape[0]
     xhat = safe_unit(items)
+    dead = None
+    if n_live is not None:
+        dead = torch.arange(n, device=items.device) >= int(n_live)
     rows = max(1, _SORT_ELEMS // max(1, n))
     out_s, out_i = [], []
     c1 = 0.0
@@ -179,10 +200,57 @@ def batched_lambda_aware_topk(queries, query_lambdas, items, item_lambdas,
         qhat, c1 = prepare_query(queries[b0:b0 + rows], alpha)
         plane = dot_plane(qhat, xhat) - lambda_term(
             query_lambdas[b0:b0 + rows], item_lambdas, c1)
+        if dead is not None:
+            plane = plane.masked_fill(dead[None, :], float("-inf"))
         s, i = exact_topk(plane, k)
         out_s.append(s)
         out_i.append(i)
     return torch.cat(out_s) + c1, torch.cat(out_i)
+
+
+def batched_lambda_aware_topk(queries, query_lambdas, items, item_lambdas,
+                              alpha, *, k: int):
+    """Plain full scan: scoring + exact top-k, (scores (B,k), ids (B,k)).
+    Sorts the SHIFTED plane (what the binned kernel's flush sorts) and
+    adds c1 back afterwards; query blocks bound the plane's memory."""
+    return _scan_topk(queries, query_lambdas, items, item_lambdas, alpha, k)
+
+
+def masked_lambda_aware_topk(queries, query_lambdas, items, item_lambdas,
+                             alpha, n_live, *, k: int):
+    """λ-aware top-k of a capacity buffer of which only the first
+    ``n_live`` rows are live (ops/search.py:203-236 of the JAX package):
+    the plain scan with rows at or past n_live masked to -inf before the
+    stable sort, so stale rows (NaN included) never rank and ties go to
+    the lowest id.  Slots past n_live come back with score -inf."""
+    return _scan_topk(queries, query_lambdas, items, item_lambdas, alpha, k,
+                      n_live=n_live)
+
+
+def _hybrid_planes(query, query_lambda, items, item_lambdas, alpha):
+    """(cos (N,), λ-aware score (N,)) of one query: the reference
+    expression α·cos + (1-α)·(1 - min(|Δλ|, 1)), cos through safe_unit,
+    not the serving path's shifted score."""
+    dt = items.dtype
+    a = torch.tensor(alpha, dtype=dt)
+    q = query.to(device=items.device, dtype=dt).reshape(1, -1)
+    cos = cosine_scores(q, items)[0]
+    dl = (torch.tensor(float(query_lambda), dtype=dt) - item_lambdas).abs()
+    return cos, a * cos + (1.0 - a) * (1.0 - dl.clamp_max(1.0))
+
+
+def hybrid_search_device(query, query_lambda, items, item_lambdas, alpha,
+                         *, k: int):
+    """The hybrid search's components on the items' device (reference:
+    core.rs:802-928; ops/search.py:239-263 of the JAX package): (the
+    λ-aware top-k's scores (k,) and ids (k,), the semantic top-1 (the
+    first maximal cosine) as a 0-dim tensor, the cosines (N,), and the
+    high-cosine mask cos > 0.9999 (N,)).  The top-k is exact_topk's
+    stable sort: ties to the lowest id, as lax.top_k orders them."""
+    cos, lam_score = _hybrid_planes(query, query_lambda, items,
+                                    item_lambdas, alpha)
+    top_s, top_i = exact_topk(lam_score[None, :], k)
+    return top_s[0], top_i[0], cos.argmax(), cos, cos > 0.9999
 
 
 def hybrid_search_device_fused(query, query_lambda, items, item_lambdas,
@@ -191,21 +259,16 @@ def hybrid_search_device_fused(query, query_lambda, items, item_lambdas,
     core.rs:802-928; ops/search.py:289-324 of the JAX package): one
     effective score per item, then one exact top-k.
 
-    The λ-aware score here is the reference expression α·cos + (1-α)·(1 -
-    min(|Δλ|, 1)), cos through safe_unit, not the serving path's shifted
-    score.  Precedence, as the reference's dict union: a high cosine (>
-    0.9999) keeps its cosine; membership of the λ-aware top-k keeps the
-    blended score; the semantic top-1 (the first maximal cosine) keeps
-    its cosine; every other item scores -inf.  The λ-aware top-k holds k
-    items, so k <= N rows come back valid.  Both top-k steps are the
-    stable sort of exact_topk: ties to the lowest id, as lax.top_k
-    orders them.  Returns (scores (k,), ids (k,)) on the items' device."""
-    dt = items.dtype
-    a = torch.tensor(alpha, dtype=dt)
-    q = query.to(device=items.device, dtype=dt).reshape(1, -1)
-    cos = dot_plane(safe_unit(q), safe_unit(items))[0]
-    dl = (torch.tensor(float(query_lambda), dtype=dt) - item_lambdas).abs()
-    lam_score = a * cos + (1.0 - a) * (1.0 - dl.clamp_max(1.0))
+    Precedence, as the reference's dict union: a high cosine (> 0.9999)
+    keeps its cosine; membership of the λ-aware top-k keeps the blended
+    score (_hybrid_planes); the semantic top-1 (the first maximal
+    cosine) keeps its cosine; every other item scores -inf.  The
+    λ-aware top-k holds k items, so k <= N rows come back valid.  Both
+    top-k steps are the stable sort of exact_topk: ties to the lowest
+    id, as lax.top_k orders them.  Returns (scores (k,), ids (k,)) on
+    the items' device."""
+    cos, lam_score = _hybrid_planes(query, query_lambda, items,
+                                    item_lambdas, alpha)
     _, top_idx = exact_topk(lam_score[None, :], k)
     n = items.shape[0]
     in_topk = torch.zeros(n, dtype=torch.bool, device=items.device)
@@ -234,6 +297,15 @@ def binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, *, k: int,
     from .bin_repair import BinnedTopK
     return BinnedTopK(items, item_lambdas, alpha, k,
                       use_bf16=use_bf16)(q, qlam)
+
+
+def pallas_binned_topk_with_repair(q, qlam, items, item_lambdas, alpha,
+                                   k: int, use_bf16: bool = False):
+    """The JAX package's name of binned_topk_with_repair
+    (ops/search.py:24-78 there): K1 with the exact repair of its flagged
+    rows, (scores (B,k), ids (B,k)) tensors on the query's device."""
+    return binned_topk_with_repair(q, qlam, items, item_lambdas, alpha, k=k,
+                                   use_bf16=use_bf16)
 
 
 def rescore_topk_f64(queries, query_lambdas, host_rows, item_lambdas,

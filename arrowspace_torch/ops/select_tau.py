@@ -21,8 +21,8 @@ import torch
 
 from ._build import check, lib, stream_of
 
-__all__ = ["MAX_F", "select_tau_fits", "fused_select_tau",
-           "select_tau_plain"]
+__all__ = ["MAX_F", "select_tau_fits", "fused_select_tau_fits",
+           "fused_select_tau", "select_tau_plain"]
 
 MAX_F = 1536               # 48 values a lane of one warp
 _KINDS = {"median": 0, "percentile": 1}
@@ -33,11 +33,22 @@ def select_tau_fits(f: int) -> bool:
     return 1 <= f <= MAX_F
 
 
-def fused_select_tau(x: torch.Tensor, mode) -> torch.Tensor:
-    """τ (N,) of every row of x (N, F) for a median or percentile mode.
+# the JAX package's name of the gate (pallas_tau.py:143)
+fused_select_tau_fits = select_tau_fits
+
+
+def fused_select_tau(items: torch.Tensor, mode=None, *, kind: str = "median",
+                     pct: float = 0.5) -> torch.Tensor:
+    """τ (N,) of every row of items (N, F) for a median or percentile
+    TauMode ``mode``, or, without one, for the JAX package's ``kind`` and
+    ``pct`` (pallas_tau.py:442).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
+    x = items
+    if mode is None:
+        from ..taumode import TauMode
+        mode = TauMode(kind, float(pct) if kind == "percentile" else 0.0)
     if x.device.type == "cpu":
         return select_tau_plain(x, mode)
     n, f = x.shape

@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import torch
 
-from ..taumode import select_tau_sorted
+from ..taumode import TauMode, select_tau_sorted
 from ._build import check, lib, stream_of
 from .lambda_batch import (graph_operands, lambda_batch_plain,
                            lambda_tile_floats)
 
-__all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain"]
+__all__ = ["taulambda_fits", "fused_taulambda", "taulambda_plain",
+           "fused_taulambda_fits", "fused_taulambda_batch"]
 
 _SMEM_LIMIT = 227 * 1024
 _KINDS = {"median": 0, "percentile": 1, "mean": 2, "fixed": 3}
@@ -85,3 +86,19 @@ def taulambda_plain(items: torch.Tensor, laplacian: torch.Tensor, mode):
     τ comes from the sort, never from K4; λ from K5's plain version."""
     tau = select_tau_sorted(items, mode)
     return lambda_batch_plain(items, laplacian, tau), tau
+
+
+def fused_taulambda_fits(n_items: int, f: int, n: int) -> bool:
+    """The JAX package's name and arguments of taulambda_fits
+    (pallas_taulambda.py:81); the gate does not depend on n_items."""
+    return taulambda_fits(f, n)
+
+
+def fused_taulambda_batch(items: torch.Tensor, laplacian: torch.Tensor, *,
+                          kind: str = "median", pct: float = 0.5,
+                          fixed: float = 0.0) -> torch.Tensor:
+    """λ (N,) of every item row by fused_taulambda, with the τ policy
+    given as the JAX package's ``kind`` / ``pct`` / ``fixed``
+    (pallas_taulambda.py:93)."""
+    value = {"percentile": pct, "fixed": fixed}.get(kind, 0.0)
+    return fused_taulambda(items, laplacian, TauMode(kind, float(value)))[0]

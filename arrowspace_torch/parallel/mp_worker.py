@@ -226,9 +226,13 @@ def main(argv=None) -> None:
     from arrowspace_torch.parallel import init_distributed, make_mesh
     init_distributed(f"localhost:{args.port}", num_processes=args.nproc,
                      process_id=args.pid, device=args.device)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        # the card init_distributed gave this rank
+        dev = torch.device("cuda", torch.cuda.current_device())
     try:
         assert dist.get_world_size() == args.nproc, dist.get_world_size()
-        mesh = make_mesh(devices=[args.device] * args.local_devices)
+        mesh = make_mesh(devices=[dev] * args.local_devices)
         result = dryrun(mesh, args.n, args.f)
         if mesh.rank == 0:
             print("MP_DRYRUN_RESULT " + json.dumps(result), flush=True)

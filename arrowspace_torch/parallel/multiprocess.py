@@ -68,13 +68,19 @@ def init_distributed(coordinator_address: Optional[str] = None,
     MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK variables.  The
     backend is ``nccl`` when ``device`` (the mesh's devices) is CUDA,
     else ``gloo``.  A no-op when already initialised; a failed init
-    raises."""
+    raises.  A CUDA ``device`` without an index names this process's
+    card: the one numbered its rank modulo the visible cards."""
     import torch.distributed as dist
     if dist.is_initialized():
         return
     dev = torch.device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
+        if dev.index is None:
+            rank = process_id if process_id is not None else \
+                int(os.environ.get("RANK", 0))
+            dev = torch.device("cuda",
+                               int(rank) % max(1, torch.cuda.device_count()))
         torch.cuda.set_device(dev)
     if coordinator_address is None:
         dist.init_process_group(backend, init_method="env://")

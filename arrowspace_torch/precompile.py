@@ -13,7 +13,9 @@ kernel's first launch (kernels load lazily).  ``warm`` pays them ahead:
 it builds both libraries and launches, once, each engine that
 ``index.session_kernel_kind`` picks for the shape (and, on the binned
 engine, the strided repair and K3, its fallback), on zero tensors of
-that shape.  The XLA program list and ``config.setup_cache`` have no
+that shape.  Given a τ policy or a graph size, it also launches the λ
+engine a build of the shape takes (K2, or K4 then K5, by the build's
+gates).  The XLA program list and ``config.setup_cache`` have no
 counterpart.
 
 Usage:
@@ -26,12 +28,12 @@ or:
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
-from .config import resolve
+from .config import TAUMODE_WINDOW_BYTES, resolve
 from .index import check_precision, energy_session_config, \
     session_kernel_kind
 from .utils.log import get_logger
@@ -66,16 +68,35 @@ def _libraries(timings: Dict[str, float], dev) -> None:
     _timed(timings, "native_scan", dev, native.lib)
 
 
+def _window_rows(n: int, f: int, element_size: int) -> int:
+    """Rows of the first window compute_taumode_lambdas runs a corpus
+    of n x f in (all n when it fits in one)."""
+    if n * f * element_size <= TAUMODE_WINDOW_BYTES:
+        return n
+    win = TAUMODE_WINDOW_BYTES // (f * element_size)
+    return min(n, max(1 << 14, (win >> 14) << 14))
+
+
 def warm(n_items: int, n_features: int, *,
          batch_sizes: Iterable[int] = (256,), k: int = 10,
          alpha: float = 0.9, precisions: Iterable[str] = ("f32",),
+         taumode=None, graph_nodes: Optional[int] = None,
          device=None, dtype=None) -> Dict[str, float]:
     """Build the libraries and launch, once, every engine a serving
     session of an (n_items, n_features) corpus takes at these batch sizes
     and precisions, on zero tensors.  Returns {what: seconds}, named
     ``<engine>_b<batch>_<precision>`` after session_kernel_kind's engine
     ("binned", "merge" or "plain"), plus the binned engine's
-    ``repair_<precision>`` (the strided repair and K3 on one row)."""
+    ``repair_<precision>`` (the strided repair and K3 on one row).
+
+    With ``taumode`` (a TauMode; median when only graph_nodes is given)
+    or ``graph_nodes`` (the feature graph's nodes, n_features when only
+    taumode is given), ``lambda_build`` also times one window of the
+    build's λ pass (compute_taumode_lambdas on zero rows against a zero
+    graph): K2 where taulambda_fits admits the shape, else τ (K4 by its
+    gate) then K5 where its gate admits the graph, as the build takes
+    them.  The JAX package's warm compiles its fused τ+λ program by
+    default; here it is asked for."""
     from .ops.bin_repair import BinnedTopK
     from .ops.bintopk import bins_target, prepare_binned_corpus
     from .ops.search import batched_lambda_aware_topk
@@ -88,6 +109,14 @@ def warm(n_items: int, n_features: int, *,
     _libraries(timings, dev)
     data = torch.zeros((n, f), device=dev, dtype=dt)
     lam = torch.zeros(n, device=dev, dtype=dt)
+    if taumode is not None or graph_nodes is not None:
+        from .taumode import TauMode, compute_taumode_lambdas
+        mode = taumode if taumode is not None else TauMode.median()
+        nodes = int(graph_nodes) if graph_nodes is not None else f
+        lap = torch.zeros((nodes, nodes), device=dev, dtype=dt)
+        rows = _window_rows(n, f, data.element_size())
+        _timed(timings, "lambda_build", dev,
+               lambda: compute_taumode_lambdas(data[:rows], lap, mode))
     for prec in precisions:
         want_bf16 = check_precision(prec)
         kind = session_kernel_kind(n, k_eff, f, want_bf16)

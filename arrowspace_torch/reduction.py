@@ -27,11 +27,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .config import resolve
 from .utils.log import get_logger
 
 logger = get_logger("arrowspace.reduction")
 
-__all__ = ["compute_jl_dimension", "ImplicitProjection"]
+__all__ = ["compute_jl_dimension", "ImplicitProjection", "project_matrix"]
 
 
 def compute_jl_dimension(n_points: int, epsilon: float) -> int:
@@ -99,3 +100,14 @@ class ImplicitProjection:
         """(N, F) @ (F, r) on the rows' device, in their dtype."""
         return rows @ self.matrix(dtype=rows.dtype, device=rows.device)
 
+
+def project_matrix(data, projection: ImplicitProjection, *, device=None,
+                   dtype=None) -> torch.Tensor:
+    """Every row of an (N, F) matrix projected (reference:
+    reduction.rs:141-166): a tensor on its own device in its own dtype,
+    an array-like on ``device`` in ``dtype`` (config.resolve)."""
+    if not torch.is_tensor(data):
+        dev, dt = resolve(device, dtype)
+        data = torch.as_tensor(np.asarray(data, dtype=np.float64)).to(
+            device=dev, dtype=dt)
+    return projection.project_device(data)

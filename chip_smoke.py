@@ -141,6 +141,25 @@ operands with float32 accumulation), each on an index above:
   runs (a ring below 3 stages or a spilled register fails) and the bytes
   it reads from L2 a batch.
 
+One phase covers the JAX package's names and options ported last, on
+the indexes above ([15], the migration surface):
+
+- [15a] on the seeded cosine index, before the API phase mutates it:
+  ArrowIndex.build(spectral=True) (λ, signals and a 2048-query search
+  bitwise the [4d] builder route's); search with use_pallas None and
+  True (K1, the strided repair and K3) and False (no kernel, bitwise the
+  plain full scan); use_pallas=True on a 60000-row slice, below the
+  streaming kernels' row floor (K1); SearchSessions with
+  prepare_corpus=True and False over the 16 batches (bitwise equal; ms
+  a batch and the bytes each holds after construction);
+  ops.search.hybrid_search_device on one query against a float64 plain
+  hybrid;
+- [15b] the exact energy sessions with prepare_corpus=True and False
+  (K6, bitwise equal, ms and resident bytes), and approx=True with
+  prepare_corpus=False refused;
+- [15c] "merge" sessions of the 1536-wide index with prepare_corpus=True
+  and False over 4 batches (K3, bitwise equal, ms and resident bytes).
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -1705,7 +1724,7 @@ def spectral_path(torch, counters, rows, canon, dev):
     signals, recompute_lambdas bitwise the build's, then a SearchSession
     of 16 batches held against the plain full scan.  The counters are
     set to 0 just before the build and read after the stream; returns
-    the launch counts."""
+    the launch counts and the index."""
     from arrowspace_torch.builder import ArrowSpaceBuilder
     from arrowspace_torch.index import ArrowIndex
     from arrowspace_torch.taumode import compute_taumode_lambdas
@@ -1755,7 +1774,7 @@ def spectral_path(torch, counters, rows, canon, dev):
           f"spectral session: launches {launches}, self-match {self_hits}")
     log(f"  spectral session: {ms:.3f} ms a batch")
     launches["taulambda"] = k2_build
-    return launches
+    return launches, index
 
 
 def persistence_phase(torch, counters, index, batches, dev):
@@ -3238,6 +3257,237 @@ def live_bf16_phase(torch, counters, index, static, batches, rows, dev):
     return k1b
 
 
+# The migration surface ([15]): the JAX package's names and options that
+# the port serves, on the indexes above.  BELOW_ROWS lies under
+# core.BINNED_MIN_ITEMS, where only use_pallas=True takes K1.
+BELOW_ROWS = 60_000
+MERGE_PC_BATCHES = 4
+
+
+def count(counters, key) -> int:
+    c = counters[key]
+    return c.launches if hasattr(c, "launches") else c.calls
+
+
+def resident_bytes(torch, dev, make):
+    """(make(), the bytes it left allocated on the card:
+    torch.cuda.memory_allocated after minus before)."""
+    sync(torch, dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    obj = make()
+    sync(torch, dev)
+    after = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    return obj, after - before
+
+
+def prepare_corpus_pair(torch, counters, name, make, batches, dev, kernels,
+                        plane_bytes):
+    """A session made by make(True) (prepare_corpus=True) and one by
+    make(False), each with the bytes its construction left resident, both
+    warmed up and fed ``batches``; the counters are set to 0 just before
+    the False session's stream and read just after it.  Both streams must
+    be bitwise equal, the True session must hold at least the prepared
+    plane's ``plane_bytes`` and the False one less than 1 % of it, and
+    every counter of ``kernels`` ({name: (counter key, least count)})
+    must reach its count.  Returns (the False stream's counts, ms a batch
+    of each, resident bytes of each)."""
+    prep, b_prep = resident_bytes(torch, dev, lambda: make(True))
+    raw, b_raw = resident_bytes(torch, dev, lambda: make(False))
+    check(prep.kernel == raw.kernel, f"{name}: kinds {prep.kernel} and "
+          f"{raw.kernel} differ")
+    log(f"  {name} ({raw.kernel}): resident bytes after construction "
+        f"prepare_corpus=True {b_prep} ({b_prep / plane_bytes:.4f} x the "
+        f"prepared plane's {plane_bytes}), prepare_corpus=False {b_raw}")
+    if dev.type == "cuda":
+        check(b_prep >= plane_bytes,
+              f"{name}: the prepared session holds {b_prep} bytes")
+        check(b_raw < plane_bytes // 100,
+              f"{name}: the unprepared session holds {b_raw} bytes")
+    prep.warmup()
+    raw.warmup()
+    want, ms_prep = stream_ms(torch, dev, prep, batches)
+    reset(counters)
+    got, ms_raw = stream_ms(torch, dev, raw, batches)
+    launches = {k: count(counters, key) for k, (key, _) in kernels.items()}
+    log(f"  {name}: {len(batches)} batches, ms_per_batch "
+        f"prepare_corpus=False {ms_raw:.3f} beside True {ms_prep:.3f}; "
+        f"launches in the False stream {launches}")
+    for k, (_key, least) in kernels.items():
+        check(launches[k] >= least, f"{name}: {k} counted {launches[k]}, "
+              f"fewer than {least}")
+    same_results(f"{name}: prepare_corpus=False vs True", got, want)
+    return launches, (ms_raw, ms_prep), (b_raw, b_prep)
+
+
+def migration_phase(torch, counters, index, spectral, rows, batches, dev):
+    """[15a] The migration surface on the seeded cosine index, before the
+    API phase mutates it: ArrowIndex.build(spectral=True) against the
+    builder-route spectral index of [4d] (λ, signals and a 2048-query
+    search bitwise); search with use_pallas None, True and False (K1 and
+    the repair's K3 for the first two, no kernel for False), each held to
+    the plain full scan; use_pallas=True on a BELOW_ROWS-row slice, below
+    the row floor (K1); SearchSessions with prepare_corpus=True and False
+    (prepare_corpus_pair, 16 batches); ops.search.hybrid_search_device
+    on one query against the float64 hybrid_plain64.  Returns the launch
+    counts by route."""
+    from arrowspace_torch import core
+    from arrowspace_torch.core import ArrowSpace
+    from arrowspace_torch.index import ArrowIndex
+    from arrowspace_torch.ops.search import (batched_lambda_aware_topk,
+                                             hybrid_search_device)
+
+    a, gl = index.aspace, index.gl
+    n, f = a.nitems, a.nfeatures
+    out = {}
+    log("[15a] migration surface on the cosine corpus")
+
+    reset(counters)
+    spec, t_spec = timed(torch, dev, lambda: ArrowIndex.build(
+        rows, eps=EPS, spectral=True, seed=SEED, device=dev))
+    out["spectral_build"] = {"taulambda": counters["k2"].launches}
+    check(bool(torch.equal(spec.aspace.lambdas, spectral.aspace.lambdas)),
+          "build(spectral=True): λ differ from the builder route's")
+    check(bool(torch.equal(spec.aspace.signals, spectral.aspace.signals)),
+          "build(spectral=True): signals differ from the builder route's")
+    q = batches[0]
+    got = spec.search(q, k=K, alpha=ALPHA)
+    ref = spectral.search(q, k=K, alpha=ALPHA)
+    same_results("build(spectral=True) search vs the builder route's",
+                 [got], [ref])
+    log(f"  ArrowIndex.build(spectral=True) in {t_spec:.3f}s, K2 launches "
+        f"{out['spectral_build']['taulambda']}: λ and signals bitwise the "
+        f"builder route's")
+    del spec, got, ref
+
+    qlam = a.prepare_query_items_batch(q, gl)
+    qt = torch.as_tensor(q, device=dev, dtype=a.dtype)
+    (ref_s, ref_i), t_ref = timed(torch, dev, lambda: (
+        batched_lambda_aware_topk(qt, qlam, a.data, a.lambdas, ALPHA, k=K)))
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    for mode in (None, True, False):
+        reset(counters)
+        (s, i), t = timed(torch, dev, lambda: index.search(
+            q, k=K, alpha=ALPHA, use_pallas=mode))
+        c = {key: count(counters, key) for key in counters}
+        out[f"use_pallas_{mode}"] = {"bintopk": c["k1"],
+                                     "merge_topk": c["k3"]}
+        log(f"  search(use_pallas={mode}) at B={BATCH}: {t * 1e3:.3f} ms; "
+            f"launches K1={c['k1']} K3={c['k3']} repairs={c['repair']}")
+        if mode is False:
+            check(not any(c.values()),
+                  f"use_pallas=False launched a kernel: {c}")
+            check(np.array_equal(i, ref_i) and np.array_equal(s, ref_s),
+                  "use_pallas=False differs from the plain full scan")
+        else:
+            check(c["k1"] >= 1 and c["k3"] >= 1 and c["repair"] >= 1,
+                  f"use_pallas={mode} did not take K1 and its repair: {c}")
+        agree(f"search(use_pallas={mode}) vs plain full scan", s, i, ref_s,
+              ref_i, exact=true_scores(qt, qlam, a.data, a.lambdas,
+                                       torch.as_tensor(i, device=dev)))
+    log(f"  plain full scan of the batch: {t_ref * 1e3:.3f} ms")
+
+    check(not core.merge_fits(BELOW_ROWS, K), "BELOW_ROWS is not below "
+          "the row floor")
+    sub = ArrowSpace(nfeatures=f, nitems=BELOW_ROWS,
+                     data=a.data[:BELOW_ROWS].contiguous(),
+                     lambdas=a.lambdas[:BELOW_ROWS].contiguous(),
+                     taumode=a.taumode)
+    reset(counters)
+    (s, i), t = timed(torch, dev, lambda: sub.search_lambda_aware_batch(
+        qt, qlam, K, ALPHA, use_pallas=True))
+    c = {key: count(counters, key) for key in ("k1", "k3", "repair")}
+    out["use_pallas_True_below_gate"] = {"bintopk": c["k1"],
+                                         "merge_topk": c["k3"]}
+    log(f"  use_pallas=True on a {BELOW_ROWS}-row slice: {t * 1e3:.3f} ms; "
+        f"launches K1={c['k1']} K3={c['k3']} repairs={c['repair']}")
+    check(c["k1"] >= 1, "use_pallas=True below the row floor skipped K1")
+    rs, ri = batched_lambda_aware_topk(qt, qlam, sub.data, sub.lambdas,
+                                       ALPHA, k=K)
+    agree(f"use_pallas=True on {BELOW_ROWS} rows vs plain full scan", s, i,
+          rs, ri, exact=true_scores(qt, qlam, sub.data, sub.lambdas, i))
+    del sub, rs, ri, s, i
+
+    launches, _ms, _b = prepare_corpus_pair(
+        torch, counters, "cosine session",
+        lambda pc: index.make_search_session(batch_size=BATCH, k=K,
+                                             alpha=ALPHA, prepare_corpus=pc),
+        batches, dev, {"bintopk": ("k1", N_BATCHES),
+                       "merge_topk": ("k3", 1), "repair": ("repair", 1)},
+        n * f * 4)
+    out["unprepared_cosine"] = launches
+
+    host = a.host_rows
+    xunit = host / np.maximum(np.linalg.norm(host, axis=1), 1e-300)[:, None]
+    lam = a.lambdas.double().cpu().numpy()
+    qv = q[2]
+    ql1 = a.prepare_query_item(qv, gl)
+    top_s, top_i, sem, cos, high = hybrid_search_device(
+        torch.as_tensor(qv, device=dev), ql1, a.data, a.lambdas, ALPHA, k=K)
+    _eff, _ids, cos64, blend, _kth = hybrid_plain64(qv, ql1, xunit, lam, K)
+    ref_top = topk_by_score(blend, K)
+    err = agree("hybrid_search_device λ-aware top-k vs float64", top_s[None],
+                top_i[None], blend[ref_top][None], ref_top[None],
+                exact=blend[top_i.cpu().numpy()][None])
+    cos_h = cos.cpu().numpy()
+    cos_err = float(np.abs(cos_h - cos64).max())
+    tol = 2.0 * max(err, cos_err, 1e-12)
+    edge = np.abs(cos64 - 0.9999) <= tol
+    check(cos_err <= TOL, f"hybrid_search_device: cos error {cos_err}")
+    check(bool((high.cpu().numpy() == (cos64 > 0.9999))[~edge].all()),
+          "hybrid_search_device: high-cosine mask differs")
+    s_i = int(sem)
+    check(s_i == int(np.argmax(cos64))
+          or abs(cos64[s_i] - cos64.max()) <= tol,
+          f"hybrid_search_device: semantic top-1 {s_i}")
+    log(f"  hybrid_search_device at {n}x{f}: cos max_abs_err={cos_err:.3e}, "
+        f"semantic top-1 {s_i}, {int(high.sum())} high-cosine rows")
+    return out
+
+
+def energy_prepare_phase(torch, counters, index, batches, dev):
+    """[15b] EnergySearchSessions of the exact energy index with
+    prepare_corpus=True and False (prepare_corpus_pair, K6 and the
+    strided energy repair), and approx=True with prepare_corpus=False,
+    which must raise."""
+    from arrowspace_torch.index import energy_z_plane
+    log("[15b] migration surface: unprepared energy session")
+    z = energy_z_plane(index.aspace)
+    launches, _ms, _b = prepare_corpus_pair(
+        torch, counters, "energy session",
+        lambda pc: index.make_energy_session(
+            batch_size=BATCH, k=K, w_lambda=E_WL, w_dirichlet=E_WD,
+            prepare_corpus=pc),
+        batches, dev, {"energy_bintopk": ("k6", N_BATCHES),
+                       "erepair": ("erepair", 1)},
+        z.shape[0] * z.shape[1] * 4)
+    try:
+        index.make_energy_session(batch_size=BATCH, k=K, approx=True,
+                                  prepare_corpus=False)
+        check(False, "approx=True with prepare_corpus=False did not raise")
+    except ValueError as exc:
+        log(f"  approx=True, prepare_corpus=False raises: {exc}")
+    return {"unprepared_energy": launches}
+
+
+def merge_prepare_phase(torch, counters, index, batches, dev):
+    """[15c] "merge" SearchSessions of the 1536-wide index with
+    prepare_corpus=True and False over MERGE_PC_BATCHES batches
+    (prepare_corpus_pair, K3 once a batch)."""
+    log("[15c] migration surface: unprepared merge session at 1536")
+    a = index.aspace
+    launches, _ms, _b = prepare_corpus_pair(
+        torch, counters, "1536-wide merge session",
+        lambda pc: index.make_search_session(batch_size=BATCH, k=K,
+                                             alpha=ALPHA, prepare_corpus=pc),
+        batches[:MERGE_PC_BATCHES], dev,
+        {"merge_topk": ("k3", MERGE_PC_BATCHES)},
+        a.nitems * a.nfeatures * 4)
+    check(launches["merge_topk"] == MERGE_PC_BATCHES,
+          f"the unprepared merge session launched K3 "
+          f"{launches['merge_topk']} times")
+    return {"unprepared_merge_1536": launches}
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -3347,7 +3597,11 @@ def main() -> int:
             torch, counters, index, batches, dev)
         k1_live = live_phase(torch, counters, index, rows, canon, batches,
                              ref, ms_static, dev)
-        spectral = spectral_path(torch, counters, rows, canon, dev)
+        spectral, spec_index = spectral_path(torch, counters, rows, canon,
+                                             dev)
+        migration = migration_phase(torch, counters, index, spec_index, rows,
+                                    batches, dev)
+        del spec_index
         torch.cuda.empty_cache()
         pruned, cells = pruned_phase(torch, counters, index, rows, dev)
         hyper = hypergraph_phase(torch, counters, index, batches, ms_static,
@@ -3388,6 +3642,8 @@ def main() -> int:
                         step=8)
         k6_live = live_energy_phase(torch, counters, index, exact, rows,
                                     canon, batches, res_e, dev)
+        migration.update(energy_prepare_phase(torch, counters, index,
+                                              batches, dev))
         mesh_e = mesh_energy_phase(torch, counters, index, exact, batches,
                                    dev)
         del index, exact, approx, batches, res_e, res_a, rows
@@ -3416,6 +3672,9 @@ def main() -> int:
         index, session, batches, x_launches, x_ms = x_path(torch, counters,
                                                            dev)
         k4_x, k5_x, k3_x = x_kernels_vs_plain(torch, index, batches, dev)
+        migration.update(merge_prepare_phase(torch, counters, index,
+                                             batches, dev))
+        torch.cuda.empty_cache()
         x16_sess, x16, x16_ms, _ = bf16_session(
             torch, counters, index, session, batches, dev, "14b", "1536-wide")
         k1b_1536, ops1536 = k1_bf16_vs_plain(torch, index, batches, dev,
@@ -3505,13 +3764,20 @@ def main() -> int:
                             "streamed_128": s128_topk["k1"],
                             "mesh_cosine": mesh["mesh_cosine_binned"]["k1"],
                             "mesh_pruned": mesh["mesh_pruned"]["k1"],
-                            "multiprocess_nccl": mp["bintopk"]},
+                            "multiprocess_nccl": mp["bintopk"],
+                            **{f"migration_{r}": migration[r]["bintopk"]
+                               for r in ("use_pallas_None",
+                                         "use_pallas_True",
+                                         "use_pallas_True_below_gate",
+                                         "unprepared_cosine")}},
                 "taulambda": {"cosine": launches["taulambda"],
                               "spectral": spectral["taulambda"],
                               "streamed_128": s128_lam["k2"],
                               "mesh_lambda": mesh["mesh_lambda"]["k2"],
                               "mesh_build_step": build_step["k2"],
-                              "multiprocess_nccl": mp["taulambda"]},
+                              "multiprocess_nccl": mp["taulambda"],
+                              "migration_spectral_build":
+                                  migration["spectral_build"]["taulambda"]},
                 "merge_topk": {"spectral": spectral["merge_topk"],
                                "live_merge_1536": k3_live,
                                **pruned["k3"], **jax_corpus["k3"],
@@ -3524,7 +3790,13 @@ def main() -> int:
                                    mesh["mesh_cosine_merge"]["k3"],
                                "mesh_pruned": mesh["mesh_pruned"]["k3"],
                                "mesh_1536": mesh_x["k3"],
-                               "multiprocess_nccl": mp["merge_topk"]},
+                               "multiprocess_nccl": mp["merge_topk"],
+                               **{f"migration_{r}": migration[r]["merge_topk"]
+                                  for r in ("use_pallas_None",
+                                            "use_pallas_True",
+                                            "use_pallas_True_below_gate",
+                                            "unprepared_cosine",
+                                            "unprepared_merge_1536")}},
                 "lambda_batch": {"wide_768": w_launches["lambda_batch"],
                                  "wide_1536": x_launches["lambda_batch"],
                                  "streamed_1536": x_lam["k5"]},
@@ -3532,7 +3804,10 @@ def main() -> int:
                                    "live_energy": k6_live,
                                    "mesh_energy": mesh_e["k6"],
                                    "multiprocess_nccl":
-                                       mp["energy_bintopk"]}}.items():
+                                       mp["energy_bintopk"],
+                                   "migration_unprepared_energy":
+                                       migration["unprepared_energy"][
+                                           "energy_bintopk"]}}.items():
             rec[name].setdefault("launches_by_path", {}).update(by_path)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)

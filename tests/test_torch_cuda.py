@@ -2214,3 +2214,130 @@ def test_bf16_sessions_on_card(dev):
     hit = list(li[0])
     a, b = hit.index(7), hit.index(int(new[0]))
     assert ls[0][a] == ls[0][b] and a < b
+
+
+def _near_ties_only(gs, gi, ps, pi):
+    """Scores within TOL of the reference's; ids equal outside near-ties
+    (within twice the measured score error)."""
+    err = float(np.abs(gs - ps).max())
+    assert err <= TOL
+    for r, j in zip(*np.nonzero(gi != pi)):
+        pos = np.nonzero(pi[r] == gi[r, j])[0]
+        other = ps[r, pos[0]] if pos.size else ps[r, -1]
+        assert abs(other - ps[r, j]) <= 2.0 * err
+
+
+@pytest.fixture(scope="module")
+def migration_index(dev):
+    """A 70000 x 128 build on the card, row 0 with 4 copies in each of
+    three bins of K1 (its repair overflows to K3), row 1 with 5 in one
+    (the strided repair alone)."""
+    rng = np.random.default_rng(21)
+    c = rng.uniform(0.2, 0.8, (24, 128))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
+                                                       (70_000, 128))
+    for b in (5, 17, 29):
+        rows[b + 128 * (2 + np.arange(4))] = rows[0]
+    rows[77 + 128 * (2 + np.arange(5))] = rows[1]
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    queries[:2] = rows[:2] * 1.02
+    return rows, queries, ArrowIndex.build(rows, eps=1.0, seed=21,
+                                           device=dev)
+
+
+def test_use_pallas_true_below_the_row_floor(dev, migration_index):
+    """use_pallas=True on a 60000-row slice (below BINNED_MIN_ITEMS)
+    launches K1 (and the repair's K3 for row 0) and agrees with the plain
+    full scan; None and False launch neither there."""
+    from arrowspace_torch import core
+    from arrowspace_torch.core import ArrowSpace
+    rows, queries, idx = migration_index
+    a = idx.aspace
+    n = 60_000
+    assert not core.merge_fits(n, 10)
+    sub = ArrowSpace(nfeatures=128, nitems=n,
+                     data=a.data[:n].contiguous(),
+                     lambdas=a.lambdas[:n].contiguous(), taumode=a.taumode)
+    qlam = a.prepare_query_items_batch(queries, idx.gl)
+    q = torch.tensor(queries, dtype=torch.float32, device=dev)
+    ps, pi = batched_lambda_aware_topk(q, qlam, sub.data, sub.lambdas, 0.9,
+                                       k=10)
+    for mode, want in ((True, 1), (None, 0), (False, 0)):
+        before = (bt.binned_topk_pool.launches, tk.merge_topk_partial.launches)
+        gs, gi = sub.search_lambda_aware_batch(q, qlam, 10, 0.9,
+                                               use_pallas=mode)
+        k1 = bt.binned_topk_pool.launches - before[0]
+        k3 = tk.merge_topk_partial.launches - before[1]
+        assert k1 == want and (k3 >= 1 if want else k3 == 0), (mode, k1, k3)
+        _near_ties_only(gs.cpu().numpy(), gi.cpu().numpy(),
+                        ps.cpu().numpy(), pi.cpu().numpy())
+
+
+def test_unprepared_cosine_session_bitwise(dev, migration_index):
+    """prepare_corpus=False at 70000 rows: K1 once a batch, the strided
+    repair and K3 for the copies, results bitwise the prepared
+    session's, and no prepared copy resident."""
+    from arrowspace_torch.ops import bin_repair as br
+    rows, queries, idx = migration_index
+    prep = idx.make_search_session(batch_size=64, k=10, alpha=0.9)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    raw = idx.make_search_session(batch_size=64, k=10, alpha=0.9,
+                                  prepare_corpus=False)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) - before < 70_000 * 128 * 4 // 100
+    assert raw.kernel == "binned"
+    batches = [queries, rows[100:164] * 1.01]
+    want = list(prep.search_stream(batches))
+    counts = (bt.binned_topk_pool.launches, tk.merge_topk_partial.launches,
+              br.strided_lambda_repair.calls)
+    got = list(raw.search_stream(batches))
+    assert bt.binned_topk_pool.launches - counts[0] == 2
+    assert tk.merge_topk_partial.launches - counts[1] >= 1
+    assert br.strided_lambda_repair.calls - counts[2] >= 1
+    for (gs, gi), (ws, wi) in zip(got, want):
+        assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
+
+
+def test_unprepared_energy_session_bitwise(dev):
+    """prepare_corpus=False on a 70000-row energy index: K6 once a batch,
+    results bitwise the prepared session's, no centred plane resident;
+    approx=True refuses it."""
+    rng = np.random.default_rng(22)
+    c = rng.uniform(0.2, 0.8, (24, 128))
+    rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
+                                                       (70_000, 128))
+    rows[7 + 128 * (2 + np.arange(5))] = rows[0]
+    idx = ArrowIndex.build_energy(rows, EnergyParams(allow_tall_graphs=True),
+                                  seed=22, device=dev)
+    prep = idx.make_energy_session(batch_size=64, k=10)
+    raw = idx.make_energy_session(batch_size=64, k=10, prepare_corpus=False)
+    assert raw.kernel == "binned" and raw.engine.zx is None
+    queries = rows[rng.integers(0, 70_000, 64)] * 1.02
+    queries[0] = rows[0] * 1.02
+    batches = [queries, rows[200:264] * 1.01]
+    want = list(prep.search_stream(batches))
+    k6 = eb.binned_energy_pool.launches
+    got = list(raw.search_stream(batches))
+    assert eb.binned_energy_pool.launches - k6 == 2
+    for (gs, gi), (ws, wi) in zip(got, want):
+        assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
+    with pytest.raises(ValueError):
+        idx.make_energy_session(batch_size=64, k=10, approx=True,
+                                prepare_corpus=False)
+
+
+@pytest.mark.parametrize("name", [
+    "torch_01_compare_cosine", "torch_02_proteins_lookup",
+    "torch_03_compare_energy_cosine", "torch_04_hypergraph_ensembles",
+    "torch_05_serving", "torch_06_live_mutation", "torch_07_multiprocess",
+    "torch_08_pruned_lowlat"])
+def test_examples_run_on_the_card(dev, name):
+    """Each example of the port on the card (its default device)."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, f"examples/{name}.py"], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
