@@ -82,9 +82,36 @@ class Assignments:
     def __len__(self) -> int:
         return self.array.shape[0]
 
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return Assignments(self.array[i])
+        v = int(self.array[i])
+        return None if v < 0 else v
+
     def __iter__(self):
         for v in self.array.tolist():
             yield None if v < 0 else v
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.array
+        if dtype is not None:
+            a = a.astype(dtype, copy=False)
+        return a.copy() if copy else a
+
+    def __eq__(self, other):
+        """Option semantics against another Assignments, the sentinel
+        array itself, or a list with None for dropped rows."""
+        if isinstance(other, Assignments):
+            return np.array_equal(self.array, other.array)
+        if isinstance(other, np.ndarray):
+            return np.array_equal(self.array, other)
+        if isinstance(other, (list, tuple)):
+            return len(self) == len(other) and all(
+                a == b for a, b in zip(self, other))
+        return NotImplemented
+
+    # a view over a mutable array: never a dict key
+    __hash__ = None
 
 
 def euclidean_dist(a, b) -> float:

@@ -38,13 +38,25 @@ __all__ = ["build_laplacian_matrix", "standard_scale_columns",
            "rectified_cosine_distances", "adjacency_from_knn"]
 
 
+def _column_mean(m: torch.Tensor) -> torch.Tensor:
+    """(1, C) column means, each column summed row by row in order (the
+    order of numpy's reduction over axis 0, which the JAX package's
+    Laplacian build takes for host rows).  torch.mean sums
+    in another order; on a Laplacian's columns, which sum to zero, the
+    two orders leave different ~1e-17 residues, and a scaled all-zero
+    row then becomes a zero vector in one package and a tiny nonzero one
+    in the other, which gains or loses a graph edge."""
+    return m.cumsum(dim=0)[-1:] / m.shape[0]
+
+
 def standard_scale_columns(m: torch.Tensor) -> torch.Tensor:
     """Column z-scoring (laplacian.rs:146-155, smartcore StandardScaler).
     Constant columns are left centred (std guarded to 1)."""
-    mean = m.mean(dim=0, keepdim=True)
-    std = m.std(dim=0, unbiased=False, keepdim=True)
+    mean = _column_mean(m)
+    centred = m - mean
+    std = _column_mean(centred * centred).sqrt()
     std = torch.where(std > 0.0, std, torch.ones_like(std))
-    return (m - mean) / std
+    return centred / std
 
 
 def rectified_cosine_distances(rows: torch.Tensor) -> torch.Tensor:

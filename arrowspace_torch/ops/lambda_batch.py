@@ -69,11 +69,15 @@ def fused_lambda_batch(items: torch.Tensor, laplacian: torch.Tensor,
     """λ (N,) of every item row given its τ (N,).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
-    if items.device.type == "cpu":
-        return lambda_batch_plain(items, laplacian, taus)
+    kernel or raises; either raises ValueError for a graph of more nodes
+    than the rows have coordinates (pallas_lambda.py:101-103)."""
     n_items, f = items.shape
     n = laplacian.shape[0]
+    if n > f:
+        raise ValueError(
+            f"graph has {n} nodes but items have only {f} coordinates")
+    if items.device.type == "cpu":
+        return lambda_batch_plain(items, laplacian, taus)
     if not (items.is_cuda and items.dtype == torch.float32
             and items.is_contiguous()):
         raise ValueError("fused_lambda_batch: CUDA float32 contiguous items "

@@ -160,6 +160,19 @@ the indexes above ([15], the migration surface):
 - [15c] "merge" sessions of the 1536-wide index with prepare_corpus=True
   and False over 4 batches (K3, bitwise equal, ms and resident bytes).
 
+One phase runs the JAX package's kernel suites on the card ([16], after
+the small reference): the seeded draws of tests/test_pallas_kernels.py,
+tests/test_bin_repair.py and tests/test_energy_approx.py, replayed by
+tests/suite_draws.py, through K1 and K3 in both modes, K6, K7, K2, K4
+and K5, each against its plain version on the same operands; the
+bin-repair storm fuzz through ops.search.pallas_binned_topk_with_repair
+and, at one chunk, through the repair, every row equal to the plain
+full scan; and one draw at serving width: storms planted at random bins
+of a 1M x 128 corpus, an index built on it and B=2048 through a
+SearchSession, which must launch K1, the strided repair and K3 and
+equal the plain full scan.  Each kernel's draws, largest error, flags
+and launches go into its JSON record ("suites_16").
+
 Each path is run with the launch counters set to 0 just before it and
 read just after it.  Then every kernel is held against its plain PyTorch
 version on the card at the path's shapes, and each session against the
@@ -193,6 +206,7 @@ bf16 product alone.
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -737,13 +751,13 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
     return out
 
 
-def energy_exact(zq, qlam, z, lam, ids):
-    """Float64 energy scores w_D/(1+|z_q - z_g|) - w_λ·|λ_q - λ_g| of the
-    given (B, k) ids, from the float32 z-plane."""
+def energy_exact(zq, qlam, z, lam, ids, wl=E_WL, wd=E_WD):
+    """Float64 energy scores w_D/(1+|z_q - z_g|) - w_λ·|λ_q - λ_g| - w_D
+    of the given (B, k) ids, from the float32 z-plane."""
     d = zq.double()[:, None, :] - z[ids].double()
     num = (d * d).sum(-1).sqrt()
     dl = (qlam.double()[:, None] - lam[ids].double()).abs()
-    return E_WD / (1.0 + num) - E_WL * dl - E_WD
+    return wd / (1.0 + num) - wl * dl - wd
 
 
 def flag_flips(name, fl, rfl, s, det, err) -> int:
@@ -3488,6 +3502,504 @@ def merge_prepare_phase(torch, counters, index, batches, dev):
     return {"unprepared_merge_1536": launches}
 
 
+# [16]: the JAX package's kernel suites on the card.  The draws are the
+# suites' own (tests/suite_draws.py replays their seeded rng); each kernel
+# runs on them and is held against its plain version on the same
+# operands.  One more draw is made at serving width: storms planted at
+# random bins of a 1M x 128 corpus, served by a SearchSession.
+SUITE_ROWS, SUITE_SOURCES = 1_000_000, 48
+
+
+@functools.lru_cache(maxsize=1)
+def suite_draws():
+    """tests/suite_draws.py (numpy only), loaded by its path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "tests" / \
+        "suite_draws.py"
+    spec = importlib.util.spec_from_file_location("suite_draws", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _on(torch, dev, *arrays):
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in arrays]
+
+
+def suite_record(name, draws, err, flags, launches) -> dict:
+    log(f"  {name}: draws={draws} max_abs_err={err:.3e} flags={flags} "
+        f"launches={launches}")
+    check(launches >= draws, f"{name}: {launches} launches for {draws} "
+          "draws")
+    return dict(draws=draws, max_abs_err=err, flags=flags,
+                launches=launches)
+
+
+def suite_k1(torch, dev, use_bf16=False) -> dict:
+    """K1 (float32 or its bf16 mode) on the draws of test_pallas_kernels.py:
+    the fuzz (:290-327), the deep-depth fuzz (:329-365, at the draw's
+    depth), the k-band (:403-445) and the α = 1 anchor (:674-692).  Each
+    pool against the plain pool on the same operands, and the flushed
+    rows against the plain version's by ``agree``, scores also against
+    float64; flags may differ only at near-ties.  At α = 1 the shift c1
+    is exactly 0, so the score is the cosine alone."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops.search import operand_query
+    d = suite_draws()
+    draws = [(f"fuzz {t}", d.data(n, f, b, seed=t), a, k, 0)
+             for t, n, f, b, k, a in d.k1_fuzz()]
+    draws += [(f"deep {t}", d.data(n, f, b, seed=100 + t), a, k, depth)
+              for t, n, f, b, k, a, depth in d.k1_deep()]
+    draws += [(f"k-band {k}", d.data(2048, 32, 3, seed=k), 0.9, k, 0)
+              for k in d.KBAND]
+    draws.append(("alpha=1 anchor", d.anchor(), 1.0, 5, 0))
+    attr = "launches_bf16" if use_bf16 else "launches"
+    before = getattr(bt.binned_topk_pool, attr)
+    err, flags = 0.0, 0
+    name = "K1 bf16" if use_bf16 else "K1"
+    for what, arrays, alpha, k, depth in draws:
+        q, ql, x, xl = _on(torch, dev, *arrays)
+        n = x.shape[0]
+        xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=use_bf16)
+        qh, c1 = operand_query(q, alpha, torch.float32, xh)
+        check(alpha != 1.0 or c1 == 0.0, f"{name}: c1={c1} at α = 1")
+        depth, bins = depth or bt.binned_topk_depth_for(k), bt.bins_target(k)
+        chunks = bt._default_chunks(
+            bt.grid_ctas(q.shape[0], bins, qh.shape[1], use_bf16),
+            -(-n // bins), dev)
+        args = (qh, ql, xh, xlh, c1, n)
+        kw = dict(depth=depth, bins=bins, chunks=chunks)
+        out = bt.flush_pool(*bt.binned_topk_pool(*args, **kw), k, c1)
+        ref = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw), k, c1)
+        e = agree(f"[16] {name} {what}", out[0], out[1], ref[0], ref[1],
+                  exact=exact_scores(qh, ql, xh, xlh, c1, out[1]) + c1,
+                  quiet=True)
+        det_err = float((out[3] - ref[3]).abs().max())
+        check(det_err <= TOL, f"[16] {name} {what}: det disagrees")
+        flag_flips(f"[16] {name} {what} flags", out[2], ref[2], out[0],
+                   out[3], e)
+        err, flags = max(err, e, det_err), flags + int(out[2].sum())
+    sync(torch, dev)
+    return suite_record(f"{name} ({'bf16' if use_bf16 else 'float32'})",
+                        len(draws), err, flags,
+                        getattr(bt.binned_topk_pool, attr) - before)
+
+
+def suite_k3(torch, dev, use_bf16=False) -> dict:
+    """K3 (float32 or bf16) on test_fused_topk_*'s cases
+    (test_pallas_kernels.py:21-72): k past a tile's tail, more queries
+    than a block, 1024-wide rows.  Each partial top-k against the plain
+    one at the wrapper's chunking, merged by the two-key sort; no id at
+    or past n."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import topk as tk
+    from arrowspace_torch.ops.search import operand_query, two_key_topk
+    d = suite_draws()
+    attr = "launches_bf16" if use_bf16 else "launches"
+    before = getattr(tk.merge_topk_partial, attr)
+    err = 0.0
+    name = "K3 bf16" if use_bf16 else "K3"
+    for n, f, b, k, alpha, seed in d.MERGE_CASES:
+        q, ql, x, xl = _on(torch, dev, *d.data(n, f, b, seed=seed))
+        xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=use_bf16)
+        qh, c1 = operand_query(q, alpha, torch.float32, xh)
+        rows = tk._chunk_rows(b, n, dev, k, use_bf16, qh.shape[1])
+        args = (qh, ql, xh, xlh, c1, n)
+        outs = []
+        for fn in (tk.merge_topk_partial, tk.merge_topk_partial_plain):
+            ps, pi = fn(*args, k=k, rows_per_chunk=rows)
+            s, i = two_key_topk(ps.reshape(b, -1), pi.reshape(b, -1).long(),
+                                k)
+            outs.append((s + c1, i))
+        (s, i), (rs, ri) = outs
+        check(int(i.max()) < n, f"[16] {name}: an id at or past n={n}")
+        e = agree(f"[16] {name} n={n} F={f} B={b} k={k}", s, i, rs, ri,
+                  exact=exact_scores(qh, ql, xh, xlh, c1, i) + c1,
+                  quiet=True)
+        err = max(err, e)
+    sync(torch, dev)
+    return suite_record(f"{name} ({'bf16' if use_bf16 else 'float32'})",
+                        len(d.MERGE_CASES), err, 0,
+                        getattr(tk.merge_topk_partial, attr) - before)
+
+
+def energy_tol(zq, ql, zx, xlam, ref_s, ref_i, wl, wd) -> float:
+    """The score tolerance of an energy draw: E_TOL, or three times the
+    plain version's own distance from float64 where that is larger.  For
+    a near duplicate (a query that is a corpus row × 1.02) d² = |q|² +
+    |x|² - 2·q·x cancels and u = w_D/(1+√d²) magnifies its rounding
+    (tests/test_torch_cuda.py test_k6_exact_copies_of_the_query); the
+    kernel, within twice the plain version's distance, then lies within
+    three times it of the plain version (the λ rule of
+    tests/test_torch_lambda_tc.py)."""
+    p64 = float((ref_s.double() - energy_exact(zq, ql, zx, xlam, ref_i,
+                                               wl, wd)).abs().max())
+    return max(E_TOL, 3.0 * p64)
+
+
+def _energy_operands(torch, dev, zq, z, xl):
+    """The energy operands as the engine serves them: the z-plane and
+    the queries centred on the plane's mean (distances unchanged, d²
+    rounds less; ops.bin_repair.BinnedEnergyTopK), the plane prepared.
+    Returns (zq, zx, xlam, xn)."""
+    from arrowspace_torch.ops import energy_bintopk as eb
+    zq, z, xl = _on(torch, dev, zq, z, xl)
+    mean = z.mean(dim=0)
+    zx, xlam, xn = eb.prepare_binned_energy_corpus(z - mean, xl)
+    return (zq - mean).contiguous(), zx, xlam, xn
+
+
+def suite_k6(torch, dev) -> dict:
+    """K6 on the energy fuzz of test_pallas_kernels.py:607-641 (random
+    widths, weights and k), on the centred plane as the engine serves
+    it: pools against the plain pools, flushed rows by ``agree`` against
+    the plain version's and float64."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import energy_bintopk as eb
+    d = suite_draws()
+    before, err, flags, draws = eb.binned_energy_pool.launches, 0.0, 0, 0
+    for t, n, g, b, k, wl, wd in d.k6_fuzz():
+        zq_h, ql_h, z, xl = d.energy_data(n, g, b, seed=100 + t)
+        ql, = _on(torch, dev, ql_h)
+        zq, zx, xlam, xn = _energy_operands(torch, dev, zq_h, z, xl)
+        wl, wd = eb.dtype_scalar(wl, zx.dtype), eb.dtype_scalar(wd, zx.dtype)
+        depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
+        chunks = bt._default_chunks(
+            eb.energy_grid_ctas(b, bins, g, eb.K6_PAIRS), -(-n // bins), dev)
+        args = (zq, (zq * zq).sum(dim=1), ql, zx, xn, xlam, wl, wd, n)
+        kw = dict(depth=depth, bins=bins, chunks=chunks)
+        out = bt.flush_pool(*eb.binned_energy_pool(*args, **kw), k, -wd)
+        ref = bt.flush_pool(*eb.binned_energy_pool_plain(*args, **kw), k,
+                            -wd)
+        tol = energy_tol(zq, ql, zx, xlam, ref[0], ref[1], wl, wd)
+        e = agree(f"[16] K6 fuzz {t}", out[0], out[1], ref[0], ref[1],
+                  tol=tol, exact=energy_exact(zq, ql, zx, xlam, out[1],
+                                              wl, wd), quiet=True)
+        det_err = float((out[3] - ref[3]).abs().max())
+        check(det_err <= tol, f"[16] K6 fuzz {t}: det disagrees")
+        flag_flips(f"[16] K6 fuzz {t} flags", out[2], ref[2], out[0],
+                   out[3], e)
+        err, flags, draws = max(err, e, det_err), flags + int(out[2].sum()), \
+            draws + 1
+    sync(torch, dev)
+    return suite_record("K6", draws, err, flags,
+                        eb.binned_energy_pool.launches - before)
+
+
+def suite_k7(torch, dev) -> dict:
+    """K7 on test_energy_approx.py:101-123 (uniform and clustered planes,
+    centred as the engine serves them; the chord sample the JAX package
+    draws, taken from the centred plane): pools against the plain
+    pools, the rescored rows against the plain version's, certification
+    alike outside near-ties, and every certified row against the exact
+    chunked scan; at least one row certified a draw."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import energy_approx as ea
+    from arrowspace_torch.ops import energy_bintopk as eb
+    d = suite_draws()
+    before, err, flags = ea.binned_energy_approx_pool.launches, 0.0, 0
+    for n, k, clustered in d.APPROX_CASES:
+        zq_h, ql_h, z, lam = d.approx_data(n, 24, 6, seed=n,
+                                           clustered=clustered)
+        ql, = _on(torch, dev, ql_h)
+        zq, zx, xlam, xn = _energy_operands(torch, dev, zq_h, z, lam)
+        wl, wd = eb.dtype_scalar(1.0, zx.dtype), eb.dtype_scalar(0.5, zx.dtype)
+        z_samp, xn_samp = ea.prepare_energy_chord_sample(zx, xn, n, seed=0)
+        qn = (zq * zq).sum(dim=1)
+        ca, cb = ea._fit_chords(zq, qn, z_samp, xn_samp, wd)
+        depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
+        chunks = bt._default_chunks(
+            eb.energy_grid_ctas(6, bins, 24, ea.K7_PAIRS), -(-n // bins), dev)
+        args = (zq, qn, ql, ca, cb, zx, xn, xlam, wl, n)
+        kw = dict(depth=depth, bins=bins, chunks=chunks)
+        pool = ea.binned_energy_approx_pool(*args, **kw)
+        pool_p = ea.binned_energy_approx_pool_plain(*args, **kw)
+        out = ea._flush_rescore_certify(*pool, ql, xlam, wl, wd, k)
+        ref = ea._flush_rescore_certify(*pool_p, ql, xlam, wl, wd, k)
+        what = f"[16] K7 n={n} k={k} clustered={clustered}"
+        tol = energy_tol(zq, ql, zx, xlam, ref[0], ref[1], wl, wd)
+        if tol > E_TOL:
+            log(f"  {what}: near duplicates, score tolerance {tol:.3e}")
+        e = agree(what, out[0], out[1], ref[0], ref[1], tol=tol,
+                  exact=energy_exact(zq, ql, zx, xlam, out[1], 1.0, 0.5),
+                  quiet=True)
+        flag_flips(f"{what} certification", out[2], ref[2], out[0],
+                   pool[3].reshape(6, -1) - wd, e)
+        ok = ~out[2]
+        check(bool(ok.any()), f"{what}: no row certified")
+        es, ei = eb.energy_topk_chunked(zq, ql, zx[:n], xlam[:n], wl, wd,
+                                        k=k)
+        e2 = agree(f"{what} certified rows vs the chunked scan",
+                   out[0][ok], out[1][ok], es[ok], ei[ok], tol=tol,
+                   quiet=True)
+        err, flags = max(err, e, e2), flags + int(out[2].sum())
+    sync(torch, dev)
+    return suite_record("K7", len(d.APPROX_CASES), err, flags,
+                        ea.binned_energy_approx_pool.launches - before)
+
+
+def lambda_within(name, lam_k, lam_p, lam_64) -> float:
+    """λ of a kernel against its plain version: within TOL, or, on a row
+    where the plain float32 λ is itself far from float64 (the moment
+    expansion cancels), within twice the plain version's distance from
+    float64 (tests/test_torch_lambda_tc.py).  Returns the max abs error
+    against the plain version."""
+    k, p, r = (t.double() for t in (lam_k, lam_p, lam_64))
+    far = (k - p).abs() > TOL
+    check(bool(((k - r).abs()[far] <= 2.0 * (p - r).abs()[far]).all()),
+          f"{name}: λ disagrees with its plain version")
+    return float((k - p).abs().max())
+
+
+def _fixture_graphs(torch):
+    """The reference's 384-d fixtures (tests/fixtures/
+    reference_embeddings.npz) with the graph over their first n
+    features, n = 256 (K2: n <= F <= 256, the rows cut to 256) and n =
+    192 (K5: 2n <= F = 384, the partial-coordinate case); float64 on the
+    CPU.  Yields (name, rows, laplacian, kernel)."""
+    import pathlib
+    from arrowspace_torch.graph import GraphFactory
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "reference_embeddings.npz"
+    fixtures = np.load(path)
+    for tag in ("quora", "proteins"):
+        rows = np.asarray(fixtures[tag], dtype=np.float64)
+        for n, kernel in ((256, "K2"), (192, "K5")):
+            gl = GraphFactory.build_laplacian_matrix_from_k_cluster(
+                rows[:, :n], 1.0, 6, 3, 2.0, None, False, False,
+                rows.shape[0], device="cpu", dtype=torch.float64)
+            x = rows[:, :n] if kernel == "K2" else rows
+            yield f"{tag} {x.shape[0]}x{x.shape[1]} n={n}", x, \
+                gl.matrix.numpy(), kernel
+
+
+def suite_lambda_tau(torch, dev) -> dict:
+    """K2, K4 and K5 on the suites' λ and τ draws: K2 on
+    test_fused_taulambda_matches_two_pass's rows (:128-150, every τ
+    policy) and the fixtures cut to 256 features, K5 on the fixtures over
+    a 192-node graph, K4 on the τ draws (duplicates, signed zeros, NaN
+    and inf rows; :643-717) and the 768-wide rows of :266-287.  τ of an
+    order statistic bitwise; λ by lambda_within.  Returns a record per
+    kernel."""
+    from arrowspace_torch.laplacian import build_laplacian_matrix
+    from arrowspace_torch.graph import GraphParams
+    from arrowspace_torch.ops import lambda_batch as lb
+    from arrowspace_torch.ops import select_tau as st
+    from arrowspace_torch.ops import taulambda as tl
+    from arrowspace_torch.taumode import TauMode, select_tau_batch
+    d = suite_draws()
+    k2, k4, k5 = (c.launches for c in (tl.fused_taulambda,
+                                       st.fused_select_tau,
+                                       lb.fused_lambda_batch))
+    e2 = e4 = e5 = 0.0
+    n2 = n4 = n5 = 0
+    rng = np.random.default_rng(13)
+    rows = rng.uniform(0.1, 1.0, (700, 40)).astype(np.float32)
+    rows[5, 2] = np.inf
+    gl = build_laplacian_matrix(
+        torch.as_tensor(rng.uniform(0.1, 1.0, (24, 8))),
+        GraphParams(eps=1.0, k=6, topk=4, p=2.0, sigma=None,
+                    normalise=False, sparsity_check=False),
+        device="cpu", dtype=torch.float64)
+    graphs = [(f"{m.kind} 700x40 n=24", rows, gl.matrix.numpy(), "K2", m)
+              for m in (TauMode.median(), TauMode.percentile(0.7),
+                        TauMode.mean(), TauMode.fixed(0.3))]
+    graphs += [(what, x, lap, kernel, TauMode.median())
+               for what, x, lap, kernel in _fixture_graphs(torch)]
+    for what, x_h, lap_h, kernel, mode in graphs:
+        x, lap = _on(torch, dev, x_h.astype(np.float32),
+                     lap_h.astype(np.float32))
+        if kernel == "K2":
+            lam_k, tau_k = tl.fused_taulambda(x, lap, mode)
+            lam_p, tau_p = tl.taulambda_plain(x, lap, mode)
+            check(mode.kind == "mean" or bool(torch.equal(tau_k, tau_p)),
+                  f"[16] K2 {what}: τ differs from the plain version's")
+            e2, n2 = max(e2, lambda_within(
+                f"[16] K2 {what}", lam_k, lam_p,
+                lb.lambda_batch_plain(x.double(), lap.double(),
+                                      tau_p.double()))), n2 + 1
+        else:
+            tau = select_tau_batch(x, mode)
+            lam_k = lb.fused_lambda_batch(x, lap, tau)
+            lam_p = lb.lambda_batch_plain(x, lap, tau)
+            e5, n5 = max(e5, lambda_within(
+                f"[16] K5 {what}", lam_k, lam_p,
+                lb.lambda_batch_plain(x.double(), lap.double(),
+                                      tau.double()))), n5 + 1
+    rng = np.random.default_rng(2)
+    wide = rng.normal(size=(1100, 768)).astype(np.float32)
+    wide[3, 5] = np.nan
+    rng = np.random.default_rng(11)
+    narrow = rng.normal(0.5, 1.0, (300, 77)).astype(np.float32)
+    narrow[3, 5], narrow[7, 0], narrow[9] = np.nan, np.inf, np.nan
+    taus = list(d.tau_rows()) + [("wide 1100x768", wide),
+                                  ("300x77 non-finite", narrow)]
+    for what, x_h in taus:
+        x, = _on(torch, dev, x_h)
+        for mode in (TauMode.median(), TauMode.percentile(0.25),
+                     TauMode.percentile(0.5)):
+            tau_k = st.fused_select_tau(x, mode)
+            tau_p = st.select_tau_plain(x, mode)
+            check(bool(torch.equal(tau_k, tau_p)),
+                  f"[16] K4 {what} {mode.kind}: τ differs from the sort's")
+            n4 += 1
+    sync(torch, dev)
+    return {"taulambda": suite_record("K2", n2, e2, 0,
+                                      tl.fused_taulambda.launches - k2),
+            "select_tau": suite_record("K4", n4, e4, 0,
+                                       st.fused_select_tau.launches - k4),
+            "lambda_batch": suite_record("K5", n5, e5, 0,
+                                         lb.fused_lambda_batch.launches - k5)}
+
+
+def suite_storms(torch, dev) -> dict:
+    """The storm fuzz of test_bin_repair.py:264-313, every row, flagged
+    rows included, equal to the plain full scan by ``agree``: first
+    through ops.search.pallas_binned_topk_with_repair at the wrapper's
+    chunking, which on the card spreads a draw's few tiles over as many
+    chunks, so a storm's copies rarely share one; then through K1 at one
+    chunk, where they collide as in the JAX suite's layout, its flagged
+    rows through ops.bin_repair.repair_flagged (the strided repair, K3
+    for rows whose fired bins overflow).  Returns the draws, the error,
+    the flagged rows and strided repairs of the one-chunk pass, and the
+    launches of K1 and K3."""
+    from arrowspace_torch.ops import bin_repair as br
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops import topk as tk
+    from arrowspace_torch.ops.search import (batched_lambda_aware_topk,
+                                             pallas_binned_topk_with_repair,
+                                             prepare_query)
+    d = suite_draws()
+    k1, k3, repairs = (bt.binned_topk_pool.launches,
+                       tk.merge_topk_partial.launches,
+                       br.strided_lambda_repair.calls)
+    err, draws, flagged = 0.0, 0, 0
+    for t, q_h, ql_h, x_h, xl_h, alpha, k, stride, n_storms in d.storms():
+        q, ql, x, xl = _on(torch, dev, q_h, ql_h, x_h, xl_h)
+        n = x.shape[0]
+        ps, pi = batched_lambda_aware_topk(q, ql, x, xl, alpha, k=k)
+        qh, c1 = prepare_query(q, alpha, dtype=torch.float32)
+        xh, xlh = bt.prepare_binned_corpus(x, xl)
+        what = f"[16] storm fuzz {t} (k={k} stride={stride} " \
+            f"storms={n_storms})"
+        s, i = pallas_binned_topk_with_repair(q, ql, x, xl, alpha, k=k)
+        e = agree(what, s, i, ps, pi,
+                  exact=exact_scores(qh, ql, xh, xlh, c1, i.long()) + c1,
+                  quiet=True)
+        s, i, fl, det = bt.flush_pool(*bt.binned_topk_pool(
+            qh, ql, xh, xlh, c1, n, depth=bt.binned_topk_depth_for(k),
+            bins=bt.bins_target(k), chunks=1), k, c1)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        rows = np.nonzero(fl.cpu().numpy())[0]
+        if rows.size:
+            rt = torch.as_tensor(rows, device=dev)
+            s[rows], i[rows] = br.repair_flagged(
+                q[rt], ql[rt], det[rt].cpu().numpy(), s[rows], i[rows], xh,
+                xlh, alpha, k=k, n=n)
+        e1 = agree(f"{what}, one chunk", s, i, ps, pi,
+                   exact=exact_scores(qh, ql, xh, xlh, c1,
+                                      torch.as_tensor(i, device=dev)) + c1,
+                   quiet=True)
+        err, draws, flagged = max(err, e, e1), draws + 1, flagged + rows.size
+    sync(torch, dev)
+    rec = dict(draws=draws, max_abs_err=err, flagged=flagged,
+               repairs=br.strided_lambda_repair.calls - repairs,
+               launches=bt.binned_topk_pool.launches - k1,
+               k3_launches=tk.merge_topk_partial.launches - k3)
+    log(f"  storm fuzz through search and, at one chunk, through the "
+        f"repair: {rec}")
+    check(rec["repairs"] > 0 and flagged > 0,
+          "[16] the storm fuzz flagged no row at one chunk")
+    check(rec["launches"] >= 2 * draws, "[16] the storm fuzz launched K1 "
+          "less than twice a draw")
+    return rec
+
+
+def plant_storms(rows: np.ndarray, rng, sources: int) -> np.ndarray:
+    """Copies of ``sources`` random rows in 1 to 3 random bins each (k =
+    K), depth + 1 to depth + 3 copies a bin at consecutive tiles from a
+    random tile, no copy over a source or another copy.  Returns the
+    source rows."""
+    from arrowspace_torch.ops.bintopk import binned_topk_depth_for, \
+        bins_target
+    bins, depth = bins_target(K), binned_topk_depth_for(K)
+    n_tiles = rows.shape[0] // bins
+    src = rng.choice(rows.shape[0], sources, replace=False)
+    used = set(src.tolist())
+    for s in src:
+        for _ in range(int(rng.integers(1, 4))):
+            copies = depth + 1 + int(rng.integers(0, 3))
+            t0 = int(rng.integers(0, n_tiles - copies))
+            g = int(rng.integers(0, bins)) + bins * (t0 + np.arange(copies))
+            if used.isdisjoint(g.tolist()):
+                rows[g] = rows[s]
+                used.update(g.tolist())
+    return src
+
+
+def suite_serving_storms(torch, counters, dev) -> dict:
+    """One draw at serving width: storms planted at random bins of a
+    1M x 128 corpus (plant_storms), an index built on it, and one batch
+    of B = 2048 (the storms' sources x 1.02 first, the rest random rows x
+    1.02) through a SearchSession at k = K.  The counters are set to 0
+    before the session and read after it; K1, the strided repair and K3
+    must each run, and every row must equal the plain full scan."""
+    from arrowspace_torch.index import ArrowIndex, _query_prep
+    from arrowspace_torch.ops.search import batched_lambda_aware_topk
+    rng = np.random.default_rng(SEED + 16)
+    rows = clustered_rows(SUITE_ROWS, N_FEAT, SEED + 16)
+    src = plant_storms(rows, rng, SUITE_SOURCES)
+    index = ArrowIndex.build(rows, eps=EPS, seed=SEED + 16, device=dev)
+    picks = rng.integers(0, SUITE_ROWS, BATCH)
+    picks[:SUITE_SOURCES] = src
+    batch = (rows[picks] * 1.02).astype(np.float32)
+    session = index.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
+    check(session.kernel == "binned", f"session kernel {session.kernel}")
+    session.warmup()
+    sync(torch, dev)
+    reset(counters)
+    (s, i), = list(session.search_stream([batch]))
+    sync(torch, dev)
+    got = {key: count(counters, key) for key in ("k1", "repair", "k3")}
+    log(f"  serving storms ({SUITE_SOURCES} sources): launches {got}")
+    check(all(v > 0 for v in got.values()),
+          f"[16] the serving storm draw missed a kernel: {got}")
+    a = index.aspace
+    q = torch.as_tensor(batch, device=dev)
+    _, qlam = _query_prep(a, index.gl)[1](q)
+    ps, pi = batched_lambda_aware_topk(q, qlam, a.data, a.lambdas, ALPHA,
+                                       k=K)
+    err = agree(f"[16] serving storms {SUITE_ROWS}x{N_FEAT} B={BATCH} vs "
+                "the plain full scan", s, i, ps, pi,
+                exact=true_scores(q, qlam, a.data, a.lambdas,
+                                  torch.as_tensor(i, device=dev)))
+    return dict(err=err, **got)
+
+
+def suites_phase(torch, counters, dev) -> dict:
+    """[16]: each kernel on the JAX suites' draws against its plain
+    version, then the serving-width storm draw.  Returns the per-kernel
+    records (draws, max_abs_err, flags, launches) and the storm draw's."""
+    log("[16] the JAX package's kernel suites on the card")
+    t0 = time.perf_counter()
+    reset(counters)
+    rec = {"bintopk": suite_k1(torch, dev),
+           "bintopk_bf16": suite_k1(torch, dev, use_bf16=True),
+           "merge_topk": suite_k3(torch, dev),
+           "merge_topk_bf16": suite_k3(torch, dev, use_bf16=True),
+           "energy_bintopk": suite_k6(torch, dev),
+           "energy_chord": suite_k7(torch, dev),
+           **suite_lambda_tau(torch, dev),
+           "storm_fuzz": suite_storms(torch, dev)}
+    t_draws = time.perf_counter() - t0
+    rec["serving_storms"] = suite_serving_storms(torch, counters, dev)
+    log(f"  [16] draws_s={t_draws:.3f} total_s="
+        f"{time.perf_counter() - t0:.3f}")
+    return rec
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "bintopk": ("arrowspace_torch/csrc/bintopk.cu",
@@ -3618,6 +4130,8 @@ def main() -> int:
         api_phase(torch, counters, index, batches, dev)
         small_reference(torch, dev)
         del index, session, batches
+        torch.cuda.empty_cache()
+        suites = suites_phase(torch, counters, dev)
         torch.cuda.empty_cache()
 
         index = unseeded_path(torch, counters, rows, canon, dev)
@@ -3809,6 +4323,13 @@ def main() -> int:
                                        migration["unprepared_energy"][
                                            "energy_bintopk"]}}.items():
             rec[name].setdefault("launches_by_path", {}).update(by_path)
+        for name in KERNELS:
+            rec[name].setdefault("launches_by_path", {})["suites_16"] = \
+                suites[name]["launches"]
+            rec[name]["suites_16"] = suites[name]
+        rec["bintopk"]["suites_16"].update(
+            storm_fuzz=suites["storm_fuzz"],
+            serving_storms=suites["serving_storms"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3824,7 +4345,7 @@ def main() -> int:
                    if key in ("bound_fp32_ms", "matmul_ms", "at_768",
                               "at_1536", "wide_repair_768", "at_repair",
                               "launches_by_path", "max_abs_err_f64",
-                              "at_build")}}
+                              "at_build", "suites_16")}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -300,3 +300,25 @@ def test_the_kernel_module_map_resolves():
         importlib.import_module(f"arrowspace_tpu.{rel}")
         for p in ports:
             importlib.import_module(f"arrowspace_torch.{p}")
+
+
+def test_shared_names_are_documented_in_the_api_reference():
+    """tests/test_api_surface.py holds docs/API.md to every ``__all__``
+    name of the JAX package.  The port has no reference of its own: its
+    users read docs/API.md, so every ``__all__`` name of a port module
+    that its JAX counterpart also exports must appear there (the names
+    the port adds, kernel wrappers and plain versions, are its
+    implementation, described in README.md's port section)."""
+    import pathlib
+    text = (pathlib.Path(__file__).resolve().parents[1] / "docs" /
+            "API.md").read_text()
+    missing = []
+    for rel, mod in _jax_modules():
+        if not rel:
+            continue
+        shared = set(getattr(mod, "__all__", ()))
+        for port in _port_modules(rel):
+            for name in getattr(port, "__all__", ()):
+                if name in shared and name not in text:
+                    missing.append(f"{port.__name__}.{name}")
+    assert not missing, f"shared names missing from docs/API.md: {missing}"
