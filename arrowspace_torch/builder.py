@@ -13,7 +13,6 @@ packages.
 from __future__ import annotations
 
 import pathlib
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +25,7 @@ from .graph import GraphLaplacian
 from .sampling import SamplerType
 from .taumode import TAUDEFAULT, TauMode
 from .utils.log import get_logger, stage_timer
+from .utils.profiling import span
 
 logger = get_logger("arrowspace.builder")
 
@@ -235,10 +235,10 @@ class ArrowSpaceBuilder:
         def persist(save: str, matrix, suffix: str, **kwargs) -> None:
             nonlocal t_persist
             if store is not None:
-                t = time.perf_counter()
-                getattr(store, save)(matrix, path, f"{name}-{suffix}", self,
-                                     **kwargs)
-                t_persist += time.perf_counter() - t
+                with span("build.persistence") as sp:
+                    getattr(store, save)(matrix, path, f"{name}-{suffix}",
+                                         self, **kwargs)
+                t_persist += sp.seconds
 
         def host64(t):
             return t.double().cpu().numpy()
@@ -246,33 +246,31 @@ class ArrowSpaceBuilder:
         persist("save_dense_matrix_with_builder",
                 np.asarray(rows, dtype=np.float64), "raw_input")
         with stage_timer(logger, "ArrowSpaceBuilder::build"):
-            t0 = time.perf_counter()
-            clustered = em.start_clustering(self, rows)
-            aspace = clustered.aspace
-            self._sync()
-            t1 = time.perf_counter()
+            with span("build.clustering") as clustering:
+                clustered = em.start_clustering(self, rows)
+                aspace = clustered.aspace
+                self._sync()
             for suffix in ("clustered-dm", "laplacian-input"):
                 persist("save_dense_matrix_with_builder",
                         np.asarray(clustered.centroids, dtype=np.float64),
                         suffix)
-            t1p = time.perf_counter()
-            gl = em.eigenmaps(aspace, self, clustered.centroids, n_items)
-            self._sync()
-            t2 = time.perf_counter()
+            with span("build.laplacian") as laplacian:
+                gl = em.eigenmaps(aspace, self, clustered.centroids, n_items)
+                self._sync()
             persist("save_sparse_matrix_with_builder", host64(gl.matrix),
                     "gl-matrix", structural_nnz=gl.structural_nnz)
             if self.prebuilt_spectral and aspace.signals is not None:
                 persist("save_sparse_matrix_with_builder",
                         host64(aspace.signals), "aspace-signals",
                         structural_nnz=aspace._signals_nnz)
-            t2p = time.perf_counter()
-            em.compute_taumode(aspace, gl)
-            self._sync()
-            t3 = time.perf_counter()
+            with span("build.taumode") as taumode:
+                em.compute_taumode(aspace, gl)
+                self._sync()
             persist("save_lambda_with_builder", host64(aspace.lambdas),
                     "lambdas", projection=aspace.projection_matrix)
-        self.stage_seconds = {"clustering": t1 - t0, "laplacian": t2 - t1p,
-                              "taumode": t3 - t2p}
+        self.stage_seconds = {"clustering": clustering.seconds,
+                              "laplacian": laplacian.seconds,
+                              "taumode": taumode.seconds}
         if store is not None:
             self.stage_seconds["persistence"] = t_persist
         logger.debug("ArrowSpaceBuilder configuration: %s", self)

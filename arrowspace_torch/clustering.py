@@ -37,7 +37,6 @@ Semantics kept from the reference:
 from __future__ import annotations
 
 import math
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +44,7 @@ import torch
 
 from .config import is_test_mode
 from .utils.log import get_logger
+from .utils.profiling import span
 
 logger = get_logger("arrowspace.clustering")
 
@@ -409,17 +409,17 @@ def compute_optimal_k(rows, n: int, f: int,
     device_data: the index's resident copy of ``rows``, on which a large
     corpus runs its Two-NN tiles (estimate_intrinsic_dimension).  The CH
     sweep and the pilot stay host numpy: the chosen K is an argmax over
-    rounded scores.  ``seconds``, when given, receives the Two-NN
-    estimate's wall seconds under "twonn"."""
+    rounded scores.  ``seconds``, when given, receives the wall seconds of
+    the Two-NN estimate under "twonn" and of the Calinski-Harabasz sweep
+    under "ch_sweep" (the spans ``clustering.twonn`` and
+    ``clustering.ch_sweep``)."""
     logger.info("Computing optimal K for clustering: N=%d, F=%d", n, f)
     base_seed = seed_override if seed_override is not None \
         else CLUSTERING_SEED
 
-    t0 = time.perf_counter()
-    k_min, k_max, id_est = _step1_bounds(rows, n, f, base_seed,
-                                         device_data=device_data)
-    if seconds is not None:
-        seconds["twonn"] = time.perf_counter() - t0
+    with span("clustering.twonn") as twonn:
+        k_min, k_max, id_est = _step1_bounds(rows, n, f, base_seed,
+                                             device_data=device_data)
 
     sample_size = min(n, 1000)
     if n > sample_size:
@@ -429,7 +429,12 @@ def compute_optimal_k(rows, n: int, f: int,
     else:
         sampled = list(rows)
 
-    k_optimal = _step2_calinski_harabasz(sampled, k_min, k_max, base_seed)
+    with span("clustering.ch_sweep") as ch_sweep:
+        k_optimal = _step2_calinski_harabasz(sampled, k_min, k_max,
+                                             base_seed)
+    if seconds is not None:
+        seconds["twonn"] = twonn.seconds
+        seconds["ch_sweep"] = ch_sweep.seconds
     radius = compute_threshold_from_pilot(sampled, k_optimal, base_seed)
     return k_optimal, radius, id_est
 
@@ -859,7 +864,9 @@ def _incremental_clustering_chunked(builder, rows, nfeatures, max_clusters,
 
     The pre-cap and at-cap seconds land in builder.clustering_seconds as
     "scan_pre_cap" and "scan_tail" (0 when the cap is never reached on
-    the engine).  Returns (centroids X×F, Assignments, sizes)."""
+    the engine; the spans ``clustering.scan_chunks`` and
+    ``clustering.scan_tail``).  Returns (centroids X×F, Assignments,
+    sizes)."""
     nrows = len(rows)
     sampling_enabled = builder.sampling is not None
 
@@ -881,75 +888,72 @@ def _incremental_clustering_chunked(builder, rows, nfeatures, max_clusters,
     counts = np.zeros(max_clusters, dtype=np.int64)
     n_c = 0
     assign = np.full(nrows, -1, dtype=np.int64)
-    t_scan0 = time.perf_counter()
-    t_tail = 0.0
+    scan, tail = span("clustering.scan_chunks"), span("clustering.scan_tail")
+    with scan:
+        for c0 in range(0, nrows, chunk):
+            use_engine = engine is not None
 
-    for c0 in range(0, nrows, chunk):
-        use_engine = engine is not None
+            if use_engine and n_c >= max_clusters:
+                logger.info("chunked scan: pre-cap phase %d rows; at-cap tail "
+                            "%d rows in one call", c0, nrows - c0)
+                with tail:
+                    _apply_atcap_tail(engine, c0, builder, sampler, radius,
+                                      max_clusters, cent, counts, assign, n_c)
+                logger.info("chunked scan: at-cap tail done in %.2fs",
+                            tail.seconds)
+                break
 
-        if use_engine and n_c >= max_clusters:
-            logger.info("chunked scan: pre-cap phase %d rows in %.2fs; "
-                        "at-cap tail %d rows in one call",
-                        c0, time.perf_counter() - t_scan0, nrows - c0)
-            t_tail0 = time.perf_counter()
-            _apply_atcap_tail(engine, c0, builder, sampler, radius,
-                              max_clusters, cent, counts, assign, n_c)
-            t_tail = time.perf_counter() - t_tail0
-            logger.info("chunked scan: at-cap tail done in %.2fs", t_tail)
-            break
-
-        rows_c = np.asarray(x[c0:c0 + chunk], dtype=np.float64)
-        m = rows_c.shape[0]
-        offset = c0
-
-        if n_c == 0:
-            # bootstrap: scan sequentially until the first kept row seeds
-            # centroid 0, then the chunk's remainder proceeds vectorised
-            continue_from = 0
-            for r in range(m):
-                kept = (not sampling_enabled) or sampler.should_keep(
-                    rows_c[r], float("inf"), 0, max_clusters)
-                continue_from = r + 1
-                if kept:
-                    cent[0] = rows_c[r]
-                    counts[0] = 1
-                    assign[c0 + r] = 0
-                    n_c = 1
-                    break
-            if n_c == 0:
-                continue  # whole chunk rejected before any centroid
-            rows_c = rows_c[continue_from:]
-            offset = c0 + continue_from
+            rows_c = np.asarray(x[c0:c0 + chunk], dtype=np.float64)
             m = rows_c.shape[0]
-            if m == 0:
-                continue
-            # a mid-chunk restart is window-misaligned: this one chunk
-            # runs on the host, the engine resumes at the next boundary
-            use_engine = False
+            offset = c0
 
-        segsum = None
-        if use_engine:
-            best, best_d2 = engine(c0, cent, n_c)
-            segsum = (lambda tgt_local, _c0=c0:
-                      engine.segment_sums(_c0, tgt_local))
-        else:
-            snap = cent[:n_c]
-            d2 = (np.sum(rows_c * rows_c, axis=1)[:, None]
-                  - 2.0 * rows_c @ snap.T
-                  + np.sum(snap * snap, axis=1)[None, :])
-            d2 = np.maximum(d2, 0.0)
-            best = np.argmin(d2, axis=1)
-            best_d2 = d2[np.arange(m), best]
+            if n_c == 0:
+                # bootstrap: scan sequentially until the first kept row seeds
+                # centroid 0, then the chunk's remainder proceeds vectorised
+                continue_from = 0
+                for r in range(m):
+                    kept = (not sampling_enabled) or sampler.should_keep(
+                        rows_c[r], float("inf"), 0, max_clusters)
+                    continue_from = r + 1
+                    if kept:
+                        cent[0] = rows_c[r]
+                        counts[0] = 1
+                        assign[c0 + r] = 0
+                        n_c = 1
+                        break
+                if n_c == 0:
+                    continue  # whole chunk rejected before any centroid
+                rows_c = rows_c[continue_from:]
+                offset = c0 + continue_from
+                m = rows_c.shape[0]
+                if m == 0:
+                    continue
+                # a mid-chunk restart is window-misaligned: this one chunk
+                # runs on the host, the engine resumes at the next boundary
+                use_engine = False
 
-        state = {"n_c": n_c}
-        _apply_chunk_decisions(rows_c, best, best_d2, offset, builder,
-                               sampler, radius, max_clusters, cent, counts,
-                               assign, state, segsum=segsum)
-        n_c = state["n_c"]
+            segsum = None
+            if use_engine:
+                best, best_d2 = engine(c0, cent, n_c)
+                segsum = (lambda tgt_local, _c0=c0:
+                          engine.segment_sums(_c0, tgt_local))
+            else:
+                snap = cent[:n_c]
+                d2 = (np.sum(rows_c * rows_c, axis=1)[:, None]
+                      - 2.0 * rows_c @ snap.T
+                      + np.sum(snap * snap, axis=1)[None, :])
+                d2 = np.maximum(d2, 0.0)
+                best = np.argmin(d2, axis=1)
+                best_d2 = d2[np.arange(m), best]
 
-    builder.clustering_seconds["scan_pre_cap"] = \
-        time.perf_counter() - t_scan0 - t_tail
-    builder.clustering_seconds["scan_tail"] = t_tail
+            state = {"n_c": n_c}
+            _apply_chunk_decisions(rows_c, best, best_d2, offset, builder,
+                                   sampler, radius, max_clusters, cent, counts,
+                                   assign, state, segsum=segsum)
+            n_c = state["n_c"]
+
+    builder.clustering_seconds["scan_pre_cap"] = scan.seconds - tail.seconds
+    builder.clustering_seconds["scan_tail"] = tail.seconds
 
     if n_c == 0:
         sampler_desc = str(builder.sampling) if builder.sampling else "None"

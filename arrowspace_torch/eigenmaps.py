@@ -18,7 +18,6 @@ impl is (eigenmaps.py:193-197 of the JAX package).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -33,6 +32,7 @@ from .reduction import ImplicitProjection, compute_jl_dimension
 from .sampling import SamplerType
 from .taumode import compute_taumode_lambdas
 from .utils.log import get_logger
+from .utils.profiling import span
 
 logger = get_logger("arrowspace.eigenmaps")
 
@@ -66,22 +66,22 @@ def start_clustering(builder, rows) -> ClusteredOutput:
 
     # host seconds of the clustering steps, for the build's breakdown
     cs = builder.clustering_seconds = {}
-    t0 = time.perf_counter()
-    k_opt, radius, intrinsic_dim = clustering.compute_optimal_k(
-        rows_arr, n_items, n_features, builder.clustering_seed,
-        device_data=aspace.data, seconds=cs)
-    t1 = time.perf_counter()
-    cs["optimal_k"] = t1 - t0
+    with span("clustering.optimal_k") as optimal_k:
+        k_opt, radius, intrinsic_dim = clustering.compute_optimal_k(
+            rows_arr, n_items, n_features, builder.clustering_seed,
+            device_data=aspace.data, seconds=cs)
+    cs["optimal_k"] = optimal_k.seconds
     logger.debug("Optimal clustering: K=%d, radius=%.6f, intrinsic_dim=%d",
                  k_opt, radius, intrinsic_dim)
     builder.cluster_max_clusters = k_opt
     builder.cluster_radius = radius
 
-    centroids, assignments, sizes = \
-        clustering.run_incremental_clustering_with_sampling(
-            builder, rows_arr, n_features, k_opt, radius, sampler,
-            device_data=aspace.data)
-    cs["scan"] = time.perf_counter() - t1
+    with span("clustering.scan") as scan:
+        centroids, assignments, sizes = \
+            clustering.run_incremental_clustering_with_sampling(
+                builder, rows_arr, n_features, k_opt, radius, sampler,
+                device_data=aspace.data)
+    cs["scan"] = scan.seconds
     assign_arr = assignments.array
     logger.info("Clustering complete: %d centroids, %d items assigned",
                 centroids.shape[0], int((assign_arr >= 0).sum()))

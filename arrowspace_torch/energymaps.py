@@ -34,7 +34,6 @@ intended w = max(-L_ij, 0) is the default; the reference behaviour is
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -48,6 +47,7 @@ from .ops.bin_repair import BinnedEnergyTopK
 from .ops.energy_bintopk import ENERGY_CHUNK, energy_topk_chunked
 from .reduction import ImplicitProjection
 from .utils.log import get_logger
+from .utils.profiling import span
 
 logger = get_logger("arrowspace.energymaps")
 
@@ -522,41 +522,41 @@ def build_energy(builder, rows, energy_params: EnergyParams
 
     assert builder.use_dims_reduction, \
         "When using build energy, dim reduction is needed"
-    t = [time.perf_counter()]
+    stages = {name: span(f"build.{name}") for name in (
+        "clustering", "subcentroids", "energy_laplacian", "taumode")}
 
-    def lap_time():
+    with stages["clustering"]:
+        clustered = em.start_clustering(builder, rows)
+        aspace = clustered.aspace
+        centroids = _as_tensor(clustered.centroids, aspace.device,
+                               aspace.dtype)
         builder._sync()
-        t.append(time.perf_counter())
 
-    clustered = em.start_clustering(builder, rows)
-    aspace = clustered.aspace
-    centroids = _as_tensor(clustered.centroids, aspace.device, aspace.dtype)
-    lap_time()
+    with stages["subcentroids"]:
+        if energy_params.optical_tokens is not None:
+            centroids = optical_compress_centroids(
+                centroids, energy_params.optical_tokens,
+                energy_params.trim_quantile, seed=builder.clustering_seed)
+        l0 = bootstrap_centroid_laplacian(
+            centroids, max(energy_params.neighbor_k, builder.lambda_k),
+            builder.normalise, builder.sparsity_check)
+        sub_centroids = diffuse_and_split_subcentroids(centroids, l0,
+                                                       energy_params)
+        if energy_params.optical_tokens is not None:
+            sub_centroids = optical_compress_centroids(
+                sub_centroids, energy_params.optical_tokens,
+                energy_params.trim_quantile, seed=builder.clustering_seed)
+        builder._sync()
 
-    if energy_params.optical_tokens is not None:
-        centroids = optical_compress_centroids(
-            centroids, energy_params.optical_tokens,
-            energy_params.trim_quantile, seed=builder.clustering_seed)
-    l0 = bootstrap_centroid_laplacian(
-        centroids, max(energy_params.neighbor_k, builder.lambda_k),
-        builder.normalise, builder.sparsity_check)
-    sub_centroids = diffuse_and_split_subcentroids(centroids, l0,
-                                                   energy_params)
-    if energy_params.optical_tokens is not None:
-        sub_centroids = optical_compress_centroids(
-            sub_centroids, energy_params.optical_tokens,
-            energy_params.trim_quantile, seed=builder.clustering_seed)
-    lap_time()
-
-    gl_energy, _, _ = build_energy_laplacian(builder, sub_centroids,
-                                             energy_params)
-    lap_time()
-    aspace.pad_tall_graphs = energy_params.allow_tall_graphs
-    em.compute_taumode(aspace, gl_energy)
-    lap_time()
-    builder.stage_seconds = {
-        name: t[i + 1] - t[i] for i, name in enumerate(
-            ("clustering", "subcentroids", "energy_laplacian", "taumode"))}
+    with stages["energy_laplacian"]:
+        gl_energy, _, _ = build_energy_laplacian(builder, sub_centroids,
+                                                 energy_params)
+        builder._sync()
+    with stages["taumode"]:
+        aspace.pad_tall_graphs = energy_params.allow_tall_graphs
+        em.compute_taumode(aspace, gl_energy)
+        builder._sync()
+    builder.stage_seconds = {name: sp.seconds for name, sp in stages.items()}
     return aspace, gl_energy
 
 

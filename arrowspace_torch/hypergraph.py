@@ -29,10 +29,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .graph import GraphLaplacian, GraphParams
 from .utils.log import get_logger
+from .utils.profiling import annotate
 
 logger = get_logger("arrowspace.hypergraph")
 
@@ -231,7 +231,7 @@ def ensemble_topk_batch(queries, qlams, items, item_lambdas_v, alpha, *,
             dl = dl + (qlams[j][:, None] - lb[j][None, :]).abs() \
                 .clamp_max(1.0)
         sc = cos + c1 * (1.0 - dl / v)
-        with record_function("arrowspace::ensemble_select"):
+        with annotate("arrowspace::ensemble_select"):
             s, i = exact_topk(sc, min(k_eff, sc.shape[1]))
             i = i + c0
             if run_s is not None:

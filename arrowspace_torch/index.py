@@ -36,6 +36,7 @@ before batch i's results are waited for.
 from __future__ import annotations
 
 from collections import deque
+from time import perf_counter_ns
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -51,7 +52,9 @@ from .ops.search import batched_lambda_aware_topk, rescore_topk_f64
 from .ops.topk import fused_lambda_topk
 from .sampling import SamplerType
 from .taumode import TauMode, select_tau_batch, synthetic_lambda_batch
+from .utils import profiling
 from .utils.log import get_logger
+from .utils.profiling import span
 
 logger = get_logger("arrowspace.index")
 
@@ -76,7 +79,8 @@ def session_kernel_kind(nitems: int, k: int, f: int,
 
 
 def stream_search(step, batches, batch_size: int, depth: int, device,
-                  dtype, dim: Optional[int] = None, repair=None):
+                  dtype, dim: Optional[int] = None, repair=None,
+                  session: Optional[int] = None):
     """Yield (scores, ids) host arrays per input batch with ``depth``
     batches in flight.
 
@@ -85,12 +89,27 @@ def stream_search(step, batches, batch_size: int, depth: int, device,
     the small results are copied into pinned host memory right behind
     the step and an event marks their arrival, so waiting for batch i
     lets batch i+1, already enqueued, keep the card busy.  When a batch
-    is yielded, ``repair(q_block, qlam, det, scores, ids, flags)``
-    (BinnedTopK.repair) returns its host results with the flagged rows
-    repaired.  A short batch (a stream tail) is padded to batch_size and
-    sliced back."""
+    that flagged rows is yielded, ``repair(q_block, qlam, det, scores,
+    ids, flags)`` (BinnedTopK.repair) returns its host results with the
+    flagged rows repaired.  A short batch (a stream tail) is padded to
+    batch_size and sliced back.
+
+    The stream keeps a utils.profiling stream record (its ``session`` the
+    owning session record's id): spans ``stream.input`` (taking the next
+    batch from ``batches``, its cast and padding), ``stream.launch`` (the
+    pinned copy, the step, the result copies and the event),
+    ``stream.wait`` (the event's wait), ``stream.repair`` (``repair``)
+    and ``stream.caller`` (the caller's time between a yield and the next
+    resumption); counters ``batches``, ``queries`` (unpadded) and
+    ``rows_flagged``."""
     np_dtype = numpy_dtype(dtype)
     cuda = torch.device(device).type == "cuda"
+    rec = profiling.Record("stream", session)
+    # made once: a generator runs in one thread at a time, and none of
+    # these spans is open across a yield
+    s_input, s_launch, s_wait, s_repair = (span(f"stream.{name}") for name in
+                                           ("input", "launch", "wait",
+                                            "repair"))
 
     def launch(qb):
         if not cuda:
@@ -108,15 +127,28 @@ def stream_search(step, batches, batch_size: int, depth: int, device,
 
     def finish(launched, m, qb):
         out, host, ev = launched
-        if ev is not None:
-            ev.synchronize()
+        with s_wait:
+            if ev is not None:
+                ev.synchronize()
+        rec.count("batches")
+        rec.count("queries", m)
         s, i = host[0].numpy()[:m], host[1].numpy()[:m]
-        if len(host) < 3 or repair is None:
+        if len(host) < 3:
             return s, i
-        return repair(qb, out[3], out[4], s, i, host[2].numpy()[:m])
+        flags = host[2].numpy()[:m]
+        flagged = int(np.count_nonzero(flags))
+        rec.count("rows_flagged", flagged)
+        if repair is None or not flagged:
+            return s, i
+        with s_repair:
+            return repair(qb, out[3], out[4], s, i, flags)
 
-    pending = deque()
-    for qb in batches:
+    def take(it):
+        """The next batch from ``it``, cast and padded, with its number of
+        queries; None at the end."""
+        qb = next(it, end)
+        if qb is end:
+            return None
         qb = np.ascontiguousarray(qb, dtype=np_dtype)
         nq = qb.shape[0]
         if dim is not None and qb.shape[1] != dim:
@@ -128,11 +160,30 @@ def stream_search(step, batches, batch_size: int, depth: int, device,
         if nq < batch_size:
             qb = np.pad(qb, ((0, batch_size - nq), (0, 0)),
                         constant_values=1.0)
-        pending.append((launch(qb), nq, qb))
-        if len(pending) > depth:
-            yield finish(*pending.popleft())
+        return qb, nq
+
+    end = object()
+    it, pending = iter(batches), deque()
+    while True:
+        with rec:
+            with s_input:
+                got = take(it)
+            if got is None:
+                break
+            with s_launch:
+                pending.append((launch(got[0]), got[1], got[0]))
+            if len(pending) <= depth:
+                continue
+            out = finish(*pending.popleft())
+        t = perf_counter_ns()
+        yield out
+        rec.add("stream.caller", perf_counter_ns() - t)
     while pending:
-        yield finish(*pending.popleft())
+        with rec:
+            out = finish(*pending.popleft())
+        t = perf_counter_ns()
+        yield out
+        rec.add("stream.caller", perf_counter_ns() - t)
 
 
 def _query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
@@ -140,7 +191,7 @@ def _query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
     functions: ``project`` maps q (B, F) to the index space (q @ P when
     the build projected, else q), and ``prepare`` returns (project(q),
     λ (B,)) with λ from the projected query (the session step of the JAX
-    package, index.py:79-84)."""
+    package, index.py:79-84), timed as the span ``stream.prepare``."""
     lap = gl.matrix.to(device=aspace.device, dtype=aspace.dtype)
     taumode, pad_tall = aspace.taumode, aspace.pad_tall_graphs
     proj = None if aspace.projection_matrix is None else \
@@ -151,10 +202,11 @@ def _query_prep(aspace: ArrowSpace, gl: GraphLaplacian):
         return q if proj is None else q @ proj
 
     def prepare(q):
-        q_prep = project(q)
-        taus = select_tau_batch(q_prep, taumode)
-        return q_prep, synthetic_lambda_batch(q_prep, lap, taus,
-                                              pad_items=pad_tall)
+        with span("stream.prepare"):
+            q_prep = project(q)
+            taus = select_tau_batch(q_prep, taumode)
+            return q_prep, synthetic_lambda_batch(q_prep, lap, taus,
+                                                  pad_items=pad_tall)
     return project, prepare
 
 
@@ -190,77 +242,88 @@ class SearchSession:
     preparation's passes over the corpus, every batch, for the copy's
     memory (N·F·4 bytes in float32, half that in bf16), for example to
     serve two large indexes from one card; results equal the prepared
-    session's bitwise."""
+    session's bitwise.
+
+    ``record`` is the session's utils.profiling record: construction
+    (ended by a synchronise) is its span ``session.prepare``, ``warmup``
+    its span ``session.warmup``, and the record of each of its streams
+    carries its id."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
                  alpha: float = 0.9, depth: int = 2,
                  precision: str = "f32", prepare_corpus: bool = True):
         want_bf16 = check_precision(precision)
-        aspace, gl = index.aspace, index.gl
-        self.batch_size = int(batch_size)
-        self.k = min(int(k), index.nitems)
-        self.alpha = float(alpha)
-        self.depth = max(1, int(depth))
-        self.device, self.dtype = aspace.device, aspace.dtype
-        self._dim = aspace.nfeatures
-        self.kernel = session_kernel_kind(index.nitems, self.k,
-                                          aspace.nfeatures, want_bf16)
-        use_bf16 = want_bf16 and self.kernel != "plain"
-        self.precision = "bf16" if use_bf16 else "f32"
-        k_eff, alpha_f = self.k, self.alpha
-        _, prepare = _query_prep(aspace, gl)
-        data, lambdas = aspace.data, aspace.lambdas
-        self.prepare_corpus = bool(prepare_corpus)
-        engine = BinnedTopK(data, lambdas, alpha_f, k_eff,
-                            use_bf16=use_bf16,
-                            prepare_corpus=self.prepare_corpus) \
-            if self.kernel == "binned" else None
-        if self.kernel == "merge" and self.prepare_corpus:
-            xhat, xlam = prepare_binned_corpus(data, lambdas,
-                                               use_bf16=use_bf16)
-            n_items = index.nitems
+        self.record = profiling.Record("session")
+        with self.record, span("session.prepare"):
+            aspace, gl = index.aspace, index.gl
+            self.batch_size = int(batch_size)
+            self.k = min(int(k), index.nitems)
+            self.alpha = float(alpha)
+            self.depth = max(1, int(depth))
+            self.device, self.dtype = aspace.device, aspace.dtype
+            self._dim = aspace.nfeatures
+            self.kernel = session_kernel_kind(index.nitems, self.k,
+                                              aspace.nfeatures, want_bf16)
+            use_bf16 = want_bf16 and self.kernel != "plain"
+            self.precision = "bf16" if use_bf16 else "f32"
+            k_eff, alpha_f = self.k, self.alpha
+            _, prepare = _query_prep(aspace, gl)
+            data, lambdas = aspace.data, aspace.lambdas
+            self.prepare_corpus = bool(prepare_corpus)
+            engine = BinnedTopK(data, lambdas, alpha_f, k_eff,
+                                use_bf16=use_bf16,
+                                prepare_corpus=self.prepare_corpus) \
+                if self.kernel == "binned" else None
+            if self.kernel == "merge" and self.prepare_corpus:
+                xhat, xlam = prepare_binned_corpus(data, lambdas,
+                                                   use_bf16=use_bf16)
+                n_items = index.nitems
 
-            def exact(q, qlam):
-                return fused_lambda_topk(q, qlam, xhat, xlam, alpha_f,
-                                         k=k_eff, prepared=True,
-                                         n_items=n_items)
-        elif self.kernel == "merge":
-            def exact(q, qlam):
-                return fused_lambda_topk(q, qlam, data, lambdas, alpha_f,
-                                         k=k_eff, use_bf16=use_bf16)
-        else:
-            def exact(q, qlam):
-                return batched_lambda_aware_topk(q, qlam, data, lambdas,
-                                                 alpha_f, k=k_eff)
+                def exact(q, qlam):
+                    return fused_lambda_topk(q, qlam, xhat, xlam, alpha_f,
+                                             k=k_eff, prepared=True,
+                                             n_items=n_items)
+            elif self.kernel == "merge":
+                def exact(q, qlam):
+                    return fused_lambda_topk(q, qlam, data, lambdas, alpha_f,
+                                             k=k_eff, use_bf16=use_bf16)
+            else:
+                def exact(q, qlam):
+                    return batched_lambda_aware_topk(q, qlam, data, lambdas,
+                                                     alpha_f, k=k_eff)
 
-        def step(q):
-            _, qlam = prepare(q)
-            if engine is not None:
-                s, i, flags, det = engine.step(q, qlam)
-                return s, i, flags, qlam, det
-            s, i = exact(q, qlam)
-            return s, i, None, qlam, None
+            def step(q):
+                _, qlam = prepare(q)
+                if engine is not None:
+                    s, i, flags, det = engine.step(q, qlam)
+                    return s, i, flags, qlam, det
+                s, i = exact(q, qlam)
+                return s, i, None, qlam, None
 
-        self._step = step
-        self._repair = engine.repair if engine is not None else None
+            self._step = step
+            self._repair = engine.repair if engine is not None else None
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def warmup(self) -> None:
         """Run one full batch through the stream loop and, on the binned
         kernel, one synthetic strided repair, so that kernel builds and
-        first-call costs land here and not on the first real batch."""
-        ones = np.ones((self.batch_size, self._dim))
-        list(self.search_stream([ones]))
-        if self._repair is not None:
-            k = self.k
-            det = torch.full((1, bins_target(k)), -1.0, device=self.device,
-                             dtype=self.dtype)
-            det[0, 0] = 1.0                  # one fired bin
-            self._repair(ones[:1], torch.zeros(1, device=self.device,
-                                               dtype=self.dtype), det,
-                         np.zeros((1, k)), np.arange(k)[None, :],
-                         np.ones(1, dtype=bool))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        first-call costs land here and not on the first real batch (the
+        session record's span ``session.warmup``)."""
+        with self.record, span("session.warmup"):
+            ones = np.ones((self.batch_size, self._dim))
+            list(self.search_stream([ones]))
+            if self._repair is not None:
+                k = self.k
+                det = torch.full((1, bins_target(k)), -1.0, device=self.device,
+                                 dtype=self.dtype)
+                det[0, 0] = 1.0                  # one fired bin
+                self._repair(ones[:1], torch.zeros(1, device=self.device,
+                                                   dtype=self.dtype), det,
+                             np.zeros((1, k)), np.arange(k)[None, :],
+                             np.ones(1, dtype=bool))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def search_stream(self, batches: Iterable
                       ) -> Iterable[Tuple[np.ndarray, np.ndarray]]:
@@ -268,7 +331,8 @@ class SearchSession:
         flight (see stream_search)."""
         return stream_search(self._step, batches, self.batch_size,
                              self.depth, self.device, self.dtype,
-                             dim=self._dim, repair=self._repair)
+                             dim=self._dim, repair=self._repair,
+                             session=self.record.id)
 
 
 def energy_session_config(nitems: int, k: int, z_width: int) -> str:
@@ -329,7 +393,7 @@ class EnergySearchSession:
     ``prepare_corpus=False`` keeps no centred z-plane resident: each step
     (and each repair) prepares one and drops it once its kernels are
     enqueued, with results bitwise the prepared session's.  Results are
-    exact either way."""
+    exact either way.  ``record``: as SearchSession's."""
 
     def __init__(self, index: "ArrowIndex", batch_size: int, k: int = 10,
                  w_lambda: float = 1.0, w_dirichlet: float = 0.5,
@@ -337,66 +401,74 @@ class EnergySearchSession:
                  approx: bool = False):
         from .ops.energy_bintopk import energy_topk_chunked
 
-        aspace, gl = index.aspace, index.gl
-        self.batch_size = int(batch_size)
-        self.k = min(int(k), index.nitems)
-        self.depth = max(1, int(depth))
-        self.device, self.dtype = aspace.device, aspace.dtype
-        self._dim = aspace.nfeatures
-        # the z-plane: the projected items, through the signals graph
-        # where one is attached (index.py:547-620 of the JAX package)
-        to_z, self.prepare = _energy_query_prep(aspace, gl)
-        z_items = energy_z_plane(aspace)
-        lambdas = aspace.lambdas
-        kernel = energy_session_config(index.nitems, self.k,
-                                       z_items.shape[1])
-        if approx and (kernel != "binned" or not prepare_corpus):
-            raise ValueError(
-                "approx=True needs the binned energy engine (more than "
-                "65536 rows, k <= 128, a z-width the kernels admit) on a "
-                f"prepared z-plane; this session resolved kernel={kernel!r}, "
-                f"prepare_corpus={bool(prepare_corpus)}")
-        self.kernel = "binned_approx" if approx else kernel
-        self.prepare_corpus = bool(prepare_corpus)
-        engine = BinnedEnergyTopK(z_items, lambdas, w_lambda, w_dirichlet,
-                                  self.k, approx=approx, project=to_z,
-                                  prepare_corpus=self.prepare_corpus) \
-            if kernel == "binned" else None
-        k_eff = self.k
+        self.record = profiling.Record("session")
+        with self.record, span("session.prepare"):
+            aspace, gl = index.aspace, index.gl
+            self.batch_size = int(batch_size)
+            self.k = min(int(k), index.nitems)
+            self.depth = max(1, int(depth))
+            self.device, self.dtype = aspace.device, aspace.dtype
+            self._dim = aspace.nfeatures
+            # the z-plane: the projected items, through the signals graph
+            # where one is attached (index.py:547-620 of the JAX package)
+            to_z, self.prepare = _energy_query_prep(aspace, gl)
+            z_items = energy_z_plane(aspace)
+            lambdas = aspace.lambdas
+            kernel = energy_session_config(index.nitems, self.k,
+                                           z_items.shape[1])
+            if approx and (kernel != "binned" or not prepare_corpus):
+                raise ValueError(
+                    "approx=True needs the binned energy engine (more than "
+                    "65536 rows, k <= 128, a z-width the kernels admit) on "
+                    "a prepared z-plane; this session resolved "
+                    f"kernel={kernel!r}, "
+                    f"prepare_corpus={bool(prepare_corpus)}")
+            self.kernel = "binned_approx" if approx else kernel
+            self.prepare_corpus = bool(prepare_corpus)
+            engine = BinnedEnergyTopK(z_items, lambdas, w_lambda,
+                                      w_dirichlet, self.k, approx=approx,
+                                      project=to_z,
+                                      prepare_corpus=self.prepare_corpus) \
+                if kernel == "binned" else None
+            k_eff = self.k
 
-        def step(q):
-            z_q, qlam = self.prepare(q)
-            if engine is not None:
-                s, i, flags, det = engine.step(z_q, qlam)
-                return s, i, flags, qlam, det
-            s, i = energy_topk_chunked(z_q, qlam, z_items, lambdas, w_lambda,
-                                       w_dirichlet, k=k_eff)
-            return s, i, None, qlam, None
+            def step(q):
+                z_q, qlam = self.prepare(q)
+                if engine is not None:
+                    s, i, flags, det = engine.step(z_q, qlam)
+                    return s, i, flags, qlam, det
+                s, i = energy_topk_chunked(z_q, qlam, z_items, lambdas,
+                                           w_lambda, w_dirichlet, k=k_eff)
+                return s, i, None, qlam, None
 
-        self._step = step
-        self.engine = engine
-        self._repair = engine.repair if engine is not None else None
+            self._step = step
+            self.engine = engine
+            self._repair = engine.repair if engine is not None else None
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def warmup(self) -> None:
         """Run one full batch through the stream loop and one synthetic
         repair of a flagged row (the strided repair, or with approx the
         exact K6 block), so that kernel builds and first-call costs land
-        here and not on the first real batch."""
-        ones = np.ones((self.batch_size, self._dim))
-        list(self.search_stream([ones]))
-        if self.engine is not None:
-            k = self.k
-            det = None
-            if not self.engine.approx:
-                det = torch.full((1, bins_target(k)), -1.0,
-                                 device=self.device, dtype=self.dtype)
-                det[0, 0] = 1.0              # one fired bin
-            self._repair(ones[:1], torch.zeros(1, device=self.device,
-                                               dtype=self.dtype), det,
-                         np.zeros((1, k)), np.arange(k)[None, :],
-                         np.ones(1, dtype=bool))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        here and not on the first real batch (the session record's span
+        ``session.warmup``)."""
+        with self.record, span("session.warmup"):
+            ones = np.ones((self.batch_size, self._dim))
+            list(self.search_stream([ones]))
+            if self.engine is not None:
+                k = self.k
+                det = None
+                if not self.engine.approx:
+                    det = torch.full((1, bins_target(k)), -1.0,
+                                     device=self.device, dtype=self.dtype)
+                    det[0, 0] = 1.0              # one fired bin
+                self._repair(ones[:1], torch.zeros(1, device=self.device,
+                                                   dtype=self.dtype), det,
+                             np.zeros((1, k)), np.arange(k)[None, :],
+                             np.ones(1, dtype=bool))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def search_stream(self, batches: Iterable
                       ) -> Iterable[Tuple[np.ndarray, np.ndarray]]:
@@ -404,7 +476,8 @@ class EnergySearchSession:
         flight (see stream_search)."""
         return stream_search(self._step, batches, self.batch_size,
                              self.depth, self.device, self.dtype,
-                             dim=self._dim, repair=self._repair)
+                             dim=self._dim, repair=self._repair,
+                             session=self.record.id)
 
 
 class ArrowIndex:

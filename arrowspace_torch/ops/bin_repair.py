@@ -26,6 +26,11 @@ The energy kernels (K6, and K7's exact fallback) keep the same bins and
 det, so ``strided_energy_repair`` is the same argument with the energy
 score.  Counterpart of ``arrowspace_tpu.ops.bin_repair``
 (bin_repair.py:78-492) for a single device.
+
+Every host read or upload of a repair that waits on the device's stream
+is the utils.profiling span ``repair.sync``; the row triage counts
+``rows_passed`` (no bin fired), ``rows_rescored``, ``rows_fallback``
+(over MAX_FIRED) and ``repair_chunks`` into the active record.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
+from ..utils.profiling import count, span
 from .bintopk import (BF16_ALIGN, binned_lambda_topk,
                       prepare_binned_corpus, prepared_rows, scoring_dtype)
 from .energy_approx import (binned_energy_topk_approx,
@@ -183,13 +189,18 @@ def _strided_repair(det_rows, kth, out_idx_rows, cur_scores, fallback,
     for lo in range(0, run.size, r_cap):
         rows = run[lo:lo + r_cap]
         s, i = rescore(rows, fired[rows])
-        out_s[rows] = s.cpu().numpy()
-        out_i[rows] = i.cpu().numpy()
+        with span("repair.sync"):
+            out_s[rows] = s.cpu().numpy()
+            out_i[rows] = i.cpu().numpy()
     pass_rows = np.nonzero(can_pass)[0]
+    bad_rows = np.nonzero(~ok)[0]
+    count("rows_passed", int(pass_rows.size))
+    count("rows_rescored", int(run.size))
+    count("rows_fallback", int(bad_rows.size))
+    count("repair_chunks", -(-int(run.size) // r_cap))
     if pass_rows.size:
         out_s[pass_rows] = np.asarray(cur_scores)[pass_rows]
         out_i[pass_rows] = np.asarray(out_idx_rows)[pass_rows]
-    bad_rows = np.nonzero(~ok)[0]
     if bad_rows.size:
         if fallback is None:
             raise RuntimeError(
@@ -258,12 +269,14 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
 
     def rescore(rows, fired):
         rt = torch.as_tensor(rows)
-        q = torch.as_tensor(q_rows)[rt].to(dev)
+        with span("repair.sync"):
+            q = torch.as_tensor(q_rows)[rt].to(dev)
+            qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
+            fired = torch.as_tensor(fired, device=dev)
+            out_idx = torch.as_tensor(oi_all[rows], device=dev)
         qhat, c1 = operand_query(q, alpha, dt, first)
-        qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
-        s, i = _repair_chunk(qhat, qlam, torch.as_tensor(fired, device=dev),
-                             torch.as_tensor(oi_all[rows], device=dev),
-                             xhat, xlam, c1, n, k, bins, shard_n, like)
+        s, i = _repair_chunk(qhat, qlam, fired, out_idx, xhat, xlam, c1, n,
+                             k, bins, shard_n, like)
         return s + c1, i
 
     per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * \
@@ -302,12 +315,13 @@ def strided_energy_repair(zq_rows, qlam_rows, det_rows, kth, out_idx_rows,
 
     def rescore(rows, fired):
         rt = torch.as_tensor(rows)
-        zq = torch.as_tensor(zq_rows)[rt].to(device=dev, dtype=dt)
-        qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
-        s, i = _energy_repair_chunk(
-            zq, qlam, torch.as_tensor(fired, device=dev),
-            torch.as_tensor(oi_all[rows], device=dev), zx, xlam, xn, wl, wd,
-            n, k, bins, shard_n)
+        with span("repair.sync"):
+            zq = torch.as_tensor(zq_rows)[rt].to(device=dev, dtype=dt)
+            qlam = torch.as_tensor(qlam_rows)[rt].to(device=dev, dtype=dt)
+            fired = torch.as_tensor(fired, device=dev)
+            out_idx = torch.as_tensor(oi_all[rows], device=dev)
+        s, i = _energy_repair_chunk(zq, qlam, fired, out_idx, zx, xlam, xn,
+                                    wl, wd, n, k, bins, shard_n)
         return s - wd, i
 
     per_row = (MAX_FIRED * -(-(shard_n or n) // bins) + k) * first.shape[1] \
@@ -335,12 +349,14 @@ def repair_flagged(q_rows, qlam_rows, det_rows, scores_rows, ids_rows,
 
     def full_merge(rel_rows):
         rel = torch.as_tensor(rel_rows)
-        q = torch.as_tensor(q_rows)[rel].to(xhat.device)
-        ql = torch.as_tensor(qlam_rows)[rel].to(xhat.device)
+        with span("repair.sync"):
+            q = torch.as_tensor(q_rows)[rel].to(xhat.device)
+            ql = torch.as_tensor(qlam_rows)[rel].to(xhat.device)
         s, i = fused_lambda_topk(q, ql, xhat, xlam, alpha, k=k,
                                  prepared=prepared, n_items=n,
                                  use_bf16=use_bf16)
-        return s.cpu().numpy(), i.cpu().numpy()
+        with span("repair.sync"):
+            return s.cpu().numpy(), i.cpu().numpy()
 
     scores_rows = np.asarray(scores_rows)
     return strided_lambda_repair(
@@ -367,7 +383,10 @@ class BinnedTopK:
     is dropped once K1 is enqueued (the caching allocator hands its block
     to the next step on the same stream), and the repair prepares the
     rows it gathers.  Results equal the resident engine's bitwise: the
-    same kernels on the same prepared operands."""
+    same kernels on the same prepared operands.
+
+    ``flagged_rows`` counts the rows ``repair`` has re-run, as
+    BinnedEnergyTopK's does."""
 
     def __init__(self, items, item_lambdas, alpha: float, k: int, *,
                  prepared: bool = False, n: int = 0, use_bf16: bool = False,
@@ -383,6 +402,7 @@ class BinnedTopK:
                 items, item_lambdas, use_bf16=use_bf16)
         else:
             self.n, self.xhat, self.xlam = items.shape[0], items, item_lambdas
+        self.flagged_rows = 0
 
     def step(self, q, qlam):
         """(scores (B,k), ids (B,k), flags (B,), det (B, bins)), on the
@@ -398,11 +418,14 @@ class BinnedTopK:
         rows = np.nonzero(flags)[0]
         if not rows.size:
             return scores, ids
-        rt = torch.as_tensor(rows, device=det.device)
+        self.flagged_rows += rows.size
+        with span("repair.sync"):
+            rt = torch.as_tensor(rows, device=det.device)
+            det_rows = det[rt].cpu().numpy()
         q_rows = q[rt] if torch.is_tensor(q) else q[rows]
         scores, ids = scores.copy(), ids.copy()
         scores[rows], ids[rows] = repair_flagged(
-            q_rows, qlam[rt], det[rt].cpu().numpy(), scores[rows], ids[rows],
+            q_rows, qlam[rt], det_rows, scores[rows], ids[rows],
             self.xhat, self.xlam, self.alpha, k=self.k, n=self.n,
             prepared=self.prepared, use_bf16=self.use_bf16)
         return scores, ids
@@ -519,7 +542,8 @@ class BinnedEnergyTopK:
         zx, xlam, _xn = corpus or self.corpus()
         s, i = energy_topk_chunked(z_rows, qlam_rows, zx[:self.n],
                                    xlam[:self.n], self.wl, self.wd, k=self.k)
-        return s.cpu().numpy(), i.cpu().numpy()
+        with span("repair.sync"):
+            return s.cpu().numpy(), i.cpu().numpy()
 
     def exact_rows(self, z_rows, qlam_rows):
         """Host exact top-k of centred rows through K6 on blocks of
@@ -533,8 +557,9 @@ class BinnedEnergyTopK:
         s, i, fl, _det = binned_energy_topk(
             zs, qls, self.zx, self.xlam, self.xn, self.wl, self.wd,
             k=self.k, n=self.n)
-        s, i = s[:m].cpu().numpy(), i[:m].cpu().numpy()
-        bad = np.nonzero(fl[:m].cpu().numpy())[0]
+        with span("repair.sync"):
+            s, i = s[:m].cpu().numpy(), i[:m].cpu().numpy()
+            bad = np.nonzero(fl[:m].cpu().numpy())[0]
         if bad.size:
             bt = torch.as_tensor(bad, device=z_rows.device)
             s[bad], i[bad] = self.chunked(z_rows[bt], qlam_rows[bt])
@@ -550,9 +575,10 @@ class BinnedEnergyTopK:
             return scores, ids
         self.flagged_rows += rows.size
         dev, dt = self.device, self.dtype
-        rt = torch.as_tensor(rows, device=dev)
-        q_rows = (q[rt.to(q.device)] if torch.is_tensor(q)
-                  else torch.as_tensor(q[rows])).to(device=dev, dtype=dt)
+        with span("repair.sync"):
+            rt = torch.as_tensor(rows, device=dev)
+            q_rows = (q[rt.to(q.device)] if torch.is_tensor(q)
+                      else torch.as_tensor(q[rows])).to(device=dev, dtype=dt)
         z = self.centred(q_rows if self.project is None
                          else self.project(q_rows))
         ql = qlam[rt].to(dt)
@@ -567,8 +593,10 @@ class BinnedEnergyTopK:
             rel = torch.as_tensor(rel_rows, device=z.device)
             return self.chunked(z[rel], ql[rel], corpus)
 
+        with span("repair.sync"):
+            det_rows = det[rt].cpu().numpy()
         scores[rows], ids[rows] = strided_energy_repair(
-            z, ql, det[rt].cpu().numpy(), scores[rows, self.k - 1],
+            z, ql, det_rows, scores[rows, self.k - 1],
             ids[rows], zx, xlam, xn, self.wl, self.wd, k=self.k, n=self.n,
             fallback=fallback, cur_scores=scores[rows])
         return scores, ids

@@ -38,11 +38,11 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.search import batched_lambda_aware_topk, two_key_topk
 from ..taumode import (TauMode, compute_taumode_lambdas, select_tau_batch,
                        synthetic_lambda_batch)
+from ..utils.profiling import annotate
 from .mesh import Mesh, ShardedTensor, shard_rows
 from .multiprocess import all_reduce_max, all_reduce_sum, gather_columns
 
@@ -71,7 +71,7 @@ def _merge(s_parts: List[torch.Tensor], i_parts: List[torch.Tensor],
     """Gather every shard's (B, k_local) candidates in global shard order
     and take the stable two-key top-k (a profiler range,
     "arrowspace::mesh_merge", so a trace can read its device time)."""
-    with record_function("arrowspace::mesh_merge"):
+    with annotate("arrowspace::mesh_merge"):
         s = gather_columns(s_parts, mesh)
         i = gather_columns(i_parts, mesh)
         return two_key_topk(s, i, min(k, s.shape[1]))

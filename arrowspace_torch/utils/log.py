@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from contextlib import contextmanager
 
 _INITIALIZED = False
@@ -36,11 +35,13 @@ def get_logger(name: str) -> logging.Logger:
 @contextmanager
 def stage_timer(logger: logging.Logger, stage: str):
     """Wall-clock span logged at stage boundaries, mirroring the
-    std::time::Instant spans in builder.rs:252 / laplacian.rs:188-196."""
-    start = time.perf_counter()
+    std::time::Instant spans in builder.rs:252 / laplacian.rs:188-196: a
+    utils.profiling span named ``stage``."""
+    from .profiling import span
+    sp = span(stage)
     logger.info("%s: started", stage)
     try:
-        yield
+        with sp:
+            yield
     finally:
-        elapsed = time.perf_counter() - start
-        logger.info("%s: completed in %.3fs", stage, elapsed)
+        logger.info("%s: completed in %.3fs", stage, sp.seconds)

@@ -1315,15 +1315,18 @@ def x_kernels_vs_plain(torch, index, batches, dev):
 def where_time_goes(torch, sessions, batches, step,
                     n_batches=N_PROFILE, drive=None) -> None:
     """Device time by kernel over the first ``n_batches`` batches of
-    each session (torch.profiler), and the device's idle share of that
-    window: 1 - (summed kernel time) / wall time.  ``drive(session,
-    batches)`` serves the batches (default: the session's stream).  A
-    measurement only: where the profiler records no device time it
-    prints so."""
+    each session (torch.profiler), and the program's own record of the
+    same stream (utils.profiling): host ms a batch by span and the rows
+    flagged and triaged.  ``drive(session, batches)`` serves the batches
+    (default: the session's stream).  A measurement only: where the
+    profiler records no device time it prints so."""
     from torch.profiler import ProfilerActivity, profile
+
+    from arrowspace_torch.utils.profiling import records
     log(f"[{step}] where the time goes (torch.profiler)")
     for name, session in sessions:
         torch.cuda.synchronize()
+        newest = max((r["id"] for r in records()), default=0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1339,15 +1342,30 @@ def where_time_goes(torch, sessions, batches, step,
         busy = {e.key: getattr(e, "self_device_time_total", 0.0)
                 for e in kernels}
         total = sum(busy.values())
+        log(f"  {name}: {n_batches} batches, wall {wall_us / 1e3:.3f} ms")
         if total <= 0.0:
-            log(f"  {name}: no device time recorded (not measured)")
-            continue
-        log(f"  {name}: {n_batches} batches, wall {wall_us / 1e3:.3f} ms, "
-            f"device busy {total / 1e3:.3f} ms, idle share "
-            f"{1.0 - total / wall_us:.4f}")
+            log("    no device time recorded (not measured)")
         for key, us in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
             log(f"    {us / 1e3 / n_batches:9.3f} ms/batch  "
                 f"{100.0 * us / total:5.1f} %  {key[:90]}")
+        streams = [r for r in records() if r["kind"] == "stream"
+                   and r["id"] > newest]
+        if not streams:
+            log("    no stream record (this session keeps none)")
+            continue
+        for r in streams:
+            c = r["counters"]
+            per = max(c.get("batches", 0), 1)
+            spans = "  ".join(
+                f"{k} {v['total_s'] * 1e3 / per:.3f}"
+                for k, v in sorted(r["spans"].items()))
+            log(f"    stream record: {c.get('batches', 0)} batches, host "
+                f"ms a batch: {spans}")
+            log(f"    rows flagged {c.get('rows_flagged', 0)}: passed "
+                f"{c.get('rows_passed', 0)}, rescored "
+                f"{c.get('rows_rescored', 0)}, fallback "
+                f"{c.get('rows_fallback', 0)}, in "
+                f"{c.get('repair_chunks', 0)} chunks")
 
 
 def small_reference(torch, dev):
