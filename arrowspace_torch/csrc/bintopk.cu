@@ -47,7 +47,10 @@
 // rows get bitwise identical dot products.  Features past F are staged as
 // zeros (F padded to a multiple of 8) and add exact zeros.  The λ term is
 // rounded with __fsub_rn/__fmul_rn (common.cuh) as the PyTorch expression
-// rounds it.  wgmma and TMA rings are later work.
+// rounds it.  Where ops/bintopk.py tf32_route admits a launch (F a
+// multiple of 4 up to 352, at least 64 queries), bintopk_tf32.cu runs
+// instead: the same sequence a pair on wgmma fed by a TMA ring, its
+// pools bitwise this kernel's.
 //
 // The bf16 mode (asp_bintopk_bf16, the TPU kernel's use_bf16) is a kernel
 // of its own, bintopk_bf16.cu: wgmma from shared memory fed by a TMA ring.

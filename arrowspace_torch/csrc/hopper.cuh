@@ -1,20 +1,24 @@
 // Hopper's asynchronous pieces, as the bf16 modes of K1 (bintopk_bf16.cu)
-// and K3 (merge_topk_bf16.cu) use them: TMA tensor copies of 2-D bf16
+// and K3 (merge_topk_bf16.cu) and K1's float32 wgmma route
+// (bintopk_tf32.cu) use them: TMA tensor copies of 2-D bf16 or float32
 // tiles into shared memory in the 128-byte swizzle, mbarriers that count
 // their bytes and the warps that release a buffer, named barriers over
-// some of a CTA's warps, and wgmma m64n32k16 and m64n64k16 bf16 products
-// whose operands both lie in shared memory, named by matrix descriptors.
+// some of a CTA's warps, wgmma m64n32k16 and m64n64k16 bf16 products
+// whose operands both lie in shared memory, named by matrix descriptors,
+// and wgmma m64n32k8 tf32 products with A in registers.
 //
-// A tile here is rows of 64 bf16 features, 128 bytes each: exactly the
-// span of the 128-byte swizzle, so a row is never padded.  TMA writes row
-// r's 16-byte chunk c at chunk c ^ (r mod 8) of the row; a group of 8 rows
-// (1024 bytes) is one swizzle atom, and every tile starts on a 1024-byte
-// boundary, which the descriptors' zero base offset assumes.  A K-major
-// descriptor of such a tile: start address >> 4, leading byte offset 1
-// (unused by swizzled K-major layouts), stride byte offset 1024 >> 4 (the
-// next 8 rows), layout 1 (128-byte swizzle) in bits 62-63.  A k16 step
-// (32 bytes of a row) advances the start address by 32 bytes; the swizzle
-// is a function of the address bits, so the hardware finds the chunks.
+// A tile here is rows of 128 bytes, 64 bf16 or 32 tf32 features each:
+// exactly the span of the 128-byte swizzle, so a row is never padded.  TMA
+// writes row r's 16-byte chunk c at chunk c ^ (r mod 8) of the row; a
+// group of 8 rows (1024 bytes) is one swizzle atom, and every tile starts
+// on a 1024-byte boundary, which the descriptors' zero base offset
+// assumes.  A K-major descriptor of such a tile: start address >> 4,
+// leading byte offset 1 (unused by swizzled K-major layouts), stride byte
+// offset 1024 >> 4 (the next 8 rows), layout 1 (128-byte swizzle) in bits
+// 62-63.  A k16 step
+// of bf16 or a k8 step of tf32 (32 bytes of a row) advances the start
+// address by 32 bytes; the swizzle is a function of the address bits, so
+// the hardware finds the chunks.
 //
 // The tensor maps are encoded on the host at each launch (the pointers
 // change) through cuTensorMapEncodeTiled, looked up by the CUDA
@@ -134,6 +138,13 @@ __device__ __forceinline__ uint64_t desc_k16(uint64_t desc, int k16) {
   return desc + (uint64_t)(2 * k16);
 }
 
+// Row r's byte offset of 32-bit element c (0-31) in a 128-byte-swizzled
+// tile: chunk c / 4 of the row lands at chunk (c / 4) ^ (r mod 8).
+__host__ __device__ constexpr uint32_t sw128_offset(int r, int c) {
+  return (uint32_t)(r * kRowBytes + ((((c >> 2) ^ r) & 7) << 4) +
+                    (c & 3) * 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -153,6 +164,11 @@ __device__ __forceinline__ void fence_operands(float (&d)[16]) {
 __device__ __forceinline__ void fence_operands(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d = a · bᵀ (+ d when accumulate): A 64 rows × 16 features, B 32 rows ×
@@ -197,6 +213,31 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d = a · bᵀ (+ d when accumulate): A 64 rows × 8 tf32 features in
+// registers, B 32 rows × 8 tf32 features K-major in shared memory, fp32
+// accumulators as wgmma_m64n32k16_bf16's.  Thread (warp w of the
+// warpgroup, lane 4g + t) holds a = rows 16w + g, 16w + g + 8 at column
+// t, then the same rows at column t + 4: mma.sync m16n8k8's A fragment.
+// The tensor core reads the top 19 bits of each operand (a truncation),
+// so a value that should round is rounded before it arrives.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 // ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -226,24 +267,42 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// The map of a row-major rows × F bf16 matrix (F a multiple of 8, base
-// 16-byte aligned) read in boxes of box_rows rows × 64 features, 128-byte
-// swizzle, zeros out of bounds.  Returns 0, or the CUresult of a failed
-// encoding (CUDA_ERROR_NOT_FOUND where the encoder is missing).
-inline int encode_bf16_rows(CUtensorMap* map, const void* base, int rows,
-                            int F, int box_rows) {
+// The map of a row-major rows × F matrix of `bytes`-byte elements (a row
+// a multiple of 16 bytes, base 16-byte aligned) read in boxes of box_rows
+// rows × 128 bytes, 128-byte swizzle, zeros out of bounds.  Returns 0, or
+// the CUresult of a failed encoding (CUDA_ERROR_NOT_FOUND where the
+// encoder is missing).
+inline int encode_rows(CUtensorMap* map, CUtensorMapDataType type,
+                       int bytes, const void* base, int rows, int F,
+                       int box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)F, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)F * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)(kRowBytes / 2),
+  const cuuint64_t strides[1] = {(cuuint64_t)F * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(kRowBytes / bytes),
                              (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                 const_cast<void*>(base), dims, strides, box, steps,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                 steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A bf16 matrix (F a multiple of 8) in boxes of box_rows rows × 64
+// features.
+inline int encode_bf16_rows(CUtensorMap* map, const void* base, int rows,
+                            int F, int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, F,
+                     box_rows);
+}
+
+// A float32 matrix (F a multiple of 4) in boxes of box_rows rows × 32
+// features.
+inline int encode_f32_rows(CUtensorMap* map, const void* base, int rows,
+                           int F, int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, F,
+                     box_rows);
 }
 
 }  // namespace asp_hopper

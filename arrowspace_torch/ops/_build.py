@@ -31,9 +31,10 @@ __all__ = ["build", "lib", "check", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bintopk.cu", "bintopk_bf16.cu", "merge_topk.cu",
-           "merge_topk_bf16.cu", "taulambda.cu", "select_tau.cu",
-           "lambda_batch.cu", "energy_bintopk.cu", "energy_chord.cu")
+SOURCES = ("bintopk.cu", "bintopk_bf16.cu", "bintopk_tf32.cu",
+           "merge_topk.cu", "merge_topk_bf16.cu", "taulambda.cu",
+           "select_tau.cu", "lambda_batch.cu", "energy_bintopk.cu",
+           "energy_chord.cu")
 HEADERS = ("common.cuh", "binned_fold.cuh", "hopper.cuh", "merge_select.cuh",
            "energy_tile.cuh", "lambda_tile.cuh")
 # -Xptxas -v reports each kernel's registers, shared memory and spills
@@ -53,6 +54,11 @@ SIGNATURES = {
     # F, B, depth, out[6]: the bf16 kernel's query block, stages, shared
     # bytes, registers, spilled bytes and largest block at that launch
     "asp_bintopk_bf16_config": (_I, _I, _I, _P),
+    # the same with float32 qhat and xhat, K1's wgmma route
+    "asp_bintopk_tf32": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P),
+    # F, depth, out[6]: the same account of the wgmma route's launch
+    "asp_bintopk_tf32_config": (_I, _I, _P),
     # qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks, rows_per_chunk,
     # out_s, out_i, stream
     "asp_merge_topk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,

@@ -28,6 +28,16 @@ keep the same pool layout.
 Scores are SHIFTED by -c1 = -(1-α): queries arrive α-prescaled so the
 dot product is α·cos, and c1 is added back after the flush.
 
+float32 routes: ``binned_topk_pool`` launches the wgmma kernel
+(csrc/bintopk_tf32.cu, ``asp_bintopk_tf32``) where ``tf32_route``
+admits the launch (F a multiple of 4, at most 352, and at least 64
+queries), else the mma.sync kernel (csrc/bintopk.cu, ``asp_bintopk``);
+both run the same 3×TF32 sequence a pair, so their pools are bitwise
+equal.  ``binned_topk_pool.launches`` counts both, ``launches_wgmma``
+and ``launches_mma`` each route, and the recorder's counter
+``k1.tf32_wgmma`` (utils.profiling.count) the wgmma launches inside a
+session's or stream's record.
+
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): the
 prepared corpus and the query operand are bf16, zero-padded to a
 multiple of 8 features (a TMA row stride is a multiple of 16 bytes), and
@@ -44,13 +54,14 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from ._build import check, lib, stream_of
 from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
                      operand_query, safe_unit, two_key_topk)
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
            "scoring_dtype", "prepared_rows", "bintopk_fits", "query_block",
-           "grid_ctas",
+           "grid_ctas", "tf32_route", "tf32_stages", "tf32_config",
            "bf16_stages", "bf16_config", "wave_chunks", "check_operands",
            "binned_topk_pool",
            "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
@@ -72,13 +83,23 @@ BF16_MAX_F = 1536
 # tensor map's row stride is a multiple of 16 bytes (both bf16 kernels,
 # K1's and K3's, read their rows by tensor map).
 BF16_ALIGN = 8
-# The bf16 kernel's shared memory (csrc/bintopk_bf16.cu): 1024 bytes to
-# align the 128-byte-swizzled tiles, the query block as ceil(F/64) tiles
-# of qb rows × 128 bytes, and a ring of 3 to 16 stages of _PAIRS / qb
-# corpus rows × 128 bytes, each with two 8-byte barriers (one more for
-# the query block).
-_BF16_ROW, _BF16_ALIGN_SMEM = 128, 1024
+# Both wgmma kernels of K1 (csrc/bintopk_bf16.cu, csrc/bintopk_tf32.cu)
+# stage their tiles in the 128-byte swizzle: rows of 128 bytes, the
+# tiles aligned to 1024 bytes.
+_SW128_ROW, _SW128_ALIGN = 128, 1024
+# The bf16 kernel's shared memory: room to align the tiles, the query
+# block as ceil(F/64) tiles of qb rows × 128 bytes, and a ring of 3 to
+# 16 stages of _PAIRS / qb corpus rows × 128 bytes, each with two 8-byte
+# barriers (one more for the query block).
 _BF16_MIN_STAGES, _BF16_MAX_STAGES = 3, 16
+# K1's float32 wgmma route (csrc/bintopk_tf32.cu): a CTA of 64 queries ×
+# 64 bins.  Its shared memory: room to align the tiles, the query block
+# split into a hi and a lo plane of ceil(ceil8(F) / 32) boxes of 64 rows
+# × 32 tf32 features (128 bytes), and a ring of 3 to 16 stages of 64
+# corpus rows × 64 float32 features, each with two 8-byte barriers.
+_TF32_QB, _TF32_BOX = 64, 32
+_TF32_STAGE = 64 * 64 * 4
+_TF32_MIN_STAGES, _TF32_MAX_STAGES = 3, 16
 
 
 def binned_topk_depth_for(k: int) -> int:
@@ -108,12 +129,48 @@ def bf16_stages(f: int, qb: int) -> int:
     does."""
     room = _SMEM_LIMIT - _bf16_smem(f, qb, 0)
     return max(0, min(_BF16_MAX_STAGES,
-                      room // ((_PAIRS // qb) * _BF16_ROW + 16)))
+                      room // ((_PAIRS // qb) * _SW128_ROW + 16)))
 
 
 def _bf16_smem(f: int, qb: int, stages: int) -> int:
-    return (_BF16_ALIGN_SMEM + -(-f // 64) * qb * _BF16_ROW
-            + stages * ((_PAIRS // qb) * _BF16_ROW + 16) + 8)
+    return (_SW128_ALIGN + -(-f // 64) * qb * _SW128_ROW
+            + stages * ((_PAIRS // qb) * _SW128_ROW + 16) + 8)
+
+
+def tf32_stages(f: int) -> int:
+    """Stages of the float32 wgmma kernel's ring (csrc stages): as many
+    as fit beside the split query block, at most 16; 0 when none
+    does."""
+    room = _SMEM_LIMIT - _tf32_smem(f, 0)
+    return max(0, min(_TF32_MAX_STAGES, room // (_TF32_STAGE + 16)))
+
+
+def _tf32_smem(f: int, stages: int) -> int:
+    boxes = -(-(-(-f // 8) * 8) // _TF32_BOX)
+    return (_SW128_ALIGN + 2 * boxes * _TF32_QB * _SW128_ROW
+            + stages * (_TF32_STAGE + 16))
+
+
+def tf32_route(f: int, bsz: int) -> bool:
+    """Whether float32 K1 launches the wgmma kernel (csrc/bintopk_tf32.cu)
+    at (F, B): F a multiple of 4 (a tensor map's row stride is a multiple
+    of 16 bytes), the split query block beside a ring of at least 3
+    stages within the shared memory (F <= 352), and a batch that fills
+    the 64-query CTA.  Elsewhere the mma.sync kernel (csrc/bintopk.cu)
+    runs, at its own query block (query_block)."""
+    return (f >= 4 and f % 4 == 0 and bsz >= _TF32_QB
+            and tf32_stages(f) >= _TF32_MIN_STAGES)
+
+
+def tf32_config(f: int, depth: int) -> dict:
+    """What the float32 wgmma kernel runs at (F, depth), from the library
+    (CUDA only), in bf16_config's keys (its query block is always 64)."""
+    out = (ctypes.c_int * 6)()
+    check(lib().asp_bintopk_tf32_config(f, depth, out),
+          "asp_bintopk_tf32_config")
+    keys = ("query_block", "stages", "smem_bytes", "registers",
+            "spill_bytes", "max_threads")
+    return dict(zip(keys, out))
 
 
 def _bintopk_smem(f: int, qb: int, use_bf16: bool = False) -> int:
@@ -141,8 +198,10 @@ def query_block(f: int, bsz: int, use_bf16: bool = False) -> int:
 
 def grid_ctas(bsz: int, bins: int, f: int, use_bf16: bool = False) -> int:
     """CTAs per corpus chunk of K1: one per query block and group of
-    _PAIRS / query_block bins."""
-    qb = query_block(f, bsz, use_bf16)
+    _PAIRS / query_block bins (the float32 wgmma route's query block is
+    64)."""
+    qb = (_TF32_QB if not use_bf16 and tf32_route(f, bsz)
+          else query_block(f, bsz, use_bf16))
     return -(-bsz // qb) * (bins * qb // _PAIRS)
 
 
@@ -243,7 +302,9 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     Returns pool_s (B, chunks, depth, bins), pool_i (same, int32 global
     row ids, INT_MAX in empty slots) and det (B, chunks, bins).  bf16
     qhat and xhat (F a multiple of BF16_ALIGN, 16-byte aligned) take the
-    bf16 kernel; qlam, xlam and the outputs are float32 either way.
+    bf16 kernel; float32 operands the wgmma kernel where tf32_route
+    admits (F, B) (xhat 16-byte aligned), else the mma.sync kernel;
+    qlam, xlam and the outputs are float32 either way.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
@@ -272,7 +333,9 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                       dtype=torch.float32)
     if bsz == 0 or n <= 0:
         return pool_s, pool_i, det
-    entry = "asp_bintopk_bf16" if bf16 else "asp_bintopk"
+    wgmma = not bf16 and tf32_route(f, bsz)
+    entry = ("asp_bintopk_bf16" if bf16 else
+             "asp_bintopk_tf32" if wgmma else "asp_bintopk")
     rc = getattr(lib(), entry)(
         qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(), xlam.data_ptr(),
         c1, n, bsz, f, bins, depth, chunks, tiles_per_chunk,
@@ -281,12 +344,19 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     check(rc, entry)
     if bf16:
         binned_topk_pool.launches_bf16 += 1
+    elif wgmma:
+        binned_topk_pool.launches += 1
+        binned_topk_pool.launches_wgmma += 1
+        count("k1.tf32_wgmma")
     else:
         binned_topk_pool.launches += 1
+        binned_topk_pool.launches_mma += 1
     return pool_s, pool_i, det
 
 
-binned_topk_pool.launches = 0
+binned_topk_pool.launches = 0       # float32, both routes
+binned_topk_pool.launches_wgmma = 0
+binned_topk_pool.launches_mma = 0
 binned_topk_pool.launches_bf16 = 0
 
 

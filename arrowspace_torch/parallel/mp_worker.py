@@ -203,6 +203,8 @@ def dryrun(mesh, n: int, f: int) -> dict:
         # kernel launches of this process (a CPU shard runs the plain
         # versions, which count none)
         "launches": {"bintopk": bintopk.binned_topk_pool.launches,
+                     "bintopk_wgmma":
+                         bintopk.binned_topk_pool.launches_wgmma,
                      "taulambda": taulambda.fused_taulambda.launches,
                      "merge_topk": topk.merge_topk_partial.launches,
                      "energy_bintopk":

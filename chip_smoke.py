@@ -195,7 +195,16 @@ wide repair's shape; for K2 and K5 their λ error against a float64 plain
 λ, K2's record at the cosine build's shape and K5's at the 1536-wide
 build's row window, each held against its plain version) and the time of a
 PyTorch call computing the same function (null where none does), then
-the last line {"ok": true, "device": ...}.  The bf16 modes have their own
+the last line {"ok": true, "device": ...}.  float32 K1 has an entry for
+each route: bintopk_tf32 (source csrc/bintopk_tf32.cu, the wgmma kernel
+that the cosine path's shape takes; its launches counted on that path;
+its record at_glove, at the glove cell's 1,183,514 x 100, held to its
+plain version and bitwise to the mma.sync kernel, both timed, with the
+launch's query block, stages, shared bytes, registers and spills) and
+bintopk (source csrc/bintopk.cu, the mma.sync kernel, timed through its
+C entry at the cosine path's shape, its pools bitwise the wgmma
+kernel's there; its launches counted on the 768-wide path); each path's
+K1 launches are split by route.  The bf16 modes have their own
 entries, bintopk_bf16 (source csrc/bintopk_bf16.cu; launches on the
 cosine bf16 session's path; its records at_768 and at_1536) and
 merge_topk_bf16 (source csrc/merge_topk_bf16.cu; its records at_repair
@@ -228,6 +237,8 @@ SEED = 11
 # so every λ would be 0 and neither K2 nor the λ term would be tested.
 EPS = 1.0
 BATCH, K, ALPHA, N_BATCHES = 2048, 10, 0.9, 16
+# the glove cell's corpus shape (K1's float32 wgmma route, F <= 352)
+GLOVE_ROWS, GLOVE_FEAT = 1_183_514, 100
 N_PROFILE = 8           # batches of each session under the profiler
 TAULAMBDA_ROWS = 262_144
 TOL = 1e-5              # kernel vs plain version, float32 scores and λ
@@ -662,7 +673,11 @@ def kernels_vs_plain(torch, index, batches, dev):
         f"{a_ms:.3f} ({a_by}) bound_fp32_ms={a32_ms:.3f}")
     del lam_a, tau_a, lam_p, tau_p
 
-    # K1 at k=10 (depth 3, bins 128) and k=64 (depth 4, bins 512)
+    # K1 at k=10 (depth 3, bins 128) and k=64 (depth 4, bins 512): the
+    # wrapper takes the wgmma route at this shape; the mma.sync kernel is
+    # called through its C entry beside it, bitwise alike
+    check(bt.tf32_route(qhat.shape[1], BATCH),
+          "the main path's K1 is off the wgmma route")
     k1_err = 0.0
     for k in (K, 64):
         depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
@@ -682,27 +697,124 @@ def kernels_vs_plain(torch, index, batches, dev):
         check(det_err <= TOL, "K1 det disagrees")
         k1_err = max(k1_err, err, det_err)
         pool = bt.binned_topk_pool(*args, **kw)
+        mma, mma_sync = k1_mma_sync(torch, dev, pool, *args, **kw)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(pool, mma))
+        check(same, f"K1 k={k}: the mma.sync kernel's pools differ from "
+              "the wgmma route's")
         # K1's λ term: five fp32 operations a pair
         b_ms, b_by, b32_ms = tc_bounds(
             BATCH, n, qhat.shape[1], 5,
             nbytes(qhat, qlam, xhat[:n], xlam[:n], *pool))
         ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw))
-        log(f"    K1 k={k}: ms={ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
-            f"bound_fp32_ms={b32_ms:.3f}")
+        mma_ms = cuda_ms(mma_sync)
+        log(f"    K1 k={k}: wgmma route ms={ms:.3f}, mma.sync kernel "
+            f"ms={mma_ms:.3f} (pools bitwise alike), bound_ms={b_ms:.3f} "
+            f"({b_by}) bound_fp32_ms={b32_ms:.3f}")
+        del mma
         if k == K:
-            rec["bintopk"] = dict(
-                ms=ms, plain_ms=cuda_ms(lambda: bt.binned_topk_pool_plain(
-                    *args, **kw), reps=2),
-                bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32_ms,
-                library_ms=None)
+            plain_ms = cuda_ms(lambda: bt.binned_topk_pool_plain(*args, **kw),
+                               reps=2)
+            for name, t in (("bintopk_tf32", ms), ("bintopk", mma_ms)):
+                rec[name] = dict(ms=t, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, bound_fp32_ms=b32_ms,
+                                 library_ms=None)
             log(f"    matmul context (qhat @ xhat.T, {BATCH}x{n}x"
                 f"{qhat.shape[1]}): {matmul_ms(torch, qhat, xhat[:n]):.3f} ms")
+    # the mma.sync kernel's pools are the wgmma route's, bit for bit
+    rec["bintopk_tf32"]["max_abs_err"] = k1_err
     rec["bintopk"]["max_abs_err"] = k1_err
+    rec["bintopk_tf32"]["at_glove"] = k1_wgmma_glove(torch, dev)
 
     # K3 at k=10 over the whole batch
     rec["merge_topk"] = k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n,
                                     "K3 merge_topk")
     return rec
+
+
+def k1_mma_sync(torch, dev, like, qhat, qlam, xhat, xlam, c1, n, *,
+                depth, bins, chunks):
+    """float32 K1's mma.sync kernel (csrc/bintopk.cu) launched through its
+    C entry (asp_bintopk) at binned_topk_pool's arguments and chunking,
+    whatever route the wrapper takes there, into pools shaped as ``like``
+    (the wrapper's pools): (those pools, a function that relaunches
+    it)."""
+    from arrowspace_torch.ops._build import lib
+    bsz, f = qhat.shape
+    tpc = -(-(-(-n // bins)) // chunks)
+    pool = [torch.empty_like(t) for t in like]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib().asp_bintopk(
+            qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(),
+            xlam.data_ptr(), c1, n, bsz, f, bins, depth, chunks, tpc,
+            *(t.data_ptr() for t in pool), stream)
+        check(rc == 0, f"asp_bintopk failed ({rc})")
+    launch()
+    return pool, launch
+
+
+def k1_wgmma_glove(torch, dev) -> dict:
+    """K1 on its float32 wgmma route (csrc/bintopk_tf32.cu) at the glove
+    cell's shape: 1,183,514 clustered rows × 100 made on the card, B =
+    2048, k = 10; its launch account (query block, stages, shared bytes,
+    registers, spills), the flushed top-k against the plain version, and
+    the pools bitwise against the mma.sync kernel's (asp_bintopk) at the
+    same chunking, both timed."""
+    from arrowspace_torch.ops import bintopk as bt
+    from arrowspace_torch.ops.search import prepare_query
+
+    n, f = GLOVE_ROWS, GLOVE_FEAT
+    gen = torch.Generator(device=dev).manual_seed(f)
+    cen = torch.rand(N_CENTRES, f, device=dev, generator=gen) * 0.6 + 0.2
+    x = cen[torch.randint(0, N_CENTRES, (n,), device=dev, generator=gen)]
+    x += NOISE * torch.randn(n, f, device=dev, generator=gen)
+    lam = torch.rand(n, device=dev, generator=gen) * 0.2
+    xhat, xlam = bt.prepare_binned_corpus(x, lam)
+    qhat, c1 = prepare_query(x[:BATCH] * 1.02, ALPHA, dtype=torch.float32)
+    qhat, qlam = qhat.contiguous(), lam[:BATCH] + 0.001
+    del x
+    depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
+    cfg = bt.tf32_config(f, depth)
+    log(f"  K1 wgmma route at {n}x{f}, B={BATCH}: query block "
+        f"{cfg['query_block']}, {cfg['stages']} stages, "
+        f"{cfg['smem_bytes']} shared bytes, {cfg['registers']} registers, "
+        f"{cfg['spill_bytes']} spilled bytes")
+    check(bt.tf32_route(f, BATCH) and cfg["stages"] >= 3
+          and cfg["spill_bytes"] == 0
+          and cfg["stages"] == bt.tf32_stages(f)
+          and cfg["smem_bytes"] == bt._tf32_smem(f, cfg["stages"]),
+          "K1's wgmma route: config off the wrapper's rule")
+    n_tiles = -(-n // bins)
+    chunks = bt._default_chunks(bt.grid_ctas(BATCH, bins, f), n_tiles, dev)
+    args = (qhat, qlam, xhat, xlam, c1, n)
+    kw = dict(depth=depth, bins=bins, chunks=chunks)
+    before = bt.binned_topk_pool.launches_wgmma
+    pool = bt.binned_topk_pool(*args, **kw)
+    check(bt.binned_topk_pool.launches_wgmma == before + 1,
+          "K1 at the glove shape did not take the wgmma route")
+    out_k = bt.flush_pool(*pool, K, c1)
+    out_p = bt.flush_pool(*bt.binned_topk_pool_plain(*args, **kw), K, c1)
+    err = agree(f"K1 wgmma route k={K} at {n}x{f}", out_k[0], out_k[1],
+                out_p[0], out_p[1], exact=exact_scores(
+                    qhat, qlam, xhat, xlam, c1, out_k[1]) + c1)
+    det_err = float((out_k[3] - out_p[3]).abs().max())
+    check(det_err <= TOL, "K1's wgmma route: det disagrees")
+    mma, mma_sync = k1_mma_sync(torch, dev, pool, *args, **kw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(pool, mma))
+    check(same, "K1's wgmma route: pools differ from the mma.sync kernel's")
+    ms = cuda_ms(lambda: bt.binned_topk_pool(*args, **kw))
+    mma_ms = cuda_ms(mma_sync)
+    b_ms = 6.0 * BATCH * n * f / 494.7e12 * 1e3
+    log(f"    K1 wgmma route: ms={ms:.3f} (mma.sync kernel {mma_ms:.3f}), "
+        f"bound_ms={b_ms:.3f} (operations, TF32), pools bitwise the "
+        f"mma.sync kernel's={same}, det max_abs_err={det_err:.3e}")
+    del xhat, xlam, pool, mma
+    torch.cuda.empty_cache()
+    return dict(rows=n, features=f, ms=ms, mma_sync_ms=mma_ms, bound_ms=b_ms,
+                max_abs_err=max(err, det_err), bitwise_mma_sync=same,
+                **{k: cfg[k] for k in ("query_block", "stages", "smem_bytes",
+                                       "registers", "spill_bytes")})
 
 
 def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
@@ -3018,7 +3130,10 @@ def multiprocess_phase(torch, dev):
     check(r["strided_repairs"]["lambda"] > 0
           and r["strided_repairs"]["energy"] > 0,
           "the dry run never took the strided mesh repair")
-    return r["launches"]
+    out = dict(r["launches"])
+    wgmma = out.pop("bintopk_wgmma")
+    out["bintopk"] = K1Launches(wgmma, out["bintopk"] - wgmma)
+    return out
 
 
 def bf16_operands(torch, xh, q_np, qlam, dev):
@@ -3573,8 +3688,10 @@ def suite_k1(torch, dev, use_bf16=False) -> dict:
     draws += [(f"k-band {k}", d.data(2048, 32, 3, seed=k), 0.9, k, 0)
               for k in d.KBAND]
     draws.append(("alpha=1 anchor", d.anchor(), 1.0, 5, 0))
-    attr = "launches_bf16" if use_bf16 else "launches"
-    before = getattr(bt.binned_topk_pool, attr)
+    fn = bt.binned_topk_pool
+    count_of = ((lambda: fn.launches_bf16) if use_bf16 else
+                (lambda: K1Count(fn).launches))
+    before = count_of()
     err, flags = 0.0, 0
     name = "K1 bf16" if use_bf16 else "K1"
     for what, arrays, alpha, k, depth in draws:
@@ -3600,9 +3717,11 @@ def suite_k1(torch, dev, use_bf16=False) -> dict:
                    out[3], e)
         err, flags = max(err, e, det_err), flags + int(out[2].sum())
     sync(torch, dev)
+    after = count_of()
+    launches = after - before if use_bf16 else K1Launches(
+        after.wgmma - before.wgmma, after.mma - before.mma)
     return suite_record(f"{name} ({'bf16' if use_bf16 else 'float32'})",
-                        len(draws), err, flags,
-                        getattr(bt.binned_topk_pool, attr) - before)
+                        len(draws), err, flags, launches)
 
 
 def suite_k3(torch, dev, use_bf16=False) -> dict:
@@ -4003,7 +4122,10 @@ def suites_phase(torch, counters, dev) -> dict:
     log("[16] the JAX package's kernel suites on the card")
     t0 = time.perf_counter()
     reset(counters)
-    rec = {"bintopk": suite_k1(torch, dev),
+    k1 = suite_k1(torch, dev)
+    rec = {"bintopk": {**k1, "launches": route_split(k1["launches"], "mma")},
+           "bintopk_tf32": {**k1, "launches": route_split(k1["launches"],
+                                                          "wgmma")},
            "bintopk_bf16": suite_k1(torch, dev, use_bf16=True),
            "merge_topk": suite_k3(torch, dev),
            "merge_topk_bf16": suite_k3(torch, dev, use_bf16=True),
@@ -4034,12 +4156,62 @@ KERNELS = {
                        "arrowspace_tpu/ops/pallas_bintopk.py:934"),
     "energy_chord": ("arrowspace_torch/csrc/energy_chord.cu",
                      "arrowspace_tpu/ops/energy_approx.py:404"),
+    # float32 K1's wgmma route, where bintopk.tf32_route admits (F, B)
+    "bintopk_tf32": ("arrowspace_torch/csrc/bintopk_tf32.cu",
+                     "arrowspace_tpu/ops/pallas_bintopk.py:667"),
     # the bf16 modes (the TPU kernels' use_bf16=True)
     "bintopk_bf16": ("arrowspace_torch/csrc/bintopk_bf16.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
     "merge_topk_bf16": ("arrowspace_torch/csrc/merge_topk_bf16.cu",
                         "arrowspace_tpu/ops/pallas_topk.py:263"),
 }
+
+
+class K1Launches(int):
+    """float32 K1's launches over a path, both routes, with each route's
+    share: ``wgmma`` (csrc/bintopk_tf32.cu) and ``mma`` (csrc/bintopk.cu).
+    Two of them add route by route."""
+
+    def __new__(cls, wgmma: int, mma: int):
+        obj = super().__new__(cls, wgmma + mma)
+        obj.wgmma, obj.mma = wgmma, mma
+        return obj
+
+    def __add__(self, other):
+        if isinstance(other, K1Launches):
+            return K1Launches(self.wgmma + other.wgmma, self.mma + other.mma)
+        return int(self) + other
+
+    __radd__ = __add__
+
+
+def route_split(v, route: str) -> int:
+    """The launches of float32 K1's ``route`` ("wgmma" or "mma") in a
+    path's count (a K1Launches)."""
+    check(isinstance(v, K1Launches), f"K1's count {v!r} has no route split")
+    return getattr(v, route)
+
+
+class K1Count:
+    """float32 K1's launch counts of binned_topk_pool under the
+    ``launches`` name the counters are read and reset by: read, a
+    K1Launches of its per-route counts (launches_wgmma, launches_mma),
+    held to its total (launches); set, all three."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        got = K1Launches(self.fn.launches_wgmma, self.fn.launches_mma)
+        check(got == self.fn.launches, f"K1's route counts {got.wgmma} + "
+              f"{got.mma} differ from its total {self.fn.launches}")
+        return got
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = self.fn.launches_wgmma = value
+        self.fn.launches_mma = value
 
 
 class Bf16Count:
@@ -4078,7 +4250,8 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    counters = {"k1": bintopk.binned_topk_pool, "k2": taulambda.fused_taulambda,
+    counters = {"k1": K1Count(bintopk.binned_topk_pool),
+                "k2": taulambda.fused_taulambda,
                 "k3": topk.merge_topk_partial,
                 "k4": select_tau.fused_select_tau,
                 "k5": lambda_batch.fused_lambda_batch,
@@ -4284,24 +4457,32 @@ def main() -> int:
             "wide_768": w16["merge_topk_bf16"],
             "wide_1536": x16["merge_topk_bf16"],
             "merge_1536": k3b_merge}
+        k1_paths = {"cosine": launches["bintopk"],
+                    "reloaded_cosine": k1_reloaded,
+                    "live_cosine": k1_live,
+                    "spectral": spectral["bintopk"],
+                    "wide_768": w_launches["bintopk"],
+                    "reloaded_wide_snapshot": k1_snapshot,
+                    **pruned["k1"], **jax_corpus["k1"],
+                    "pruned_wide_768_b16": wide_pruned["k1"],
+                    "streamed_128": s128_topk["k1"],
+                    "mesh_cosine": mesh["mesh_cosine_binned"]["k1"],
+                    "mesh_pruned": mesh["mesh_pruned"]["k1"],
+                    "multiprocess_nccl": mp["bintopk"],
+                    **{f"migration_{r}": migration[r]["bintopk"]
+                       for r in ("use_pallas_None",
+                                 "use_pallas_True",
+                                 "use_pallas_True_below_gate",
+                                 "unprepared_cosine")}}
+        # float32 K1's launches split by route: the cosine path's on the
+        # wgmma kernel, the 768-wide path's on the mma.sync kernel
+        launches["bintopk_tf32"] = route_split(launches["bintopk"], "wgmma")
+        launches["bintopk"] = route_split(w_launches["bintopk"], "mma")
         for name, by_path in {
-                "bintopk": {"cosine": launches["bintopk"],
-                            "reloaded_cosine": k1_reloaded,
-                            "live_cosine": k1_live,
-                            "spectral": spectral["bintopk"],
-                            "wide_768": w_launches["bintopk"],
-                            "reloaded_wide_snapshot": k1_snapshot,
-                            **pruned["k1"], **jax_corpus["k1"],
-                            "pruned_wide_768_b16": wide_pruned["k1"],
-                            "streamed_128": s128_topk["k1"],
-                            "mesh_cosine": mesh["mesh_cosine_binned"]["k1"],
-                            "mesh_pruned": mesh["mesh_pruned"]["k1"],
-                            "multiprocess_nccl": mp["bintopk"],
-                            **{f"migration_{r}": migration[r]["bintopk"]
-                               for r in ("use_pallas_None",
-                                         "use_pallas_True",
-                                         "use_pallas_True_below_gate",
-                                         "unprepared_cosine")}},
+                "bintopk": {p: route_split(v, "mma")
+                            for p, v in k1_paths.items()},
+                "bintopk_tf32": {p: route_split(v, "wgmma")
+                                 for p, v in k1_paths.items()},
                 "taulambda": {"cosine": launches["taulambda"],
                               "spectral": spectral["taulambda"],
                               "streamed_128": s128_lam["k2"],
@@ -4363,7 +4544,7 @@ def main() -> int:
                    if key in ("bound_fp32_ms", "matmul_ms", "at_768",
                               "at_1536", "wide_repair_768", "at_repair",
                               "launches_by_path", "max_abs_err_f64",
-                              "at_build", "suites_16")}}
+                              "at_build", "suites_16", "at_glove")}}
                for name, (src, rep) in KERNELS.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -333,11 +333,24 @@ def test_k1_three_tf32_split_keeps_float32_accuracy(f):
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
+    """Also bit-exact against a float64 rounding to 11 significant bits,
+    ties away from zero: on exact ties of both signs, and where rounding
+    carries into the exponent."""
     v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
                       1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -11],
                      dtype=torch.float32)
     assert _tf32_rna(v).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
                                      1.0, 1.0 + 2.0 ** -9]
+    rng = np.random.default_rng(22)
+    bits = rng.integers(0x3F000000, 0x3F800000, 2000).astype(np.uint32)
+    ties = ((bits & ~np.uint32(0x1FFF)) | np.uint32(0x1000)).view(np.float32)
+    carry = np.array([np.nextafter(np.float32(1.0), np.float32(0.0)),
+                      1.0 - 2.0 ** -12, -0.999999], dtype=np.float32)
+    v = np.concatenate([ties, -ties, carry])
+    m, e = np.frexp(v.astype(np.float64))      # v = m · 2^e, |m| in [.5, 1)
+    ref = np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5), e - 11)
+    np.testing.assert_array_equal(_tf32_rna(torch.from_numpy(v)).numpy(),
+                                  ref.astype(np.float32))
 
 
 @pytest.mark.parametrize("bins", [128, 256, 512])
@@ -386,6 +399,75 @@ def test_k1_gate_for_the_tensor_core_layout(bins, f, qs, qb):
     ctas = bt.grid_ctas(2048, bins, f)
     assert bt.wave_chunks(ctas, n_tiles, 132) == want
     assert bt._default_chunks(ctas, n_tiles, torch.device("cpu")) == 1
+
+
+# K1's float32 wgmma route (csrc/bintopk_tf32.cu): ring stages by F
+_TF32_STAGES = {8: 13, 72: 11, 100: 10, 128: 10, 256: 6, 352: 3, 356: 2,
+                768: 0, 1264: 0}
+
+
+@pytest.mark.parametrize("f", sorted(_TF32_STAGES))
+@pytest.mark.parametrize("bsz", [1, 16, 63, 64, 2048])
+def test_k1_tf32_route_rule(f, bsz):
+    """K1's float32 wgmma kernel keeps its 64-query block split into a hi
+    and a lo plane of ceil(ceil8(F)/32) boxes of 64 rows × 128 bytes,
+    after 1024 bytes that align them, beside a ring of as many stages of
+    64 corpus rows × 64 float32 features as fit (at most 16), each with
+    two 8-byte barriers.  It runs where F is a multiple of 4, that ring
+    has 3 stages (F <= 352) and the batch fills the 64-query block;
+    elsewhere the mma.sync kernel runs at its own query block.  The grid
+    has one CTA per query block and group of 4096 / query block bins."""
+    boxes = -(-(-(-f // 8) * 8) // 32)
+    stages = _TF32_STAGES[f]
+    assert bt.tf32_stages(f) == stages
+    smem = 1024 + 2 * boxes * 64 * 128 + stages * 16_400
+    if stages:
+        assert bt._tf32_smem(f, stages) == smem <= 232_448
+        assert stages == 16 or smem + 16_400 > 232_448
+    else:   # not even one stage fits beside the planes
+        assert 1024 + 2 * boxes * 64 * 128 + 16_400 > 232_448
+    route = stages >= 3 and bsz >= 64
+    assert bt.tf32_route(f, bsz) == route
+    qb = 64 if route else bt.query_block(f, bsz)
+    for bins in (128, 256, 512):
+        assert bt.grid_ctas(bsz, bins, f) == -(-bsz // qb) * (bins * qb
+                                                             // 4096)
+
+
+def test_k1_tf32_route_edges():
+    """The glove cell's launch (F = 100, B = 2048) takes the wgmma route;
+    the cohere cell's (F = 768) and the widest float32 K1 (F = 1264) keep
+    the mma.sync kernel, as do F not a multiple of 4 (a tensor map's row
+    stride is a multiple of 16 bytes), F past the 3-stage edge at 352, and
+    batches below one 64-query block (the pruned B = 16 sessions)."""
+    assert bt.tf32_route(100, 2048) and bt.tf32_route(352, 64)
+    assert bt.tf32_route(4, 64) and bt.tf32_stages(352) == 3
+    assert not bt.tf32_route(356, 2048)
+    for f in (768, 1264, 7, 99, 101, 102, 126):
+        assert not bt.tf32_route(f, 2048)
+    for bsz in (1, 16, 63):
+        assert not bt.tf32_route(100, bsz)
+    assert bt.bintopk_fits(768) and bt.query_block(768, 2048) == 64
+    # B = 2048 keeps 64 CTAs per 128 bins (the mma.sync kernel's 16 query
+    # blocks × 4 bin groups; here 32 × 2), so the chunking is unchanged
+    assert bt.grid_ctas(2048, 128, 100) == 64
+
+
+@pytest.mark.parametrize("f,bsz,qb,smem", [
+    (7, 2048, 128, 23_552), (100, 2048, 128, 72_704), (100, 64, 64, 62_464),
+    (100, 16, 32, 83_456), (128, 2048, 128, 84_992),
+    (416, 2048, 128, 232_448), (417, 2048, 64, 144_384),
+    (768, 2048, 64, 232_448), (1264, 2048, 32, 231_936),
+    (1264, 1, 32, 231_936)])
+def test_k1_float32_mma_sync_rule_unchanged(f, bsz, qb, smem):
+    """The mma.sync kernel's rule, which every launch the wgmma route
+    refuses keeps: the largest query block of 128, 64 and 32 that the
+    batch fills and whose shared memory (the unsplit block at stride
+    ceil8(F) + 4, two slices of 4096/qb rows at stride 68, float32) fits."""
+    assert bt.query_block(f, bsz) == qb
+    assert bt._bintopk_smem(f, qb) == smem == (
+        qb * (-(-f // 8) * 8 + 4) + 2 * (4096 // qb) * 68) * 4
+    assert smem <= 232_448 and bt.bintopk_fits(f)
 
 
 def test_repair_helpers():

@@ -271,7 +271,7 @@ def test_k3_identical_rows_score_bitwise_alike(dev, f, b):
     assert bool((fs[0, :len(ids)] == fs[0, 0]).all())
 
 
-@pytest.mark.parametrize("f", [128, 768])
+@pytest.mark.parametrize("f", [128, 768, 100])
 def test_k1_and_k3_score_a_pair_bitwise_alike(dev, f):
     """K1 and K3 run one 3×TF32 instruction sequence a (query, row) pair,
     so every row both return for a query has bitwise equal scores (the
@@ -2341,3 +2341,239 @@ def test_examples_run_on_the_card(dev, name):
     proc = subprocess.run([sys.executable, f"examples/{name}.py"], cwd=root,
                           capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+# K1's float32 wgmma route (csrc/bintopk_tf32.cu): F a multiple of 4 up
+# to 352, B >= 64
+
+def _k1_mma_sync(args, n, *, depth, bins, chunks):
+    """The mma.sync kernel's pools (asp_bintopk, called through its C
+    entry) at the wrapper's chunking for ``chunks``."""
+    qh, ql, xh, xlh, c1 = args
+    b, f = qh.shape
+    n_tiles = -(-n // bins)
+    tpc = -(-n_tiles // chunks)
+    chunks = -(-n_tiles // tpc)
+    ps = torch.empty((b, chunks, depth, bins), device=qh.device)
+    pi = torch.empty_like(ps, dtype=torch.int32)
+    det = torch.empty((b, chunks, bins), device=qh.device)
+    rc = lib().asp_bintopk(
+        qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1, n,
+        b, f, bins, depth, chunks, tpc, ps.data_ptr(), pi.data_ptr(),
+        det.data_ptr(), torch.cuda.current_stream(qh.device).cuda_stream)
+    assert rc == 0
+    return ps, pi, det
+
+
+def _k1_wgmma_vs_plain(args, n, **kw):
+    """A launch the wgmma route takes: its pools against the plain
+    version's, and bitwise the mma.sync kernel's."""
+    w, m = (bt.binned_topk_pool.launches_wgmma,
+            bt.binned_topk_pool.launches_mma)
+    ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
+    rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
+    ms, mi, mdet = _k1_mma_sync(args, n, **kw)
+    torch.cuda.synchronize()
+    assert bt.binned_topk_pool.launches_wgmma == w + 1
+    assert bt.binned_topk_pool.launches_mma == m
+    assert ps.shape == rs.shape and det.shape == rdet.shape
+    _assert_scored_ids(ps, pi, rs, args)
+    assert torch.equal(pi == INT_MAX, ri == INT_MAX)
+    assert float((det - rdet).abs().max()) <= TOL
+    assert torch.equal(ps, ms) and torch.equal(pi, mi)
+    assert torch.equal(det, mdet)
+    return ps, pi, det
+
+
+@pytest.mark.parametrize("f", [8, 72, 100, 128, 352])
+@pytest.mark.parametrize("bins,depth", [(128, 3), (256, 2), (512, 4)])
+def test_k1_wgmma_pool_matches_plain(dev, f, bins, depth):
+    """The wgmma route at F of one slice (8), of a ragged second slice
+    (72, 100), of whole slices (128) and at the 3-stage edge (352), every
+    bin count and depth, B = 70 (a ragged second 64-query block), n =
+    5003 (a ragged tile): the plain version's pools, and bitwise the
+    mma.sync kernel's."""
+    n, b = 5003, 70
+    args = _inputs(dev, n, f, b, seed=f + bins)
+    assert bt.tf32_route(f, b)
+    _k1_wgmma_vs_plain(args, n, depth=depth, bins=bins, chunks=3)
+
+
+@pytest.mark.parametrize("f", [100, 352])
+@pytest.mark.parametrize("b", [63, 64, 97, 2048])
+def test_k1_wgmma_partial_and_full_query_blocks(dev, f, b):
+    """One query short of the 64-query block (the mma.sync kernel runs),
+    exactly one block, a ragged second block (the queries past B are
+    split as zeros and never written) and a full 2048-query batch."""
+    n = 5003
+    args = _inputs(dev, n, f, b, seed=f + b)
+    kw = dict(depth=3, bins=128, chunks=3)
+    if b < 64:
+        m = bt.binned_topk_pool.launches_mma
+        ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
+        rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
+        torch.cuda.synchronize()
+        assert bt.binned_topk_pool.launches_mma == m + 1
+        _assert_scored_ids(ps, pi, rs, args)
+        assert float((det - rdet).abs().max()) <= TOL
+        return
+    _k1_wgmma_vs_plain(args, n, **kw)
+
+
+@pytest.mark.parametrize("n", [1, 31, 63, 65, 130])
+@pytest.mark.parametrize("f", [72, 100])
+def test_k1_wgmma_fewer_rows_than_a_stage(dev, n, f):
+    """A corpus of fewer rows than one stage's 64 bins (and than one
+    tile): the rows past n arrive as zeros from the corpus map and never
+    enter a pool."""
+    args = _inputs(dev, n, f, 70, seed=n + f)
+    for bins, depth in ((128, 3), (512, 4)):
+        _k1_wgmma_vs_plain(args, n, depth=depth, bins=bins, chunks=2)
+
+
+def test_k1_wgmma_chunks_without_tiles(dev):
+    """Chunks past the last tile (no slice is loaded) hold empty pools,
+    NEG_INF det and INT_MAX ids; the others equal the plain version's
+    pools at their own chunking."""
+    n, b, f, bins, depth = 300, 70, 100, 128, 3
+    qh, ql, xh, xlh, c1 = _inputs(dev, n, f, b, seed=5)
+    chunks = 5                          # 3 tiles, one a chunk, 2 empty
+    shape = (b, chunks, depth, bins)
+    ps = torch.empty(shape, device=dev)
+    pi = torch.empty(shape, device=dev, dtype=torch.int32)
+    det = torch.empty((b, chunks, bins), device=dev)
+    rc = lib().asp_bintopk_tf32(
+        qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1, n,
+        b, f, bins, depth, chunks, 1, ps.data_ptr(), pi.data_ptr(),
+        det.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    rs, ri, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
+                                             depth=depth, bins=bins,
+                                             chunks=3)
+    _assert_scored_ids(ps[:, :3], pi[:, :3], rs, (qh, ql, xh, xlh, c1))
+    assert torch.equal(pi[:, :3] == INT_MAX, ri == INT_MAX)
+    assert float((det[:, :3] - rdet).abs().max()) <= TOL
+    assert bool((ps[:, 3:] == NEG_INF).all())
+    assert bool((pi[:, 3:] == INT_MAX).all())
+    assert bool((det[:, 3:] == NEG_INF).all())
+
+
+@pytest.mark.parametrize("fill", ["copies", "nan", "huge"])
+@pytest.mark.parametrize("f,bins,depth", [(100, 128, 3), (128, 256, 2),
+                                          (352, 512, 4)])
+def test_k1_wgmma_never_scores_a_row_past_n(dev, fill, f, bins, depth):
+    """A capacity buffer whose rows past n hold copies of the queries,
+    NaN or 1e30: the corpus map ends at row n, so none of them reaches a
+    score, a pool or det."""
+    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, 70,
+                                                     "copies" if fill ==
+                                                     "huge" else fill, f)
+    if fill == "huge":
+        xh[N_LIVE:], xlh[N_LIVE:] = 1e30, 1e30
+    ps, pi, det = _k1_wgmma_vs_plain((qh, ql, xh, xlh, c1), N_LIVE,
+                                     depth=depth, bins=bins, chunks=3)
+    _no_row_past_n(pi)
+    assert bool(torch.isfinite(ps).all() and torch.isfinite(det).all())
+
+
+@pytest.mark.parametrize("f", [100, 128])
+def test_k1_wgmma_identical_rows_tie_by_id(dev, f):
+    """Copies of query 0 in several tiles, bins of both 32-row halves of a
+    warp's fragment and all three chunks: bitwise equal scores, returned
+    first in ascending id order, as the plain version returns them."""
+    n, b, chunks, bins = 5003, 64, 3, 128
+    rng = np.random.default_rng(f)
+    q, ql = rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b)
+    x, xl = rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)
+    n_tiles = -(-n // bins)
+    tiles_per_chunk = -(-n_tiles // chunks)
+    spots = [(0, 3), (1, 38), (2, 70), (0, 101), (1, bins - 2), (2, 3)]
+    ids = sorted(c * tiles_per_chunk * bins + bn for c, bn in spots)
+    x[ids], xl[ids] = q[0], ql[0]
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev)
+                    for a in (q, ql, x, xl))
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    args = (qh, ql, xh, xlh, c1)
+    ps, pi, det = _k1_wgmma_vs_plain(args, n, depth=3, bins=bins,
+                                     chunks=chunks)
+    copies = torch.isin(pi, torch.tensor(ids, device=dev, dtype=pi.dtype))
+    assert int(copies[0].sum()) == len(ids)
+    found = ps[0][copies[0]]
+    assert bool((found == found[0]).all())
+    s, i, _, _ = bt.flush_pool(ps, pi, det, 10, c1)
+    _, ri, _, _ = bt.flush_pool(*bt.binned_topk_pool_plain(
+        *args, n, depth=3, bins=bins, chunks=chunks), 10, c1)
+    assert i[0, :len(ids)].tolist() == ids == ri[0, :len(ids)].tolist()
+    assert bool((s[0, :len(ids)] == s[0, 0]).all())
+
+
+def test_k1_wgmma_config_matches_the_wrapper_rule(dev):
+    """The library's account of each launch (query block, stages, shared
+    bytes) is the wrapper's rule, every instantiation keeps its state in
+    registers (no spilled bytes) with 256 threads, and the launches the
+    rule refuses keep the mma.sync kernel: F = 356 (a 2-stage ring, which
+    the C entry refuses too) and F = 102 (not a multiple of 4)."""
+    for f in (8, 72, 100, 128, 256, 352):
+        for depth in (2, 3, 4):
+            cfg = bt.tf32_config(f, depth)
+            assert cfg["query_block"] == 64
+            assert cfg["stages"] == bt.tf32_stages(f) >= 3
+            assert cfg["smem_bytes"] == bt._tf32_smem(f, cfg["stages"])
+            assert cfg["spill_bytes"] == 0
+            assert cfg["max_threads"] >= 256
+    for f in (356, 102):
+        n = 600
+        qh, ql, xh, xlh, c1 = _inputs(dev, n, f, 64, seed=f)
+        assert not bt.tf32_route(f, 64)
+        rc = lib().asp_bintopk_tf32(
+            qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1,
+            n, 64, f, 128, 3, 1, 5, 0, 0, 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+        assert rc != 0
+        m = bt.binned_topk_pool.launches_mma
+        ps, pi, det = bt.binned_topk_pool(qh, ql, xh, xlh, c1, n, depth=3,
+                                          bins=128, chunks=1)
+        rs, _, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
+                                                depth=3, bins=128, chunks=1)
+        torch.cuda.synchronize()
+        assert bt.binned_topk_pool.launches_mma == m + 1
+        _assert_scored_ids(ps, pi, rs, (qh, ql, xh, xlh, c1))
+
+
+@pytest.mark.parametrize("f", [100, 128])
+@pytest.mark.parametrize("k", [10, 64])
+def test_k1_wgmma_pools_equal_the_mma_sync_kernel(dev, f, k):
+    """At the serving batch (B = 2048) and the wrapper's own chunking,
+    the wgmma route's pools are bitwise the mma.sync kernel's (called
+    through asp_bintopk): one 3×TF32 sequence a pair, the tensor core's
+    k8 sums alike with A and B exchanged."""
+    n, b = 20_000, 2048
+    args = _inputs(dev, n, f, b, seed=f + k)
+    depth, bins = bt.binned_topk_depth_for(k), bt.bins_target(k)
+    chunks = bt._default_chunks(bt.grid_ctas(b, bins, f), -(-n // bins),
+                                dev)
+    _k1_wgmma_vs_plain(args, n, depth=depth, bins=bins, chunks=chunks)
+
+
+def test_k1_wgmma_live_rows_score_as_prepared(dev):
+    """A capacity buffer whose rows are written after preparation
+    (prepared_rows, as a live session writes them) gives the wgmma route
+    the same pools, bitwise, as a corpus prepared at once: the kernel
+    splits what it reads, so a written row needs nothing else."""
+    n0, n, f, b = 3000, 5003, 100, 128
+    rng = np.random.default_rng(7)
+    q, ql, x, xl = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b),
+                     rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n)))
+    live_x, live_l = bt.prepare_binned_corpus(x[:n0], xl[:n0], rows=CAP)
+    pos = torch.arange(n0, n, device=dev)
+    live_x.index_copy_(0, pos, bt.prepared_rows(x[n0:], live_x))
+    live_l.index_copy_(0, pos, xl[n0:])
+    xh, xlh = bt.prepare_binned_corpus(x, xl)
+    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    kw = dict(depth=3, bins=128, chunks=2)
+    live = bt.binned_topk_pool(qh, ql, live_x, live_l, c1, n, **kw)
+    fresh = _k1_wgmma_vs_plain((qh, ql, xh, xlh, c1), n, **kw)
+    assert all(torch.equal(a, r) for a, r in zip(live, fresh))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K1's bf16
-mode (csrc/bintopk_bf16.cu), K3 (csrc/merge_topk.cu), K3's bf16 mode
+mode (csrc/bintopk_bf16.cu), float32 K1's wgmma route
+(csrc/bintopk_tf32.cu), K3 (csrc/merge_topk.cu), K3's bf16 mode
 (csrc/merge_topk_bf16.cu), K6 (csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
 (csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
@@ -10,7 +11,8 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ablation.py
-        [--kernels k1,k1bf16,k3,k3bf16,k6,k7,k2,k5,k4] [--before DIR]
+        [--kernels k1,k1bf16,k1tf32,k3,k3bf16,k6,k7,k2,k5,k4]
+        [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
 a kernel: it compiles copies of the kernel's sources with one part taken
@@ -24,6 +26,12 @@ fails) and times each copy on the same inputs at the serving shapes:
   with its query block, ring stages and shared bytes, its bound (2·B·N·F
   bf16 operations at 989.4 TFLOP/s) and the corpus bytes every query
   block reads from L2, (B / QB)·N·F·2, with the rate they imply;
+- float32 K1's wgmma route (``--kernels k1tf32``): the clustered rows at
+  the glove cell's 1,183,514 x 100 and at 1M x 128, B = 2048, 128 bins,
+  depth 3, at the wrapper's chunking, beside this checkout's mma.sync
+  kernel (the pools held bitwise equal) with its ring stages, shared
+  bytes, bound (3·2·B·N·F TF32 operations at 494.7 TFLOP/s) and the
+  corpus bytes every query block reads from L2, (B / 64)·N·F·4;
 - K3: the same rows at F = 128 and F = 1536, k = 10, at the wrapper's
   chunking;
 - K3's bf16 mode (``--kernels k3bf16``): the same rows as bf16 operands
@@ -61,6 +69,14 @@ merge runs), "no_staging" (the first slice only; K1's bf16 mode: no
 refill of its ring, each step multiplying what its stage holds),
 "no_product", "product_only", "staging_only"; K1 also "one_tf32" and
 "lo_truncated";
+float32 K1's wgmma route also "one_tf32" (hi·hi alone), "no_x_split"
+(the corpus fragments unsplit: what corpus planes split once could save
+of the split at most), "planes" and "planes_staging_only" (the corpus
+split once on the host into a hi and a lo plane that the ring carries,
+no split in registers: the pools bitwise the kernel's), "group4" (two
+chains of 4 k8 steps a slice) and
+"fold_skip" (the insertion network skipped where a score does not beat
+its pool's last: the same pools);
 K3's bf16 mode "kernel", "no_select" (no candidate appended, so no merge
 runs), "product_only" (no refill of the ring and no selection),
 "staging_only" (no wgmma and no selection) and "n32" (wgmma m64n32k16,
@@ -98,7 +114,10 @@ instantiation by instantiation; for K1's bf16 mode it times DIR's
 bintopk.cu where the bf16 mode was an instantiation of the float32
 kernel); for K3 it times DIR's kernel as shipped, at its own chunking
 (the fp32 kernel of earlier commits: 8 queries a CTA, two CTAs per SM);
-for K3's bf16 mode DIR's ``asp_merge_topk_bf16`` as shipped (from DIR's
+for float32 K1's wgmma route DIR's float32 K1 as shipped (its
+``asp_bintopk``), timed before and after this checkout's variants, and
+DIR's ``bintopk_kernel`` machine code against this checkout's; for
+K3's bf16 mode DIR's ``asp_merge_topk_bf16`` as shipped (from DIR's
 merge_topk_bf16.cu, or its merge_topk.cu, where the bf16 mode was an
 instantiation of the float32 kernel, at that kernel's chunking), timed
 before and after this one's variants at each shape; for K2 and
@@ -167,6 +186,19 @@ K1BF16_PARTS = {   # K1's bf16 mode (csrc/bintopk_bf16.cu)
                  "if (tid == 0 && step > 0 && step - 1 + S < total) {",
                  "if (false) {"),
                 ("bintopk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
+                 "    if (step < S) mbar_wait(full + 8 * st, phase);")],
+}
+K1TF32_PARTS = {   # K1's float32 wgmma route (csrc/bintopk_tf32.cu)
+    "product": [("bintopk_tf32.cu", "wgmma_m64n32k8_tf32(part,",
+                 "if (false) wgmma_m64n32k8_tf32(part,")],
+    "fold": [("bintopk_tf32.cu", "if (gr < a.n) {",
+              "if (gr < a.n && a.c1 > 1e30f) {")],
+    # no refill: each step multiplies whatever its stage holds, waiting
+    # only for the prologue's copies
+    "staging": [("bintopk_tf32.cu",
+                 "if (tid == 0 && step >= lag && step - lag + S < total) {",
+                 "if (false) {"),
+                ("bintopk_tf32.cu", "    mbar_wait(full + 8 * st, phase);",
                  "    if (step < S) mbar_wait(full + 8 * st, phase);")],
 }
 K3BF16_PARTS = {   # K3's bf16 mode (csrc/merge_topk_bf16.cu)
@@ -247,6 +279,77 @@ LAMBDA_PARTS = {   # the λ body of K2 and K5 (csrc/lambda_tile.cuh)
                  "    if (false) {\n      const int p1")],
 }
 K1BF16_VARIANTS = variants(K1BF16_PARTS, {})
+# The wgmma route with the corpus split on the host: the tensor map reads
+# a (rows, 2·FP) plane, hi in columns [0, F) and lo in [FP, FP + F), FP =
+# ceil32(F), zeros between (k1tf32_planes); a stage holds both slices,
+# the lo boxes 2·8192 bytes past the hi ones, and a fragment is loaded
+# from both, unsplit.
+K1TF32_PLANES = [
+    ("bintopk_tf32.cu", "constexpr int kStage = 2 * kXBox;",
+     "constexpr int kStage = 4 * kXBox;"),
+    ("bintopk_tf32.cu",
+     "  mbar_expect_tx(bar, boxes * kXBox);\n"
+     "  tma_load_2d(xs + st * kStage, xmap, f0, row, bar);\n"
+     "  if (boxes > 1)\n"
+     "    tma_load_2d(xs + st * kStage + kXBox, xmap, f0 + kBox, row, bar);\n",
+     "  const int fp = (F + kBox - 1) / kBox * kBox;\n"
+     "  mbar_expect_tx(bar, 2 * boxes * kXBox);\n"
+     "  for (int b = 0; b < boxes; ++b) {\n"
+     "    tma_load_2d(xs + st * kStage + b * kXBox, xmap, f0 + b * kBox, row,\n"
+     "                bar);\n"
+     "    tma_load_2d(xs + st * kStage + (2 + b) * kXBox, xmap,\n"
+     "                fp + f0 + b * kBox, row, bar);\n"
+     "  }\n"),
+    ("bintopk_tf32.cu",
+     "#pragma unroll\n"
+     "  for (int e = 0; e < 4; ++e) asp_fold::split_tf32(v[e], hi[e], lo[e]);",
+     "  const uint8_t* lbox = box + 2 * kXBox;\n"
+     "  const uint32_t off[4] = {sw128_offset(r, c), sw128_offset(r + 8, c),\n"
+     "                           sw128_offset(r, c + 4),\n"
+     "                           sw128_offset(r + 8, c + 4)};\n"
+     "#pragma unroll\n"
+     "  for (int e = 0; e < 4; ++e) {\n"
+     "    hi[e] = __float_as_uint(v[e]);\n"
+     "    lo[e] = *reinterpret_cast<const uint32_t*>(lbox + off[e]);\n"
+     "  }"),
+    ("bintopk_tf32.cu", "encode_f32_rows(&xmap, xhat, a.n, a.F, kBG)",
+     "encode_f32_rows(&xmap, xhat, a.n, 2 * ((a.F + kBox - 1) / kBox * kBox), "
+     "kBG)")]
+K1TF32_VARIANTS = variants(K1TF32_PARTS, {
+    # hi·hi alone: chains a third as long
+    "one_tf32": [("bintopk_tf32.cu",
+                  "          wgmma_m64n32k8_tf32(part, ahi[kk], dlo + k8, "
+                  "k0 + kk > 0);\n"
+                  "          wgmma_m64n32k8_tf32(part, alo[kk], dhi + k8, "
+                  "1);\n"
+                  "          wgmma_m64n32k8_tf32(part, ahi[kk], dhi + k8, "
+                  "1);\n",
+                  "          wgmma_m64n32k8_tf32(part, ahi[kk], dhi + k8, "
+                  "k0 + kk > 0);\n")],
+    # the corpus fragments passed unsplit (hi = lo = v): what splitting
+    # the corpus once, into planes the ring would carry at twice the
+    # bytes, could save at most of the in-register split
+    "no_x_split": [("bintopk_tf32.cu",
+                    "  for (int e = 0; e < 4; ++e) asp_fold::split_tf32("
+                    "v[e], hi[e], lo[e]);",
+                    "  for (int e = 0; e < 4; ++e) hi[e] = lo[e] = "
+                    "__float_as_uint(v[e]);")],
+    # the corpus split once on the host into a hi and a lo plane
+    # (K1TF32_PLANES), each stage's slice carried as both: what the ring
+    # pays at twice the bytes for the split it no longer does
+    "planes": K1TF32_PLANES,
+    "planes_staging_only": (K1TF32_PLANES + K1TF32_PARTS["product"]
+                            + K1TF32_PARTS["fold"]),
+    # DEPTH 4's two chains of 4 k8 steps a slice at every depth
+    "group4": [("bintopk_tf32.cu",
+                "constexpr int kGroup = DEPTH >= 4 ? 4 : 8;",
+                "constexpr int kGroup = 4;")],
+    # the insertion network skipped by a thread whose score does not beat
+    # its pool's last (the same pools): what a cheaper fold could save
+    "fold_skip": [("bintopk_tf32.cu",
+                   "            int ci = (int)gr;\n#pragma unroll\n",
+                   "            int ci = (int)gr;\n"
+                   "            if (cs > s[DEPTH - 1][r])\n")]})
 K3BF16_VARIANTS = {
     "kernel": [], "no_select": K3BF16_PARTS["select"],
     "product_only": K3BF16_PARTS["staging"] + K3BF16_PARTS["select"],
@@ -317,11 +420,13 @@ SELECT_VARIANTS = {
                                    ("redux_bounded", "false", "true"))}}
 K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
 SOURCES = {"k1": "bintopk.cu", "k1bf16": "bintopk_bf16.cu",
+           "k1tf32": "bintopk_tf32.cu",
            "k3": "merge_topk.cu", "k3bf16": "merge_topk_bf16.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
            "k2": "taulambda.cu", "k5": "lambda_batch.cu",
            "k4": "select_tau.cu"}
 ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
+         "k1tf32": "asp_bintopk_tf32",
          "k3": "asp_merge_topk", "k3bf16": "asp_merge_topk_bf16",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
          "k2": "asp_taulambda", "k5": "asp_lambda_batch",
@@ -330,6 +435,7 @@ ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
 
 # the kernels whose machine code --before compares, by function name
 SASS_KERNEL = {"k1": "bintopk_kernel", "k1bf16": "bintopk_bf16_kernel",
+               "k1tf32": "bintopk_tf32_kernel",
                "k3": "merge_topk_kernel"}
 
 
@@ -445,10 +551,10 @@ def sass(kernel: str, tag: str) -> dict:
     return out
 
 
-def compare_sass(kernel: str) -> None:
-    """Prints, per instantiation of this checkout's kernel, whether its
-    machine code equals the --before build's."""
-    a, b = sass(kernel, "before"), sass(kernel, "now")
+def compare_sass(kernel: str, now: str = "now") -> None:
+    """Prints, per instantiation of this checkout's kernel (built under
+    tag ``now``), whether its machine code equals the --before build's."""
+    a, b = sass(kernel, "before"), sass(kernel, now)
     for key in sorted(b):
         print(f"{kernel} {key}: {len(b[key])} instructions, machine code "
               f"equal to --before's: {a.get(key) == b[key]}", flush=True)
@@ -537,6 +643,116 @@ def run_k1bf16(libs, dev, tag: str = "now") -> None:
                                      "version")
             print(line, flush=True)
         del qh, ql, xh, xlh, ps, pi, det
+        torch.cuda.empty_cache()
+
+
+# K1's float32 routes at the serving shapes: the glove cell's corpus
+# (1,183,514 x 100) and 1M x 128
+K1TF32_SHAPES = ((1_183_514, 100), (1_000_000, 128))
+
+
+def k1tf32_planes(xh):
+    """The prepared float32 corpus split as the kernel splits it (hi =
+    rna(v), lo = rna(v - hi) to tf32: add 0x1000 to the bits, clear the
+    low 13), as one (rows, 2·FP) plane, FP = ceil32(F): hi in columns
+    [0, F), lo in [FP, FP + F), zeros elsewhere."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000)
+                & -0x2000).view(torch.float32)
+    f = xh.shape[1]
+    fp = -(-f // 32) * 32
+    hi = rna(xh)
+    out = torch.zeros(xh.shape[0], 2 * fp, device=xh.device)
+    out[:, :f] = hi
+    out[:, fp:fp + f] = rna(xh - hi)
+    return out
+
+
+def run_k1tf32(runs, dev) -> None:
+    """K1's float32 wgmma route at K1TF32_SHAPES, B = 2048, 128 bins,
+    depth 3, on the clustered rows, at the wrapper's chunking; each of
+    ``runs`` ((tag, libs, entry): this checkout's variants, the
+    mma.sync kernel of this checkout and, with --before, DIR's float32
+    K1 as shipped, timed before and after the variants); the wgmma kernel
+    held to the plain version and bitwise to the mma.sync kernel, its
+    bound (3·2·B·N·F TF32 operations at 494.7 TFLOP/s) and the corpus
+    bytes every query block reads from L2, (B / 64)·N·F·4.  The "planes"
+    variants read k1tf32_planes of the same corpus, and their pools are
+    held bitwise to the kernel's."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, f in K1TF32_SHAPES:
+        x, gen = clustered(dev, n, f, seed=f)
+        xl = torch.rand(n, device=dev, generator=gen) * 0.2
+        xh, xlh = bt.prepare_binned_corpus(x, xl)
+        xp = k1tf32_planes(xh)
+        qh, c1 = prepare_query(x[:B] * 1.02, 0.9, dtype=torch.float32)
+        qh, ql = qh.contiguous(), xl[:B].contiguous()
+        del x
+        n_tiles = -(-n // BINS)
+        tpc = -(-n_tiles // bt._default_chunks(bt.grid_ctas(B, BINS, f),
+                                               n_tiles, dev))
+        chunks = -(-n_tiles // tpc)
+        shape = (B, chunks, DEPTH, BINS)
+        outs = {}
+        bound = 6.0 * B * n * f / 494.7e12 * 1e3
+        l2 = -(-B // 64) * n * f * 4
+        boxes = -(-(-(-f // 8) * 8) // 32)
+        planes_stages = min(16, (232_448 - 1024 - 2 * boxes * 8192)
+                            // (4 * 8192 + 16))
+        print(f"k1tf32 N={n} F={f}: {bt.tf32_stages(f)} stages, "
+              f"{bt._tf32_smem(f, bt.tf32_stages(f))} shared bytes, "
+              f"chunks={chunks}; bound {bound:.3f} ms (operations); corpus "
+              f"read from L2 {l2 / 1e9:.3f} GB a batch ({2 * l2 / 1e9:.3f} "
+              f"GB in the planes variants, {planes_stages} stages)",
+              flush=True)
+        order = [r for r in runs if r[0] != "now"] + \
+            [r for r in runs if r[0] == "now"] + \
+            [r for r in runs if r[0] != "now"]
+        for tag, libs, entry in order:
+            for name, fn in libs.items():
+                ps = torch.empty(shape, device=dev)
+                pi = torch.empty(shape, device=dev, dtype=torch.int32)
+                det = torch.empty((B, chunks, BINS), device=dev)
+
+                rows = xp if name.startswith("planes") else xh
+
+                def call():
+                    rc = fn(qh.data_ptr(), ql.data_ptr(), rows.data_ptr(),
+                            xlh.data_ptr(), c1, n, B, f, BINS, DEPTH, chunks,
+                            tpc, ps.data_ptr(), pi.data_ptr(), det.data_ptr(),
+                            stream)
+                    if rc != 0:
+                        raise SystemExit(f"{tag} {entry} {name}: launch "
+                                         f"failed ({rc})")
+                ms = time_ms(call)
+                line = f"{tag} {entry} N={n} F={f} {name}: {ms:.3f} ms"
+                if name == "planes":
+                    outs.setdefault("planes", (ps, pi, det))
+                if name == "kernel":
+                    outs.setdefault(tag, (ps, pi, det))
+                    line += f" ({ms / bound:.2f}x the bound"
+                    if entry == ENTRY["k1tf32"]:
+                        line += f"; L2 corpus reads {l2 / ms / 1e9:.3f} TB/s"
+                    line += ")"
+                print(line, flush=True)
+        ps, pi, det = outs["now"]
+        rs, _, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
+                                                depth=DEPTH, bins=BINS,
+                                                chunks=chunks)
+        err = max(float((ps - rs).abs().max()),
+                  float((det - rdet).abs().max()))
+        mma = outs["mma.sync"]
+        same = all(torch.equal(a, b) for a, b in zip((ps, pi, det), mma))
+        planes = all(torch.equal(a, b)
+                     for a, b in zip((ps, pi, det), outs["planes"]))
+        print(f"k1tf32 N={n} F={f}: max_abs_err vs plain {err:.3e}; pools "
+              f"bitwise equal to the mma.sync kernel's: {same}, to the "
+              f"planes variant's: {planes}", flush=True)
+        if err > 1e-5 or not same or not planes:
+            raise SystemExit("K1's wgmma route disagrees with its plain "
+                             "version, the mma.sync kernel or its planes "
+                             "variant")
+        del qh, ql, xh, xlh, xp, outs, mma, ps, pi, det, rs, rdet
         torch.cuda.empty_cache()
 
 
@@ -1006,6 +1222,17 @@ def main() -> int:
                 compare_sass("k1bf16")
             run_k1bf16(old, dev, "before")
         run_k1bf16(libs, dev)
+    if "k1tf32" in kernels:
+        runs = [("now", build("k1tf32", CSRC, K1TF32_VARIANTS, "now"),
+                 ENTRY["k1tf32"]),
+                ("mma.sync", build("k1", CSRC, {"kernel": []}, "mma"),
+                 ENTRY["k1"])]
+        if args.before is not None:
+            before = args.before.resolve()
+            runs.append(("before", build("k1", before, {"kernel": []},
+                                         "before"), ENTRY["k1"]))
+            compare_sass("k1", "mma")
+        run_k1tf32(runs, dev)
     if "k3" in kernels:
         libs = build("k3", CSRC, K3_VARIANTS, "now")
         if args.before is not None:
