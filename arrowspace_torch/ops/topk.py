@@ -14,7 +14,11 @@ chunk); it computes the dot products on the tensor cores as K1 does
 scored by K1, score bitwise alike), keeps each query's top-k in shared
 memory, and writes a partial top-k per (query, chunk); the plain two-key
 sort merges the partials.  ``merge_topk_partial_plain`` is the same
-computation in plain PyTorch.
+computation in plain PyTorch.  ``merge_topk_partial.launches`` counts the
+float32 launches, and the recorder's counter ``k3.f32``
+(utils.profiling.count) those inside a session's or stream's record: in
+a "merge" session's stream one a batch, in a "binned" session's only the
+repair's fallbacks.
 
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): bf16 query
 and corpus operands, a kernel of its own (csrc/merge_topk_bf16.cu,
@@ -32,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from ._build import check, lib, stream_of
 from .bintopk import check_operands, prepare_binned_corpus, wave_chunks
 from .search import (INT_MAX, NEG_INF, dot_plane, exact_topk, lambda_term,
@@ -217,6 +222,7 @@ def merge_topk_partial(qhat, qlam, xhat, xlam, c1: float, n: int, *,
         merge_topk_partial.launches_bf16 += 1
     else:
         merge_topk_partial.launches += 1
+        count("k3.f32")
     return out_s, out_i
 
 

@@ -2299,6 +2299,42 @@ def test_unprepared_cosine_session_bitwise(dev, migration_index):
         assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
 
 
+def test_k3_counter_in_the_stream_records(dev, migration_index,
+                                          monkeypatch):
+    """The recorder's ``k3.f32`` counts K3's float32 launches in a stream's
+    record: one a batch of a "merge" session's stream; in a "binned"
+    session's stream none where no batch overflows, and the repair's
+    fallbacks where one does."""
+    from arrowspace_torch import index as index_mod
+    from arrowspace_torch.utils import profiling
+    rows, queries, idx = migration_index
+
+    def stream():
+        return [r for r in profiling.records()
+                if r["kind"] == "stream"][-1]["counters"]
+
+    binned = idx.make_search_session(batch_size=64, k=10, alpha=0.9)
+    assert binned.kernel == "binned"
+    k3 = tk.merge_topk_partial.launches
+    list(binned.search_stream([rows[100:164] * 1.01,
+                               rows[1000:1064] * 1.01]))
+    c = stream()
+    assert c["batches"] == 2 and "k3.f32" not in c
+    assert tk.merge_topk_partial.launches == k3
+    list(binned.search_stream([queries]))     # row 0's copies overflow
+    c = stream()
+    assert c["k3.f32"] == tk.merge_topk_partial.launches - k3 >= 1
+    monkeypatch.setattr(index_mod, "binned_fits", lambda *a, **kw: False)
+    merge = idx.make_search_session(batch_size=64, k=10, alpha=0.9)
+    assert merge.kernel == "merge"
+    k3 = tk.merge_topk_partial.launches
+    list(merge.search_stream([queries, rows[100:164] * 1.01,
+                              queries[:5]]))
+    c = stream()
+    assert c["k3.f32"] == c["batches"] == 3
+    assert tk.merge_topk_partial.launches - k3 == 3
+
+
 def test_unprepared_energy_session_bitwise(dev):
     """prepare_corpus=False on a 70000-row energy index: K6 once a batch,
     results bitwise the prepared session's, no centred plane resident;
