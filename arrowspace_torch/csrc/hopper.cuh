@@ -1,11 +1,12 @@
 // Hopper's asynchronous pieces, as the bf16 modes of K1 (bintopk_bf16.cu)
-// and K3 (merge_topk_bf16.cu) and K1's float32 wgmma route
-// (bintopk_tf32.cu) use them: TMA tensor copies of 2-D bf16 or float32
-// tiles into shared memory in the 128-byte swizzle, mbarriers that count
-// their bytes and the warps that release a buffer, named barriers over
-// some of a CTA's warps, wgmma m64n32k16 and m64n64k16 bf16 products
-// whose operands both lie in shared memory, named by matrix descriptors,
-// and wgmma m64n32k8 tf32 products with A in registers.
+// and K3 (merge_topk_bf16.cu) and the float32 wgmma routes of K1
+// (bintopk_tf32.cu) and K3 (merge_topk_tf32.cu) use them: TMA tensor
+// copies of 2-D bf16 or float32 tiles into shared memory in the 128-byte
+// swizzle, mbarriers that count their bytes and the warps that release a
+// buffer, named barriers over some of a CTA's warps, wgmma m64n32k16 and
+// m64n64k16 bf16 products whose operands both lie in shared memory, named
+// by matrix descriptors, and wgmma m64n32k8 and m64n64k8 tf32 products
+// with A in registers.
 //
 // A tile here is rows of 128 bytes, 64 bf16 or 32 tf32 features each:
 // exactly the span of the 128-byte swizzle, so a row is never padded.  TMA
@@ -234,6 +235,32 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The same with B 64 rows × 8 tf32 features: d[4j + 2i + c] = row 16w +
+// g + 8i, column 8j + 2t + c over eight n8 blocks (K3's float32 wgmma
+// kernel, merge_topk_tf32.cu).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
 }

@@ -14,11 +14,19 @@ chunk); it computes the dot products on the tensor cores as K1 does
 scored by K1, score bitwise alike), keeps each query's top-k in shared
 memory, and writes a partial top-k per (query, chunk); the plain two-key
 sort merges the partials.  ``merge_topk_partial_plain`` is the same
-computation in plain PyTorch.  ``merge_topk_partial.launches`` counts the
-float32 launches, and the recorder's counter ``k3.f32``
-(utils.profiling.count) those inside a session's or stream's record: in
-a "merge" session's stream one a batch, in a "binned" session's only the
-repair's fallbacks.
+computation in plain PyTorch.
+
+float32 routes: ``merge_topk_partial`` launches the wgmma kernel
+(csrc/merge_topk_tf32.cu, ``asp_merge_topk_tf32``) where
+``merge_tf32_route`` admits the launch (F a multiple of 4 from 128 to
+3072, at least 64 queries), else the mma.sync kernel
+(csrc/merge_topk.cu, ``asp_merge_topk``); both run the same 3×TF32
+sequence a pair, so their outputs are bitwise equal.
+``merge_topk_partial.launches`` counts both, ``launches_wgmma`` and
+``launches_mma`` each route, and the recorder's counters ``k3.f32`` (both
+routes) and ``k3.tf32_wgmma`` (the wgmma route; utils.profiling.count)
+those inside a session's or stream's record: in a "merge" session's
+stream one a batch, in a "binned" session's only the repair's fallbacks.
 
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): bf16 query
 and corpus operands, a kernel of its own (csrc/merge_topk_bf16.cu,
@@ -44,8 +52,9 @@ from .search import (INT_MAX, NEG_INF, dot_plane, exact_topk, lambda_term,
 
 __all__ = ["merge_topk_partial", "merge_topk_partial_plain",
            "fused_lambda_topk", "merge_query_block", "merge_bf16_plan",
-           "merge_tile_rows", "merge_smem_bytes", "merge_ctas_per_sm",
-           "merge_rows_per_chunk", "merge_bf16_config"]
+           "merge_tf32_stages", "merge_tf32_route", "merge_tile_rows",
+           "merge_smem_bytes", "merge_ctas_per_sm", "merge_rows_per_chunk",
+           "merge_bf16_config", "merge_tf32_config"]
 
 MAX_K = 128
 _PAIRS = 4096              # (query, row) pairs a CTA holds (csrc kPairs)
@@ -58,6 +67,17 @@ _SORT_ELEMS = 1 << 27      # plain version: plane elements per sort
 _BF16_QB, _BF16_TR, _BF16_ROW, _BF16_ALIGN_SMEM = 64, 128, 128, 1024
 _BF16_QSLICE = _BF16_QB * _BF16_ROW
 _BF16_MIN_STAGES, _BF16_MAX_STAGES = 3, 8
+# K3's float32 wgmma route (csrc/merge_topk_tf32.cu): 64 queries × 128
+# corpus rows a CTA; a ring of 3 to 8 stages of one 32-feature box each
+# (128 corpus rows and the 64 queries' hi and lo tf32 planes, 128 bytes a
+# row), each with two 8-byte barriers, beside the selection state.  Its
+# widths: those where the ablation measured it (tools/kernel_ablation.py
+# --kernels k3tf32, H100, B = 2048, k = 10 and 100), and it beat the
+# mma.sync kernel at each: 1.2-1.5× at F = 128, 1.8-2.3× at 768 to 3072.
+_TF32_QB, _TF32_TR = 64, 128
+_TF32_STAGE = (_TF32_TR + 2 * _TF32_QB) * _BF16_ROW
+_TF32_MIN_STAGES, _TF32_MAX_STAGES = 3, 8
+_TF32_MIN_F, _TF32_MAX_F = 128, 3072
 
 
 def merge_query_block(bsz: int, use_bf16: bool = False) -> int:
@@ -67,6 +87,12 @@ def merge_query_block(bsz: int, use_bf16: bool = False) -> int:
     if use_bf16:
         return _BF16_QB
     return 64 if -(-bsz // 32) * 32 >= 64 else 32
+
+
+def _select_smem(qb: int, tr: int, k: int) -> int:
+    """Per query of a wgmma kernel's block: its k-th (score, id), top-k
+    list and candidate buffer of one tile's rows, and its count."""
+    return qb * 8 + qb * k * 8 + qb * tr * 8 + qb * 4
 
 
 def _bf16_stage(resident: bool) -> int:
@@ -82,8 +108,7 @@ def _bf16_smem(f: int, k: int, resident: bool, stages: int) -> int:
     return (_BF16_ALIGN_SMEM
             + (-(-f // 64) * _BF16_QSLICE if resident else 0)
             + stages * _bf16_stage(resident) + (2 * stages + 1) * 8
-            + _BF16_QB * 8 + _BF16_QB * k * 8 + _BF16_QB * _BF16_TR * 8
-            + _BF16_QB * 4)
+            + _select_smem(_BF16_QB, _BF16_TR, k))
 
 
 def merge_bf16_plan(f: int, k: int) -> tuple:
@@ -102,6 +127,42 @@ def merge_bf16_plan(f: int, k: int) -> tuple:
     return False, 0
 
 
+def _tf32_smem(k: int, stages: int) -> int:
+    """The float32 wgmma kernel's shared memory (csrc smem_bytes): 1024
+    bytes to align the swizzled boxes, the stages with their barriers,
+    and the selection state."""
+    return (_BF16_ALIGN_SMEM + stages * (_TF32_STAGE + 16)
+            + _select_smem(_TF32_QB, _TF32_TR, k))
+
+
+def merge_tf32_stages(k: int) -> int:
+    """Stages of the float32 wgmma kernel's ring at k (csrc stages): as
+    many as fit beside the selection state, at most 8 (3 at k = 128)."""
+    room = _SMEM_LIMIT - _tf32_smem(k, 0)
+    return max(0, min(_TF32_MAX_STAGES, room // (_TF32_STAGE + 16)))
+
+
+def merge_tf32_route(bsz: int, f: int, k: int) -> bool:
+    """Whether float32 K3 launches the wgmma kernel
+    (csrc/merge_topk_tf32.cu) at (B, F, k): F a multiple of 4 (a tensor
+    map's row stride is a multiple of 16 bytes) from 128 to 3072, the
+    widths where it was measured to beat the mma.sync kernel; a batch
+    that fills the 64-query block; 1 <= k <= MAX_K, where a ring of 3
+    stages or more fits beside the selection state.  Elsewhere (the
+    repair's fallbacks under 64 queries among them) the mma.sync kernel
+    (csrc/merge_topk.cu) runs.  bf16 operands never take it."""
+    return (f % 4 == 0 and _TF32_MIN_F <= f <= _TF32_MAX_F
+            and bsz >= _TF32_QB and 1 <= k <= MAX_K
+            and merge_tf32_stages(k) >= _TF32_MIN_STAGES)
+
+
+def _wgmma(bsz: int, k: int, use_bf16: bool, f: int) -> bool:
+    """Whether a launch runs one of the wgmma kernels, bf16 or float32,
+    whose rules (128-row tiles, one CTA an SM) differ from the mma.sync
+    kernel's."""
+    return use_bf16 or merge_tf32_route(bsz, f, k)
+
+
 def _need_f(f, use_bf16: bool) -> None:
     if use_bf16 and not f:
         raise ValueError("the bf16 merge rule needs F")
@@ -109,10 +170,10 @@ def _need_f(f, use_bf16: bool) -> None:
 
 def merge_tile_rows(bsz: int, k: int, use_bf16: bool = False,
                     f: int = 0) -> int:
-    """Corpus rows of a K3 tile: _PAIRS / query block (float32); the
-    bf16 kernel's two warpgroups' 64 rows each."""
+    """Corpus rows of a K3 tile: _PAIRS / query block (float32 on the
+    mma.sync kernel); the wgmma kernels' two warpgroups' 64 rows each."""
     _need_f(f, use_bf16)
-    if use_bf16:
+    if _wgmma(bsz, k, use_bf16, f):
         return _BF16_TR
     return _PAIRS // merge_query_block(bsz)
 
@@ -123,10 +184,13 @@ def merge_smem_bytes(bsz: int, k: int, use_bf16: bool = False,
     corpus slices of 64 features at stride 68 floats, and per query a
     top-k list and a one-tile candidate buffer of (score, id), its k-th
     entry and its candidate count: within a block's budget at every
-    k <= MAX_K.  bf16: _bf16_smem at merge_bf16_plan's choice."""
+    k <= MAX_K.  bf16: _bf16_smem at merge_bf16_plan's choice; float32
+    where merge_tf32_route admits: _tf32_smem at merge_tf32_stages."""
     _need_f(f, use_bf16)
     if use_bf16:
         return _bf16_smem(f, k, *merge_bf16_plan(f, k))
+    if merge_tf32_route(bsz, f, k):
+        return _tf32_smem(k, merge_tf32_stages(k))
     qb = merge_query_block(bsz)
     tr = _PAIRS // qb
     return 2 * (qb + tr) * 272 + 4 * (2 * qb * k + 2 * qb * tr + 3 * qb)
@@ -136,8 +200,8 @@ def merge_ctas_per_sm(bsz: int, k: int, use_bf16: bool = False,
                       f: int = 0) -> int:
     """K3 CTAs resident on one SM: two where their shared memory fits
     (float32: k <= 24 at 64-query blocks; the kernel's launch bounds keep
-    its registers within two CTAs), else one (bf16: always, its ring
-    fills the SM)."""
+    its registers within two CTAs), else one (the wgmma kernels: always,
+    their rings fill the SM)."""
     return 2 if 2 * (merge_smem_bytes(bsz, k, use_bf16, f) + 1024) \
         <= _SMEM_SM else 1
 
@@ -148,7 +212,7 @@ def merge_rows_per_chunk(bsz: int, n: int, sms: int, k: int,
     chunk count from ops.bintopk.wave_chunks over the grid's
     ceil(B / query block) CTAs a chunk, so that the grid fills the
     resident CTA slots of ``sms`` SMs (merge_ctas_per_sm each) in whole
-    waves: at most 64 chunks, or for the bf16 kernel as many as the
+    waves: at most 64 chunks, or for the wgmma kernels as many as the
     slots (a batch of one query block, a repair's rows, then fills every
     SM)."""
     tr = merge_tile_rows(bsz, k, use_bf16, f)
@@ -156,7 +220,8 @@ def merge_rows_per_chunk(bsz: int, n: int, sms: int, k: int,
     ctas = -(-bsz // merge_query_block(bsz, use_bf16))
     slots = sms * merge_ctas_per_sm(bsz, k, use_bf16, f)
     chunks = wave_chunks(ctas, n_tiles, slots,
-                         max(64, slots) if use_bf16 else 64)
+                         max(64, slots) if _wgmma(bsz, k, use_bf16, f)
+                         else 64)
     return -(-n_tiles // chunks) * tr
 
 
@@ -183,13 +248,29 @@ def merge_bf16_config(f: int, k: int) -> dict:
     return dict(zip(keys, out))
 
 
+def merge_tf32_config(f: int, k: int) -> dict:
+    """What the float32 wgmma kernel runs at (F, k), from the library
+    (CUDA only), in merge_bf16_config's keys (its query block is never
+    resident)."""
+    out = (ctypes.c_int * 7)()
+    check(lib().asp_merge_topk_tf32_config(f, k, out),
+          "asp_merge_topk_tf32_config")
+    keys = ("query_block", "tile_rows", "stages", "smem_bytes", "registers",
+            "spill_bytes", "ctas_per_sm")
+    return dict(zip(keys, out))
+
+
 def merge_topk_partial(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                        k: int, rows_per_chunk: int):
     """Exact top-k of the shifted scores over each chunk of
     ``rows_per_chunk`` corpus rows: (scores (B, chunks, k),
     ids (B, chunks, k) int32), best first, NEG_INF/INT_MAX in slots a
     short chunk cannot fill.  bf16 qhat and xhat take the bf16 kernel
-    (ops.bintopk.check_operands says what the kernels read).
+    (ops.bintopk.check_operands says what the kernels read); float32
+    operands the wgmma kernel where merge_tf32_route admits (B, F, k),
+    else the mma.sync kernel.  The wgmma kernel's C entry refuses an
+    xhat that is not 16-byte aligned (a tensor map's base), which
+    raises here.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
@@ -212,21 +293,33 @@ def merge_topk_partial(qhat, qlam, xhat, xlam, c1: float, n: int, *,
                         dtype=torch.int32)
     if bsz == 0 or n <= 0:
         return out_s, out_i
-    entry = "asp_merge_topk_bf16" if bf16 else "asp_merge_topk"
-    rc = getattr(lib(), entry)(
-        qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(), xlam.data_ptr(),
-        c1, n, bsz, f, k, chunks, rows_per_chunk, out_s.data_ptr(),
-        out_i.data_ptr(), stream_of(qhat))
-    check(rc, entry)
+    args = (qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(),
+            xlam.data_ptr(), c1, n, bsz, f, k, chunks, rows_per_chunk,
+            out_s.data_ptr(), out_i.data_ptr())
+    wgmma = not bf16 and merge_tf32_route(bsz, f, k)
+    if wgmma:   # the query rows split into a hi and a lo plane
+        planes = torch.empty((2, bsz, f), device=qhat.device,
+                             dtype=torch.float32)
+        args += (planes.data_ptr(),)
+    entry = ("asp_merge_topk_bf16" if bf16 else
+             "asp_merge_topk_tf32" if wgmma else "asp_merge_topk")
+    check(getattr(lib(), entry)(*args, stream_of(qhat)), entry)
     if bf16:
         merge_topk_partial.launches_bf16 += 1
+        return out_s, out_i
+    merge_topk_partial.launches += 1
+    count("k3.f32")
+    if wgmma:
+        merge_topk_partial.launches_wgmma += 1
+        count("k3.tf32_wgmma")
     else:
-        merge_topk_partial.launches += 1
-        count("k3.f32")
+        merge_topk_partial.launches_mma += 1
     return out_s, out_i
 
 
-merge_topk_partial.launches = 0
+merge_topk_partial.launches = 0       # float32, both routes
+merge_topk_partial.launches_wgmma = 0
+merge_topk_partial.launches_mma = 0
 merge_topk_partial.launches_bf16 = 0
 
 

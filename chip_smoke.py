@@ -204,7 +204,16 @@ launch's query block, stages, shared bytes, registers and spills) and
 bintopk (source csrc/bintopk.cu, the mma.sync kernel, timed through its
 C entry at the cosine path's shape, its pools bitwise the wgmma
 kernel's there; its launches counted on the 768-wide path); each path's
-K1 launches are split by route.  The bf16 modes have their own
+K1 launches are split by route.  float32 K3 likewise: merge_topk_tf32
+(source csrc/merge_topk_tf32.cu, the wgmma kernel that the cosine
+check's 1M x 128 batch and the 1536-wide batch take, through the
+wrapper at its plan; its launches counted on the 1536-wide merge path;
+its record at_1536 with the launch's stages, shared bytes, registers and
+spills) and merge_topk (source csrc/merge_topk.cu, the mma.sync kernel,
+timed through its C entry at its own plan at both shapes, its merged
+top-k bitwise the wgmma kernel's; its launches counted on the cosine
+path's repair fallbacks); each path's K3 launches are split by route.
+The bf16 modes have their own
 entries, bintopk_bf16 (source csrc/bintopk_bf16.cu; launches on the
 cosine bf16 session's path; its records at_768 and at_1536) and
 merge_topk_bf16 (source csrc/merge_topk_bf16.cu; its records at_repair
@@ -725,9 +734,10 @@ def kernels_vs_plain(torch, index, batches, dev):
     rec["bintopk"]["max_abs_err"] = k1_err
     rec["bintopk_tf32"]["at_glove"] = k1_wgmma_glove(torch, dev)
 
-    # K3 at k=10 over the whole batch
-    rec["merge_topk"] = k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n,
-                                    "K3 merge_topk")
+    # K3 at k=10 over the whole batch: its wgmma route, and the mma.sync
+    # kernel at its own plan
+    rec["merge_topk_tf32"], rec["merge_topk"] = k3_routes(k3_vs_plain(
+        torch, qhat, qlam, xhat, xlam, c1, n, "K3 merge_topk"))
     return rec
 
 
@@ -831,7 +841,9 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
     rows_pc = tk._chunk_rows(bsz, n, qhat.device, K, bf16, f)
     args = (qhat, qlam, xhat, xlam, c1, n)
     kw = dict(k=K, rows_per_chunk=rows_pc)
+    wgmma = tk.merge_topk_partial.launches_wgmma
     s_k, i_k = tk.merge_topk_partial(*args, **kw)
+    wgmma = tk.merge_topk_partial.launches_wgmma > wgmma
     s_p, i_p = tk.merge_topk_partial_plain(*args, **kw)
     chunks = s_k.shape[1]
     err = agree(f"{name} B={bsz} F={f} k={K} rows_per_chunk={rows_pc} "
@@ -860,7 +872,76 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
         f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32} "
         f"matmul context ({bsz}x{n}x{f}, {qhat.dtype}) "
         f"{out['matmul_ms']:.3f} ms")
+    if wgmma:
+        cfg = tk.merge_tf32_config(f, K)
+        out.update(route="wgmma", rows_per_chunk=rows_pc, chunks=chunks,
+                   **{key: cfg[key] for key in ("stages", "smem_bytes",
+                                                "registers", "spill_bytes")})
+        log(f"    {name} wgmma launch: {cfg['stages']} stages, "
+            f"{cfg['smem_bytes']} shared bytes, {cfg['registers']} "
+            f"registers, {cfg['spill_bytes']} B spilled")
+        out["mma_sync"] = k3_mma_sync(torch, s_k, i_k, *args, k=K, err=err)
+    elif not bf16:
+        out["route"] = "mma"
     return out
+
+
+def k3_mma_sync(torch, s_k, i_k, qhat, qlam, xhat, xlam, c1, n, *, k,
+                err) -> dict:
+    """Where float32 K3's wrapper took the wgmma route
+    (csrc/merge_topk_tf32.cu, partials s_k, i_k): the mma.sync kernel
+    (csrc/merge_topk.cu) through its C entry (asp_merge_topk) at its own
+    plan (merge_rows_per_chunk without F: 64-query blocks, up to two
+    CTAs an SM), its partials merged by the two-key sort and held
+    bitwise to the wgmma route's merged the same way, and timed.  Returns
+    its record: ms, rows_per_chunk, chunks, and the wgmma route's error
+    against the plain version (``err``), which it shares bit for bit."""
+    from arrowspace_torch.ops import topk as tk
+    from arrowspace_torch.ops._build import lib
+    from arrowspace_torch.ops.search import two_key_topk
+    bsz, f = qhat.shape
+    rows_pc = tk._chunk_rows(bsz, n, qhat.device, k)
+    chunks = -(-n // rows_pc)
+    s_m = torch.empty((bsz, chunks, k), device=qhat.device)
+    i_m = torch.empty((bsz, chunks, k), device=qhat.device,
+                      dtype=torch.int32)
+    stream = torch.cuda.current_stream(qhat.device).cuda_stream
+
+    def launch():
+        rc = lib().asp_merge_topk(
+            qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(),
+            xlam.data_ptr(), c1, n, bsz, f, k, chunks, rows_pc,
+            s_m.data_ptr(), i_m.data_ptr(), stream)
+        check(rc == 0, f"asp_merge_topk failed ({rc})")
+    launch()
+    (ws, wi), (ms_, mi) = (
+        two_key_topk(ps.reshape(bsz, -1), pi.reshape(bsz, -1).long(), k)
+        for ps, pi in ((s_k, i_k), (s_m, i_m)))
+    same = bool(torch.equal(ws, ms_)) and bool(torch.equal(wi, mi))
+    check(same, "K3: the mma.sync kernel's merged top-k differs from the "
+          "wgmma route's")
+    rec = dict(ms=cuda_ms(launch, reps=3), rows_per_chunk=rows_pc,
+               chunks=chunks, max_abs_err=err, bitwise_wgmma=same)
+    log(f"    K3 mma.sync kernel at its own plan (rows_per_chunk={rows_pc}, "
+        f"chunks={chunks}): ms={rec['ms']:.3f}; merged top-k bitwise the "
+        f"wgmma route's={same}")
+    return rec
+
+
+def k3_routes(rec: dict) -> tuple:
+    """A float32 K3 record of k3_vs_plain that took the wgmma route,
+    split into its two kernels' records: (merge_topk_tf32's, with the
+    wgmma launch's stages, shared bytes, registers and spills;
+    merge_topk's, the mma.sync kernel at its own plan with the same
+    bounds, plain time and matmul context)."""
+    check(rec["route"] == "wgmma", "float32 K3 did not take the wgmma "
+          "route")
+    tf32 = {key: v for key, v in rec.items() if key != "mma_sync"}
+    mma = {**{key: rec[key] for key in ("bound_ms", "bound_by",
+                                        "bound_fp32_ms", "library_ms",
+                                        "plain_ms", "matmul_ms")},
+           **rec["mma_sync"]}
+    return tf32, mma
 
 
 def energy_exact(zq, qlam, z, lam, ids, wl=E_WL, wd=E_WD):
@@ -1405,7 +1486,8 @@ def x_plain_session(torch, index, batches, dev):
 def x_kernels_vs_plain(torch, index, batches, dev):
     """K4 and K5 against their plain versions at the 1536-wide build's
     first row window, and K3 on batch 0 at 1M x 1536 (the session's
-    prepared corpus); returns their records (without launches)."""
+    prepared corpus; its wgmma route, held bitwise to the mma.sync
+    kernel); returns their records (without launches)."""
     from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops.search import prepare_query
@@ -1420,8 +1502,9 @@ def x_kernels_vs_plain(torch, index, batches, dev):
     xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
     qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
     qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
-    return k4, k5, k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam,
-                               c1, a.nitems, "K3 merge_topk")
+    return k4, k5, k3_routes(k3_vs_plain(
+        torch, qhat, qlam.contiguous(), xhat, xlam, c1, a.nitems,
+        "K3 merge_topk"))
 
 
 def where_time_goes(torch, sessions, batches, step,
@@ -2283,7 +2366,7 @@ def live_merge_phase(torch, counters, index, batches, dev):
                                    capacity=n0 + 8192)
     check(live.kernel == "merge", f"live session kernel {live.kernel}")
     live.warmup()
-    launches = 0
+    launches = RouteLaunches(0, 0)
     rng = np.random.default_rng(SEED + 16)
     for step in ("before", "after add and delete"):
         if step != "before":
@@ -3131,8 +3214,9 @@ def multiprocess_phase(torch, dev):
           and r["strided_repairs"]["energy"] > 0,
           "the dry run never took the strided mesh repair")
     out = dict(r["launches"])
-    wgmma = out.pop("bintopk_wgmma")
-    out["bintopk"] = K1Launches(wgmma, out["bintopk"] - wgmma)
+    for name in ("bintopk", "merge_topk"):
+        wgmma = out.pop(f"{name}_wgmma")
+        out[name] = RouteLaunches(wgmma, out[name] - wgmma)
     return out
 
 
@@ -3690,7 +3774,7 @@ def suite_k1(torch, dev, use_bf16=False) -> dict:
     draws.append(("alpha=1 anchor", d.anchor(), 1.0, 5, 0))
     fn = bt.binned_topk_pool
     count_of = ((lambda: fn.launches_bf16) if use_bf16 else
-                (lambda: K1Count(fn).launches))
+                (lambda: RouteCount(fn).launches))
     before = count_of()
     err, flags = 0.0, 0
     name = "K1 bf16" if use_bf16 else "K1"
@@ -3717,11 +3801,8 @@ def suite_k1(torch, dev, use_bf16=False) -> dict:
                    out[3], e)
         err, flags = max(err, e, det_err), flags + int(out[2].sum())
     sync(torch, dev)
-    after = count_of()
-    launches = after - before if use_bf16 else K1Launches(
-        after.wgmma - before.wgmma, after.mma - before.mma)
     return suite_record(f"{name} ({'bf16' if use_bf16 else 'float32'})",
-                        len(draws), err, flags, launches)
+                        len(draws), err, flags, count_of() - before)
 
 
 def suite_k3(torch, dev, use_bf16=False) -> dict:
@@ -3734,8 +3815,10 @@ def suite_k3(torch, dev, use_bf16=False) -> dict:
     from arrowspace_torch.ops import topk as tk
     from arrowspace_torch.ops.search import operand_query, two_key_topk
     d = suite_draws()
-    attr = "launches_bf16" if use_bf16 else "launches"
-    before = getattr(tk.merge_topk_partial, attr)
+    wrapper = tk.merge_topk_partial
+    count_of = ((lambda: wrapper.launches_bf16) if use_bf16 else
+                (lambda: RouteCount(wrapper).launches))
+    before = count_of()
     err = 0.0
     name = "K3 bf16" if use_bf16 else "K3"
     for n, f, b, k, alpha, seed in d.MERGE_CASES:
@@ -3758,8 +3841,7 @@ def suite_k3(torch, dev, use_bf16=False) -> dict:
         err = max(err, e)
     sync(torch, dev)
     return suite_record(f"{name} ({'bf16' if use_bf16 else 'float32'})",
-                        len(d.MERGE_CASES), err, 0,
-                        getattr(tk.merge_topk_partial, attr) - before)
+                        len(d.MERGE_CASES), err, 0, count_of() - before)
 
 
 def energy_tol(zq, ql, zx, xlam, ref_s, ref_i, wl, wd) -> float:
@@ -4122,12 +4204,15 @@ def suites_phase(torch, counters, dev) -> dict:
     log("[16] the JAX package's kernel suites on the card")
     t0 = time.perf_counter()
     reset(counters)
-    k1 = suite_k1(torch, dev)
+    k1, k3 = suite_k1(torch, dev), suite_k3(torch, dev)
     rec = {"bintopk": {**k1, "launches": route_split(k1["launches"], "mma")},
            "bintopk_tf32": {**k1, "launches": route_split(k1["launches"],
                                                           "wgmma")},
            "bintopk_bf16": suite_k1(torch, dev, use_bf16=True),
-           "merge_topk": suite_k3(torch, dev),
+           "merge_topk": {**k3, "launches": route_split(k3["launches"],
+                                                        "mma")},
+           "merge_topk_tf32": {**k3, "launches": route_split(k3["launches"],
+                                                             "wgmma")},
            "merge_topk_bf16": suite_k3(torch, dev, use_bf16=True),
            "energy_bintopk": suite_k6(torch, dev),
            "energy_chord": suite_k7(torch, dev),
@@ -4159,6 +4244,9 @@ KERNELS = {
     # float32 K1's wgmma route, where bintopk.tf32_route admits (F, B)
     "bintopk_tf32": ("arrowspace_torch/csrc/bintopk_tf32.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
+    # float32 K3's wgmma route, where topk.merge_tf32_route admits (B, F, k)
+    "merge_topk_tf32": ("arrowspace_torch/csrc/merge_topk_tf32.cu",
+                        "arrowspace_tpu/ops/pallas_topk.py:263"),
     # the bf16 modes (the TPU kernels' use_bf16=True)
     "bintopk_bf16": ("arrowspace_torch/csrc/bintopk_bf16.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
@@ -4167,10 +4255,11 @@ KERNELS = {
 }
 
 
-class K1Launches(int):
-    """float32 K1's launches over a path, both routes, with each route's
-    share: ``wgmma`` (csrc/bintopk_tf32.cu) and ``mma`` (csrc/bintopk.cu).
-    Two of them add route by route."""
+class RouteLaunches(int):
+    """A float32 kernel's launches over a path, both routes, with each
+    route's share: ``wgmma`` (K1 csrc/bintopk_tf32.cu, K3
+    csrc/merge_topk_tf32.cu) and ``mma`` (csrc/bintopk.cu,
+    csrc/merge_topk.cu).  Two of them add route by route."""
 
     def __new__(cls, wgmma: int, mma: int):
         obj = super().__new__(cls, wgmma + mma)
@@ -4178,34 +4267,44 @@ class K1Launches(int):
         return obj
 
     def __add__(self, other):
-        if isinstance(other, K1Launches):
-            return K1Launches(self.wgmma + other.wgmma, self.mma + other.mma)
+        if isinstance(other, RouteLaunches):
+            return RouteLaunches(self.wgmma + other.wgmma,
+                                 self.mma + other.mma)
         return int(self) + other
 
     __radd__ = __add__
 
+    def __sub__(self, other):
+        if isinstance(other, RouteLaunches):
+            return RouteLaunches(self.wgmma - other.wgmma,
+                                 self.mma - other.mma)
+        return int(self) - other
+
 
 def route_split(v, route: str) -> int:
-    """The launches of float32 K1's ``route`` ("wgmma" or "mma") in a
-    path's count (a K1Launches)."""
-    check(isinstance(v, K1Launches), f"K1's count {v!r} has no route split")
+    """The launches of a float32 kernel's ``route`` ("wgmma" or "mma") in
+    a path's count (a RouteLaunches)."""
+    check(isinstance(v, RouteLaunches),
+          f"the launch count {v!r} has no route split")
     return getattr(v, route)
 
 
-class K1Count:
-    """float32 K1's launch counts of binned_topk_pool under the
-    ``launches`` name the counters are read and reset by: read, a
-    K1Launches of its per-route counts (launches_wgmma, launches_mma),
-    held to its total (launches); set, all three."""
+class RouteCount:
+    """The float32 launch counts of a wrapper with two routes
+    (binned_topk_pool, merge_topk_partial) under the ``launches`` name
+    the counters are read and reset by: read, a RouteLaunches of its
+    per-route counts (launches_wgmma, launches_mma), held to its total
+    (launches); set, all three."""
 
     def __init__(self, fn):
         self.fn = fn
 
     @property
     def launches(self):
-        got = K1Launches(self.fn.launches_wgmma, self.fn.launches_mma)
-        check(got == self.fn.launches, f"K1's route counts {got.wgmma} + "
-              f"{got.mma} differ from its total {self.fn.launches}")
+        got = RouteLaunches(self.fn.launches_wgmma, self.fn.launches_mma)
+        check(got == self.fn.launches, f"{self.fn.__name__}'s route counts "
+              f"{got.wgmma} + {got.mma} differ from its total "
+              f"{self.fn.launches}")
         return got
 
     @launches.setter
@@ -4250,9 +4349,9 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    counters = {"k1": K1Count(bintopk.binned_topk_pool),
+    counters = {"k1": RouteCount(bintopk.binned_topk_pool),
                 "k2": taulambda.fused_taulambda,
-                "k3": topk.merge_topk_partial,
+                "k3": RouteCount(topk.merge_topk_partial),
                 "k4": select_tau.fused_select_tau,
                 "k5": lambda_batch.fused_lambda_batch,
                 "k6": energy_bintopk.binned_energy_pool,
@@ -4421,18 +4520,45 @@ def main() -> int:
             "wide_1536": x_launches["select_tau"],
             "streamed_1536": x_lam["k4"],
             "hypergraph": hyper["select_tau"]}
-        k3 = rec["merge_topk"]
+        k3t, k3 = rec["merge_topk_tf32"], rec["merge_topk"]
+        k3t_x, k3_x = k3_x
+        check(k3_wide["route"] == "mma", "K3 at the 768-wide repair's "
+              "shape took the wgmma route")
+        k3t["max_abs_err"] = max(k3t["max_abs_err"], k3t_x["max_abs_err"])
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
-        k3["at_1536"] = {key: k3_x[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_fp32_ms", "matmul_ms")}
+        at_1536 = ("ms", "plain_ms", "bound_ms", "bound_fp32_ms",
+                   "matmul_ms", "rows_per_chunk", "chunks")
+        k3t["at_1536"] = {key: k3t_x[key] for key in at_1536 + (
+            "stages", "smem_bytes", "registers", "spill_bytes")}
+        k3["at_1536"] = {key: k3_x[key] for key in at_1536}
         k3["wide_repair_768"] = {key: k3_wide[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_fp32_ms")}
-        k3["launches_by_path"] = {
-            "cosine": launches["merge_topk"],
-            "wide_768": w_launches["merge_topk"],
-            "wide_1536": x_launches["merge_topk"]}
-        launches["merge_topk"] = x_launches["merge_topk"]
+        k3_paths = {"cosine": launches["merge_topk"],
+                    "wide_768": w_launches["merge_topk"],
+                    "wide_1536": x_launches["merge_topk"],
+                    "spectral": spectral["merge_topk"],
+                    "live_merge_1536": k3_live,
+                    **pruned["k3"], **jax_corpus["k3"],
+                    "pruned_wide_768_b16": wide_pruned["k3"],
+                    "streamed_128": s128_topk["k3"],
+                    "streamed_1536": x_topk["k3"],
+                    "mesh_cosine_repair": mesh["mesh_cosine_binned"]["k3"],
+                    "mesh_cosine_merge": mesh["mesh_cosine_merge"]["k3"],
+                    "mesh_pruned": mesh["mesh_pruned"]["k3"],
+                    "mesh_1536": mesh_x["k3"],
+                    "multiprocess_nccl": mp["merge_topk"],
+                    **{f"migration_{r}": migration[r]["merge_topk"]
+                       for r in ("use_pallas_None", "use_pallas_True",
+                                 "use_pallas_True_below_gate",
+                                 "unprepared_cosine",
+                                 "unprepared_merge_1536")}}
+        # float32 K3's launches split by route: the 1536-wide merge
+        # session's on the wgmma kernel, the cosine path's repair
+        # fallbacks on the mma.sync kernel
+        launches["merge_topk_tf32"] = route_split(x_launches["merge_topk"],
+                                                  "wgmma")
+        launches["merge_topk"] = route_split(launches["merge_topk"], "mma")
         k1b = rec["bintopk_bf16"]
         k1b["max_abs_err"] = max(k1b["max_abs_err"], k1b_768["max_abs_err"],
                                  k1b_1536["max_abs_err"])
@@ -4491,25 +4617,10 @@ def main() -> int:
                               "multiprocess_nccl": mp["taulambda"],
                               "migration_spectral_build":
                                   migration["spectral_build"]["taulambda"]},
-                "merge_topk": {"spectral": spectral["merge_topk"],
-                               "live_merge_1536": k3_live,
-                               **pruned["k3"], **jax_corpus["k3"],
-                               "pruned_wide_768_b16": wide_pruned["k3"],
-                               "streamed_128": s128_topk["k3"],
-                               "streamed_1536": x_topk["k3"],
-                               "mesh_cosine_repair":
-                                   mesh["mesh_cosine_binned"]["k3"],
-                               "mesh_cosine_merge":
-                                   mesh["mesh_cosine_merge"]["k3"],
-                               "mesh_pruned": mesh["mesh_pruned"]["k3"],
-                               "mesh_1536": mesh_x["k3"],
-                               "multiprocess_nccl": mp["merge_topk"],
-                               **{f"migration_{r}": migration[r]["merge_topk"]
-                                  for r in ("use_pallas_None",
-                                            "use_pallas_True",
-                                            "use_pallas_True_below_gate",
-                                            "unprepared_cosine",
-                                            "unprepared_merge_1536")}},
+                "merge_topk": {p: route_split(v, "mma")
+                               for p, v in k3_paths.items()},
+                "merge_topk_tf32": {p: route_split(v, "wgmma")
+                                    for p, v in k3_paths.items()},
                 "lambda_batch": {"wide_768": w_launches["lambda_batch"],
                                  "wide_1536": x_launches["lambda_batch"],
                                  "streamed_1536": x_lam["k5"]},

@@ -522,9 +522,12 @@ def test_k3_bf16_rule_admits_every_shape():
 
 
 def test_k3_float32_merge_rule_unchanged():
-    """The float32 K3's rule does not read F and is the one it was:
-    64 × 64 (32 × 128 below 33 queries), two CTAs an SM up to k = 24,
-    its shared memory and chunking as before the bf16 kernel."""
+    """The float32 K3's mma.sync rule is the one it was: 64 × 64 (32 ×
+    128 below 33 queries), two CTAs an SM up to k = 24, its shared memory
+    and chunking as before the bf16 kernel.  F changes it only where
+    merge_tf32_route sends the launch to the wgmma kernel (at least 64
+    queries, F a multiple of 4 from 128 to 3072): not for a batch under
+    64 queries at any F, nor at F = 1534 or 3076."""
     assert [tk.merge_query_block(b) for b in (1, 32, 33, 64, 2048)] == \
         [32, 32, 64, 64, 64]
     assert [tk.merge_tile_rows(b, 10) for b in (1, 2048)] == [128, 64]
@@ -532,11 +535,13 @@ def test_k3_float32_merge_rule_unchanged():
         [2, 2, 1, 1]
     for k in (1, 10, 64, 128):
         assert tk.merge_smem_bytes(2048, k) == tk.merge_smem_bytes(
-            2048, k, False, 1536) == 4 * (2 * 128 * 68 + 2 * 64 * k
+            2048, k, False, 1534) == 4 * (2 * 128 * 68 + 2 * 64 * k
                                           + 2 * 64 * 64 + 3 * 64)
-        for bsz in (1, 2048):
+        assert tk.merge_smem_bytes(2048, k, False, 1536) == tk._tf32_smem(
+            k, tk.merge_tf32_stages(k))
+        for bsz, f in ((1, 3072), (63, 1536), (2048, 3076)):
             assert tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k) == \
-                tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k, False, 3072)
+                tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k, False, f)
 
 
 @pytest.mark.parametrize("alpha", [0.9, 1.0])

@@ -181,3 +181,85 @@ def test_three_tf32_truncating_k_step_within_tolerance_at_wide_f(f):
     err = float((dot.double() - qt.double() @ xt.double().T).abs().max())
     assert err <= 2e-6
     assert torch.equal(dot[:, 200], dot[:, 3])
+
+
+# K3's float32 wgmma route (csrc/merge_topk_tf32.cu): ring stages by k
+_TF32_STAGES = {1: 5, 10: 4, 24: 4, 64: 4, 66: 4, 67: 3, 100: 3, 128: 3}
+
+
+@pytest.mark.parametrize("k", sorted(_TF32_STAGES))
+@pytest.mark.parametrize("f,bsz", [(1536, 2048), (128, 64), (3072, 65),
+                                   (1536, 63), (1534, 2048), (124, 2048),
+                                   (3076, 2048), (768, 1)])
+def test_k3_tf32_route_rule(k, f, bsz):
+    """K3's float32 wgmma kernel: 64 queries × 128 corpus rows a CTA, a
+    ring of as many 32-feature stages (128 corpus rows and both query
+    planes' 64 rows, 128 bytes a row: 32 KB, and two 8-byte barriers) as
+    fit beside 1024 aligning bytes and the selection state (a k-th word,
+    a top-k list and a one-tile candidate buffer of 8-byte entries and a
+    count a query), at most 8.  It runs where F is a multiple of 4 from
+    128 to 3072 and the batch fills the 64-query block; there its plan
+    gives K3's tile rows, shared bytes, one CTA an SM and chunks of whole
+    128-row tiles; elsewhere the mma.sync kernel's rule holds."""
+    stages = _TF32_STAGES[k]
+    assert tk.merge_tf32_stages(k) == stages
+    smem = 1024 + stages * 32_784 + 64 * (8 + 8 * k + 8 * 128 + 4)
+    assert tk._tf32_smem(k, stages) == smem <= 232_448
+    assert stages == 8 or smem + 32_784 > 232_448
+    route = f % 4 == 0 and 128 <= f <= 3072 and bsz >= 64
+    assert tk.merge_tf32_route(bsz, f, k) == route
+    n = 1_000_000
+    rpc = tk.merge_rows_per_chunk(bsz, n, 132, k, False, f)
+    if route:
+        assert tk.merge_tile_rows(bsz, k, False, f) == 128
+        assert tk.merge_smem_bytes(bsz, k, False, f) == smem
+        assert tk.merge_ctas_per_sm(bsz, k, False, f) == 1
+        assert rpc % 128 == 0
+        chunks = -(-n // rpc)
+        ctas = -(-bsz // 64) * chunks
+        assert ctas / (-(-ctas // 132) * 132) >= 0.9
+    else:   # the mma.sync kernel's rule, as without F
+        assert tk.merge_tile_rows(bsz, k, False, f) == \
+            tk.merge_tile_rows(bsz, k)
+        assert tk.merge_smem_bytes(bsz, k, False, f) == \
+            tk.merge_smem_bytes(bsz, k)
+        assert rpc == tk.merge_rows_per_chunk(bsz, n, 132, k)
+
+
+def test_k3_tf32_route_edges():
+    """The dbpedia cell's launch (B = 2048, F = 1536, k = 10) takes the
+    wgmma route in 4 chunks of whole tiles on 132 SMs; a batch one query
+    short of the block (the repair's fallbacks, the wide repair at B = 1),
+    F not a multiple of 4, F past either end of the measured range and k
+    past 128 keep the mma.sync kernel; k = 128 fits a ring of 3 stages in
+    the 227 KB a block may use; bf16 operands never take the route, their
+    kernel's plan standing where the route would admit F."""
+    assert tk.merge_tf32_route(2048, 1536, 10)
+    rpc = tk.merge_rows_per_chunk(2048, 1_000_000, 132, 10, False, 1536)
+    assert rpc == 1954 * 128 and -(-1_000_000 // rpc) == 4
+    assert tk.merge_tf32_route(64, 1536, 10)
+    assert not tk.merge_tf32_route(63, 1536, 10)
+    for bsz in (1, 16, 32):
+        assert not tk.merge_tf32_route(bsz, 1536, 10)
+    for f in (1534, 1538, 1537, 130, 3070):
+        assert not tk.merge_tf32_route(2048, f, 10)
+    assert tk.merge_tf32_route(2048, 128, 10)
+    assert tk.merge_tf32_route(2048, 3072, 10)
+    for f in (124, 100, 3076, 4096):
+        assert not tk.merge_tf32_route(2048, f, 10)
+    assert tk.merge_tf32_route(2048, 1536, 128)
+    assert tk.merge_tf32_stages(128) == 3
+    assert tk.merge_smem_bytes(2048, 128, False, 1536) <= 227 * 1024
+    assert tk.merge_smem_bytes(2048, 128, False, 1536) + 32_784 \
+        > 227 * 1024
+    for k in (0, 129):
+        assert not tk.merge_tf32_route(2048, 1536, k)
+    for f in (128, 1536, 3072):
+        plan = tk.merge_bf16_plan(f, 10)
+        assert tk.merge_smem_bytes(2048, 10, True, f) == \
+            tk._bf16_smem(f, 10, *plan)
+        assert tk.merge_tile_rows(2048, 10, True, f) == 128
+    # the mma.sync kernel's plan at the same shapes is unchanged by F
+    assert tk.merge_smem_bytes(2048, 10) == 4 * (
+        2 * 128 * 68 + 2 * 64 * 10 + 2 * 64 * 64 + 3 * 64)
+    assert tk.merge_tile_rows(63, 10, False, 1536) == 64

@@ -2,7 +2,8 @@
 """Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K1's bf16
 mode (csrc/bintopk_bf16.cu), float32 K1's wgmma route
 (csrc/bintopk_tf32.cu), K3 (csrc/merge_topk.cu), K3's bf16 mode
-(csrc/merge_topk_bf16.cu), K6 (csrc/energy_bintopk.cu), K7
+(csrc/merge_topk_bf16.cu), float32 K3's wgmma route
+(csrc/merge_topk_tf32.cu), K6 (csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
 (csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
 and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
@@ -11,7 +12,7 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ablation.py
-        [--kernels k1,k1bf16,k1tf32,k3,k3bf16,k6,k7,k2,k5,k4]
+        [--kernels k1,k1bf16,k1tf32,k3,k3bf16,k3tf32,k6,k7,k2,k5,k4]
         [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
@@ -42,6 +43,13 @@ fails) and times each copy on the same inputs at the serving shapes:
   bound and the bytes every CTA reads from L2, the corpus (B / 64)·N·F·2
   and, where the query block is not resident, the query slices
   B·N·F·2 / (tile rows), with the rate they imply;
+- float32 K3's wgmma route (``--kernels k3tf32``): the clustered rows at
+  1M x 128, 768, 1536 and 3072, B = 2048, k = 10 and 100, each kernel at
+  its own chunking, beside this checkout's mma.sync kernel (the outputs
+  held bitwise equal at the wgmma route's chunking), with its ring
+  stages, shared bytes, bound (3·2·B·N·F TF32 operations at 494.7
+  TFLOP/s) and the L2 bytes of its stages a batch (the corpus box and
+  both query planes' boxes of every tile), with the rate they imply;
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
   clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
@@ -80,7 +88,9 @@ its pool's last: the same pools);
 K3's bf16 mode "kernel", "no_select" (no candidate appended, so no merge
 runs), "product_only" (no refill of the ring and no selection),
 "staging_only" (no wgmma and no selection) and "n32" (wgmma m64n32k16,
-32 rows a warpgroup, instead of m64n64k16); K6 and K7 also
+32 rows a warpgroup, instead of m64n64k16); float32 K3's wgmma route
+"kernel", "no_select", "product_only" and "staging_only" (the same
+parts); K6 and K7 also
 "partial_8/16/64" (the truncating accumulate summed in zeroed partials
 of 8, 16 or 64 features instead of the shipped 32); K2
 and K5 (fold: the epilogue that multiplies the products by the rows'
@@ -213,6 +223,20 @@ K3BF16_PARTS = {   # K3's bf16 mode (csrc/merge_topk_bf16.cu)
                  "const int loads = min(total, S);"),
                 ("merge_topk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
                  "    if (step < S) mbar_wait(full + 8 * st, phase);")],
+}
+K3TF32_PARTS = {   # K3's float32 wgmma route (csrc/merge_topk_tf32.cu)
+    "product": [("merge_topk_tf32.cu", "wgmma_m64n64k8_tf32(part,",
+                 "if (false) wgmma_m64n64k8_tf32(part,")],
+    "select": [("merge_topk_tf32.cu",
+                "if (__fsub_rn(dot, lift) >= kth_s) {",
+                "if (a.c1 > 1e30f) {")],
+    # no refill: the producer fills the ring once, and each box multiplies
+    # whatever its stage holds
+    "staging": [("merge_topk_tf32.cu", "const int loads = tiles * nb;",
+                 "const int loads = min(tiles * nb, S);"),
+                ("merge_topk_tf32.cu", "      mbar_wait(full + 8 * st, phase);",
+                 "      if (tile == 0 && bx < S)\n"
+                 "        mbar_wait(full + 8 * st, phase);")],
 }
 TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
     "product": [("energy_tile.cuh", "      tile_product_full<NT>(acc, qa, xb);",
@@ -360,6 +384,14 @@ K3BF16_VARIANTS = {
 # embeddings, the deepest k and the repair's single row
 K3BF16_SHAPES = ((128, 2048, 10), (1536, 2048, 10), (3072, 2048, 10),
                  (1536, 2048, 128), (128, 1, 10))
+K3TF32_VARIANTS = {
+    "kernel": [], "no_select": K3TF32_PARTS["select"],
+    "product_only": K3TF32_PARTS["staging"] + K3TF32_PARTS["select"],
+    "staging_only": K3TF32_PARTS["product"] + K3TF32_PARTS["select"]}
+# K3's float32 wgmma route at (F, k), B = 2048: the widths that set the
+# route's range, at the dbpedia cell's k and at cohere's
+K3TF32_SHAPES = tuple((f, k) for f in (128, 768, 1536, 3072)
+                      for k in (10, 100))
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
 K3_VARIANTS = variants(K3_PARTS, {})
 LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
@@ -422,12 +454,14 @@ K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
 SOURCES = {"k1": "bintopk.cu", "k1bf16": "bintopk_bf16.cu",
            "k1tf32": "bintopk_tf32.cu",
            "k3": "merge_topk.cu", "k3bf16": "merge_topk_bf16.cu",
+           "k3tf32": "merge_topk_tf32.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
            "k2": "taulambda.cu", "k5": "lambda_batch.cu",
            "k4": "select_tau.cu"}
 ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
          "k1tf32": "asp_bintopk_tf32",
          "k3": "asp_merge_topk", "k3bf16": "asp_merge_topk_bf16",
+         "k3tf32": "asp_merge_topk_tf32",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
          "k2": "asp_taulambda", "k5": "asp_lambda_batch",
          "k4": "asp_select_tau"}
@@ -923,6 +957,91 @@ def run_k3bf16(runs, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def run_k3tf32(runs, dev) -> None:
+    """K3's float32 wgmma route at K3TF32_SHAPES (1M clustered rows, B =
+    2048), each of ``runs`` ((tag, libs): this checkout's variants, and
+    the mma.sync kernel of this checkout, timed before and after them),
+    each kernel at its own chunking (merge_rows_per_chunk with and
+    without F); the wgmma kernel held to the plain version and bitwise to
+    the mma.sync kernel at its chunking, with its ring stages, shared
+    bytes, bound (3·2·B·N·F TF32 operations at 494.7 TFLOP/s) and the L2
+    bytes of its stages, (B / 64)·(tiles·128 + tiles·2·64)·ceil32(F)·4,
+    with the rate they imply."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    made = None
+    for f, k in K3TF32_SHAPES:
+        if made is None or made[0] != f:
+            made = None
+            torch.cuda.empty_cache()
+            made = (f, *k1_inputs(dev, f))
+        _, qh, ql, xh, xlh, c1 = made
+        stages = tk.merge_tf32_stages(k)
+        rpc_w = tk.merge_rows_per_chunk(B, N, sms, k, False, f)
+        rpc_m = tk.merge_rows_per_chunk(B, N, sms, k)
+        tiles = sum(-(-min(rpc_w, N - r0) // 128) for r0 in range(0, N, rpc_w))
+        l2 = -(-B // 64) * tiles * (128 + 2 * 64) * (-(-f // 32) * 32) * 4
+        bound = 6.0 * B * N * f / 494.7e12 * 1e3
+        shape = f"F={f} B={B} k={k}"
+        print(f"k3tf32 {shape}: {stages} stages, "
+              f"{tk._tf32_smem(k, stages)} shared bytes, chunks "
+              f"{-(-N // rpc_w)} (mma.sync {-(-N // rpc_m)}); bound "
+              f"{bound:.3f} ms (operations); L2 reads {l2 / 1e9:.3f} GB a "
+              f"batch", flush=True)
+        order = [r for r in runs if r[0] != "now"] + \
+            [r for r in runs if r[0] == "now"] + \
+            [r for r in runs if r[0] != "now"]
+        outs = {}
+        for tag, libs in order:
+            wgmma = tag == "now"
+            rpc = rpc_w if wgmma else rpc_m
+            chunks = -(-N // rpc)
+            out_s = torch.empty((B, chunks, k), device=dev)
+            out_i = torch.empty((B, chunks, k), device=dev,
+                                dtype=torch.int32)
+            extra = ()
+            if wgmma:
+                planes = torch.empty((2, B, f), device=dev)
+                extra = (planes.data_ptr(),)
+            for name, fn in libs.items():
+                def call():
+                    rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                            xlh.data_ptr(), c1, N, B, f, k, chunks, rpc,
+                            out_s.data_ptr(), out_i.data_ptr(), *extra,
+                            stream)
+                    if rc != 0:
+                        raise SystemExit(f"{tag} k3tf32 {name}: launch "
+                                         f"failed ({rc})")
+                ms = time_ms(call)
+                line = (f"{tag} k3tf32 {shape} chunks={chunks} {name}: "
+                        f"{ms:.3f} ms ({ms / bound:.2f}x the bound")
+                if wgmma and name == "kernel":
+                    outs["now"] = (out_s.clone(), out_i.clone())
+                    line += f"; L2 reads {l2 / ms / 1e9:.3f} TB/s"
+                print(line + ")", flush=True)
+        ms_s = torch.empty_like(outs["now"][0])
+        ms_i = torch.empty_like(outs["now"][1])
+        fn = dict(runs)["mma.sync"]["kernel"]
+        if fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(),
+              c1, N, B, f, k, ms_s.shape[1], rpc_w, ms_s.data_ptr(),
+              ms_i.data_ptr(), stream) != 0:
+            raise SystemExit("k3tf32: the mma.sync kernel failed")
+        rs, _ = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N, k=k,
+                                            rows_per_chunk=rpc_w)
+        err = float((outs["now"][0] - rs).abs().max())
+        same = (torch.equal(outs["now"][0], ms_s)
+                and torch.equal(outs["now"][1], ms_i))
+        print(f"k3tf32 {shape}: max_abs_err vs plain {err:.3e}; scores and "
+              f"ids bitwise equal to the mma.sync kernel's: {same}",
+              flush=True)
+        if err > 1e-5 or not same:
+            raise SystemExit("K3's wgmma route disagrees with its plain "
+                             "version or the mma.sync kernel")
+        del outs, ms_s, ms_i, rs
+    del made
+    torch.cuda.empty_cache()
+
+
 def energy_plane(dev, centred: bool):
     """(zq, qn, qlam, zx, xn, xlam) of the smoke's z-plane."""
     x, gen = clustered(dev, N, 128, seed=11)
@@ -1251,6 +1370,10 @@ def main() -> int:
             runs.append(("before", build("k3bf16", before, {"kernel": []},
                                          "before", src)))
         run_k3bf16(runs, dev)
+    if "k3tf32" in kernels:
+        run_k3tf32([("now", build("k3tf32", CSRC, K3TF32_VARIANTS, "now")),
+                    ("mma.sync", build("k3", CSRC, {"kernel": []}, "mma"))],
+                   dev)
     for kernel in ("k6", "k7"):
         if kernel not in kernels:
             continue
