@@ -1,10 +1,10 @@
-// What the tensor-core kernels share: K1 (bintopk.cu, λ-aware cosine
-// score), K6/K7 (the energy tile, energy_tile.cuh), K3 (merge_topk.cu,
-// the exact merge top-k of K1's score) and the λ body of K2 and K5
-// (lambda_tile.cuh).  K1, K6 and K7 keep, per (query, bin), a running
-// top-DEPTH in registers where their tensor-core accumulators are; K3
-// keeps each query's top-k in shared memory.  This header holds the
-// pieces they have in common:
+// What the mma.sync tensor-core kernels share: K1 (bintopk.cu, λ-aware
+// cosine score), K6/K7 (the energy tile, energy_tile.cuh) and the λ body
+// of K2 and K5 (lambda_tile.cuh); the wgmma kernels of K1 and K3
+// (bintopk_tf32.cu, merge_topk_tf32.cu) take split_tf32 from it.  K1, K6
+// and K7 keep, per (query, bin), a running top-DEPTH in registers where
+// their tensor-core accumulators are.  This header holds the pieces they
+// have in common:
 // - the staging of a tile's feature slice into shared memory by cp.async
 //   (stage_slice for a bin tile of the corpus, stage_rows for any run of
 //   rows), two buffers a kernel, one barrier a step;
@@ -30,8 +30,8 @@ constexpr int kThreads = 256;
 constexpr int kTileFK = 64;
 constexpr int kTileXS = 68;
 
-// What a k-step of an operand type takes (K1 and K3 are written for any
-// type that has one; float32 is the one they take): kStep features a
+// What a k-step of an operand type takes (K1 is written for any type
+// that has one; float32 is the one it takes): kStep features a
 // k-step; kPad elements of row padding of a staged slice or query block
 // (a row stride ≡ 4 mod 8 32-bit words); kLane elements between the
 // fragment columns of lanes t and t + 1.
@@ -116,8 +116,7 @@ __device__ __forceinline__ void stage_slice(float* dst,
 // features f0 .. f0+kTileFK-1, into dst[ROWS][kTileXS]; rows at or past
 // r_end and features at or past F are stored as zeros.  vec: F is a
 // multiple of 4 and the rows are 16-byte aligned.  The energy tile stages
-// its query slices with it, K3 both its query and its corpus slices, the
-// λ body the slices of L, W and W2.
+// its query slices with it, the λ body the slices of L, W and W2.
 template <int ROWS>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ src,

@@ -1,6 +1,6 @@
 // Hopper's asynchronous pieces, as the bf16 modes of K1 (bintopk_bf16.cu)
-// and K3 (merge_topk_bf16.cu) and the float32 wgmma routes of K1
-// (bintopk_tf32.cu) and K3 (merge_topk_tf32.cu) use them: TMA tensor
+// and K3 (merge_topk_bf16.cu), K1's float32 wgmma route (bintopk_tf32.cu)
+// and float32 K3 (merge_topk_tf32.cu) use them: TMA tensor
 // copies of 2-D bf16 or float32 tiles into shared memory in the 128-byte
 // swizzle, mbarriers that count their bytes and the warps that release a
 // buffer, named barriers over some of a CTA's warps, wgmma m64n32k16 and
@@ -240,8 +240,8 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
 }
 
 // The same with B 64 rows × 8 tf32 features: d[4j + 2i + c] = row 16w +
-// g + 8i, column 8j + 2t + c over eight n8 blocks (K3's float32 wgmma
-// kernel, merge_topk_tf32.cu).
+// g + 8i, column 8j + 2t + c over eight n8 blocks (float32 K3,
+// merge_topk_tf32.cu).
 __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
                                                     const uint32_t (&a)[4],
                                                     uint64_t b,

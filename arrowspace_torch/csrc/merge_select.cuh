@@ -1,4 +1,4 @@
-// The exact selection both modes of K3 share (merge_topk.cu and
+// The exact selection both modes of K3 share (merge_topk_tf32.cu and
 // merge_topk_bf16.cu): the order of the top-k, and the merge of one
 // query's candidates into its sorted top-k list by rank.  Both run the
 // same instructions, so the two modes order and tie alike.

@@ -2,7 +2,7 @@
 // wgmma fed by a TMA ring.
 //
 // Replaces arrowspace_tpu/ops/pallas_topk.py fused_lambda_topk with
-// use_bf16=True (pallas_call :263).  It computes what merge_topk.cu
+// use_bf16=True (pallas_call :263).  It computes what merge_topk_tf32.cu
 // computes (for every query q and corpus row g < n of each chunk of
 // rows_per_chunk rows, the shifted score (α·q̂)·x̂_g - c1·min(|λ_q - λ_g|,
 // 1), and per (query, chunk) the exact top-k by (-score, lowest id), any
@@ -12,8 +12,8 @@
 // K1's bf16 repair.
 //
 // What bounds it on an H100: 2·B·N·F dense bf16 operations, 6.4 ms at
-// 1M×1536 and 12.7 ms at 1M×3072 (B = 2048, 989.4 TFLOP/s).  The earlier
-// design (merge_topk.cu on bf16, mma.sync m16n8k16) began every
+// 1M×1536 and 12.7 ms at 1M×3072 (B = 2048, 989.4 TFLOP/s).  An mma.sync
+// design (m16n8k16 on staged slices) began every
 // 64-feature slice with a cp.async wait and a block-wide barrier, staged
 // the query block's slice again beside the corpus slice, and then gave
 // each warp 16 mma.sync: a round trip to L2 a slice.  Here:
@@ -37,7 +37,7 @@
 //   count passes through a shuffle, so the compiler sees it uniform;
 //   guarded by a count it cannot prove uniform, the chain's wgmma are
 //   serialized (ptxas C7520), and the kernel took up to 1.2× as long;
-// - selection (merge_select.cuh, as merge_topk.cu): a thread holds 2
+// - selection (merge_select.cuh, as merge_topk_tf32.cu): a thread holds 2
 //   queries × 16 rows of the tile.  A pair whose dot product is below its
 //   query's k-th score (the λ term only lowers a score) is dropped at
 //   once; the others are scored, their row's λ loaded then, and those

@@ -1,20 +1,21 @@
-// K3's float32 route on wgmma: exact streaming merge top-k, its 3×TF32
+// K3: exact streaming merge top-k on float32 operands, its 3×TF32
 // product on wgmma fed by a TMA ring.
 //
 // Replaces arrowspace_tpu/ops/pallas_topk.py fused_lambda_topk
-// (pallas_call :263) where ops/topk.py merge_tf32_route admits the
-// launch: float32 operands, F a multiple of 4, a batch of at least 64
-// queries, and F in the range where this kernel beats merge_topk.cu.  It
-// computes what merge_topk.cu computes, bitwise: for every query and
-// corpus row g < n of each chunk of rows_per_chunk rows the shifted score
-// (α·q̂)·x̂_g - c1·min(|λ_q - λ_g|, 1), and per (query, chunk) the exact
-// top-k by (-score, lowest id), any k <= 128.
+// (pallas_call :263, body _kernel :90, _merge_topk :74).  What it
+// computes: for every query q and corpus row g < n of each chunk of
+// rows_per_chunk rows the shifted score (α·q̂)·x̂_g - c1·min(|λ_q - λ_g|,
+// 1), and per (query, chunk) the exact top-k by (-score, lowest id), any
+// k <= 128, any B >= 1, rows of F features zero-padded to whole 16 bytes
+// (F a multiple of 4: ops/bintopk.py operand_width).  The plain two-key
+// sort merges the chunks' partials (ops/topk.py).  It serves the cosine
+// search where K1's gate does not admit F (F > 1264), the "merge"
+// SearchSession, and the rows of K1's repair whose fired bins overflow.
 //
 // What bounds it on an H100: the B×N×F products in 3×TF32, 38.2 ms at
-// 1M × 1536 and B = 2048 (494.7 TFLOP/s).  merge_topk.cu issues them as
-// mma.sync m16n8k8 from staged slices, with a block-wide barrier a
-// slice, at a quarter of that rate; wgmma is the only way to the full
-// rate.  The design:
+// 1M × 1536 and B = 2048 (494.7 TFLOP/s).  mma.sync m16n8k8 from staged
+// slices, with a block-wide barrier a slice, reaches a quarter of that
+// rate; wgmma is the only way to the full rate.  The design:
 // - a CTA is two consumer warpgroups and one producer warp (288
 //   threads).  Both warpgroups multiply the same 64 queries (wgmma's N);
 //   each takes 64 corpus rows of the tile (wgmma's M), 128 rows a tile,
@@ -33,7 +34,7 @@
 //   (hopper.cuh: 128-byte swizzle, one full and one empty mbarrier a
 //   stage).  A stage is one 32-feature box: 128 corpus rows (16 KB) and
 //   64 queries of each plane (8 KB each), so every (query, row) pair
-//   costs 8 bytes of L2 reads a 64-feature slice, as in merge_topk.cu.
+//   costs 8 bytes of L2 reads a 64-feature slice.
 //   Half-slice stages let a ring of 3 or more fit beside the selection
 //   state at every k <= 128.  The consumers wait only on a stage's full
 //   barrier and release it by one arrival a warp once the chain that
@@ -44,11 +45,12 @@
 //   slice held 64 and spilled, and took 1.15× as long): at each k8 step
 //   below F, hi_x·lo_q, then lo_x·hi_q, then hi_x·hi_q, the slice's first
 //   with scale-d = 0, so the slice sums into a zeroed partial that one
-//   rounded fp32 add joins to the running dot product.  That is merge_topk.cu's sequence (binned_fold.cuh
-//   mma_kstep) with A and B exchanged, as bintopk_tf32.cu runs K1's (each
-//   product is exact in fp32, and the tensor core sums a k8 step's
-//   products alike either way), so the two kernels, and K1, score a pair
-//   bitwise alike (the repair merges K3's rows with K1's).  The k8 count
+//   rounded fp32 add joins to the running dot product.  That is K1's
+//   sequence (binned_fold.cuh mma_kstep) with A and B exchanged, as
+//   bintopk_tf32.cu runs it (each product is exact in fp32, and the
+//   tensor core sums a k8 step's products alike either way), so K1 and
+//   K3 score a pair bitwise alike (the repair merges K3's rows with
+//   K1's).  The k8 count
 //   passes through a shuffle, so that the compiler sees it uniform and
 //   does not serialize the chain (ptxas C7520: 1.2× as long);
 // - selection (merge_select.cuh, as merge_topk_bf16.cu): after a tile's
@@ -130,7 +132,7 @@ struct Args {
 };
 
 // The batch's query rows split into their tf32 planes: hi = rna(v), lo =
-// rna(v - hi), as the mma.sync kernels split them in registers.
+// rna(v - hi), as K1's mma.sync kernel splits them in registers.
 __global__ void split_queries(const float* __restrict__ q,
                               float* __restrict__ hi, float* __restrict__ lo,
                               long count) {
@@ -350,8 +352,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // float32 qhat (B, F) and xhat (at least n rows of F), F a multiple of 4
-// and xhat 16-byte aligned (the tensor map's rule); qlam, xlam and the
-// outputs (B, n_chunks, k) float32 and int32, as asp_merge_topk's;
+// and xhat 16-byte aligned (the tensor map's rule); qlam and xlam (B,)
+// and (n,) float32; out_s and out_i (B, n_chunks, k) float32 and int32;
 // planes: a 16-byte-aligned float32 workspace of 2·B·F values, where the
 // query rows are split (hi, then lo) on the same stream before the merge.
 // Returns 0, a cudaError_t, or the CUresult of a failed tensor-map
@@ -398,8 +400,8 @@ extern "C" int asp_merge_topk_tf32(const void* qhat, const void* qlam,
 
 // What a launch at (F, k) runs: out[0..6] = query block, corpus rows a
 // tile, stages, dynamic shared bytes, registers a thread, local (spilled)
-// bytes a thread, and the CTAs an SM holds; ops/topk.py merge_tf32_plan
-// is the same rule.  Returns a cudaError_t (cudaErrorInvalidValue where F
+// bytes a thread, and the CTAs an SM holds; ops/topk.py merge_tf32_stages
+// and _tf32_smem are the same rule.  Returns a cudaError_t (cudaErrorInvalidValue where F
 // is not a multiple of 4 or k is outside [1, 128]).
 extern "C" int asp_merge_topk_tf32_config(int F, int k, int* out) {
   if (k < 1 || k > kMaxK || F <= 0 || F % 4 != 0)

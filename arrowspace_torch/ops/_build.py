@@ -32,8 +32,7 @@ __all__ = ["build", "lib", "check", "stream_of"]
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bintopk.cu", "bintopk_bf16.cu", "bintopk_tf32.cu",
-           "merge_topk.cu", "merge_topk_bf16.cu", "merge_topk_tf32.cu",
-           "taulambda.cu",
+           "merge_topk_bf16.cu", "merge_topk_tf32.cu", "taulambda.cu",
            "select_tau.cu", "lambda_batch.cu", "energy_bintopk.cu",
            "energy_chord.cu")
 HEADERS = ("common.cuh", "binned_fold.cuh", "hopper.cuh", "merge_select.cuh",
@@ -61,21 +60,19 @@ SIGNATURES = {
     # F, depth, out[6]: the same account of the wgmma route's launch
     "asp_bintopk_tf32_config": (_I, _I, _P),
     # qhat, qlam, xhat, xlam, c1, n, B, F, k, n_chunks, rows_per_chunk,
-    # out_s, out_i, stream
-    "asp_merge_topk": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P),
-    # the same with bf16 qhat and xhat
+    # out_s, out_i, stream: K3 on bf16 qhat and xhat
     "asp_merge_topk_bf16": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P),
     # F, k, out[8]: the bf16 kernel's query block, tile rows, stages,
     # shared bytes, registers, spilled bytes, query residency and CTAs an
     # SM at that launch
     "asp_merge_topk_bf16_config": (_I, _I, _P),
-    # the arguments of asp_merge_topk, then planes (a float32 workspace of
-    # 2·B·F values, the split queries), stream: K3's float32 wgmma route
+    # the arguments of asp_merge_topk_bf16 on float32 qhat and xhat, then
+    # planes (a float32 workspace of 2·B·F values, the split queries),
+    # stream: float32 K3
     "asp_merge_topk_tf32": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P),
-    # F, k, out[7]: the float32 wgmma kernel's query block, tile rows,
+    # F, k, out[7]: the float32 kernel's query block, tile rows,
     # stages, shared bytes, registers, spilled bytes and CTAs an SM
     "asp_merge_topk_tf32_config": (_I, _I, _P),
     # x, L, W, W2, d_r, d_c, d2_r, d2_c, N, F, n, kind, pct, fixed,

@@ -40,7 +40,7 @@ import torch
 
 from ..config import numpy_dtype
 from ..utils.profiling import count, span
-from .bintopk import (BF16_ALIGN, binned_lambda_topk,
+from .bintopk import (binned_lambda_topk, operand_width,
                       prepare_binned_corpus, prepared_rows, scoring_dtype)
 from .energy_approx import (binned_energy_topk_approx,
                             prepare_energy_chord_sample)
@@ -250,10 +250,9 @@ def strided_lambda_repair(q_rows, qlam_rows, det_rows, kth, out_idx_rows,
     dt = lams[0].dtype if prepared else scoring_dtype(parts[0])
     like = None
     if not prepared:
-        f = parts[0].shape[1]
+        op_dt = torch.bfloat16 if use_bf16 else dt
         like = parts[0].new_empty(
-            (0, -(-f // BF16_ALIGN) * BF16_ALIGN if use_bf16 else f),
-            dtype=torch.bfloat16 if use_bf16 else dt)
+            (0, operand_width(parts[0].shape[1], op_dt)), dtype=op_dt)
     lams = [lam.to(dt) for lam in lams]
     if mesh:
         assert shard_n and bins % (-(-n // shard_n)) == 0, (

@@ -30,19 +30,22 @@ dot product is α·cos, and c1 is added back after the flush.
 
 float32 routes: ``binned_topk_pool`` launches the wgmma kernel
 (csrc/bintopk_tf32.cu, ``asp_bintopk_tf32``) where ``tf32_route``
-admits the launch (F a multiple of 4, at most 352, and at least 64
-queries), else the mma.sync kernel (csrc/bintopk.cu, ``asp_bintopk``);
-both run the same 3×TF32 sequence a pair, so their pools are bitwise
-equal.  ``binned_topk_pool.launches`` counts both, ``launches_wgmma``
-and ``launches_mma`` each route, and the recorder's counter
-``k1.tf32_wgmma`` (utils.profiling.count) the wgmma launches inside a
-session's or stream's record.
+admits the launch (F at most 352, and at least 64 queries), else the
+mma.sync kernel (csrc/bintopk.cu, ``asp_bintopk``); both run the same
+3×TF32 sequence a pair, so their pools are bitwise equal.
+``binned_topk_pool.launches`` counts both, ``launches_wgmma`` the wgmma
+route, and the recorder's counter ``k1.tf32_wgmma``
+(utils.profiling.count) the wgmma launches inside a session's or
+stream's record.
+
+Prepared operand rows, float32 or bf16, are zero-padded to whole 16
+bytes (``operand_width``: a TMA row stride is a multiple of 16 bytes;
+zeros add nothing to a dot product).
 
 bf16 mode (``use_bf16``, the JAX kernel's ``use_bf16=True``): the
-prepared corpus and the query operand are bf16, zero-padded to a
-multiple of 8 features (a TMA row stride is a multiple of 16 bytes), and
-a kernel of its own (csrc/bintopk_bf16.cu, ``asp_bintopk_bf16``, counted
-by ``binned_topk_pool.launches_bf16``) multiplies them with ``wgmma``
+prepared corpus and the query operand are bf16, and a kernel of its own
+(csrc/bintopk_bf16.cu, ``asp_bintopk_bf16``, counted by
+``binned_topk_pool.launches_bf16``) multiplies them with ``wgmma``
 from shared memory, float32 accumulation, the corpus slices arriving by
 TMA into a ring of ``bf16_stages`` stages; λ, c1, the scores and det
 stay float32.  Its plain version upcasts the bf16 operands to float32.
@@ -61,7 +64,8 @@ from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
            "scoring_dtype", "prepared_rows", "bintopk_fits", "query_block",
-           "grid_ctas", "tf32_route", "tf32_stages", "tf32_config",
+           "grid_ctas", "operand_width", "tf32_route", "tf32_stages",
+           "tf32_config",
            "bf16_stages", "bf16_config", "wave_chunks", "check_operands",
            "binned_topk_pool",
            "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
@@ -79,10 +83,10 @@ _PAIRS = 4096
 # The bf16 kernel's widest F: the JAX session's binned limit
 # (arrowspace_tpu/index.py:214); its shared memory would admit more.
 BF16_MAX_F = 1536
-# Features of a bf16 operand row are padded to a multiple of this: a
-# tensor map's row stride is a multiple of 16 bytes (both bf16 kernels,
-# K1's and K3's, read their rows by tensor map).
-BF16_ALIGN = 8
+# Bytes a prepared operand row is padded to a multiple of: the TMA
+# kernels (K1's and K3's wgmma kernels) read rows by tensor map, whose
+# row stride is a multiple of 16 bytes.
+ROW_ALIGN_BYTES = 16
 # Both wgmma kernels of K1 (csrc/bintopk_bf16.cu, csrc/bintopk_tf32.cu)
 # stage their tiles in the 128-byte swizzle: rows of 128 bytes, the
 # tiles aligned to 1024 bytes.
@@ -151,15 +155,21 @@ def _tf32_smem(f: int, stages: int) -> int:
             + stages * (_TF32_STAGE + 16))
 
 
+def operand_width(f: int, dtype: torch.dtype) -> int:
+    """Features of a prepared operand row of F features in ``dtype``: F
+    zero-padded to whole ROW_ALIGN_BYTES (4 float32 features, 8 bf16)."""
+    per = ROW_ALIGN_BYTES // dtype.itemsize
+    return -(-f // per) * per
+
+
 def tf32_route(f: int, bsz: int) -> bool:
     """Whether float32 K1 launches the wgmma kernel (csrc/bintopk_tf32.cu)
-    at (F, B): F a multiple of 4 (a tensor map's row stride is a multiple
-    of 16 bytes), the split query block beside a ring of at least 3
-    stages within the shared memory (F <= 352), and a batch that fills
-    the 64-query CTA.  Elsewhere the mma.sync kernel (csrc/bintopk.cu)
-    runs, at its own query block (query_block)."""
-    return (f >= 4 and f % 4 == 0 and bsz >= _TF32_QB
-            and tf32_stages(f) >= _TF32_MIN_STAGES)
+    at (F, B), F the operands' width (operand_width): the split query
+    block beside a ring of at least 3 stages within the shared memory
+    (F <= 352), and a batch that fills the 64-query CTA.  Elsewhere the
+    mma.sync kernel (csrc/bintopk.cu) runs, at its own query block
+    (query_block)."""
+    return bsz >= _TF32_QB and tf32_stages(f) >= _TF32_MIN_STAGES
 
 
 def tf32_config(f: int, depth: int) -> dict:
@@ -206,13 +216,13 @@ def grid_ctas(bsz: int, bins: int, f: int, use_bf16: bool = False) -> int:
 
 
 def bintopk_fits(f: int, use_bf16: bool = False) -> bool:
-    """Whether K1's shared memory fits a block at its smallest query
-    block (float32 32, bf16 64): the same at every bin count.  The bf16
-    kernel is capped at BF16_MAX_F, the JAX session's binned limit."""
-    if use_bf16:
-        f = -(-f // BF16_ALIGN) * BF16_ALIGN
-        if f > BF16_MAX_F:
-            return False
+    """Whether K1's shared memory fits a block of F-feature rows, read
+    at their operand_width, at its smallest query block (float32 32,
+    bf16 64): the same at every bin count.  The bf16 kernel is capped at
+    BF16_MAX_F, the JAX session's binned limit."""
+    f = operand_width(f, torch.bfloat16 if use_bf16 else torch.float32)
+    if use_bf16 and f > BF16_MAX_F:
+        return False
     return f >= 1 and _bintopk_smem(f, 64 if use_bf16 else 32,
                                      use_bf16) <= _SMEM_LIMIT
 
@@ -249,17 +259,16 @@ def prepare_binned_corpus(items: torch.Tensor, item_lambdas: torch.Tensor,
     CORPUS_ALIGN rows, and to at least ``rows`` (a live session's
     capacity).  λ is in the scoring dtype: float32 on CUDA (what the
     kernels read), the corpus dtype on the CPU; so is the corpus, or
-    with ``use_bf16`` bf16, its features zero-padded to a multiple of
-    BF16_ALIGN (the JAX package's ``_unit_padded(..., jnp.bfloat16)``).
+    with ``use_bf16`` bf16 (the JAX package's ``_unit_padded(...,
+    jnp.bfloat16)``), its features zero-padded to operand_width.
     Sessions do this once; a row written later by prepared_rows (safe_unit
     in the corpus dtype, then the cast) scores bitwise as a prepared row
     would."""
     dt = scoring_dtype(items)
     n, f = items.shape
     pad = (-max(n, rows)) % CORPUS_ALIGN + max(0, rows - n)
-    width = -(-f // BF16_ALIGN) * BF16_ALIGN if use_bf16 else f
-    like = items.new_empty((0, width),
-                           dtype=torch.bfloat16 if use_bf16 else dt)
+    op_dt = torch.bfloat16 if use_bf16 else dt
+    like = items.new_empty((0, operand_width(f, op_dt)), dtype=op_dt)
     xhat = torch.nn.functional.pad(prepared_rows(items, like),
                                    (0, 0, 0, pad))
     xlam = torch.nn.functional.pad(item_lambdas.to(dt), (0, pad))
@@ -301,10 +310,10 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     prepared corpus (at least ceil(n/bins)·bins rows), c1 = 1-α.
     Returns pool_s (B, chunks, depth, bins), pool_i (same, int32 global
     row ids, INT_MAX in empty slots) and det (B, chunks, bins).  bf16
-    qhat and xhat (F a multiple of BF16_ALIGN, 16-byte aligned) take the
-    bf16 kernel; float32 operands the wgmma kernel where tf32_route
-    admits (F, B) (xhat 16-byte aligned), else the mma.sync kernel;
-    qlam, xlam and the outputs are float32 either way.
+    qhat and xhat take the bf16 kernel; float32 operands the wgmma kernel
+    where tf32_route admits (F, B), else the mma.sync kernel (both as
+    check_operands admits them); qlam, xlam and the outputs are float32
+    either way.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
@@ -344,28 +353,25 @@ def binned_topk_pool(qhat, qlam, xhat, xlam, c1: float, n: int, *,
     check(rc, entry)
     if bf16:
         binned_topk_pool.launches_bf16 += 1
-    elif wgmma:
-        binned_topk_pool.launches += 1
+        return pool_s, pool_i, det
+    binned_topk_pool.launches += 1
+    if wgmma:
         binned_topk_pool.launches_wgmma += 1
         count("k1.tf32_wgmma")
-    else:
-        binned_topk_pool.launches += 1
-        binned_topk_pool.launches_mma += 1
     return pool_s, pool_i, det
 
 
 binned_topk_pool.launches = 0       # float32, both routes
 binned_topk_pool.launches_wgmma = 0
-binned_topk_pool.launches_mma = 0
 binned_topk_pool.launches_bf16 = 0
 
 
 def check_operands(name: str, qhat, qlam, xhat, xlam) -> bool:
     """Raise unless the tensors are what K1's and K3's kernels read:
     CUDA, contiguous, qlam and xlam float32, and qhat and xhat both
-    float32 or both bf16 (then F a multiple of BF16_ALIGN and both
-    16-byte aligned, for the tensor maps).  Returns whether the
-    operands are bf16."""
+    float32 or both bf16, their rows whole 16 bytes (F its own
+    operand_width) from 16-byte aligned bases, for the tensor maps.
+    Returns whether the operands are bf16."""
     for t in (qhat, qlam, xhat, xlam):
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError(f"{name}: CUDA contiguous tensors required")
@@ -375,10 +381,13 @@ def check_operands(name: str, qhat, qlam, xhat, xlam) -> bool:
             or qlam.dtype != torch.float32 or xlam.dtype != torch.float32):
         raise ValueError(f"{name}: qhat and xhat both float32 or both "
                          "bf16, qlam and xlam float32 required")
-    if bf16 and (qhat.shape[1] % BF16_ALIGN or qhat.data_ptr() % 16
-                 or xhat.data_ptr() % 16):
-        raise ValueError(f"{name}: bf16 operands need F a multiple of "
-                         f"{BF16_ALIGN} and 16-byte aligned rows")
+    f = qhat.shape[1]
+    if (f != operand_width(f, want) or qhat.data_ptr() % ROW_ALIGN_BYTES
+            or xhat.data_ptr() % ROW_ALIGN_BYTES):
+        raise ValueError(f"{name}: operand rows of whole "
+                         f"{ROW_ALIGN_BYTES} bytes (F a multiple of "
+                         f"{operand_width(1, want)}) from aligned bases "
+                         "required")
     return bf16
 
 

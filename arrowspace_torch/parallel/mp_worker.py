@@ -207,8 +207,6 @@ def dryrun(mesh, n: int, f: int) -> dict:
                          bintopk.binned_topk_pool.launches_wgmma,
                      "taulambda": taulambda.fused_taulambda.launches,
                      "merge_topk": topk.merge_topk_partial.launches,
-                     "merge_topk_wgmma":
-                         topk.merge_topk_partial.launches_wgmma,
                      "energy_bintopk":
                          energy_bintopk.binned_energy_pool.launches},
     }

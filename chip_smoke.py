@@ -204,15 +204,11 @@ launch's query block, stages, shared bytes, registers and spills) and
 bintopk (source csrc/bintopk.cu, the mma.sync kernel, timed through its
 C entry at the cosine path's shape, its pools bitwise the wgmma
 kernel's there; its launches counted on the 768-wide path); each path's
-K1 launches are split by route.  float32 K3 likewise: merge_topk_tf32
-(source csrc/merge_topk_tf32.cu, the wgmma kernel that the cosine
-check's 1M x 128 batch and the 1536-wide batch take, through the
-wrapper at its plan; its launches counted on the 1536-wide merge path;
-its record at_1536 with the launch's stages, shared bytes, registers and
-spills) and merge_topk (source csrc/merge_topk.cu, the mma.sync kernel,
-timed through its C entry at its own plan at both shapes, its merged
-top-k bitwise the wgmma kernel's; its launches counted on the cosine
-path's repair fallbacks); each path's K3 launches are split by route.
+K1 launches are split by route.  float32 K3 is one kernel, merge_topk
+(source csrc/merge_topk_tf32.cu: the cosine check's 1M x 128 batch, its
+record at_1536 with the launch's stages, shared bytes, registers and
+spills, and wide_repair_768, a single row at 1M x 768; its launches
+counted on the 1536-wide merge path).
 The bf16 modes have their own
 entries, bintopk_bf16 (source csrc/bintopk_bf16.cu; launches on the
 cosine bf16 session's path; its records at_768 and at_1536) and
@@ -734,10 +730,9 @@ def kernels_vs_plain(torch, index, batches, dev):
     rec["bintopk"]["max_abs_err"] = k1_err
     rec["bintopk_tf32"]["at_glove"] = k1_wgmma_glove(torch, dev)
 
-    # K3 at k=10 over the whole batch: its wgmma route, and the mma.sync
-    # kernel at its own plan
-    rec["merge_topk_tf32"], rec["merge_topk"] = k3_routes(k3_vs_plain(
-        torch, qhat, qlam, xhat, xlam, c1, n, "K3 merge_topk"))
+    # K3 at k=10 over the whole batch
+    rec["merge_topk"] = k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n,
+                                    "K3 merge_topk")
     return rec
 
 
@@ -834,16 +829,15 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
     and fp32 bounds (the 3·2F TF32 products
     and 5 fp32 operations of the λ term a pair; with bf16 operands the
     2F bf16 products, bf16_bounds) and torch.matmul's time for the
-    product alone, as context."""
+    product alone, as context; float32 with its chunking and the
+    launch's stages, shared bytes, registers and spills."""
     from arrowspace_torch.ops import topk as tk
     bsz, f = qhat.shape
     bf16 = qhat.dtype == torch.bfloat16
-    rows_pc = tk._chunk_rows(bsz, n, qhat.device, K, bf16, f)
+    rows_pc = tk._chunk_rows(bsz, n, qhat.device)
     args = (qhat, qlam, xhat, xlam, c1, n)
     kw = dict(k=K, rows_per_chunk=rows_pc)
-    wgmma = tk.merge_topk_partial.launches_wgmma
     s_k, i_k = tk.merge_topk_partial(*args, **kw)
-    wgmma = tk.merge_topk_partial.launches_wgmma > wgmma
     s_p, i_p = tk.merge_topk_partial_plain(*args, **kw)
     chunks = s_k.shape[1]
     err = agree(f"{name} B={bsz} F={f} k={K} rows_per_chunk={rows_pc} "
@@ -872,76 +866,15 @@ def k3_vs_plain(torch, qhat, qlam, xhat, xlam, c1, n, name):
         f"bound_ms={b_ms:.3f} ({b_by}) bound_fp32_ms={b32} "
         f"matmul context ({bsz}x{n}x{f}, {qhat.dtype}) "
         f"{out['matmul_ms']:.3f} ms")
-    if wgmma:
+    if not bf16:
         cfg = tk.merge_tf32_config(f, K)
-        out.update(route="wgmma", rows_per_chunk=rows_pc, chunks=chunks,
+        out.update(rows_per_chunk=rows_pc, chunks=chunks,
                    **{key: cfg[key] for key in ("stages", "smem_bytes",
                                                 "registers", "spill_bytes")})
-        log(f"    {name} wgmma launch: {cfg['stages']} stages, "
-            f"{cfg['smem_bytes']} shared bytes, {cfg['registers']} "
-            f"registers, {cfg['spill_bytes']} B spilled")
-        out["mma_sync"] = k3_mma_sync(torch, s_k, i_k, *args, k=K, err=err)
-    elif not bf16:
-        out["route"] = "mma"
+        log(f"    {name} launch: {chunks} chunks of {rows_pc} rows, "
+            f"{cfg['stages']} stages, {cfg['smem_bytes']} shared bytes, "
+            f"{cfg['registers']} registers, {cfg['spill_bytes']} B spilled")
     return out
-
-
-def k3_mma_sync(torch, s_k, i_k, qhat, qlam, xhat, xlam, c1, n, *, k,
-                err) -> dict:
-    """Where float32 K3's wrapper took the wgmma route
-    (csrc/merge_topk_tf32.cu, partials s_k, i_k): the mma.sync kernel
-    (csrc/merge_topk.cu) through its C entry (asp_merge_topk) at its own
-    plan (merge_rows_per_chunk without F: 64-query blocks, up to two
-    CTAs an SM), its partials merged by the two-key sort and held
-    bitwise to the wgmma route's merged the same way, and timed.  Returns
-    its record: ms, rows_per_chunk, chunks, and the wgmma route's error
-    against the plain version (``err``), which it shares bit for bit."""
-    from arrowspace_torch.ops import topk as tk
-    from arrowspace_torch.ops._build import lib
-    from arrowspace_torch.ops.search import two_key_topk
-    bsz, f = qhat.shape
-    rows_pc = tk._chunk_rows(bsz, n, qhat.device, k)
-    chunks = -(-n // rows_pc)
-    s_m = torch.empty((bsz, chunks, k), device=qhat.device)
-    i_m = torch.empty((bsz, chunks, k), device=qhat.device,
-                      dtype=torch.int32)
-    stream = torch.cuda.current_stream(qhat.device).cuda_stream
-
-    def launch():
-        rc = lib().asp_merge_topk(
-            qhat.data_ptr(), qlam.data_ptr(), xhat.data_ptr(),
-            xlam.data_ptr(), c1, n, bsz, f, k, chunks, rows_pc,
-            s_m.data_ptr(), i_m.data_ptr(), stream)
-        check(rc == 0, f"asp_merge_topk failed ({rc})")
-    launch()
-    (ws, wi), (ms_, mi) = (
-        two_key_topk(ps.reshape(bsz, -1), pi.reshape(bsz, -1).long(), k)
-        for ps, pi in ((s_k, i_k), (s_m, i_m)))
-    same = bool(torch.equal(ws, ms_)) and bool(torch.equal(wi, mi))
-    check(same, "K3: the mma.sync kernel's merged top-k differs from the "
-          "wgmma route's")
-    rec = dict(ms=cuda_ms(launch, reps=3), rows_per_chunk=rows_pc,
-               chunks=chunks, max_abs_err=err, bitwise_wgmma=same)
-    log(f"    K3 mma.sync kernel at its own plan (rows_per_chunk={rows_pc}, "
-        f"chunks={chunks}): ms={rec['ms']:.3f}; merged top-k bitwise the "
-        f"wgmma route's={same}")
-    return rec
-
-
-def k3_routes(rec: dict) -> tuple:
-    """A float32 K3 record of k3_vs_plain that took the wgmma route,
-    split into its two kernels' records: (merge_topk_tf32's, with the
-    wgmma launch's stages, shared bytes, registers and spills;
-    merge_topk's, the mma.sync kernel at its own plan with the same
-    bounds, plain time and matmul context)."""
-    check(rec["route"] == "wgmma", "float32 K3 did not take the wgmma "
-          "route")
-    tf32 = {key: v for key, v in rec.items() if key != "mma_sync"}
-    mma = {**{key: rec[key] for key in ("bound_ms", "bound_by",
-                                        "bound_fp32_ms", "library_ms",
-                                        "plain_ms", "matmul_ms")},
-           **rec["mma_sync"]}
-    return tf32, mma
 
 
 def energy_exact(zq, qlam, z, lam, ids, wl=E_WL, wd=E_WD):
@@ -1486,8 +1419,7 @@ def x_plain_session(torch, index, batches, dev):
 def x_kernels_vs_plain(torch, index, batches, dev):
     """K4 and K5 against their plain versions at the 1536-wide build's
     first row window, and K3 on batch 0 at 1M x 1536 (the session's
-    prepared corpus; its wgmma route, held bitwise to the mma.sync
-    kernel); returns their records (without launches)."""
+    prepared corpus); returns their records (without launches)."""
     from arrowspace_torch.config import TAUMODE_WINDOW_BYTES
     from arrowspace_torch.ops import bintopk as bt
     from arrowspace_torch.ops.search import prepare_query
@@ -1502,9 +1434,8 @@ def x_kernels_vs_plain(torch, index, batches, dev):
     xhat, xlam = bt.prepare_binned_corpus(a.data, a.lambdas)
     qlam = a.prepare_query_items_batch(batches[0], index.gl).float()
     qhat, c1 = prepare_query(q, ALPHA, dtype=torch.float32)
-    return k4, k5, k3_routes(k3_vs_plain(
-        torch, qhat, qlam.contiguous(), xhat, xlam, c1, a.nitems,
-        "K3 merge_topk"))
+    return k4, k5, k3_vs_plain(torch, qhat, qlam.contiguous(), xhat, xlam,
+                               c1, a.nitems, "K3 merge_topk")
 
 
 def where_time_goes(torch, sessions, batches, step,
@@ -2366,7 +2297,7 @@ def live_merge_phase(torch, counters, index, batches, dev):
                                    capacity=n0 + 8192)
     check(live.kernel == "merge", f"live session kernel {live.kernel}")
     live.warmup()
-    launches = RouteLaunches(0, 0)
+    launches = 0
     rng = np.random.default_rng(SEED + 16)
     for step in ("before", "after add and delete"):
         if step != "before":
@@ -3214,9 +3145,8 @@ def multiprocess_phase(torch, dev):
           and r["strided_repairs"]["energy"] > 0,
           "the dry run never took the strided mesh repair")
     out = dict(r["launches"])
-    for name in ("bintopk", "merge_topk"):
-        wgmma = out.pop(f"{name}_wgmma")
-        out[name] = RouteLaunches(wgmma, out[name] - wgmma)
+    wgmma = out.pop("bintopk_wgmma")
+    out["bintopk"] = RouteLaunches(wgmma, out["bintopk"] - wgmma)
     return out
 
 
@@ -3817,7 +3747,7 @@ def suite_k3(torch, dev, use_bf16=False) -> dict:
     d = suite_draws()
     wrapper = tk.merge_topk_partial
     count_of = ((lambda: wrapper.launches_bf16) if use_bf16 else
-                (lambda: RouteCount(wrapper).launches))
+                (lambda: wrapper.launches))
     before = count_of()
     err = 0.0
     name = "K3 bf16" if use_bf16 else "K3"
@@ -3825,7 +3755,7 @@ def suite_k3(torch, dev, use_bf16=False) -> dict:
         q, ql, x, xl = _on(torch, dev, *d.data(n, f, b, seed=seed))
         xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=use_bf16)
         qh, c1 = operand_query(q, alpha, torch.float32, xh)
-        rows = tk._chunk_rows(b, n, dev, k, use_bf16, qh.shape[1])
+        rows = tk._chunk_rows(b, n, dev)
         args = (qh, ql, xh, xlh, c1, n)
         outs = []
         for fn in (tk.merge_topk_partial, tk.merge_topk_partial_plain):
@@ -4209,10 +4139,7 @@ def suites_phase(torch, counters, dev) -> dict:
            "bintopk_tf32": {**k1, "launches": route_split(k1["launches"],
                                                           "wgmma")},
            "bintopk_bf16": suite_k1(torch, dev, use_bf16=True),
-           "merge_topk": {**k3, "launches": route_split(k3["launches"],
-                                                        "mma")},
-           "merge_topk_tf32": {**k3, "launches": route_split(k3["launches"],
-                                                             "wgmma")},
+           "merge_topk": k3,
            "merge_topk_bf16": suite_k3(torch, dev, use_bf16=True),
            "energy_bintopk": suite_k6(torch, dev),
            "energy_chord": suite_k7(torch, dev),
@@ -4231,7 +4158,7 @@ KERNELS = {
                 "arrowspace_tpu/ops/pallas_bintopk.py:667"),
     "taulambda": ("arrowspace_torch/csrc/taulambda.cu",
                   "arrowspace_tpu/ops/pallas_taulambda.py:151"),
-    "merge_topk": ("arrowspace_torch/csrc/merge_topk.cu",
+    "merge_topk": ("arrowspace_torch/csrc/merge_topk_tf32.cu",
                    "arrowspace_tpu/ops/pallas_topk.py:263"),
     "select_tau": ("arrowspace_torch/csrc/select_tau.cu",
                    "arrowspace_tpu/ops/pallas_tau.py:475"),
@@ -4244,9 +4171,6 @@ KERNELS = {
     # float32 K1's wgmma route, where bintopk.tf32_route admits (F, B)
     "bintopk_tf32": ("arrowspace_torch/csrc/bintopk_tf32.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
-    # float32 K3's wgmma route, where topk.merge_tf32_route admits (B, F, k)
-    "merge_topk_tf32": ("arrowspace_torch/csrc/merge_topk_tf32.cu",
-                        "arrowspace_tpu/ops/pallas_topk.py:263"),
     # the bf16 modes (the TPU kernels' use_bf16=True)
     "bintopk_bf16": ("arrowspace_torch/csrc/bintopk_bf16.cu",
                      "arrowspace_tpu/ops/pallas_bintopk.py:667"),
@@ -4256,10 +4180,9 @@ KERNELS = {
 
 
 class RouteLaunches(int):
-    """A float32 kernel's launches over a path, both routes, with each
-    route's share: ``wgmma`` (K1 csrc/bintopk_tf32.cu, K3
-    csrc/merge_topk_tf32.cu) and ``mma`` (csrc/bintopk.cu,
-    csrc/merge_topk.cu).  Two of them add route by route."""
+    """float32 K1's launches over a path, both routes, with each route's
+    share: ``wgmma`` (csrc/bintopk_tf32.cu) and ``mma``
+    (csrc/bintopk.cu).  Two of them add route by route."""
 
     def __new__(cls, wgmma: int, mma: int):
         obj = super().__new__(cls, wgmma + mma)
@@ -4282,35 +4205,30 @@ class RouteLaunches(int):
 
 
 def route_split(v, route: str) -> int:
-    """The launches of a float32 kernel's ``route`` ("wgmma" or "mma") in
-    a path's count (a RouteLaunches)."""
+    """The launches of float32 K1's ``route`` ("wgmma" or "mma") in a
+    path's count (a RouteLaunches)."""
     check(isinstance(v, RouteLaunches),
           f"the launch count {v!r} has no route split")
     return getattr(v, route)
 
 
 class RouteCount:
-    """The float32 launch counts of a wrapper with two routes
-    (binned_topk_pool, merge_topk_partial) under the ``launches`` name
-    the counters are read and reset by: read, a RouteLaunches of its
-    per-route counts (launches_wgmma, launches_mma), held to its total
-    (launches); set, all three."""
+    """float32 K1's launch counts (binned_topk_pool's ``launches``, both
+    routes, and ``launches_wgmma``) under the ``launches`` name the
+    counters are read and reset by: read, a RouteLaunches of its wgmma
+    launches and the rest; set, both."""
 
     def __init__(self, fn):
         self.fn = fn
 
     @property
     def launches(self):
-        got = RouteLaunches(self.fn.launches_wgmma, self.fn.launches_mma)
-        check(got == self.fn.launches, f"{self.fn.__name__}'s route counts "
-              f"{got.wgmma} + {got.mma} differ from its total "
-              f"{self.fn.launches}")
-        return got
+        wgmma = self.fn.launches_wgmma
+        return RouteLaunches(wgmma, self.fn.launches - wgmma)
 
     @launches.setter
     def launches(self, value):
         self.fn.launches = self.fn.launches_wgmma = value
-        self.fn.launches_mma = value
 
 
 class Bf16Count:
@@ -4351,7 +4269,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     counters = {"k1": RouteCount(bintopk.binned_topk_pool),
                 "k2": taulambda.fused_taulambda,
-                "k3": RouteCount(topk.merge_topk_partial),
+                "k3": topk.merge_topk_partial,
                 "k4": select_tau.fused_select_tau,
                 "k5": lambda_batch.fused_lambda_batch,
                 "k6": energy_bintopk.binned_energy_pool,
@@ -4520,20 +4438,16 @@ def main() -> int:
             "wide_1536": x_launches["select_tau"],
             "streamed_1536": x_lam["k4"],
             "hypergraph": hyper["select_tau"]}
-        k3t, k3 = rec["merge_topk_tf32"], rec["merge_topk"]
-        k3t_x, k3_x = k3_x
-        check(k3_wide["route"] == "mma", "K3 at the 768-wide repair's "
-              "shape took the wgmma route")
-        k3t["max_abs_err"] = max(k3t["max_abs_err"], k3t_x["max_abs_err"])
+        k3 = rec["merge_topk"]
         k3["max_abs_err"] = max(k3["max_abs_err"], k3_wide["max_abs_err"],
                                 k3_x["max_abs_err"])
-        at_1536 = ("ms", "plain_ms", "bound_ms", "bound_fp32_ms",
-                   "matmul_ms", "rows_per_chunk", "chunks")
-        k3t["at_1536"] = {key: k3t_x[key] for key in at_1536 + (
-            "stages", "smem_bytes", "registers", "spill_bytes")}
-        k3["at_1536"] = {key: k3_x[key] for key in at_1536}
+        k3["at_1536"] = {key: k3_x[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_fp32_ms", "matmul_ms",
+            "rows_per_chunk", "chunks", "stages", "smem_bytes", "registers",
+            "spill_bytes")}
         k3["wide_repair_768"] = {key: k3_wide[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_fp32_ms")}
+            "ms", "plain_ms", "bound_ms", "bound_fp32_ms", "rows_per_chunk",
+            "chunks")}
         k3_paths = {"cosine": launches["merge_topk"],
                     "wide_768": w_launches["merge_topk"],
                     "wide_1536": x_launches["merge_topk"],
@@ -4553,12 +4467,9 @@ def main() -> int:
                                  "use_pallas_True_below_gate",
                                  "unprepared_cosine",
                                  "unprepared_merge_1536")}}
-        # float32 K3's launches split by route: the 1536-wide merge
-        # session's on the wgmma kernel, the cosine path's repair
-        # fallbacks on the mma.sync kernel
-        launches["merge_topk_tf32"] = route_split(x_launches["merge_topk"],
-                                                  "wgmma")
-        launches["merge_topk"] = route_split(launches["merge_topk"], "mma")
+        # float32 K3's launches on its serving path, the 1536-wide merge
+        # session
+        launches["merge_topk"] = x_launches["merge_topk"]
         k1b = rec["bintopk_bf16"]
         k1b["max_abs_err"] = max(k1b["max_abs_err"], k1b_768["max_abs_err"],
                                  k1b_1536["max_abs_err"])
@@ -4617,10 +4528,7 @@ def main() -> int:
                               "multiprocess_nccl": mp["taulambda"],
                               "migration_spectral_build":
                                   migration["spectral_build"]["taulambda"]},
-                "merge_topk": {p: route_split(v, "mma")
-                               for p, v in k3_paths.items()},
-                "merge_topk_tf32": {p: route_split(v, "wgmma")
-                                    for p, v in k3_paths.items()},
+                "merge_topk": k3_paths,
                 "lambda_batch": {"wide_768": w_launches["lambda_batch"],
                                  "wide_1536": x_launches["lambda_batch"],
                                  "streamed_1536": x_lam["k5"]},

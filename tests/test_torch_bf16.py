@@ -483,9 +483,10 @@ def test_k3_bf16_merge_rule(f, k, resident, stages):
     as (score, id) and its count.  The query block is resident where a
     3-stage ring fits beside it; the ring is as deep as fits, at most 8;
     one CTA an SM; rows per chunk are whole tiles, the chunk count whole
-    waves of the grid's CTAs, up to one chunk a slot."""
+    waves of the grid's CTAs, up to one chunk an SM (the float32 kernel's
+    one chunking)."""
     assert tk.merge_bf16_plan(f, k) == (resident, stages)
-    smem = tk.merge_smem_bytes(2048, k, True, f)
+    smem = tk.merge_smem_bytes(f, k, True)
     assert smem == (1024 + (-(-f // 64) * 8192 if resident else 0)
                     + stages * (128 * 128 + (0 if resident else 8192))
                     + (2 * stages + 1) * 8 + 64 * 8 + 64 * k * 8
@@ -495,19 +496,15 @@ def test_k3_bf16_merge_rule(f, k, resident, stages):
         assert tk._bf16_smem(f, k, True, 3) > 232_448
     if stages < 8:
         assert tk._bf16_smem(f, k, resident, stages + 1) > 232_448
-    assert tk.merge_tile_rows(2048, k, True, f) == 128
-    assert tk.merge_ctas_per_sm(2048, k, True, f) == 1
+    assert 2 * (smem + 1024) > 228 * 1024      # one CTA an SM
     for bsz, n, sms in ((2048, 1_000_000, 132), (1, 1_000_000, 132),
                         (97, 5003, 132), (1, 1, 1)):
-        assert tk.merge_query_block(bsz, True) == 64
-        rpc = tk.merge_rows_per_chunk(bsz, n, sms, k, True, f)
+        rpc = tk.merge_rows_per_chunk(bsz, n, sms)
         n_tiles = -(-n // 128)
-        chunks = bt.wave_chunks(-(-bsz // 64), n_tiles, sms, max(64, sms))
+        chunks = bt.wave_chunks(-(-bsz // 64), n_tiles, sms, sms)
         assert rpc % 128 == 0 and rpc == -(-n_tiles // chunks) * 128
     # a single query block fills the card: 119 chunks of 66 tiles
-    assert tk.merge_rows_per_chunk(1, 1_000_000, 132, k, True, f) == 66 * 128
-    with pytest.raises(ValueError):            # the bf16 rule needs F
-        tk.merge_rows_per_chunk(2048, 1000, 132, k, True)
+    assert tk.merge_rows_per_chunk(1, 1_000_000, 132) == 66 * 128
 
 
 def test_k3_bf16_rule_admits_every_shape():
@@ -522,26 +519,24 @@ def test_k3_bf16_rule_admits_every_shape():
 
 
 def test_k3_float32_merge_rule_unchanged():
-    """The float32 K3's mma.sync rule is the one it was: 64 × 64 (32 ×
-    128 below 33 queries), two CTAs an SM up to k = 24, its shared memory
-    and chunking as before the bf16 kernel.  F changes it only where
-    merge_tf32_route sends the launch to the wgmma kernel (at least 64
-    queries, F a multiple of 4 from 128 to 3072): not for a batch under
-    64 queries at any F, nor at F = 1534 or 3076."""
-    assert [tk.merge_query_block(b) for b in (1, 32, 33, 64, 2048)] == \
-        [32, 32, 64, 64, 64]
-    assert [tk.merge_tile_rows(b, 10) for b in (1, 2048)] == [128, 64]
-    assert [tk.merge_ctas_per_sm(2048, k) for k in (1, 24, 25, 128)] == \
-        [2, 2, 1, 1]
+    """K3's float32 and bf16 kernels share their plan's block: 64
+    queries (QUERY_BLOCK) × 128 corpus rows (TILE_ROWS, two warpgroups of
+    64) a CTA, their stages built from the same 128-byte rows, their
+    selection state the same at each k, and shared memory that leaves
+    one CTA an SM at every F and k, so one chunking (merge_rows_per_chunk,
+    which takes neither F nor the dtype) serves both."""
+    assert (tk.QUERY_BLOCK, tk.TILE_ROWS) == (64, 128)
+    assert tk._bf16_stage(True) == tk.TILE_ROWS * 128
+    assert tk._bf16_stage(False) == (tk.TILE_ROWS + tk.QUERY_BLOCK) * 128
+    assert tk._TF32_STAGE == (tk.TILE_ROWS + 2 * tk.QUERY_BLOCK) * 128
     for k in (1, 10, 64, 128):
-        assert tk.merge_smem_bytes(2048, k) == tk.merge_smem_bytes(
-            2048, k, False, 1534) == 4 * (2 * 128 * 68 + 2 * 64 * k
-                                          + 2 * 64 * 64 + 3 * 64)
-        assert tk.merge_smem_bytes(2048, k, False, 1536) == tk._tf32_smem(
-            k, tk.merge_tf32_stages(k))
-        for bsz, f in ((1, 3072), (63, 1536), (2048, 3076)):
-            assert tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k) == \
-                tk.merge_rows_per_chunk(bsz, 1_000_000, 132, k, False, f)
+        sel = tk._select_smem(k)
+        assert tk._tf32_smem(k, 0) == 1024 + sel
+        assert tk._bf16_smem(128, k, False, 0) == 1024 + 8 + sel
+        for f in (8, 128, 1536, 4096):
+            for bf16 in (False, True):
+                assert 2 * (tk.merge_smem_bytes(f, k, bf16) + 1024) \
+                    > 228 * 1024
 
 
 @pytest.mark.parametrize("alpha", [0.9, 1.0])

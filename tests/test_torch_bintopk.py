@@ -22,7 +22,8 @@ from arrowspace_torch.ops import topk as tk
 from arrowspace_torch.ops.search import (INT_MAX, NEG_INF,
                                          batched_lambda_aware_topk,
                                          binned_topk_with_repair,
-                                         prepare_query, two_key_topk)
+                                         operand_query, prepare_query,
+                                         safe_unit, two_key_topk)
 
 
 def _data(n, f, b, seed=0):
@@ -413,8 +414,8 @@ def test_k1_tf32_route_rule(f, bsz):
     and a lo plane of ceil(ceil8(F)/32) boxes of 64 rows × 128 bytes,
     after 1024 bytes that align them, beside a ring of as many stages of
     64 corpus rows × 64 float32 features as fit (at most 16), each with
-    two 8-byte barriers.  It runs where F is a multiple of 4, that ring
-    has 3 stages (F <= 352) and the batch fills the 64-query block;
+    two 8-byte barriers.  It runs where that ring has 3 stages (F <= 352)
+    and the batch fills the 64-query block;
     elsewhere the mma.sync kernel runs at its own query block.  The grid
     has one CTA per query block and group of 4096 / query block bins."""
     boxes = -(-(-(-f // 8) * 8) // 32)
@@ -437,14 +438,19 @@ def test_k1_tf32_route_rule(f, bsz):
 def test_k1_tf32_route_edges():
     """The glove cell's launch (F = 100, B = 2048) takes the wgmma route;
     the cohere cell's (F = 768) and the widest float32 K1 (F = 1264) keep
-    the mma.sync kernel, as do F not a multiple of 4 (a tensor map's row
-    stride is a multiple of 16 bytes), F past the 3-stage edge at 352, and
-    batches below one 64-query block (the pruned B = 16 sessions)."""
+    the mma.sync kernel, as do F past the 3-stage edge at 352 and batches
+    below one 64-query block (the pruned B = 16 sessions).  The route
+    reads F at its operand width (whole 16-byte rows), so F not a
+    multiple of 4 takes it at the next multiple."""
     assert bt.tf32_route(100, 2048) and bt.tf32_route(352, 64)
     assert bt.tf32_route(4, 64) and bt.tf32_stages(352) == 3
     assert not bt.tf32_route(356, 2048)
-    for f in (768, 1264, 7, 99, 101, 102, 126):
+    for f in (768, 1264):
         assert not bt.tf32_route(f, 2048)
+    for f, width in ((7, 8), (99, 100), (101, 104), (102, 104),
+                     (126, 128), (353, 356)):
+        assert bt.operand_width(f, torch.float32) == width
+        assert bt.tf32_route(width, 2048) == (width <= 352)
     for bsz in (1, 16, 63):
         assert not bt.tf32_route(100, bsz)
     assert bt.bintopk_fits(768) and bt.query_block(768, 2048) == 64
@@ -475,3 +481,31 @@ def test_repair_helpers():
     fired, ok = br.fired_bins_host(det, np.array([0.5, 0.5], np.float32))
     assert fired[0].tolist() == [1, -1] and ok.tolist() == [True, False]
     assert bt.binned_topk_depth_for(10) == 3 and bt.bins_target(64) == 512
+
+
+@pytest.mark.parametrize("f", [1, 3, 5, 99, 1537])
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_prepared_rows_are_whole_16_bytes(f, use_bf16):
+    """prepare_binned_corpus pads every prepared row, float32 or bf16,
+    with zero features to whole 16 bytes (operand_width: 4 float32
+    features, 8 bf16), after the unit scaling; the query operand and a
+    row written later (prepared_rows) follow the corpus width, and the
+    kernels' operand rule admits that width."""
+    rng = np.random.default_rng(f)
+    x = torch.tensor(rng.uniform(0.1, 1.0, (37, f)), dtype=torch.float32)
+    xl = torch.tensor(rng.uniform(0, 1, 37), dtype=torch.float32)
+    dt = torch.bfloat16 if use_bf16 else torch.float32
+    per = 8 if use_bf16 else 4
+    width = -(-f // per) * per
+    assert bt.operand_width(f, dt) == width
+    assert width * dt.itemsize % 16 == 0
+    assert bt.operand_width(width, dt) == width
+    xh, xlh = bt.prepare_binned_corpus(x, xl, use_bf16=use_bf16)
+    assert xh.dtype == dt and xh.shape == (bt.CORPUS_ALIGN, width)
+    assert xlh.dtype == torch.float32 and xlh.shape == (bt.CORPUS_ALIGN,)
+    assert not bool(xh[:, f:].any()) and not bool(xh[37:].any())
+    assert torch.equal(xh[:37, :f], safe_unit(x).to(dt))
+    assert torch.equal(bt.prepared_rows(x[:5], xh), xh[:5])
+    qh, _ = operand_query(x[:3] * 1.02, 0.9, torch.float32, xh)
+    assert qh.dtype == dt and qh.shape == (3, width)
+    assert bt.bintopk_fits(f, use_bf16) == bt.bintopk_fits(width, use_bf16)

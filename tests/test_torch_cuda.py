@@ -54,7 +54,7 @@ from arrowspace_torch.ops._build import lib
 from arrowspace_torch.ops.search import (INT_MAX, NEG_INF,
                                          batched_lambda_aware_topk,
                                          binned_topk_with_repair,
-                                         prepare_query)
+                                         operand_query, prepare_query)
 from arrowspace_torch.taumode import TauMode
 
 pytestmark = pytest.mark.cuda
@@ -75,7 +75,7 @@ def _inputs(dev, n, f, b, seed):
         rng.uniform(0.1, 1.0, (n, f)), rng.uniform(0, 1, n))]
     q, ql, x, xl = t
     xh, xlh = bt.prepare_binned_corpus(x, xl)
-    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
     return qh, ql, xh, xlh, c1
 
 
@@ -170,33 +170,6 @@ def test_k1_ragged_query_block_and_tile_at_f768(dev, b, n, bins):
     assert float((det - rdet).abs().max()) <= TOL
 
 
-# float32 K3's two kernels: csrc/merge_topk.cu (mma.sync) and, where
-# tk.merge_tf32_route admits the launch, csrc/merge_topk_tf32.cu (wgmma)
-K3_ROUTES = ("mma.sync", "wgmma")
-
-
-def _k3_route(route, args, n, *, k, rows_per_chunk):
-    """float32 K3's partial top-k from one route's kernel, called through
-    its C entry at any shape the kernel takes, whatever merge_tf32_route
-    would choose: asp_merge_topk, or asp_merge_topk_tf32 with its
-    workspace for the split query planes."""
-    qh, ql, xh, xlh, c1 = args
-    b, f = qh.shape
-    chunks = -(-n // rows_per_chunk)
-    s = torch.empty((b, chunks, k), device=qh.device)
-    i = torch.empty((b, chunks, k), device=qh.device, dtype=torch.int32)
-    ptrs = (qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1,
-            n, b, f, k, chunks, rows_per_chunk, s.data_ptr(), i.data_ptr())
-    stream = torch.cuda.current_stream(qh.device).cuda_stream
-    if route == "wgmma":
-        planes = torch.empty((2, b, f), device=qh.device)
-        rc = lib().asp_merge_topk_tf32(*ptrs, planes.data_ptr(), stream)
-    else:
-        rc = lib().asp_merge_topk(*ptrs, stream)
-    assert rc == 0
-    return s, i
-
-
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
 @pytest.mark.parametrize("rows_per_chunk", [128, 1280, 6000])
 def test_k3_partial_matches_plain(dev, k, rows_per_chunk):
@@ -254,42 +227,36 @@ def test_k3_partial_matches_plain_at_f768(dev):
     assert torch.equal(i == INT_MAX, ri == INT_MAX)
 
 
-@pytest.mark.parametrize("f", [40, 768, 1272, 1536])
+@pytest.mark.parametrize("f", [4, 36, 100, 1537, 4096])
+@pytest.mark.parametrize("b", [1, 16, 63])
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
-@pytest.mark.parametrize("route", K3_ROUTES)
-def test_k3_partial_matches_plain_at_every_width(dev, f, k, route):
-    """The tensor-core K3 at the widths it serves, B = 70 (a ragged 64-
-    query block) and n = 5003 (a ragged tile), at the wrapper's own
-    chunking: each route's kernel against the plain version, and the
-    wrapper, which launches the wgmma kernel where merge_tf32_route
-    admits F (768 to 1536 here) and the mma.sync kernel else, bitwise
-    equal to it."""
-    n, b = 5003, 70
-    args = _inputs(dev, n, f, b, seed=f + k)
-    rpc = tk._chunk_rows(b, n, dev, k, False, f)
-    taken = ("launches_wgmma" if tk.merge_tf32_route(b, f, k)
-             else "launches_mma")
+def test_k3_partial_matches_plain_at_every_width(dev, f, b, k):
+    """Float32 K3 from one feature box to 4096 features (F = 1537 read at
+    its operand width, 1540) and batches of one query, a part of a query
+    block and one query short of it, n = 5003 (a ragged tile), at the
+    wrapper's own chunking: against the plain version, one float32
+    launch a call."""
+    n = 5003
+    args = _inputs(dev, n, f, b, seed=f + b + k)
+    assert args[0].shape[1] == bt.operand_width(f, torch.float32)
+    rpc = tk._chunk_rows(b, n, dev)
     before = (tk.merge_topk_partial.launches,
-              getattr(tk.merge_topk_partial, taken))
+              tk.merge_topk_partial.launches_bf16)
     s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rpc)
-    ks, ki = _k3_route(route, args, n, k=k, rows_per_chunk=rpc)
     rs, ri = tk.merge_topk_partial_plain(*args, n, k=k, rows_per_chunk=rpc)
     torch.cuda.synchronize()
     assert (tk.merge_topk_partial.launches,
-            getattr(tk.merge_topk_partial, taken)) == (before[0] + 1,
-                                                       before[1] + 1)
-    assert (taken == "launches_wgmma") == (f != 40)
-    assert ks.shape == rs.shape == (b, -(-n // rpc), k)
-    _assert_scored_ids(ks, ki, rs, args)
-    assert torch.equal(ki == INT_MAX, ri == INT_MAX)
-    assert torch.equal(s, ks) and torch.equal(i, ki)
+            tk.merge_topk_partial.launches_bf16) == (before[0] + 1,
+                                                     before[1])
+    assert s.shape == rs.shape == (b, -(-n // rpc), k)
+    _assert_scored_ids(s, i, rs, args)
+    assert torch.equal(i == INT_MAX, ri == INT_MAX)
 
 
 @pytest.mark.parametrize("f,b", [(128, 70), (768, 19), (1536, 64)])
-@pytest.mark.parametrize("route", K3_ROUTES)
-def test_k3_identical_rows_score_bitwise_alike(dev, f, b, route):
+def test_k3_identical_rows_score_bitwise_alike(dev, f, b):
     """Copies of query 0 in several tiles, warps and chunks, two of them
-    adjacent: bitwise equal partial scores from each route's kernel, and
+    adjacent: bitwise equal partial scores from the kernel, and
     fused_lambda_topk returns them first in ascending id order."""
     n = 9001
     rng = np.random.default_rng(f)
@@ -301,8 +268,8 @@ def test_k3_identical_rows_score_bitwise_alike(dev, f, b, route):
                     for a in (q, ql, x, xl))
     xh, xlh = bt.prepare_binned_corpus(x, xl)
     qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
-    s, i = _k3_route(route, (qh, ql, xh, xlh, c1), n, k=10,
-                     rows_per_chunk=2048)
+    s, i = tk.merge_topk_partial(qh, ql, xh, xlh, c1, n, k=10,
+                                 rows_per_chunk=2048)
     torch.cuda.synchronize()
     copies = torch.isin(i, torch.tensor(ids, device=dev, dtype=i.dtype))
     assert int(copies[0].sum()) == len(ids)
@@ -314,17 +281,16 @@ def test_k3_identical_rows_score_bitwise_alike(dev, f, b, route):
 
 
 @pytest.mark.parametrize("f", [128, 768, 100])
-@pytest.mark.parametrize("route", K3_ROUTES)
-def test_k1_and_k3_score_a_pair_bitwise_alike(dev, f, route):
+def test_k1_and_k3_score_a_pair_bitwise_alike(dev, f):
     """K1 and K3 run one 3×TF32 instruction sequence a (query, row) pair,
     so every row both return for a query has bitwise equal scores (the
-    repair merges K3's rows with K1's), on either route of each."""
+    repair merges K3's rows with K1's), on either route of K1."""
     n, b = 20_000, 64
     args = _inputs(dev, n, f, b, seed=f)
     pool_s, pool_i, _ = bt.binned_topk_pool(*args, n, depth=3, bins=128,
                                             chunks=2)
-    s, i = _k3_route(route, args, n, k=128,
-                     rows_per_chunk=tk._chunk_rows(b, n, dev, 128))
+    s, i = tk.merge_topk_partial(*args, n, k=128,
+                                 rows_per_chunk=tk._chunk_rows(b, n, dev))
     torch.cuda.synchronize()
     dense = torch.full((b, n + 1), float("nan"), device=dev)
     pi = pool_i.reshape(b, -1).long().clamp_max(n)
@@ -335,16 +301,11 @@ def test_k1_and_k3_score_a_pair_bitwise_alike(dev, f, route):
     assert torch.equal(got[both], s.reshape(b, -1)[both])
 
 
-@pytest.mark.parametrize("route", K3_ROUTES)
-def test_merge_session_at_f1536_equals_plain_scan(dev, route, monkeypatch):
+def test_merge_session_at_f1536_equals_plain_scan(dev):
     """A 70000 x 1536 projected build on the card: the session resolves
-    "merge" (K1's gate does not admit F = 1536), launches K3 once per
-    batch, on its wgmma route (B = 64, F = 1536), or on the mma.sync
-    kernel where the route is made to refuse, and equals the plain full
-    scan: scores within 1e-5, ids equal outside near-ties within twice
-    the score error."""
-    if route == "mma.sync":
-        monkeypatch.setattr(tk, "merge_tf32_route", lambda *a: False)
+    "merge" (K1's gate does not admit F = 1536), launches float32 K3 once
+    per batch and no K1, and equals the plain full scan: scores within
+    1e-5, ids equal outside near-ties within twice the score error."""
     rng = np.random.default_rng(9)
     c = rng.uniform(0.2, 0.8, (24, 1536))
     rows = c[rng.integers(0, 24, 70_000)] + rng.normal(0, 0.05,
@@ -356,12 +317,9 @@ def test_merge_session_at_f1536_equals_plain_scan(dev, route, monkeypatch):
     assert sess.kernel == "merge"
     queries = rows[rng.integers(0, 70_000, 64)] * 1.02
     queries[0] = rows[10] * 1.02
-    taken = "launches_wgmma" if route == "wgmma" else "launches_mma"
     k3, k1 = tk.merge_topk_partial.launches, bt.binned_topk_pool.launches
-    on_route = getattr(tk.merge_topk_partial, taken)
     (gs, gi), = list(sess.search_stream([queries]))
     assert tk.merge_topk_partial.launches == k3 + 1
-    assert getattr(tk.merge_topk_partial, taken) == on_route + 1
     assert bt.binned_topk_pool.launches == k1
     from arrowspace_torch.index import _query_prep
     q = torch.tensor(queries, dtype=torch.float32, device=dev)
@@ -397,25 +355,29 @@ def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(dev):
 
 
 def test_k3_tf32_route_raises_on_a_misaligned_corpus(dev):
-    """The wgmma route is chosen from (B, F, k) alone: a corpus 4 bytes
-    past 16-byte alignment at a shape it admits is refused by its C
-    entry (a tensor map's base), and no launch is counted; the same rows
-    aligned take the route."""
+    """Float32 K3 reads its corpus by tensor map, whose base must be
+    16-byte aligned: a corpus 4 bytes past alignment is refused by the
+    wrapper's operand check before any launch, and by the C entry called
+    directly; the same rows aligned launch."""
     qh, ql, xh, xlh, c1 = _inputs(dev, 600, 128, 64, seed=5)
     buf = torch.empty(xh.numel() + 1, device=dev)
     shifted = buf[1:].view(xh.shape)
     shifted.copy_(xh)
-    assert shifted.data_ptr() % 16 == 4 and tk.merge_tf32_route(64, 128, 10)
-    kw = dict(k=10, rows_per_chunk=tk.merge_rows_per_chunk(
-        64, 600, 1, 10, False, 128))
-    before = (tk.merge_topk_partial.launches,
-              tk.merge_topk_partial.launches_wgmma)
-    with pytest.raises(RuntimeError):
+    assert shifted.data_ptr() % 16 == 4
+    kw = dict(k=10, rows_per_chunk=tk.merge_rows_per_chunk(64, 600, 1))
+    before = tk.merge_topk_partial.launches
+    with pytest.raises(ValueError):
         tk.merge_topk_partial(qh, ql, shifted, xlh, c1, 600, **kw)
-    assert (tk.merge_topk_partial.launches,
-            tk.merge_topk_partial.launches_wgmma) == before
+    assert tk.merge_topk_partial.launches == before
+    s = torch.empty((64, 1, 10), device=dev)
+    i = torch.empty((64, 1, 10), device=dev, dtype=torch.int32)
+    planes = torch.empty((2, 64, 128), device=dev)
+    assert lib().asp_merge_topk_tf32(
+        qh.data_ptr(), ql.data_ptr(), shifted.data_ptr(), xlh.data_ptr(),
+        c1, 600, 64, 128, 10, 1, 600, s.data_ptr(), i.data_ptr(),
+        planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream) != 0
     tk.merge_topk_partial(qh, ql, xh, xlh, c1, 600, **kw)
-    assert tk.merge_topk_partial.launches_wgmma == before[1] + 1
+    assert tk.merge_topk_partial.launches == before + 1
 
 
 def _graph(n, seed, density=0.1):
@@ -1233,7 +1195,7 @@ def _poisoned_cosine(dev, f, b, fill, seed):
                     (rng.uniform(0.1, 1.0, (b, f)), rng.uniform(0, 1, b),
                      rng.uniform(0.1, 1.0, (CAP, f)), rng.uniform(0, 1, CAP)))
     xh, xlh = bt.prepare_binned_corpus(x, xl)
-    qh, c1 = prepare_query(q, 0.9, dtype=torch.float32)
+    qh, c1 = operand_query(q, 0.9, torch.float32, xh)
     _poison(xh, N_LIVE, qh / qh.norm(dim=1, keepdim=True), fill)
     _poison(xlh, N_LIVE, ql, fill)
     return q, ql, x, xl, qh, xh, xlh, c1
@@ -1274,15 +1236,15 @@ def test_k1_never_scores_a_row_past_n(dev, fill, f, bins, depth):
                                                 (128, 64, 6000),
                                                 (1536, 10, 128),
                                                 (128, 10, 8192)])
-@pytest.mark.parametrize("route", K3_ROUTES)
-def test_k3_never_scores_a_row_past_n(dev, fill, f, k, rows_per_chunk,
-                                      route):
-    """K3 clamps its last chunk at n (the staged tile is zero-filled past
-    it, or the corpus map ends there, and its candidates are masked),
-    whatever the chunk's length, on either route's kernel."""
-    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, 19, fill, f + k)
-    s, i = _k3_route(route, (qh, ql, xh, xlh, c1), N_LIVE, k=k,
-                     rows_per_chunk=rows_per_chunk)
+@pytest.mark.parametrize("b", [1, 63])
+def test_k3_never_scores_a_row_past_n(dev, fill, f, k, rows_per_chunk, b):
+    """K3 clamps its last chunk at n (the corpus map ends there, and its
+    candidates are masked), whatever the chunk's length, for a batch of
+    one query and one a query short of its block."""
+    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, b, fill,
+                                                     f + k + b)
+    s, i = tk.merge_topk_partial(qh, ql, xh, xlh, c1, N_LIVE, k=k,
+                                 rows_per_chunk=rows_per_chunk)
     rs, ri = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N_LIVE, k=k,
                                          rows_per_chunk=rows_per_chunk)
     torch.cuda.synchronize()
@@ -1980,7 +1942,7 @@ def test_k3_bf16_partial_matches_plain(dev, f, k):
     n = 5003 (a ragged tile), at the wrapper's own chunking."""
     n, b = 5003, 70
     args = _inputs_bf16(dev, n, f, b, seed=f + k)
-    rpc = tk._chunk_rows(b, n, dev, k, True, f)
+    rpc = tk._chunk_rows(b, n, dev)
     f32, b16 = (tk.merge_topk_partial.launches,
                 tk.merge_topk_partial.launches_bf16)
     s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=rpc)
@@ -2005,7 +1967,7 @@ def test_k1_and_k3_bf16_score_a_pair_bitwise_alike(dev, f):
                                             chunks=2)
     for k in (10, 128):
         s, i = tk.merge_topk_partial(*args, n, k=k, rows_per_chunk=(
-            tk._chunk_rows(b, n, dev, k, True, f)))
+            tk._chunk_rows(b, n, dev)))
         torch.cuda.synchronize()
         _same_pair_scores(pool_s, pool_i, s, i, n, b * min(k, 100))
 
@@ -2043,7 +2005,7 @@ def test_k3_bf16_partial_and_full_query_blocks(dev, f, b):
     query block resident (F = 136) and streamed (F = 1544)."""
     n = 5003
     args = _inputs_bf16(dev, n, f, b, seed=f + b)
-    _k3_bf16_vs_plain(args, n, 10, tk._chunk_rows(b, n, dev, 10, True, f))
+    _k3_bf16_vs_plain(args, n, 10, tk._chunk_rows(b, n, dev))
 
 
 @pytest.mark.parametrize("n", [1, 31, 100, 130])
@@ -2063,7 +2025,7 @@ def test_k3_bf16_chunks_without_tiles(dev):
     chunking."""
     n, b, f, k = 300, 40, 136, 10
     qh, ql, xh, xlh, c1 = _inputs_bf16(dev, n, f, b, seed=5)
-    rpc = tk.merge_tile_rows(b, k, True, f)
+    rpc = tk.TILE_ROWS
     chunks = -(-n // rpc) + 2
     s = torch.empty((b, chunks, k), device=dev)
     i = torch.empty((b, chunks, k), device=dev, dtype=torch.int32)
@@ -2151,70 +2113,38 @@ def test_k3_bf16_config_matches_the_wrapper_rule(dev):
         for k in (1, 10, 49, 50, 64, 128):
             cfg = tk.merge_bf16_config(f, k)
             resident, stages = tk.merge_bf16_plan(f, k)
-            assert cfg["query_block"] == tk.merge_query_block(2048, True)
-            assert cfg["tile_rows"] == tk.merge_tile_rows(2048, k, True, f)
+            assert cfg["query_block"] == tk.QUERY_BLOCK
+            assert cfg["tile_rows"] == tk.TILE_ROWS
             assert cfg["stages"] == stages >= 3
             assert cfg["resident"] == int(resident)
-            assert cfg["smem_bytes"] == tk.merge_smem_bytes(2048, k, True, f)
+            assert cfg["smem_bytes"] == tk.merge_smem_bytes(f, k, True)
             assert cfg["smem_bytes"] <= 232_448
-            assert cfg["ctas_per_sm"] == tk.merge_ctas_per_sm(2048, k, True,
-                                                              f)
+            assert cfg["ctas_per_sm"] == 1
             assert cfg["spill_bytes"] == 0
 
 
-@pytest.mark.parametrize("f", [128, 768, 1536, 3072])
-@pytest.mark.parametrize("b", [64, 65, 2048])
-@pytest.mark.parametrize("k", [1, 10, 100, 128])
-def test_k3_tf32_route_equals_mma_sync_bitwise(dev, f, b, k):
-    """Where merge_tf32_route admits the launch (the widths 128 to 3072,
-    one query block, a ragged second one, the serving batch; k from 1 to
-    128), the wrapper launches the wgmma kernel, and its scores and ids
-    are bitwise the mma.sync kernel's: chunks of 1000 rows (a tile cut at
-    each chunk's end, and a last chunk of 3 rows, shorter than a tile),
-    and rows at or past n holding copies of the queries or NaN."""
-    fill = "nan" if k in (1, 100) else "copies"
-    q, ql, x, xl, qh, xh, xlh, c1 = _poisoned_cosine(dev, f, b, fill,
-                                                     f + b + k)
-    args = (qh, ql, xh, xlh, c1)
-    assert tk.merge_tf32_route(b, f, k)
-    w, m = (tk.merge_topk_partial.launches_wgmma,
-            tk.merge_topk_partial.launches_mma)
-    s, i = tk.merge_topk_partial(*args, N_LIVE, k=k, rows_per_chunk=1000)
-    ms, mi = _k3_route("mma.sync", args, N_LIVE, k=k, rows_per_chunk=1000)
-    torch.cuda.synchronize()
-    assert tk.merge_topk_partial.launches_wgmma == w + 1
-    assert tk.merge_topk_partial.launches_mma == m
-    assert s.shape == (b, 6, k)
-    assert torch.equal(s, ms) and torch.equal(i, mi)
-    _no_row_past_n(i)
-    assert bool((i[:, 5, 3:] == INT_MAX).all())
-    assert not bool(torch.isnan(s).any())
-
-
 def test_k3_tf32_config_matches_the_wrapper_rule(dev):
-    """The library's account of each wgmma launch (query block, tile
+    """The library's account of each float32 launch (query block, tile
     rows, stages, shared bytes, CTAs an SM) is the wrapper's rule, with a
-    ring of at least 3 stages, within 232,448 bytes, and no spilled
-    register, at F from 128 to 3072 and k up to 128; F not a multiple of
-    4 and k past 128 are refused by the C entries as by the route."""
-    for f in (128, 768, 1536, 3072):
+    ring of at least 3 stages, within 232,448 bytes, one CTA an SM and no
+    spilled register, at F from 4 to 4096 and k up to 128; F not a
+    multiple of 4 and k past 128 are refused by the C entries, and a
+    102-wide operand by the wrapper's operand check."""
+    for f in (4, 100, 128, 768, 1536, 3072, 4096):
         for k in (1, 10, 66, 67, 100, 128):
             cfg = tk.merge_tf32_config(f, k)
-            assert tk.merge_tf32_route(2048, f, k)
-            assert cfg["query_block"] == tk.merge_query_block(2048)
-            assert cfg["tile_rows"] == tk.merge_tile_rows(2048, k, False, f)
+            assert cfg["query_block"] == tk.QUERY_BLOCK
+            assert cfg["tile_rows"] == tk.TILE_ROWS
             assert cfg["stages"] == tk.merge_tf32_stages(k) >= 3
-            assert cfg["smem_bytes"] == tk.merge_smem_bytes(2048, k, False,
-                                                            f)
+            assert cfg["smem_bytes"] == tk.merge_smem_bytes(f, k)
             assert cfg["smem_bytes"] <= 232_448
-            assert cfg["ctas_per_sm"] == tk.merge_ctas_per_sm(2048, k,
-                                                              False, f)
+            assert cfg["ctas_per_sm"] == 1
             assert cfg["spill_bytes"] == 0
     out = (ctypes.c_int * 7)()
     assert lib().asp_merge_topk_tf32_config(1538, 10, out) != 0
     assert lib().asp_merge_topk_tf32_config(1536, 129, out) != 0
     qh, ql, xh, xlh, c1 = _inputs(dev, 600, 102, 64, seed=102)
-    assert not tk.merge_tf32_route(64, 102, 10)
+    assert qh.shape[1] == xh.shape[1] == 104
     planes = torch.empty((2, 64, 102), device=dev)
     s = torch.empty((64, 1, 10), device=dev)
     i = torch.empty((64, 1, 10), device=dev, dtype=torch.int32)
@@ -2222,9 +2152,13 @@ def test_k3_tf32_config_matches_the_wrapper_rule(dev):
         qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1, 600,
         64, 102, 10, 1, 600, s.data_ptr(), i.data_ptr(), planes.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream) != 0
-    m = tk.merge_topk_partial.launches_mma
+    m = tk.merge_topk_partial.launches
+    with pytest.raises(ValueError):
+        tk.merge_topk_partial(qh[:, :102].contiguous(), ql,
+                              xh[:, :102].contiguous(), xlh, c1, 600, k=10,
+                              rows_per_chunk=600)
     tk.merge_topk_partial(qh, ql, xh, xlh, c1, 600, k=10, rows_per_chunk=600)
-    assert tk.merge_topk_partial.launches_mma == m + 1
+    assert tk.merge_topk_partial.launches == m + 1
 
 
 def test_bf16_merge_session_above_the_gate(dev):
@@ -2444,8 +2378,7 @@ def test_k3_counter_in_the_stream_records(dev, migration_index,
     """The recorder's ``k3.f32`` counts K3's float32 launches in a stream's
     record: one a batch of a "merge" session's stream; in a "binned"
     session's stream none where no batch overflows, and the repair's
-    fallbacks where one does.  ``k3.tf32_wgmma`` counts those of them
-    that took the wgmma route."""
+    fallbacks where one does."""
     from arrowspace_torch import index as index_mod
     from arrowspace_torch.utils import profiling
     rows, queries, idx = migration_index
@@ -2469,14 +2402,11 @@ def test_k3_counter_in_the_stream_records(dev, migration_index,
     merge = idx.make_search_session(batch_size=64, k=10, alpha=0.9)
     assert merge.kernel == "merge"
     k3 = tk.merge_topk_partial.launches
-    w = tk.merge_topk_partial.launches_wgmma
     list(merge.search_stream([queries, rows[100:164] * 1.01,
                               queries[:5]]))
     c = stream()
     assert c["k3.f32"] == c["batches"] == 3
     assert tk.merge_topk_partial.launches - k3 == 3
-    assert c.get("k3.tf32_wgmma", 0) == \
-        tk.merge_topk_partial.launches_wgmma - w
 
 
 def test_unprepared_energy_session_bitwise(dev):
@@ -2523,8 +2453,7 @@ def test_examples_run_on_the_card(dev, name):
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
 
 
-# K1's float32 wgmma route (csrc/bintopk_tf32.cu): F a multiple of 4 up
-# to 352, B >= 64
+# K1's float32 wgmma route (csrc/bintopk_tf32.cu): F up to 352, B >= 64
 
 def _k1_mma_sync(args, n, *, depth, bins, chunks):
     """The mma.sync kernel's pools (asp_bintopk, called through its C
@@ -2548,14 +2477,14 @@ def _k1_mma_sync(args, n, *, depth, bins, chunks):
 def _k1_wgmma_vs_plain(args, n, **kw):
     """A launch the wgmma route takes: its pools against the plain
     version's, and bitwise the mma.sync kernel's."""
-    w, m = (bt.binned_topk_pool.launches_wgmma,
-            bt.binned_topk_pool.launches_mma)
+    f32, w = (bt.binned_topk_pool.launches,
+              bt.binned_topk_pool.launches_wgmma)
     ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
     rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
     ms, mi, mdet = _k1_mma_sync(args, n, **kw)
     torch.cuda.synchronize()
+    assert bt.binned_topk_pool.launches == f32 + 1
     assert bt.binned_topk_pool.launches_wgmma == w + 1
-    assert bt.binned_topk_pool.launches_mma == m
     assert ps.shape == rs.shape and det.shape == rdet.shape
     _assert_scored_ids(ps, pi, rs, args)
     assert torch.equal(pi == INT_MAX, ri == INT_MAX)
@@ -2589,11 +2518,13 @@ def test_k1_wgmma_partial_and_full_query_blocks(dev, f, b):
     args = _inputs(dev, n, f, b, seed=f + b)
     kw = dict(depth=3, bins=128, chunks=3)
     if b < 64:
-        m = bt.binned_topk_pool.launches_mma
+        f32, w = (bt.binned_topk_pool.launches,
+                  bt.binned_topk_pool.launches_wgmma)
         ps, pi, det = bt.binned_topk_pool(*args, n, **kw)
         rs, ri, rdet = bt.binned_topk_pool_plain(*args, n, **kw)
         torch.cuda.synchronize()
-        assert bt.binned_topk_pool.launches_mma == m + 1
+        assert (bt.binned_topk_pool.launches,
+                bt.binned_topk_pool.launches_wgmma) == (f32 + 1, w)
         _assert_scored_ids(ps, pi, rs, args)
         assert float((det - rdet).abs().max()) <= TOL
         return
@@ -2692,9 +2623,10 @@ def test_k1_wgmma_identical_rows_tie_by_id(dev, f):
 def test_k1_wgmma_config_matches_the_wrapper_rule(dev):
     """The library's account of each launch (query block, stages, shared
     bytes) is the wrapper's rule, every instantiation keeps its state in
-    registers (no spilled bytes) with 256 threads, and the launches the
-    rule refuses keep the mma.sync kernel: F = 356 (a 2-stage ring, which
-    the C entry refuses too) and F = 102 (not a multiple of 4)."""
+    registers (no spilled bytes) with 256 threads; F = 356 (a 2-stage
+    ring, which the C entry refuses too) keeps the mma.sync kernel, and
+    F = 102, which the C entry refuses (not a multiple of 4), is read at
+    its operand width of 104 and takes the route."""
     for f in (8, 72, 100, 128, 256, 352):
         for depth in (2, 3, 4):
             cfg = bt.tf32_config(f, depth)
@@ -2703,22 +2635,23 @@ def test_k1_wgmma_config_matches_the_wrapper_rule(dev):
             assert cfg["smem_bytes"] == bt._tf32_smem(f, cfg["stages"])
             assert cfg["spill_bytes"] == 0
             assert cfg["max_threads"] >= 256
-    for f in (356, 102):
+    for f, width in ((356, 356), (102, 104)):
         n = 600
         qh, ql, xh, xlh, c1 = _inputs(dev, n, f, 64, seed=f)
-        assert not bt.tf32_route(f, 64)
+        assert qh.shape[1] == xh.shape[1] == width
+        assert bt.tf32_route(width, 64) == (width == 104)
         rc = lib().asp_bintopk_tf32(
             qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(), c1,
             n, 64, f, 128, 3, 1, 5, 0, 0, 0,
             torch.cuda.current_stream(dev).cuda_stream)
         assert rc != 0
-        m = bt.binned_topk_pool.launches_mma
+        w = bt.binned_topk_pool.launches_wgmma
         ps, pi, det = bt.binned_topk_pool(qh, ql, xh, xlh, c1, n, depth=3,
                                           bins=128, chunks=1)
         rs, _, rdet = bt.binned_topk_pool_plain(qh, ql, xh, xlh, c1, n,
                                                 depth=3, bins=128, chunks=1)
         torch.cuda.synchronize()
-        assert bt.binned_topk_pool.launches_mma == m + 1
+        assert bt.binned_topk_pool.launches_wgmma == w + (width == 104)
         _assert_scored_ids(ps, pi, rs, (qh, ql, xh, xlh, c1))
 
 

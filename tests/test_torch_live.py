@@ -594,3 +594,37 @@ def test_ingest_is_the_query_preparation(big):
                                     sess._lam[:sess.nitems], 0.9, k=5)
     s, i = sess.search(new[:4])
     np.testing.assert_array_equal(i, sess._ids[ref[1].numpy()])
+
+
+@pytest.mark.parametrize("kind", ["binned", "merge"])
+def test_live_rows_are_written_at_the_corpus_width(monkeypatch, kind):
+    """A live session over 13 float64 features keeps its prepared buffer
+    at the operand width, 14 (whole 16-byte rows), and the rows ``add``
+    and ``update`` write there are zero-padded to it: the live buffer
+    equals a fresh prepare_binned_corpus of the live rows bitwise, and
+    its search the plain scan of the live rows."""
+    from arrowspace_torch import core, live
+    monkeypatch.setattr(core, "BINNED_MIN_ITEMS", 1)
+    if kind == "merge":
+        monkeypatch.setattr(live, "session_kernel_kind",
+                            lambda *a, **kw: "merge")
+    rows, _j, t = _index(dims=13)
+    sess = t.make_live_session(batch_size=4, k=5, capacity=200)
+    assert sess.kernel == kind
+    width = bt.operand_width(13, torch.float64)
+    assert width == 14 and sess._xhat.shape[1] == width
+    rng = np.random.default_rng(3)
+    ids = sess.add(rng.uniform(0.1, 1.0, (20, 13)))
+    sess.update(ids[:3], rng.uniform(0.1, 1.0, (3, 13)))
+    n = sess.nitems
+    fresh, _ = bt.prepare_binned_corpus(sess._raw[:n], sess._lam[:n])
+    assert torch.equal(sess._xhat[:n], fresh[:n])
+    assert not bool(sess._xhat[:, 13:].any())
+    q = rows[:4] * 1.02
+    s, i = sess.search(q)
+    _, qlam = sess._prepare(torch.as_tensor(q))
+    ps, pi = batched_lambda_aware_topk(torch.as_tensor(q), qlam,
+                                       sess._raw[:n], sess._lam[:n], 0.9,
+                                       k=5)
+    np.testing.assert_array_equal(sess._ids[pi.numpy()], i)
+    np.testing.assert_allclose(s, ps.numpy(), rtol=0, atol=TOL)

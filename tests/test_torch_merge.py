@@ -21,7 +21,10 @@ from arrowspace_torch import core
 from arrowspace_torch.core import ArrowSpace
 from arrowspace_torch.index import (ArrowIndex, _query_prep,
                                     session_kernel_kind)
+from arrowspace_torch.ops import bintopk as bt
 from arrowspace_torch.ops import topk as tk
+from arrowspace_torch.ops.search import (batched_lambda_aware_topk,
+                                         binned_topk_with_repair)
 from test_torch_bintopk import _THREE_TF32, _tensor_core_dot
 
 
@@ -125,30 +128,31 @@ def test_merge_session_streams_through_k3(monkeypatch):
 
 
 def test_merge_chunk_rule_fills_whole_waves():
-    """K3's query block and chunking: 64 queries × 64 rows a CTA where
-    the batch fills it (32 × 128 below: the chunks hold whole tiles of
-    64 and 128 rows); two CTAs an SM where their
-    shared memory fits (k <= 24 at 64 queries); the chunk count from
-    ops.bintopk.wave_chunks over ceil(B / block) CTAs a chunk and the
-    SMs' resident slots, whole tiles a chunk; shared memory within a
-    block's budget at every k <= 128."""
-    assert [tk.merge_query_block(b) for b in (1, 32, 33, 64, 2048)] == \
-        [32, 32, 64, 64, 64]
-    assert [tk.merge_ctas_per_sm(2048, k) for k in (1, 10, 24, 25, 128)] \
-        == [2, 2, 2, 1, 1]
-    assert tk.merge_ctas_per_sm(1, 10) == 1
-    assert tk.merge_smem_bytes(2048, 10) == 4 * (
-        2 * 128 * 68 + 2 * 64 * 10 + 2 * 64 * 64 + 3 * 64)
+    """K3's one chunking, float32 and bf16 alike: 64 queries × 128 rows a
+    CTA, one CTA an SM (the ring fills its shared memory at every k),
+    the chunk count from ops.bintopk.wave_chunks over ceil(B / 64) CTAs
+    a chunk and the SMs, at most one chunk an SM, of whole 128-row
+    tiles.  A batch of one query block (B = 1, 63 and 64 alike: a
+    repair's rows) spreads over 119 chunks on 132 SMs and 36 on 40, a
+    2048 batch's 32 CTAs over 4 chunks; the CPU's one "SM" takes one
+    chunk."""
+    assert (tk.QUERY_BLOCK, tk.TILE_ROWS) == (64, 128)
     n = 1_000_000
-    for k, chunks in ((10, 8), (64, 4)):    # 256 / 128 CTAs, 264 / 132 slots
-        rpc = tk.merge_rows_per_chunk(2048, n, 132, k)
-        assert rpc % 64 == 0 and -(-n // rpc) == chunks
-    assert tk.merge_rows_per_chunk(1, n, 132, 10) == \
-        -(-(-(-n // 128)) // 64) * 128                # 64 chunks of one CTA
-    assert tk._chunk_rows(2048, n, torch.device("cpu"), 10) == \
-        -(-n // 64) * 64
-    assert all(tk.merge_smem_bytes(b, k) <= 227 * 1024 for b in (1, 2048)
-               for k in (1, 10, 64, 128))
+    for bsz, chunks in ((1, 119), (63, 119), (64, 119), (65, 60),
+                        (2048, 4)):
+        rpc = tk.merge_rows_per_chunk(bsz, n, 132)
+        assert rpc % 128 == 0 and -(-n // rpc) == chunks
+        ctas = -(-bsz // 64) * chunks
+        assert ctas / (-(-ctas // 132) * 132) >= 0.9
+    assert -(-n // tk.merge_rows_per_chunk(1, n, 40)) == 36
+    assert tk._chunk_rows(2048, n, torch.device("cpu")) == \
+        -(-n // 128) * 128
+    for f in (4, 100, 1536, 4096):
+        for k in (1, 10, 64, 128):
+            for bf16 in (False, True):
+                smem = tk.merge_smem_bytes(f, k, bf16)
+                assert smem <= 227 * 1024
+                assert 2 * (smem + 1024) > 228 * 1024   # one CTA an SM
 
 
 def test_merge_partial_plain_chunks_at_the_wrapper_rule():
@@ -183,7 +187,7 @@ def test_three_tf32_truncating_k_step_within_tolerance_at_wide_f(f):
     assert torch.equal(dot[:, 200], dot[:, 3])
 
 
-# K3's float32 wgmma route (csrc/merge_topk_tf32.cu): ring stages by k
+# Float32 K3 (csrc/merge_topk_tf32.cu): ring stages by k
 _TF32_STAGES = {1: 5, 10: 4, 24: 4, 64: 4, 66: 4, 67: 3, 100: 3, 128: 3}
 
 
@@ -192,74 +196,87 @@ _TF32_STAGES = {1: 5, 10: 4, 24: 4, 64: 4, 66: 4, 67: 3, 100: 3, 128: 3}
                                    (1536, 63), (1534, 2048), (124, 2048),
                                    (3076, 2048), (768, 1)])
 def test_k3_tf32_route_rule(k, f, bsz):
-    """K3's float32 wgmma kernel: 64 queries × 128 corpus rows a CTA, a
-    ring of as many 32-feature stages (128 corpus rows and both query
-    planes' 64 rows, 128 bytes a row: 32 KB, and two 8-byte barriers) as
-    fit beside 1024 aligning bytes and the selection state (a k-th word,
-    a top-k list and a one-tile candidate buffer of 8-byte entries and a
-    count a query), at most 8.  It runs where F is a multiple of 4 from
-    128 to 3072 and the batch fills the 64-query block; there its plan
-    gives K3's tile rows, shared bytes, one CTA an SM and chunks of whole
-    128-row tiles; elsewhere the mma.sync kernel's rule holds."""
+    """Float32 K3's one plan at every (F, B, k): 64 queries × 128 corpus
+    rows a CTA, a ring of as many 32-feature stages (128 corpus rows and
+    both query planes' 64 rows, 128 bytes a row: 32 KB, and two 8-byte
+    barriers) as fit beside 1024 aligning bytes and the selection state
+    (a k-th word, a top-k list and a one-tile candidate buffer of 8-byte
+    entries and a count a query), at most 8; shared memory that leaves
+    room for one CTA an SM, and chunks of whole 128-row tiles that fill
+    132 SMs in whole waves.  The kernel reads F at its operand width
+    (whole 16-byte rows): 1534 as 1536, 124, 3076 and 768 as they
+    are."""
     stages = _TF32_STAGES[k]
     assert tk.merge_tf32_stages(k) == stages
     smem = 1024 + stages * 32_784 + 64 * (8 + 8 * k + 8 * 128 + 4)
     assert tk._tf32_smem(k, stages) == smem <= 232_448
     assert stages == 8 or smem + 32_784 > 232_448
-    route = f % 4 == 0 and 128 <= f <= 3072 and bsz >= 64
-    assert tk.merge_tf32_route(bsz, f, k) == route
+    width = bt.operand_width(f, torch.float32)
+    assert width == -(-f // 4) * 4 and width * 4 % 16 == 0
+    assert tk.merge_smem_bytes(width, k) == smem
+    assert 2 * (smem + 1024) > 228 * 1024
     n = 1_000_000
-    rpc = tk.merge_rows_per_chunk(bsz, n, 132, k, False, f)
-    if route:
-        assert tk.merge_tile_rows(bsz, k, False, f) == 128
-        assert tk.merge_smem_bytes(bsz, k, False, f) == smem
-        assert tk.merge_ctas_per_sm(bsz, k, False, f) == 1
-        assert rpc % 128 == 0
-        chunks = -(-n // rpc)
-        ctas = -(-bsz // 64) * chunks
-        assert ctas / (-(-ctas // 132) * 132) >= 0.9
-    else:   # the mma.sync kernel's rule, as without F
-        assert tk.merge_tile_rows(bsz, k, False, f) == \
-            tk.merge_tile_rows(bsz, k)
-        assert tk.merge_smem_bytes(bsz, k, False, f) == \
-            tk.merge_smem_bytes(bsz, k)
-        assert rpc == tk.merge_rows_per_chunk(bsz, n, 132, k)
+    rpc = tk.merge_rows_per_chunk(bsz, n, 132)
+    assert rpc % tk.TILE_ROWS == 0 and tk.TILE_ROWS == 128
+    ctas = -(-bsz // tk.QUERY_BLOCK) * -(-n // rpc)
+    assert ctas / (-(-ctas // 132) * 132) >= 0.9
 
 
 def test_k3_tf32_route_edges():
-    """The dbpedia cell's launch (B = 2048, F = 1536, k = 10) takes the
-    wgmma route in 4 chunks of whole tiles on 132 SMs; a batch one query
-    short of the block (the repair's fallbacks, the wide repair at B = 1),
-    F not a multiple of 4, F past either end of the measured range and k
-    past 128 keep the mma.sync kernel; k = 128 fits a ring of 3 stages in
-    the 227 KB a block may use; bf16 operands never take the route, their
-    kernel's plan standing where the route would admit F."""
-    assert tk.merge_tf32_route(2048, 1536, 10)
-    rpc = tk.merge_rows_per_chunk(2048, 1_000_000, 132, 10, False, 1536)
-    assert rpc == 1954 * 128 and -(-1_000_000 // rpc) == 4
-    assert tk.merge_tf32_route(64, 1536, 10)
-    assert not tk.merge_tf32_route(63, 1536, 10)
-    for bsz in (1, 16, 32):
-        assert not tk.merge_tf32_route(bsz, 1536, 10)
-    for f in (1534, 1538, 1537, 130, 3070):
-        assert not tk.merge_tf32_route(2048, f, 10)
-    assert tk.merge_tf32_route(2048, 128, 10)
-    assert tk.merge_tf32_route(2048, 3072, 10)
-    for f in (124, 100, 3076, 4096):
-        assert not tk.merge_tf32_route(2048, f, 10)
-    assert tk.merge_tf32_route(2048, 1536, 128)
-    assert tk.merge_tf32_stages(128) == 3
-    assert tk.merge_smem_bytes(2048, 128, False, 1536) <= 227 * 1024
-    assert tk.merge_smem_bytes(2048, 128, False, 1536) + 32_784 \
-        > 227 * 1024
-    for k in (0, 129):
-        assert not tk.merge_tf32_route(2048, 1536, k)
+    """The one plan's edges: the dbpedia cell's launch (B = 2048, F =
+    1536, k = 10) runs 4 chunks of 1954 tiles on 132 SMs; B = 1, 63 and
+    64 are one query block each and take the same 119 chunks; F = 100
+    and 4096 (widths outside the range first timed) plan as any other F;
+    k = 128 fits a ring of 3 stages in the 227 KB a block may use and k
+    = 67 the last depth of 3, k = 66 a ring of 4; the bf16 kernel's plan
+    shares the query block and tile rows."""
+    n = 1_000_000
+    rpc = tk.merge_rows_per_chunk(2048, n, 132)
+    assert rpc == 1954 * 128 and -(-n // rpc) == 4
+    assert len({tk.merge_rows_per_chunk(b, n, 132) for b in (1, 63, 64)}) \
+        == 1
+    assert -(-n // tk.merge_rows_per_chunk(1, n, 132)) == 119
+    for f in (100, 4096):
+        assert tk.merge_smem_bytes(f, 10) == tk.merge_smem_bytes(1536, 10)
+    assert [tk.merge_tf32_stages(k) for k in (66, 67, 128)] == [4, 3, 3]
+    assert tk.merge_smem_bytes(1536, 128) <= 227 * 1024
+    assert tk.merge_smem_bytes(1536, 128) + 32_784 > 227 * 1024
     for f in (128, 1536, 3072):
         plan = tk.merge_bf16_plan(f, 10)
-        assert tk.merge_smem_bytes(2048, 10, True, f) == \
+        assert tk.merge_smem_bytes(f, 10, True) == \
             tk._bf16_smem(f, 10, *plan)
-        assert tk.merge_tile_rows(2048, 10, True, f) == 128
-    # the mma.sync kernel's plan at the same shapes is unchanged by F
-    assert tk.merge_smem_bytes(2048, 10) == 4 * (
-        2 * 128 * 68 + 2 * 64 * 10 + 2 * 64 * 64 + 3 * 64)
-    assert tk.merge_tile_rows(63, 10, False, 1536) == 64
+
+
+def _dyadic_unit_rows(rng, n, f):
+    """Unit rows whose products and sums are exact in float32 in any
+    order: one ±1 feature where F < 4, else four ±1/2 features."""
+    m = 1 if f < 4 else 4
+    rows = np.zeros((n, f), dtype=np.float32)
+    for r in range(n):
+        cols = rng.choice(f, m, replace=False)
+        rows[r, cols] = rng.choice([-1.0, 1.0], m) / np.sqrt(m)
+    return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("f", [1, 3, 5, 99, 1537])
+def test_plain_k1_and_k3_on_a_padded_corpus_equal_the_unpadded_scan(f):
+    """The plain K1 (with its repair) and K3 serve a float32 corpus
+    prepared at its operand width (F zero-padded to whole 16 bytes) and
+    return scores and ids torch.equal to the plain full scan of the
+    unpadded rows.  The rows are chosen so that every dot product is
+    exact in float32 (α = 1: no λ term), since the CPU's product-sum
+    rounds in an order that depends on the row width; their many exact
+    ties are held to the scan's lowest-id order."""
+    rng = np.random.default_rng(f)
+    n, b, k = 3000, 8, 10
+    x = _dyadic_unit_rows(rng, n, f)
+    q = x[rng.integers(0, n, b)].clone()
+    xl = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+    ql = torch.from_numpy(rng.uniform(0, 1, b).astype(np.float32))
+    xh, _ = bt.prepare_binned_corpus(x, xl)
+    assert xh.shape[1] == bt.operand_width(f, torch.float32) == \
+        -(-f // 4) * 4
+    ps, pi = batched_lambda_aware_topk(q, ql, x, xl, 1.0, k=k)
+    for s, i in (binned_topk_with_repair(q, ql, x, xl, 1.0, k=k),
+                 tk.fused_lambda_topk(q, ql, x, xl, 1.0, k=k)):
+        assert torch.equal(i, pi) and torch.equal(s, ps)

@@ -194,3 +194,42 @@ def test_unprepared_repair_rescores_as_the_prepared_one(cosine):
     b = br.strided_lambda_repair(*args, x, lam, 0.9, k=K, n=N,
                                  prepared=False, cur_scores=s.numpy())
     _bitwise(b, a)
+
+
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 99),
+                                     (torch.float64, 13)])
+def test_unprepared_repair_gathers_rows_at_the_corpus_width(monkeypatch,
+                                                            dtype, f):
+    """The strided repair over a raw corpus of F features prepares each
+    row it gathers at the prepared corpus's width (operand_width: F
+    zero-padded to whole 16 bytes, 100 float32 or 14 float64 features),
+    so it rescores the same operands and equals the repair over the
+    prepared corpus bitwise."""
+    x = torch.as_tensor(_rows(f=f), dtype=dtype)
+    lam = torch.linspace(0.1, 0.9, N, dtype=dtype)
+    depth, bins = bt.binned_topk_depth_for(K), bt.bins_target(K)
+    for src in (0, 1):           # the copies' λ as their source's
+        lam[src + 7 + bins * (2 + np.arange(depth + 2))] = float(lam[src])
+    width = bt.operand_width(f, dtype)
+    assert width == -(-f * dtype.itemsize // 16) * 16 // dtype.itemsize
+    assert width > f
+    xh, xl = bt.prepare_binned_corpus(x, lam)
+    assert xh.shape[1] == width
+    q = x[:2] * 1.02
+    ql = lam[:2].clone()
+    s, i, flags, det = bt.binned_lambda_topk(q, ql, x, lam, 0.9, k=K)
+    assert flags.all()
+    widths = []
+    row_dots = br.row_dots
+
+    def spy(qhat, rows):
+        widths.append((qhat.shape[-1], rows.shape[-1]))
+        return row_dots(qhat, rows)
+    monkeypatch.setattr(br, "row_dots", spy)
+    args = (q, ql, det.numpy(), s[:, K - 1].numpy(), i.numpy())
+    a = br.strided_lambda_repair(*args, xh, xl, 0.9, k=K, n=N,
+                                 prepared=True, cur_scores=s.numpy())
+    b = br.strided_lambda_repair(*args, x, lam, 0.9, k=K, n=N,
+                                 prepared=False, cur_scores=s.numpy())
+    assert widths and set(widths) == {(width, width)}
+    _bitwise(b, a)

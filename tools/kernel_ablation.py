@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Ablation of the tensor-core kernels K1 (csrc/bintopk.cu), K1's bf16
 mode (csrc/bintopk_bf16.cu), float32 K1's wgmma route
-(csrc/bintopk_tf32.cu), K3 (csrc/merge_topk.cu), K3's bf16 mode
-(csrc/merge_topk_bf16.cu), float32 K3's wgmma route
-(csrc/merge_topk_tf32.cu), K6 (csrc/energy_bintopk.cu), K7
+(csrc/bintopk_tf32.cu), float32 K3 (csrc/merge_topk_tf32.cu), K3's bf16
+mode (csrc/merge_topk_bf16.cu), K6 (csrc/energy_bintopk.cu), K7
 (csrc/energy_chord.cu), and K2 (csrc/taulambda.cu) and K5
 (csrc/lambda_batch.cu) on their shared λ body (csrc/lambda_tile.cuh),
 and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
@@ -12,7 +11,7 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ablation.py
-        [--kernels k1,k1bf16,k1tf32,k3,k3bf16,k3tf32,k6,k7,k2,k5,k4]
+        [--kernels k1,k1bf16,k1tf32,k3tf32,k3grid,k3bf16,k6,k7,k2,k5,k4]
         [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
@@ -33,8 +32,6 @@ fails) and times each copy on the same inputs at the serving shapes:
   kernel (the pools held bitwise equal) with its ring stages, shared
   bytes, bound (3·2·B·N·F TF32 operations at 494.7 TFLOP/s) and the
   corpus bytes every query block reads from L2, (B / 64)·N·F·4;
-- K3: the same rows at F = 128 and F = 1536, k = 10, at the wrapper's
-  chunking;
 - K3's bf16 mode (``--kernels k3bf16``): the same rows as bf16 operands
   at 1M x 128, 1M x 1536 and 1M x 3072 (B = 2048, k = 10), at 1M x 1536
   with k = 128, and the B = 1 repair row at 1M x 128 (the median of 25
@@ -43,13 +40,21 @@ fails) and times each copy on the same inputs at the serving shapes:
   bound and the bytes every CTA reads from L2, the corpus (B / 64)·N·F·2
   and, where the query block is not resident, the query slices
   B·N·F·2 / (tile rows), with the rate they imply;
-- float32 K3's wgmma route (``--kernels k3tf32``): the clustered rows at
-  1M x 128, 768, 1536 and 3072, B = 2048, k = 10 and 100, each kernel at
-  its own chunking, beside this checkout's mma.sync kernel (the outputs
-  held bitwise equal at the wgmma route's chunking), with its ring
-  stages, shared bytes, bound (3·2·B·N·F TF32 operations at 494.7
-  TFLOP/s) and the L2 bytes of its stages a batch (the corpus box and
-  both query planes' boxes of every tile), with the rate they imply;
+- float32 K3 (``--kernels k3tf32``): the clustered rows at 1M x 128,
+  768, 1536 and 3072, B = 2048, k = 10 and 100, at its chunking, with
+  its ring stages, shared bytes, bound (3·2·B·N·F TF32 operations at
+  494.7 TFLOP/s) and the L2 bytes of its stages a batch (the corpus box
+  and both query planes' boxes of every tile), with the rate they imply;
+  with ``--before DIR``, beside DIR's mma.sync kernel (merge_topk.cu, at
+  its own chunking; the outputs held bitwise equal at this kernel's);
+- float32 K3 against the mma.sync kernel it replaced (``--kernels
+  k3grid --before DIR``, DIR a csrc holding merge_topk.cu, for instance
+  an earlier commit's unpacked with ``git archive``): 1M clustered rows,
+  B = 1, 16, 32 and 63 at F = 128, 768 and 1536 (k = 10), B = 1 at F =
+  768 with k = 100, and B = 2048 at F = 64, 100, 1537 and 4096, each
+  kernel at its own chunking, mean ms of 10 launches in turns, the
+  merged top-k and the partials at this kernel's chunking held bitwise
+  equal;
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
   clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
@@ -72,8 +77,7 @@ fails) and times each copy on the same inputs at the serving shapes:
   K2 as above with the same selection variants.
 
 Variants: "kernel" (as shipped), "no_fold" (no score tail, insertion
-network or det; for K3 no selection: no candidate is appended, so no
-merge runs), "no_staging" (the first slice only; K1's bf16 mode: no
+network or det), "no_staging" (the first slice only; K1's bf16 mode: no
 refill of its ring, each step multiplying what its stage holds),
 "no_product", "product_only", "staging_only"; K1 also "one_tf32" and
 "lo_truncated";
@@ -88,9 +92,9 @@ its pool's last: the same pools);
 K3's bf16 mode "kernel", "no_select" (no candidate appended, so no merge
 runs), "product_only" (no refill of the ring and no selection),
 "staging_only" (no wgmma and no selection) and "n32" (wgmma m64n32k16,
-32 rows a warpgroup, instead of m64n64k16); float32 K3's wgmma route
-"kernel", "no_select", "product_only" and "staging_only" (the same
-parts); K6 and K7 also
+32 rows a warpgroup, instead of m64n64k16); float32 K3 "kernel",
+"no_select", "product_only" and "staging_only" (the same parts); K6 and
+K7 also
 "partial_8/16/64" (the truncating accumulate summed in zeroed partials
 of 8, 16 or 64 features instead of the shipped 32); K2
 and K5 (fold: the epilogue that multiplies the products by the rows'
@@ -117,14 +121,14 @@ row's [lo, hi], ⌈log2(hi - lo + 1)⌉ passes at most).  Every variant but
 ``--before DIR`` also ablates the K6 and K7 of another checkout's csrc
 directory (DIR), for instance the fp32 fold of an earlier commit
 unpacked with ``git archive``; its C entry points must be the same.  For
-K1, K1's bf16 mode and K3 it builds DIR's kernel beside this one,
-times both, and compares their machine code (cuobjdump -sass)
-instantiation by instantiation; for K1's bf16 mode it times DIR's
+K1 and K1's bf16 mode it builds DIR's kernel beside this one, times
+both, and compares their machine code (cuobjdump -sass) instantiation
+by instantiation; for K1's bf16 mode it times DIR's
 ``asp_bintopk_bf16`` as shipped (from DIR's bintopk_bf16.cu, or its
 bintopk.cu where the bf16 mode was an instantiation of the float32
-kernel); for K3 it times DIR's kernel as shipped, at its own chunking
-(the fp32 kernel of earlier commits: 8 queries a CTA, two CTAs per SM);
-for float32 K1's wgmma route DIR's float32 K1 as shipped (its
+kernel); for float32 K3 and ``k3grid`` DIR's mma.sync kernel
+(merge_topk.cu) as shipped, at its own chunking; for float32 K1's wgmma
+route DIR's float32 K1 as shipped (its
 ``asp_bintopk``), timed before and after this checkout's variants, and
 DIR's ``bintopk_kernel`` machine code against this checkout's; for
 K3's bf16 mode DIR's ``asp_merge_topk_bf16`` as shipped (from DIR's
@@ -166,7 +170,8 @@ from arrowspace_torch.ops import topk as tk  # noqa: E402
 from arrowspace_torch.ops._build import (CSRC, FLAGS, SIGNATURES,  # noqa
                                          _nvcc)
 from arrowspace_torch.ops.search import (INT_MAX, operand_query,  # noqa
-                                         prepare_query)
+                                         prepare_query, safe_unit,
+                                         two_key_topk)
 from arrowspace_torch.reduction import ImplicitProjection  # noqa: E402
 from arrowspace_torch.taumode import TauMode, select_tau_sorted  # noqa: E402
 
@@ -224,7 +229,7 @@ K3BF16_PARTS = {   # K3's bf16 mode (csrc/merge_topk_bf16.cu)
                 ("merge_topk_bf16.cu", "    mbar_wait(full + 8 * st, phase);",
                  "    if (step < S) mbar_wait(full + 8 * st, phase);")],
 }
-K3TF32_PARTS = {   # K3's float32 wgmma route (csrc/merge_topk_tf32.cu)
+K3TF32_PARTS = {   # float32 K3 (csrc/merge_topk_tf32.cu)
     "product": [("merge_topk_tf32.cu", "wgmma_m64n64k8_tf32(part,",
                  "if (false) wgmma_m64n64k8_tf32(part,")],
     "select": [("merge_topk_tf32.cu",
@@ -246,17 +251,6 @@ TILE_PARTS = {   # the energy tile (csrc/energy_tile.cuh)
     "fold": [("energy_tile.cuh", "if (gr < a.n) {",
               "if (gr < a.n && a.n < 0) {")],
     "staging": [("energy_tile.cuh",
-                 "    if (step + 1 < steps) {\n      const bool wrap",
-                 "    if (false) {\n      const bool wrap")],
-}
-K3_PARTS = {
-    "product": [("merge_topk.cu",
-                 "        asp_fold::kstep(part, qa + kk, kXS, xb + kk);",
-                 "        (void)0;")],
-    "fold": [("merge_topk.cu",
-              "if (live_q[i] && gr < r1 && ahead(sc, gr, kth_s, kth_i)) {",
-              "if (live_q[i] && gr < r1 && a.c1 > 1e30f) {")],
-    "staging": [("merge_topk.cu",
                  "    if (step + 1 < steps) {\n      const bool wrap",
                  "    if (false) {\n      const bool wrap")],
 }
@@ -388,12 +382,11 @@ K3TF32_VARIANTS = {
     "kernel": [], "no_select": K3TF32_PARTS["select"],
     "product_only": K3TF32_PARTS["staging"] + K3TF32_PARTS["select"],
     "staging_only": K3TF32_PARTS["product"] + K3TF32_PARTS["select"]}
-# K3's float32 wgmma route at (F, k), B = 2048: the widths that set the
-# route's range, at the dbpedia cell's k and at cohere's
+# float32 K3 at (F, k), B = 2048: the widths first timed, at the dbpedia
+# cell's k and at cohere's
 K3TF32_SHAPES = tuple((f, k) for f in (128, 768, 1536, 3072)
                       for k in (10, 100))
 FOLD_VARIANTS = variants(FOLD_PARTS, {})
-K3_VARIANTS = variants(K3_PARTS, {})
 LAMBDA_VARIANTS = variants(LAMBDA_PARTS, {
     "no_b_split": [("lambda_tile.cuh",
                     f"asp_fold::split_tf32({v}, {hi}, {lo});",
@@ -452,15 +445,13 @@ SELECT_VARIANTS = {
                                    ("redux_bounded", "false", "true"))}}
 K4_SHAPES = ((1_000_000, 128), (688_128, 768), (344_064, 1536))
 SOURCES = {"k1": "bintopk.cu", "k1bf16": "bintopk_bf16.cu",
-           "k1tf32": "bintopk_tf32.cu",
-           "k3": "merge_topk.cu", "k3bf16": "merge_topk_bf16.cu",
+           "k1tf32": "bintopk_tf32.cu", "k3bf16": "merge_topk_bf16.cu",
            "k3tf32": "merge_topk_tf32.cu",
            "k6": "energy_bintopk.cu", "k7": "energy_chord.cu",
            "k2": "taulambda.cu", "k5": "lambda_batch.cu",
            "k4": "select_tau.cu"}
 ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
-         "k1tf32": "asp_bintopk_tf32",
-         "k3": "asp_merge_topk", "k3bf16": "asp_merge_topk_bf16",
+         "k1tf32": "asp_bintopk_tf32", "k3bf16": "asp_merge_topk_bf16",
          "k3tf32": "asp_merge_topk_tf32",
          "k6": "asp_energy_bintopk", "k7": "asp_energy_chord",
          "k2": "asp_taulambda", "k5": "asp_lambda_batch",
@@ -469,15 +460,19 @@ ENTRY = {"k1": "asp_bintopk", "k1bf16": "asp_bintopk_bf16",
 
 # the kernels whose machine code --before compares, by function name
 SASS_KERNEL = {"k1": "bintopk_kernel", "k1bf16": "bintopk_bf16_kernel",
-               "k1tf32": "bintopk_tf32_kernel",
-               "k3": "merge_topk_kernel"}
+               "k1tf32": "bintopk_tf32_kernel"}
+# float32 K3's mma.sync kernel of earlier commits (their
+# csrc/merge_topk.cu), built from --before's csrc: its C entry, the one
+# that file exports, took asp_merge_topk_bf16's arguments
+OLD_K3 = "merge_topk.cu"
 
 
 def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str,
           source: str = "") -> dict:
     """One shared library per variant, all nvcc runs started together,
     from ``source`` (default SOURCES[kernel]); prints each variant's
-    registers and spills by instantiation."""
+    registers and spills by instantiation.  Binds ENTRY[kernel], or for
+    OLD_K3 the C entry that file exports."""
     procs = {}
     for name, subs in table.items():
         src = OUT / f"{tag}_{kernel}_{name}"
@@ -508,16 +503,21 @@ def build(kernel: str, csrc: pathlib.Path, table: dict, tag: str,
                             for fn, sp, r in regs if "kernel" in fn)
         print(f"{tag} {kernel} {name}: {summary}", flush=True)
         lib = ctypes.CDLL(str(OUT / f"{tag}_{kernel}_{name}" / "lib.so"))
-        fn = getattr(lib, ENTRY[kernel])
-        fn.argtypes = list(SIGNATURES[ENTRY[kernel]])
+        if source == OLD_K3:
+            entry = re.search(r'extern "C" int (\w+)\(',
+                              (csrc / OLD_K3).read_text()).group(1)
+            fn = getattr(lib, entry)
+            fn.argtypes = list(SIGNATURES["asp_merge_topk_bf16"])
+        else:
+            fn = getattr(lib, ENTRY[kernel])
+            fn.argtypes = list(SIGNATURES[ENTRY[kernel]])
         fn.restype = ctypes.c_int
         libs[name] = fn
     return libs
 
 
 def short(mangled: str) -> str:
-    """'depth,query block' (K4: 'slots,vector loads'; K3: 'query block';
-    K3's bf16 mode: 'resident' 1 or 0; ',bf16' for a bf16 instantiation
+    """'depth,query block' (K4: 'slots,vector loads'; K3's bf16 mode: 'resident' 1 or 0; ',bf16' for a bf16 instantiation
     of a kernel templated on the operand type) of a mangled kernel
     instantiation."""
     nums = re.findall(r"ILi(\d+)EL[ib](\d+)E", mangled)
@@ -790,65 +790,6 @@ def run_k1tf32(runs, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def run_k3(libs, dev, tag: str = "now") -> None:
-    """K3 at F = 128 and 1536, k = 10: this checkout's chunking (or, for
-    --before, the fp32 kernel's: two CTAs of 8 queries per SM)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for f in (128, 1536):
-        qh, ql, xh, xlh, c1 = k1_inputs(dev, f)
-        if tag == "now":
-            rpc = tk.merge_rows_per_chunk(B, N, sms, K)
-        else:
-            chunks = max(1, -(-2 * sms // -(-B // 8)))
-            rpc = max(128, -(-(-(-N // chunks)) // 128) * 128)
-        chunks = -(-N // rpc)
-        out_s = torch.empty((B, chunks, K), device=dev)
-        out_i = torch.empty((B, chunks, K), device=dev, dtype=torch.int32)
-        for name, fn in libs.items():
-            def call():
-                rc = fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
-                        xlh.data_ptr(), c1, N, B, f, K, chunks, rpc,
-                        out_s.data_ptr(), out_i.data_ptr(), stream)
-                if rc != 0:
-                    raise SystemExit(f"k3 {name}: launch failed ({rc})")
-            line = (f"{tag} k3 F={f} chunks={chunks} {name}: "
-                    f"{time_ms(call):.3f} ms")
-            if name == "kernel":
-                rs, _ = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N,
-                                                    k=K, rows_per_chunk=rpc)
-                err = float((out_s - rs).abs().max())
-                ids = out_i.reshape(B, -1).long()
-                rows = xh[ids[:256]].double()
-                ref = (rows * qh[:256].double()[:, None, :]).sum(-1) - c1 * (
-                    ql[:256].double()[:, None] - xlh[ids[:256]].double()
-                ).abs().clamp_max(1.0)
-                err64 = float((out_s.reshape(B, -1)[:256].double() - ref)
-                              .abs().max())
-                line += (f" (max_abs_err vs plain {err:.3e}, vs float64 "
-                         f"{err64:.3e} over 256 queries)")
-                if err > 1e-5:
-                    print(line, flush=True)
-                    raise SystemExit("K3 disagrees with its plain version")
-            print(line, flush=True)
-        if tag == "now":   # the chunk count for one resident CTA an SM
-            rpc2 = tk.merge_rows_per_chunk(
-                B, N, sms // tk.merge_ctas_per_sm(B, K), K)
-            ch2 = -(-N // rpc2)
-            s2 = torch.empty((B, ch2, K), device=dev)
-            i2 = torch.empty((B, ch2, K), device=dev, dtype=torch.int32)
-            fn = libs["kernel"]
-            ms = time_ms(lambda: fn(
-                qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(),
-                c1, N, B, f, K, ch2, rpc2, s2.data_ptr(), i2.data_ptr(),
-                stream))
-            print(f"{tag} k3 F={f} chunks={ch2} kernel, chunks for one CTA "
-                  f"an SM: {ms:.3f} ms", flush=True)
-            del s2, i2
-        del qh, ql, xh, xlh, out_s, out_i
-        torch.cuda.empty_cache()
-
-
 def mma_sync_bf16_rows_per_chunk(bsz: int, n: int, sms: int,
                                   k: int) -> int:
     """The chunking of K3's bf16 mode before it had a kernel of its own
@@ -905,19 +846,19 @@ def run_k3bf16(runs, dev) -> None:
         qh, c1 = operand_query(q[:bsz], 0.9, torch.float32, xh)
         ql = ql_all[:bsz].contiguous()
         resident, stages = tk.merge_bf16_plan(f, k)
-        tr = tk.merge_tile_rows(bsz, k, True, f)
+        tr = tk.TILE_ROWS
         bound = 2.0 * bsz * N * f / 989.4e12 * 1e3
         shape = f"F={f} B={bsz} k={k}"
         print(f"k3bf16 {shape}: {tr} rows a tile, {stages} stages, "
               f"query block {'resident' if resident else 'streamed'}, "
-              f"{tk.merge_smem_bytes(bsz, k, True, f)} shared bytes; bound "
+              f"{tk.merge_smem_bytes(f, k, True)} shared bytes; bound "
               f"{bound:.3f} ms (operations)", flush=True)
         order = [r for r in runs if r[0] == "before"][:1] + \
             [r for r in runs if r[0] == "now"] + \
             [r for r in runs if r[0] == "before"][:1]
         for tag, libs in order:
             if tag == "now":
-                rpc = tk.merge_rows_per_chunk(bsz, N, sms, k, True, f)
+                rpc = tk.merge_rows_per_chunk(bsz, N, sms)
                 qbytes = 0 if resident else bsz * N * f * 2 / tr
                 l2 = -(-bsz // 64) * N * f * 2 + qbytes
             else:
@@ -958,15 +899,15 @@ def run_k3bf16(runs, dev) -> None:
 
 
 def run_k3tf32(runs, dev) -> None:
-    """K3's float32 wgmma route at K3TF32_SHAPES (1M clustered rows, B =
-    2048), each of ``runs`` ((tag, libs): this checkout's variants, and
-    the mma.sync kernel of this checkout, timed before and after them),
-    each kernel at its own chunking (merge_rows_per_chunk with and
-    without F); the wgmma kernel held to the plain version and bitwise to
-    the mma.sync kernel at its chunking, with its ring stages, shared
-    bytes, bound (3·2·B·N·F TF32 operations at 494.7 TFLOP/s) and the L2
-    bytes of its stages, (B / 64)·(tiles·128 + tiles·2·64)·ceil32(F)·4,
-    with the rate they imply."""
+    """Float32 K3 at K3TF32_SHAPES (1M clustered rows, B = 2048), each of
+    ``runs`` ((tag, libs): this checkout's variants and, with --before,
+    the mma.sync kernel of the earlier commits, timed before and after
+    them), each kernel at its own chunking (merge_rows_per_chunk,
+    mma_sync_rows_per_chunk); the kernel held to the plain version (and
+    bitwise to the mma.sync kernel at its chunking), with its ring
+    stages, shared bytes, bound (3·2·B·N·F TF32 operations at 494.7
+    TFLOP/s) and the L2 bytes of its stages, (B / 64)·(tiles·128 +
+    tiles·2·64)·ceil32(F)·4, with the rate they imply."""
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     made = None
@@ -977,8 +918,8 @@ def run_k3tf32(runs, dev) -> None:
             made = (f, *k1_inputs(dev, f))
         _, qh, ql, xh, xlh, c1 = made
         stages = tk.merge_tf32_stages(k)
-        rpc_w = tk.merge_rows_per_chunk(B, N, sms, k, False, f)
-        rpc_m = tk.merge_rows_per_chunk(B, N, sms, k)
+        rpc_w = tk.merge_rows_per_chunk(B, N, sms)
+        rpc_m = mma_sync_rows_per_chunk(B, N, sms, k)
         tiles = sum(-(-min(rpc_w, N - r0) // 128) for r0 in range(0, N, rpc_w))
         l2 = -(-B // 64) * tiles * (128 + 2 * 64) * (-(-f // 32) * 32) * 4
         bound = 6.0 * B * N * f / 494.7e12 * 1e3
@@ -1019,25 +960,150 @@ def run_k3tf32(runs, dev) -> None:
                     outs["now"] = (out_s.clone(), out_i.clone())
                     line += f"; L2 reads {l2 / ms / 1e9:.3f} TB/s"
                 print(line + ")", flush=True)
-        ms_s = torch.empty_like(outs["now"][0])
-        ms_i = torch.empty_like(outs["now"][1])
-        fn = dict(runs)["mma.sync"]["kernel"]
-        if fn(qh.data_ptr(), ql.data_ptr(), xh.data_ptr(), xlh.data_ptr(),
-              c1, N, B, f, k, ms_s.shape[1], rpc_w, ms_s.data_ptr(),
-              ms_i.data_ptr(), stream) != 0:
-            raise SystemExit("k3tf32: the mma.sync kernel failed")
         rs, _ = tk.merge_topk_partial_plain(qh, ql, xh, xlh, c1, N, k=k,
                                             rows_per_chunk=rpc_w)
         err = float((outs["now"][0] - rs).abs().max())
-        same = (torch.equal(outs["now"][0], ms_s)
-                and torch.equal(outs["now"][1], ms_i))
+        same = None
+        if "mma.sync" in dict(runs):
+            ms_s = torch.empty_like(outs["now"][0])
+            ms_i = torch.empty_like(outs["now"][1])
+            if dict(runs)["mma.sync"]["kernel"](
+                    qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                    xlh.data_ptr(), c1, N, B, f, k, ms_s.shape[1], rpc_w,
+                    ms_s.data_ptr(), ms_i.data_ptr(), stream) != 0:
+                raise SystemExit("k3tf32: the mma.sync kernel failed")
+            same = (torch.equal(outs["now"][0], ms_s)
+                    and torch.equal(outs["now"][1], ms_i))
+            del ms_s, ms_i
         print(f"k3tf32 {shape}: max_abs_err vs plain {err:.3e}; scores and "
               f"ids bitwise equal to the mma.sync kernel's: {same}",
               flush=True)
-        if err > 1e-5 or not same:
-            raise SystemExit("K3's wgmma route disagrees with its plain "
-                             "version or the mma.sync kernel")
-        del outs, ms_s, ms_i, rs
+        if err > 1e-5 or same is False:
+            raise SystemExit("float32 K3 disagrees with its plain version "
+                             "or the mma.sync kernel")
+        del outs, rs
+    del made
+    torch.cuda.empty_cache()
+
+
+K3GRID_SHAPES = (tuple((bsz, f, 10) for bsz in (1, 16, 32, 63)
+                       for f in (128, 768, 1536))
+                 + ((1, 768, 100),)
+                 + tuple((2048, f, 10) for f in (64, 100, 1537, 4096)))
+
+
+def mma_sync_rows_per_chunk(bsz: int, n: int, sms: int, k: int) -> int:
+    """The chunking of float32 K3's mma.sync kernel (OLD_K3 of the
+    commits that had it): 64 queries × 64 rows a CTA (32 × 128 where the
+    batch, rounded up to 32, is 32), two CTAs an SM where their shared
+    memory fits, at most 64 chunks."""
+    qb = 64 if -(-bsz // 32) * 32 >= 64 else 32
+    tr = 4096 // qb
+    smem = 2 * (qb + tr) * 272 + 4 * (2 * qb * k + 2 * qb * tr + 3 * qb)
+    per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 else 1
+    n_tiles = max(1, -(-n // tr))
+    chunks = bt.wave_chunks(-(-bsz // qb), n_tiles, sms * per_sm)
+    return -(-n_tiles // chunks) * tr
+
+
+def grid_corpus(dev, f: int, width: int):
+    """N clustered unit rows (clustered()'s kind) made on the card in
+    blocks, zero-padded to ``width`` features, with their λ and B raw
+    queries (rows × 1.02)."""
+    gen = torch.Generator(device=dev).manual_seed(f)
+    cen = torch.rand(64, f, device=dev, generator=gen) * 0.6 + 0.2
+    xh = torch.zeros((N, width), device=dev)
+    for r0 in range(0, N, 1 << 16):
+        r1 = min(N, r0 + (1 << 16))
+        pick = torch.randint(0, 64, (r1 - r0,), device=dev, generator=gen)
+        rows = cen[pick] + 0.05 * torch.randn(r1 - r0, f, device=dev,
+                                              generator=gen)
+        xh[r0:r1, :f] = safe_unit(rows)
+    xl = torch.rand(N, device=dev, generator=gen) * 0.2
+    return xh, xl, xh[:B, :f] * 1.02
+
+
+def run_k3grid(now, before, dev) -> None:
+    """Float32 K3 (``now``, csrc/merge_topk_tf32.cu) against the mma.sync
+    kernel of earlier commits (``before``, their OLD_K3) at K3GRID_SHAPES,
+    each at its own chunking: mean ms of 10 launches
+    (CUDA events), in turns old, new, new, old; the merged top-k of the
+    two held bitwise equal, and their partials at the wgmma chunking.
+    The wgmma kernel reads the corpus and queries zero-padded to whole
+    16-byte rows, the mma.sync kernel unpadded."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    made = None
+    for bsz, f, k in sorted(K3GRID_SHAPES, key=lambda s: s[1]):
+        width = -(-f // 4) * 4
+        if made is None or made[0] != f:
+            made = None
+            torch.cuda.empty_cache()
+            xh, xl, q = grid_corpus(dev, f, width)
+            xh_old = xh if width == f else xh[:, :f].contiguous()
+            made = (f, xh, xh_old, xl, q)
+        _, xh, xh_old, xl, q = made
+        qh_old, c1 = prepare_query(q[:bsz], 0.9, dtype=torch.float32)
+        qh = torch.nn.functional.pad(qh_old, (0, width - f)).contiguous()
+        ql = xl[:bsz].contiguous()
+        planes = torch.empty((2, bsz, width), device=dev)
+        plans = {"mma.sync": mma_sync_rows_per_chunk(bsz, N, sms, k),
+                 "wgmma": tk.merge_rows_per_chunk(bsz, N, sms)}
+
+        def launch(name, rpc):
+            chunks = -(-N // rpc)
+            s = torch.empty((bsz, chunks, k), device=dev)
+            i = torch.empty((bsz, chunks, k), device=dev, dtype=torch.int32)
+            if name == "wgmma":
+                args = (qh.data_ptr(), ql.data_ptr(), xh.data_ptr(),
+                        xl.data_ptr(), c1, N, bsz, width, k, chunks, rpc,
+                        s.data_ptr(), i.data_ptr(), planes.data_ptr(),
+                        stream)
+                fn = now
+            else:
+                args = (qh_old.data_ptr(), ql.data_ptr(), xh_old.data_ptr(),
+                        xl.data_ptr(), c1, N, bsz, f, k, chunks, rpc,
+                        s.data_ptr(), i.data_ptr(), stream)
+                fn = before
+
+            def call():
+                rc = fn(*args)
+                if rc != 0:
+                    raise SystemExit(f"k3grid {name} B={bsz} F={f} k={k}: "
+                                     f"launch failed ({rc})")
+            return call, s, i
+
+        ms, outs = {"mma.sync": [], "wgmma": []}, {}
+        for name in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+            call, s, i = launch(name, plans[name])
+            ms[name].append(time_ms(call, reps=10))
+            outs[name] = (s, i)
+        merged = {name: two_key_topk(s.reshape(bsz, -1),
+                                     i.reshape(bsz, -1).long(), k)
+                  for name, (s, i) in outs.items()}
+        same_merged = all(torch.equal(a, b) for a, b in
+                          zip(merged["mma.sync"], merged["wgmma"]))
+        call, s_m, i_m = launch("mma.sync", plans["wgmma"])
+        call()
+        s_w, i_w = outs["wgmma"]
+        same_parts = torch.equal(s_m, s_w) and torch.equal(i_m, i_w)
+        rs, _ = tk.merge_topk_partial_plain(qh_old, ql, xh_old, xl, c1, N,
+                                            k=k,
+                                            rows_per_chunk=plans["wgmma"])
+        err = float((s_w - rs).abs().max())
+        old, new = (sum(ms[n]) / 2 for n in ("mma.sync", "wgmma"))
+        print(f"k3grid B={bsz} F={f} k={k}: mma.sync "
+              f"{ms['mma.sync'][0]:.3f} / {ms['mma.sync'][1]:.3f} ms "
+              f"({-(-N // plans['mma.sync'])} chunks), wgmma "
+              f"{ms['wgmma'][0]:.3f} / {ms['wgmma'][1]:.3f} ms "
+              f"({-(-N // plans['wgmma'])} chunks, F read {width}); "
+              f"wgmma / mma.sync {new / old:.3f}; merged bitwise equal "
+              f"{same_merged}, partials at the wgmma chunking bitwise "
+              f"equal {same_parts}; max_abs_err vs plain {err:.3e}",
+              flush=True)
+        if not (same_merged and same_parts) or err > 1e-5:
+            raise SystemExit("k3grid: the two kernels disagree")
+        del outs, merged, s_m, i_m, rs, planes
     del made
     torch.cuda.empty_cache()
 
@@ -1308,7 +1374,7 @@ def run_k4(libs, dev, tag: str = "now") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", default="k1,k3,k6,k7,k2,k5")
+    ap.add_argument("--kernels", default="k1,k3tf32,k6,k7,k2,k5")
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="csrc directory of another checkout")
     args = ap.parse_args()
@@ -1352,14 +1418,6 @@ def main() -> int:
                                          "before"), ENTRY["k1"]))
             compare_sass("k1", "mma")
         run_k1tf32(runs, dev)
-    if "k3" in kernels:
-        libs = build("k3", CSRC, K3_VARIANTS, "now")
-        if args.before is not None:
-            old = build("k3", args.before.resolve(), {"kernel": []},
-                        "before")
-            compare_sass("k3")
-            run_k3(old, dev, "before")
-        run_k3(libs, dev)
     if "k3bf16" in kernels:
         runs = [("now", build("k3bf16", CSRC, K3BF16_VARIANTS, "now"))]
         if args.before is not None:
@@ -1370,10 +1428,19 @@ def main() -> int:
             runs.append(("before", build("k3bf16", before, {"kernel": []},
                                          "before", src)))
         run_k3bf16(runs, dev)
+    if "k3grid" in kernels:
+        if args.before is None:
+            raise SystemExit("k3grid: --before DIR, a csrc with the "
+                             f"mma.sync kernel ({OLD_K3}), is required")
+        run_k3grid(build("k3tf32", CSRC, {"kernel": []}, "now")["kernel"],
+                   build("k3mma", args.before.resolve(), {"kernel": []},
+                         "mma", OLD_K3)["kernel"], dev)
     if "k3tf32" in kernels:
-        run_k3tf32([("now", build("k3tf32", CSRC, K3TF32_VARIANTS, "now")),
-                    ("mma.sync", build("k3", CSRC, {"kernel": []}, "mma"))],
-                   dev)
+        runs = [("now", build("k3tf32", CSRC, K3TF32_VARIANTS, "now"))]
+        if args.before is not None:
+            runs.append(("mma.sync", build("k3mma", args.before.resolve(),
+                                           {"kernel": []}, "mma", OLD_K3)))
+        run_k3tf32(runs, dev)
     for kernel in ("k6", "k7"):
         if kernel not in kernels:
             continue
