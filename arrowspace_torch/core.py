@@ -4,11 +4,12 @@ PyTorch counterpart of ``arrowspace_tpu.core`` (reference:
 core.rs:84-1006).  ArrowSpace keeps the N×F item matrix and the per-item
 λ vector on one device in one dtype; searches are batched products plus
 an exact top-k (ops/search.py), or on large corpora the binned kernel
-with exact repair (binned_fits) or, where K1 does not admit F, the exact
-merge kernel (merge_fits): the engine gates, which the serving session
-shares.  Items and λ are mutated out of place (a new tensor per
-set), so a session made before a mutation keeps serving the snapshot it
-was made from, as the JAX package's immutable arrays do.
+with exact repair (binned_fits) or, above the width K1 serves (float32:
+its wgmma route's; bf16: its gate), the exact merge kernel (merge_fits):
+the engine gates, which the serving session shares.  Items and λ are
+mutated out of place (a new tensor per set), so a session made before a
+mutation keeps serving the snapshot it was made from, as the JAX
+package's immutable arrays do.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from .config import resolve
-from .ops.bintopk import bintopk_fits
+from .ops.bintopk import bintopk_fits, operand_width, tf32_fits
 from .ops.search import (batched_lambda_aware_topk, binned_topk_with_repair,
                          hybrid_search_device_fused)
 from .ops.topk import fused_lambda_topk
@@ -34,7 +35,8 @@ from .utils.log import get_logger
 logger = get_logger("arrowspace.core")
 
 __all__ = ["ArrowItem", "ArrowFeature", "ArrowSpace", "BINNED_MIN_ITEMS",
-           "BINNED_MAX_K", "binned_fits", "merge_fits", "lambda_aware_topk",
+           "BINNED_MAX_K", "binned_fits", "binned_width", "merge_fits",
+           "lambda_aware_topk",
            "densematrix_to_vecvec"]
 
 # Corpus size and k from which the streaming kernels serve (core.py:422-442
@@ -45,20 +47,32 @@ BINNED_MAX_K = 128
 
 def binned_fits(nitems: int, k: int, f: int, use_bf16: bool = False) -> bool:
     """Whether the binned kernel (K1) with exact repair serves this size:
-    at least BINNED_MIN_ITEMS rows, k up to BINNED_MAX_K and F within
-    K1's gate (its shared memory; in bf16 also F <= 1536, the JAX
-    session's binned limit).  An engine gate of both search and the
-    serving session, keyed on size and dtype alone: a CPU index runs the
-    same engine as a CUDA one, through the kernels' plain versions."""
-    return merge_fits(nitems, k) and bintopk_fits(f, use_bf16)
+    merge_fits, and F within binned_width.  An engine gate of both search
+    and the serving session, keyed on size and dtype alone: a CPU index
+    runs the same engine as a CUDA one, through the kernels' plain
+    versions."""
+    return merge_fits(nitems, k) and binned_width(f, use_bf16)
+
+
+def binned_width(f: int, use_bf16: bool = False) -> bool:
+    """Whether K1 is the engine for F-feature rows.  bf16: where K1's
+    bf16 kernel admits F (up to 1536, the JAX session's binned limit).
+    float32: where K1's wgmma route holds the operand width
+    (ops.bintopk.tf32_fits, F <= 352).  Wider float32 rows go to the
+    exact merge kernel (K3), whose wgmma scan streams the split queries
+    beside the corpus: the same 3×TF32 score a pair, no repair, and at F
+    = 768 about half the time of K1's mma.sync kernel."""
+    if use_bf16:
+        return bintopk_fits(f, True)
+    return tf32_fits(operand_width(f, torch.float32))
 
 
 def merge_fits(nitems: int, k: int) -> bool:
     """Whether the streaming kernels serve this size: at least
     BINNED_MIN_ITEMS rows and k up to BINNED_MAX_K.  Where it holds and
-    binned_fits does not (F above K1's gate), the exact merge kernel (K3)
-    serves, at any F (core.py:429-439 of the JAX package).  Keyed on size
-    alone, as binned_fits is."""
+    binned_fits does not (F past binned_width), the exact merge kernel
+    (K3) serves, at any F (core.py:429-439 of the JAX package).  Keyed on
+    size alone, as binned_fits is."""
     return nitems >= BINNED_MIN_ITEMS and k <= BINNED_MAX_K
 
 
@@ -66,14 +80,15 @@ def lambda_aware_topk(queries, query_lambdas, items, item_lambdas, alpha,
                       *, k: int, use_bf16: bool = False,
                       use_pallas: Optional[bool] = None):
     """Exact λ-aware top-k of a corpus on one device, by the engine its
-    size takes: the binned kernel (K1) with exact repair where
-    binned_fits holds, the exact merge kernel (K3) where only merge_fits
-    does, else the plain scan.  ``use_pallas`` (the JAX package's name,
+    size takes, the serving session's (index.session_kernel_kind): the
+    binned kernel (K1) with exact repair where binned_fits holds, the
+    exact merge kernel (K3) where only merge_fits does (float32 F above
+    352), else the plain scan.  ``use_pallas`` (the JAX package's name,
     core.py:386-441 there) overrides the size gate: False forces the
     plain scan, True forces the kernels at any row count (K1 with repair
-    where K1 admits F, else K3; both serve k <= BINNED_MAX_K).  With
-    ``use_bf16`` K1 and K3 take bf16 operands (their bf16 modes); the
-    plain scan stays in the index dtype, as the JAX package's "xla"
+    where binned_width holds, else K3; both serve k <= BINNED_MAX_K).
+    With ``use_bf16`` K1 and K3 take bf16 operands (their bf16 modes);
+    the plain scan stays in the index dtype, as the JAX package's "xla"
     route does.  (scores (B, k), ids (B, k)) tensors."""
     n, f = items.shape
     if use_pallas is None:
@@ -83,7 +98,7 @@ def lambda_aware_topk(queries, query_lambdas, items, item_lambdas, alpha,
         if k > BINNED_MAX_K:
             raise ValueError(f"use_pallas=True: the kernels serve k <= "
                              f"{BINNED_MAX_K}, not {k}")
-        kind = "binned" if bintopk_fits(f, use_bf16) else "merge"
+        kind = "binned" if binned_width(f, use_bf16) else "merge"
     else:
         kind = "plain"
     if kind == "binned":

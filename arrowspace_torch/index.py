@@ -27,10 +27,10 @@ Without ``seed`` the build's clustering is the unseeded chunked scan.
 A serving step is query-λ preparation (τ selection + synthetic λ on the
 device) followed by the scoring + top-k kernel chosen by
 session_kernel_kind: the binned kernel (K1) with exact strided repair of
-flagged rows, the exact merge kernel (K3) where K1 does not admit F, or
-the plain product + stable sort.  The stream loop keeps
-``depth`` batches in flight: batch i+1 is enqueued on the current stream
-before batch i's results are waited for.
+flagged rows, the exact merge kernel (K3) above the width K1 serves
+(float32 F > 352), or the plain product + stable sort.  The stream loop
+keeps ``depth`` batches in flight: batch i+1 is enqueued on the current
+stream before batch i's results are waited for.
 """
 
 from __future__ import annotations
@@ -70,9 +70,10 @@ def session_kernel_kind(nitems: int, k: int, f: int,
                         use_bf16: bool = False) -> str:
     """The serving step's top-k engine, keyed on size and operand dtype,
     never on the device: "binned" (K1 plus exact repair) where
-    core.binned_fits admits the size (in bf16 up to F = 1536), "merge"
-    (K3, exact, no repair) where only core.merge_fits does (F above K1's
-    gate), else "plain"."""
+    core.binned_fits admits the size (float32 up to F = 352, K1's wgmma
+    route; bf16 up to 1536), "merge" (K3, exact, no repair) where only
+    core.merge_fits does (wider F), else "plain".  core.lambda_aware_topk
+    (search) takes the same engine."""
     if binned_fits(nitems, k, f, use_bf16):
         return "binned"
     return "merge" if merge_fits(nitems, k) else "plain"

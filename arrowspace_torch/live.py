@@ -266,10 +266,11 @@ class LiveSearchSession(_LiveBase):
 
     The engine is chosen once, at capacity (index.session_kernel_kind):
     "binned" is K1 with the strided repair (K3 for rows whose fired bins
-    overflow), "merge" is K3 where F is above K1's gate (the JAX package
-    serves that size with a masked XLA step), "plain" a plain scan of the
-    first ``nitems`` rows.  On the first two the prepared corpus
-    (prepare_binned_corpus) is kept at capacity and written in place.
+    overflow), "merge" is K3 where F is past core.binned_width (float32
+    F above 352; the JAX package serves F above its binned limit with a
+    masked XLA step), "plain" a plain scan of the first ``nitems`` rows.
+    On the first two the prepared corpus (prepare_binned_corpus) is kept
+    at capacity and written in place.
     Results carry stable EXTERNAL ids (int64): the index's rows get ids
     0..n-1, ``add`` returns fresh ones.  ``capacity`` (default: the index
     size) bounds the live row count and is rounded up to CORPUS_ALIGN

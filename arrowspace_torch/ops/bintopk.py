@@ -64,8 +64,8 @@ from .search import (INT_MAX, NEG_INF, as_operand, dot_plane, lambda_term,
 
 __all__ = ["binned_topk_depth_for", "bins_target", "prepare_binned_corpus",
            "scoring_dtype", "prepared_rows", "bintopk_fits", "query_block",
-           "grid_ctas", "operand_width", "tf32_route", "tf32_stages",
-           "tf32_config",
+           "grid_ctas", "operand_width", "tf32_fits", "tf32_route",
+           "tf32_stages", "tf32_config",
            "bf16_stages", "bf16_config", "wave_chunks", "check_operands",
            "binned_topk_pool",
            "binned_topk_pool_plain", "fold_pool_plain", "flush_pool",
@@ -162,14 +162,19 @@ def operand_width(f: int, dtype: torch.dtype) -> int:
     return -(-f // per) * per
 
 
+def tf32_fits(f: int) -> bool:
+    """Whether the float32 wgmma kernel (csrc/bintopk_tf32.cu) holds
+    operands F wide (operand_width): the split query block beside a ring
+    of at least 3 stages within the shared memory (F <= 352)."""
+    return tf32_stages(f) >= _TF32_MIN_STAGES
+
+
 def tf32_route(f: int, bsz: int) -> bool:
-    """Whether float32 K1 launches the wgmma kernel (csrc/bintopk_tf32.cu)
-    at (F, B), F the operands' width (operand_width): the split query
-    block beside a ring of at least 3 stages within the shared memory
-    (F <= 352), and a batch that fills the 64-query CTA.  Elsewhere the
-    mma.sync kernel (csrc/bintopk.cu) runs, at its own query block
-    (query_block)."""
-    return bsz >= _TF32_QB and tf32_stages(f) >= _TF32_MIN_STAGES
+    """Whether float32 K1 launches the wgmma kernel at (F, B), F the
+    operands' width: where tf32_fits holds, for a batch that fills the
+    64-query CTA.  Elsewhere the mma.sync kernel (csrc/bintopk.cu) runs,
+    at its own query block (query_block)."""
+    return bsz >= _TF32_QB and tf32_fits(f)
 
 
 def tf32_config(f: int, depth: int) -> dict:

@@ -4,8 +4,9 @@ Replaces ``arrowspace_tpu.ops.pallas_topk.fused_lambda_topk``
 (pallas_call at pallas_topk.py:263; body ``_kernel`` :90, ``_merge_topk``
 :74).  It scores every corpus row with the shifted λ-aware expression and
 keeps an exact per-query top-k, ties going to the lowest global id.  It
-serves the λ-aware search and the "merge" SearchSession where K1's gate
-does not admit F (core.merge_fits), and the rows of the binned path's
+serves the λ-aware search and the "merge" SearchSession where K1 is
+not the engine for F (core.binned_width: float32 F above 352, bf16 F
+above 1536; core.merge_fits), and the rows of the binned path's
 repair whose fired bins overflow MAX_FIRED (ops/bin_repair).
 
 The CUDA kernels split the corpus into chunks, one CTA per (block of

@@ -20,10 +20,13 @@ the same kind:
 - the wide projected path: ArrowIndex.build with dims_reduction=True on
   the 768-wide rows, whose JL feature graph has r = min(jl_dim, F/2)
   nodes, so λ of the raw rows takes K4 and then K5 in each 2 GiB row
-  window; then a SearchSession as on the cosine path (K1, K3);
+  window; then a SearchSession, which resolves "merge" (float32 F above
+  352, the width K1's wgmma route holds) and serves every batch through
+  K3; then [9b] the binned engine (K1's mma.sync kernel and the strided
+  repair) called directly over the same batches, held to the session;
 - the 1536-wide projected path: the same build on 1536-wide rows (the
-  width of the most widely deployed text embeddings), whose F is above
-  K1's gate, so the SearchSession resolves "merge" and serves every batch
+  width of the most widely deployed text embeddings), where the
+  SearchSession resolves "merge" as at 768 and serves every batch
   through the exact merge kernel K3 (K4, then K5, in each of the build's
   three row windows); a "plain" session (matmul + stable sort) is timed
   beside it.
@@ -50,7 +53,8 @@ sessions:
   (under _smoke_artifacts/, removed at the end), loaded onto the card
   and served: ids and scores bitwise those of the index's own session,
   and no K2 in the load; a 131072-row snapshot of the wide projected
-  index saved and loaded likewise, its projection matrix bitwise;
+  index saved and loaded likewise (a "merge" session), its projection
+  matrix bitwise;
 - live: a LiveSearchSession on the seeded cosine index (capacity n +
   131072, K1 at the live count): 16 batches bitwise the static
   session's, then add 65536 rows, update 4096 and delete 65536, each
@@ -77,7 +81,8 @@ Five phases cover the pruned sessions and out-of-core streaming:
   benchmarks/pruned_crossover.py:37-58) at 1M x 128, built with
   ArrowIndex.build, B=16 and B=256 sessions on 16 hot regions beside a
   SearchSession at the same B;
-- [10c] a B=16 pruned session on the wide 1M x 768 projected index;
+- [10c] a B=16 pruned session on the wide 1M x 768 projected index (its
+  fallback through K3);
 - [4g] and [13c] streaming from host memory in chunks of 2^18 rows
   through pinned, double-buffered copies: λ (K2; K4 and K5 at 1536)
   against the build's, and the top-k of a 2048-query batch (K1 with its
@@ -203,9 +208,10 @@ plain version and bitwise to the mma.sync kernel, both timed, with the
 launch's query block, stages, shared bytes, registers and spills) and
 bintopk (source csrc/bintopk.cu, the mma.sync kernel, timed through its
 C entry at the cosine path's shape, its pools bitwise the wgmma
-kernel's there; its launches counted on the 768-wide path); each path's
-K1 launches are split by route.  float32 K3 is one kernel, merge_topk
-(source csrc/merge_topk_tf32.cu: the cosine check's 1M x 128 batch, its
+kernel's there; its launches counted on [9b]'s binned engine at 768);
+each path's K1 launches are split by route.  float32 K3 is one kernel,
+merge_topk (source csrc/merge_topk_tf32.cu: the cosine check's 1M x 128
+batch, its
 record at_1536 with the launch's stages, shared bytes, registers and
 spills, and wide_repair_768, a single row at 1M x 768; its launches
 counted on the 1536-wide merge path).
@@ -1225,16 +1231,74 @@ def wide_path(torch, counters, dev):
     session, batches, launches, _, i0, _ = serve(
         torch, counters, index, rows, canon, dev, SEED + 3,
         {"select_tau": "k4", "lambda_batch": "k5", "taulambda": "k2",
-         "bintopk": "k1", "merge_topk": "k3"})
+         "bintopk": "k1", "merge_topk": "k3"}, kind="merge")
     check(launches["select_tau"] == 2 and launches["lambda_batch"] == 2,
           "the wide build did not take K4 and K5 in each of its two windows")
-    check(launches["taulambda"] == 0, "the wide build launched K2")
-    check(launches["bintopk"] == N_BATCHES + 1,
-          "K1 did not launch once for every batch and the warm-up")
-    check(launches["merge_topk"] >= 1, "batch 0's repair never reached K3")
+    check(launches["taulambda"] == 0 and launches["bintopk"] == 0,
+          "the wide path launched K2 or K1")
+    check(launches["merge_topk"] == N_BATCHES + 1,
+          "K3 did not launch once for every batch and the warm-up")
     check_lambdas(a.lambdas, canon, "wide")
     log(f"  row 0 top-{K}: {i0[0].tolist()}")
     return index, session, batches, launches
+
+
+def binned_engine_phase(torch, counters, index, session, batches, dev):
+    """[9b] K1's mma.sync kernel on a serving path at F = 768: the binned
+    engine (ops.bin_repair.BinnedTopK: K1, its flush and the strided
+    repair) over the wide index's batches, with the session's query λ,
+    called directly since the 768-wide session serves K3.  K1 must launch
+    once a batch, on its mma.sync kernel, and batch 0's planted copies
+    must flag and be repaired.  Every row K1 did not flag must equal the
+    merge session's bitwise (one 3×TF32 score a pair, ties to the lowest
+    id); a repaired row agrees with it (the repair rescores in a float32
+    cuBLAS product).  The counters are set to 0 after the session's
+    stream and read right after the engine's.  Returns the launches."""
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops.bin_repair import BinnedTopK
+
+    log("[9b] the binned engine (K1, the strided repair) over the wide "
+        "index's batches, beside the merge session")
+    a = index.aspace
+    prepare = _query_prep(a, index.gl)[1]
+    ref = list(session.search_stream(batches))
+    engine = BinnedTopK(a.data, a.lambdas, ALPHA, K)
+    sync(torch, dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    out = []
+    for q in batches:
+        qt = torch.as_tensor(q, device=dev, dtype=torch.float32)
+        _, qlam = prepare(qt)
+        s, i, flags, det = engine.step(qt, qlam)
+        fl = flags.cpu().numpy()
+        s, i = engine.repair(qt, qlam, det, s.cpu().numpy(),
+                             i.cpu().numpy(), fl)
+        out.append((s, i, fl))
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    launches = {"bintopk": counters["k1"].launches,
+                "merge_topk": counters["k3"].launches,
+                "repair": counters["repair"].calls}
+    flagged = sum(int(fl.sum()) for _, _, fl in out)
+    log(f"  {len(batches)} batches of {BATCH}, {ms:.3f} ms a batch (host "
+        f"clock, the repair's reads in line); launches {launches}; rows "
+        f"flagged {flagged}")
+    check(route_split(launches["bintopk"], "mma") == len(batches)
+          and route_split(launches["bintopk"], "wgmma") == 0,
+          "K1 did not launch its mma.sync kernel once a batch")
+    check(flagged > 0 and launches["repair"] > 0,
+          "batch 0's planted copies were not flagged and repaired")
+    for b, ((s, i, fl), (rs, ri)) in enumerate(zip(out, ref)):
+        check(np.array_equal(s[~fl], rs[~fl])
+              and np.array_equal(i[~fl], ri[~fl]),
+              f"batch {b}: an unflagged row differs from the merge "
+              "session's")
+        if fl.any():
+            agree(f"batch {b}'s {int(fl.sum())} repaired rows vs the merge "
+                  "session", s[fl], i[fl], rs[fl], ri[fl])
+    log("  every unflagged row bitwise the merge session's")
+    return launches
 
 
 def k5_vs_plain(torch, a, lap, win, name):
@@ -2242,8 +2306,8 @@ def wide_snapshot_phase(torch, counters, index, batches, dev):
     """A 131072-row snapshot of the wide projected index (the same graph,
     projection and λ, as to_index makes one) saved and loaded onto the
     card: the loaded projection matrix bitwise the saved one, and its
-    SearchSession (K1) bitwise the snapshot's over 4 batches.  Returns
-    the K1 launches of the reloaded session."""
+    SearchSession ("merge", K3) bitwise the snapshot's over 4 batches.
+    Returns the K3 launches of the reloaded session."""
     import copy
     import dataclasses
 
@@ -2261,7 +2325,7 @@ def wide_snapshot_phase(torch, counters, index, batches, dev):
     gl.nnodes = SNAP_ROWS
     snap = ArrowIndex(snap_a, gl)
     static = snap.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
-    check(static.kernel == "binned", f"snapshot session {static.kernel}")
+    check(static.kernel == "merge", f"snapshot session {static.kernel}")
     static.warmup()
     ref = list(static.search_stream(batches[:4]))
     base = artifacts_dir()
@@ -2276,14 +2340,14 @@ def wide_snapshot_phase(torch, counters, index, batches, dev):
     session = loaded.make_search_session(batch_size=BATCH, k=K, alpha=ALPHA)
     session.warmup()
     got = list(session.search_stream(batches[:4]))
-    k1 = counters["k1"].launches
+    k3 = counters["k3"].launches
     same_results("reloaded wide snapshot's session vs the snapshot's", got,
                  ref)
     log(f"  save_s={t_save:.3f} load_s={t_load:.3f}; projection "
-        f"{tuple(p1.matrix().shape)} bitwise; K1 launches={k1}; files: "
+        f"{tuple(p1.matrix().shape)} bitwise; K3 launches={k3}; files: "
         + ", ".join(f"{k} {v / 2**20:.1f} MiB"
                     for k, v in artifact_bytes("wide").items()))
-    return k1
+    return k3
 
 
 def live_merge_phase(torch, counters, index, batches, dev):
@@ -4373,6 +4437,8 @@ def main() -> int:
 
         index, session, batches, w_launches = wide_path(torch, counters,
                                                         dev)
+        w_binned = binned_engine_phase(torch, counters, index, session,
+                                       batches, dev)
         launches["lambda_batch"] = w_launches["lambda_batch"]
         k5_rec, k3_wide, k4_wide = wide_kernels_vs_plain(torch, index,
                                                          batches, dev)
@@ -4385,7 +4451,7 @@ def main() -> int:
                                 ("wide bf16 session", w16_sess)),
                         batches, step=11)
         del w16_sess
-        k1_snapshot = wide_snapshot_phase(torch, counters, index, batches,
+        k3_snapshot = wide_snapshot_phase(torch, counters, index, batches,
                                           dev)
         wide_pruned = wide_pruned_phase(torch, counters, index, batches, dev)
         del index, session, batches
@@ -4450,6 +4516,8 @@ def main() -> int:
             "chunks")}
         k3_paths = {"cosine": launches["merge_topk"],
                     "wide_768": w_launches["merge_topk"],
+                    "wide_768_binned_engine": w_binned["merge_topk"],
+                    "reloaded_wide_snapshot": k3_snapshot,
                     "wide_1536": x_launches["merge_topk"],
                     "spectral": spectral["merge_topk"],
                     "live_merge_1536": k3_live,
@@ -4498,8 +4566,7 @@ def main() -> int:
                     "reloaded_cosine": k1_reloaded,
                     "live_cosine": k1_live,
                     "spectral": spectral["bintopk"],
-                    "wide_768": w_launches["bintopk"],
-                    "reloaded_wide_snapshot": k1_snapshot,
+                    "wide_768_binned_engine": w_binned["bintopk"],
                     **pruned["k1"], **jax_corpus["k1"],
                     "pruned_wide_768_b16": wide_pruned["k1"],
                     "streamed_128": s128_topk["k1"],
@@ -4512,9 +4579,9 @@ def main() -> int:
                                  "use_pallas_True_below_gate",
                                  "unprepared_cosine")}}
         # float32 K1's launches split by route: the cosine path's on the
-        # wgmma kernel, the 768-wide path's on the mma.sync kernel
+        # wgmma kernel, the 768-wide binned engine's on the mma.sync kernel
         launches["bintopk_tf32"] = route_split(launches["bintopk"], "wgmma")
-        launches["bintopk"] = route_split(w_launches["bintopk"], "mma")
+        launches["bintopk"] = route_split(w_binned["bintopk"], "mma")
         for name, by_path in {
                 "bintopk": {p: route_split(v, "mma")
                             for p, v in k1_paths.items()},

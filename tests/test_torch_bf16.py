@@ -396,15 +396,16 @@ def test_bf16_ties_lowest_id_first():
 
 
 def test_bf16_gates_and_precision_names():
-    """K1's bf16 gate admits F = 1536 (the JAX session's binned limit),
-    where float32 K1's shared memory does not; above it bf16 serves
-    K3.  An unknown precision raises ValueError in every entry point."""
+    """K1's bf16 gate admits F = 1536 (the JAX session's binned limit);
+    float32 serves K1 only up to F = 352 (its wgmma route) and K3 above,
+    F = 1264 included.  Above 1536 bf16 serves K3.  An unknown precision
+    raises ValueError in every entry point."""
     n = 1_000_000
     assert session_kernel_kind(n, 10, 1536, True) == "binned"
     assert session_kernel_kind(n, 10, 1536) == "merge"
     assert session_kernel_kind(n, 10, 1537, True) == "merge"
     assert session_kernel_kind(n, 10, 1544, True) == "merge"
-    assert session_kernel_kind(n, 10, 1264) == "binned"
+    assert session_kernel_kind(n, 10, 1264) == "merge"
     assert session_kernel_kind(n, 129, 128, True) == "plain"
     assert bt.query_block(1536, 2048, True) == 64
     assert bt.query_block(768, 2048, True) == 128

@@ -337,6 +337,65 @@ def test_merge_session_at_f1536_equals_plain_scan(dev):
         assert abs(other - ps[r, j]) <= 2.0 * err
 
 
+def test_merge_session_at_f768_equals_the_binned_session(dev, monkeypatch):
+    """A 131072 x 768 projected build on the card at k = 100: the session
+    resolves "merge" (float32 F above 352, the width K1's wgmma route
+    holds) and launches K3 once a batch and no K1.  A binned session of
+    the same index (the gate monkeypatched) runs K1's mma.sync kernel and
+    the strided repair of batch 0's row 0, whose six copies share one
+    bin.  On every row K1 did not flag the two sessions' scores and ids
+    are bitwise equal; a repaired row (rescored by the repair's float32
+    product) agrees; both equal the plain full scan (_near_ties_only),
+    the copies side by side in ascending id order."""
+    import arrowspace_torch.index as index_mod
+    from arrowspace_torch.index import _query_prep
+    from arrowspace_torch.ops import bin_repair as br
+    rng = np.random.default_rng(31)
+    n, f, k, b = 131_072, 768, 100, 256
+    c = rng.uniform(0.2, 0.8, (24, f))
+    rows = c[rng.integers(0, 24, n)] + rng.normal(0, 0.05, (n, f))
+    rows[10 + bt.bins_target(k) * np.arange(1, 6)] = rows[10]
+    idx = ArrowIndex.build(rows, eps=1.0, dims_reduction=True, seed=31,
+                           device=dev)
+    merge = idx.make_search_session(batch_size=b, k=k, alpha=0.9)
+    assert merge.kernel == "merge"
+    monkeypatch.setattr(index_mod, "session_kernel_kind",
+                        lambda *a, **kw: "binned")
+    binned = idx.make_search_session(batch_size=b, k=k, alpha=0.9)
+    assert binned.kernel == "binned"
+    batches = [rows[rng.integers(0, n, b)] * 1.02 for _ in range(2)]
+    batches[0][0] = rows[10] * 1.02
+    k1, k3 = bt.binned_topk_pool.launches, tk.merge_topk_partial.launches
+    got_m = list(merge.search_stream(batches))
+    assert tk.merge_topk_partial.launches - k3 == 2
+    assert bt.binned_topk_pool.launches == k1
+    k1w, rep = bt.binned_topk_pool.launches_wgmma, \
+        br.strided_lambda_repair.calls
+    got_b = list(binned.search_stream(batches))
+    assert bt.binned_topk_pool.launches - k1 == 2
+    assert bt.binned_topk_pool.launches_wgmma == k1w
+    assert br.strided_lambda_repair.calls > rep
+    flagged = 0
+    for batch, (ms, mi), (bs, bi) in zip(batches, got_m, got_b):
+        q = torch.tensor(batch, dtype=torch.float32, device=dev)
+        fl = binned._step(q)[2].cpu().numpy()
+        flagged += int(fl.sum())
+        assert np.array_equal(ms[~fl], bs[~fl])
+        assert np.array_equal(mi[~fl], bi[~fl])
+        if fl.any():
+            _near_ties_only(bs[fl], bi[fl], ms[fl], mi[fl])
+        _, qlam = _query_prep(idx.aspace, idx.gl)[1](q)
+        ps, pi = batched_lambda_aware_topk(q, qlam, idx.aspace.data,
+                                           idx.aspace.lambdas, 0.9, k=k)
+        ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+        _near_ties_only(ms, mi, ps, pi)
+        _near_ties_only(bs, bi, ps, pi)
+    assert flagged >= 1
+    hit = got_m[0][1][0].tolist()
+    at = [hit.index(10 + bt.bins_target(k) * j) for j in range(6)]
+    assert at == list(range(at[0], at[0] + 6))
+
+
 def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     qh, ql, xh, xlh, c1 = _inputs(dev, 600, 16, 4, seed=1)
     kw = dict(k=10, rows_per_chunk=256)

@@ -1,11 +1,12 @@
 """The exact merge route of arrowspace_torch (K3, ops/topk.py) against
 the JAX package's Pallas kernel in interpret mode.
 
-Where core.binned_fits fails on F alone (F above K1's gate of 1264) and
-core.merge_fits holds (N >= BINNED_MIN_ITEMS, k <= 128), both the
-λ-aware search and the serving session take K3, as the JAX package's
-search does (core.py:429-439 there); on the CPU K3's wrapper runs its
-plain version.  The tests lower the row gate so that a small wide corpus
+Where core.binned_fits fails on F alone (float32 F above 352, the width
+K1's wgmma route holds; bf16 F above 1536) and core.merge_fits holds (N
+>= BINNED_MIN_ITEMS, k <= 128), both the λ-aware search and the serving
+session take K3, as the JAX package's search does above its own binned
+limit (core.py:429-439 there); on the CPU K3's wrapper runs its plain
+version.  The tests lower the row gate so that a small wide corpus
 takes the route, count the plain version's calls, and hold ids and tie
 order equal to ``fused_lambda_topk(..., interpret=True)`` (float32), the
 scores within float64 tolerance of a float64 numpy scan and within 1e-6
@@ -33,10 +34,47 @@ from test_torch_bintopk import _THREE_TF32, _tensor_core_dot
                                        ((60_000, 10, 1536), "plain"),
                                        ((1_000_000, 10, 128), "binned"),
                                        ((1_000_000, 128, 1265), "merge"),
-                                       ((65_536, 1, 3072), "merge")])
+                                       ((65_536, 1, 3072), "merge"),
+                                       ((1_000_000, 10, 352), "binned"),
+                                       ((1_000_000, 10, 353), "merge"),
+                                       ((1_000_000, 10, 356), "merge"),
+                                       ((1_000_000, 100, 768), "merge"),
+                                       ((1_000_000, 10, 1264), "merge"),
+                                       ((1_000_000, 10, 768, True),
+                                        "binned")])
 def test_session_kernel_kind(args, kind):
     assert session_kernel_kind(*args) == kind
     assert core.merge_fits(args[0], args[1]) == (kind != "plain")
+
+
+@pytest.mark.parametrize("f,use_bf16", [(352, False), (356, False),
+                                        (768, False), (768, True)])
+def test_search_takes_the_session_engine(monkeypatch, f, use_bf16):
+    """core.lambda_aware_topk (search) runs the engine that
+    session_kernel_kind gives a session of the same size and dtype, both
+    through the size gates and under use_pallas=True: K1 with its repair
+    up to float32 F = 352 (bf16 up to 1536), K3 above; the float32 ids
+    equal the plain scan's."""
+    monkeypatch.setattr(core, "BINNED_MIN_ITEMS", 1024)
+    q, ql, x, xl, _ = _corpus(1100, f, 4, seed=f)
+    args = [torch.from_numpy(a) for a in (q, ql, x, xl)]
+    ran = []
+    for name in ("binned_topk_with_repair", "fused_lambda_topk"):
+        real = getattr(core, name)
+        monkeypatch.setattr(core, name, lambda *a, _n=name, _r=real, **kw:
+                            ran.append(_n) or _r(*a, **kw))
+    want = {"binned": "binned_topk_with_repair",
+            "merge": "fused_lambda_topk"}[session_kernel_kind(1100, 10, f,
+                                                             use_bf16)]
+    assert want == ("binned_topk_with_repair" if f == 352 or use_bf16
+                    else "fused_lambda_topk")
+    _, pi = batched_lambda_aware_topk(*args, 0.9, k=10)
+    for use_pallas in (None, True):
+        s, i = core.lambda_aware_topk(*args, 0.9, k=10, use_bf16=use_bf16,
+                                      use_pallas=use_pallas)
+        assert ran.pop() == want and not ran
+        if not use_bf16:
+            assert torch.equal(i, pi)
 
 
 def _corpus(n, f, b, seed):

@@ -11,7 +11,8 @@ and of the τ selection that K4 (csrc/select_tau.cu) and K2 share
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ablation.py
-        [--kernels k1,k1bf16,k1tf32,k3tf32,k3grid,k3bf16,k6,k7,k2,k5,k4]
+        [--kernels k1,k1bf16,k1tf32,k3tf32,k3grid,k3bf16,engines,k6,k7,k2,k5,
+                   k4]
         [--before DIR]
 
 Where no kernel profiler can be used, this is the way to see what bounds
@@ -55,6 +56,18 @@ fails) and times each copy on the same inputs at the serving shapes:
   kernel at its own chunking, mean ms of 10 launches in turns, the
   merged top-k and the partials at this kernel's chunking held bitwise
   equal;
+- the float32 engines (``--kernels engines``): the binned engine (K1 on
+  the route it takes, its flush, and the exact repair of flagged rows,
+  ops.bin_repair.BinnedTopK) against the merge engine (K3, its query
+  split and its merge of the chunks' partials, ops.topk.fused_lambda_topk)
+  on the same prepared corpus of 1M clustered rows, F in ENGINE_WIDTHS, k
+  in ENGINE_KS, B in ENGINE_BATCHES (raw queries: the rows × 1.02), each
+  at its own chunking: mean ms of 10 calls in turns binned, merge, merge,
+  binned (the binned engine's step; the repair's host-clock ms once
+  beside it), the mean SM clock and power over each engine's turns, and
+  both engines' top-k held bitwise equal on every row K1 did not flag
+  (on a flagged row the strided repair rescores in a float32 cuBLAS
+  product, so there: scores within 1e-5, ids equal outside near-ties);
 - K6 and K7: chip_smoke.py's energy z-plane, made on the card: the
   clustered 1,000,000 x 128 rows projected to G = 64 by a seeded
   Gaussian matrix (scaled by 1/√G, as the JL projection is), queries the
@@ -154,6 +167,8 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
+import time
 
 import torch
 
@@ -161,6 +176,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from arrowspace_torch.graph import GraphFactory  # noqa: E402
+from arrowspace_torch.ops import bin_repair as br  # noqa: E402
 from arrowspace_torch.ops import bintopk as bt  # noqa: E402
 from arrowspace_torch.ops import lambda_batch as lb  # noqa: E402
 from arrowspace_torch.ops import taulambda as tl  # noqa: E402
@@ -1108,6 +1124,163 @@ def run_k3grid(now, before, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --kernels engines: the widths around K1's wgmma limit (operand width
+# 352) up to its float32 gate (1264), k of the cells, batches from one
+# query to the cells' 2048
+ENGINE_WIDTHS = (100, 352, 356, 512, 768, 1024, 1264)
+ENGINE_KS = (10, 100)
+ENGINE_BATCHES = (1, 16, 64, 2048)
+
+
+class ClockLog:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    nvidia-smi in a thread while the engines run."""
+
+    def __init__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        cmd = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+               "--format=csv,noheader,nounits"]
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            try:
+                out = subprocess.run(cmd, capture_output=True,
+                                     text=True).stdout
+                mhz, watts = (float(v) for v in
+                              out.splitlines()[0].split(","))
+            except (OSError, IndexError, ValueError):
+                return
+            self.samples.append(((t0 + time.monotonic()) / 2, mhz, watts))
+            self._stop.wait(0.1)
+
+    def over(self, spans) -> str:
+        """'MHz / W' averaged over the samples inside ``spans`` ((t0, t1)
+        pairs), else the sample nearest their middle."""
+        got = [(m, w) for t, m, w in list(self.samples)
+               if any(a <= t <= b for a, b in spans)]
+        if not got and self.samples:
+            mid = sum(a + b for a, b in spans) / (2 * len(spans))
+            got = [min(self.samples, key=lambda s: abs(s[0] - mid))[1:]]
+        if not got:
+            return "clock not read"
+        return (f"{sum(m for m, _ in got) / len(got):.0f} MHz "
+                f"{sum(w for _, w in got) / len(got):.0f} W")
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def engine_corpus(dev, f: int):
+    """1M clustered rows (clustered()'s kind, made on the card in
+    blocks) prepared as a session holds them (prepare_binned_corpus), with
+    their λ and ENGINE_BATCHES' largest batch of raw queries (rows ×
+    1.02) and query λ."""
+    gen = torch.Generator(device=dev).manual_seed(f)
+    cen = torch.rand(64, f, device=dev, generator=gen) * 0.6 + 0.2
+    raw = torch.empty((N, f), device=dev)
+    for r0 in range(0, N, 1 << 16):
+        r1 = min(N, r0 + (1 << 16))
+        pick = torch.randint(0, 64, (r1 - r0,), device=dev, generator=gen)
+        raw[r0:r1] = cen[pick] + 0.05 * torch.randn(r1 - r0, f, device=dev,
+                                                    generator=gen)
+    xl = torch.rand(N, device=dev, generator=gen) * 0.2
+    bmax = max(ENGINE_BATCHES)
+    q, ql = raw[:bmax] * 1.02, xl[:bmax].clone()
+    xhat, xlam = bt.prepare_binned_corpus(raw, xl)
+    return xhat, xlam, q, ql
+
+
+def engines_agree(got, ref, flags) -> tuple:
+    """(rows K1 flagged, whether every unflagged row is bitwise equal,
+    the largest score gap on the flagged rows): on a flagged row the ids
+    must be equal outside near-ties (within twice that gap, at most
+    1e-5)."""
+    (gs, gi), (rs, ri) = ((s.float().cpu(), i.long().cpu())
+                          for s, i in (got, ref))
+    fl = flags.cpu().bool()
+    same = torch.equal(gs[~fl], rs[~fl]) and torch.equal(gi[~fl], ri[~fl])
+    gap = float((gs[fl] - rs[fl]).abs().max()) if fl.any() else 0.0
+    for r in torch.nonzero(fl).flatten().tolist():
+        for j in torch.nonzero(gi[r] != ri[r]).flatten().tolist():
+            pos = torch.nonzero(ri[r] == gi[r, j]).flatten()
+            other = rs[r, pos[0]] if pos.numel() else rs[r, -1]
+            if abs(float(other - rs[r, j])) > 2.0 * gap:
+                same = False
+    return int(fl.sum()), same, gap
+
+
+def run_engines(dev) -> None:
+    """The binned engine (K1 on its route, the flush, the exact repair)
+    against the merge engine (K3, the split, the merge) at every
+    (ENGINE_WIDTHS, ENGINE_KS, ENGINE_BATCHES) shape on 1M clustered rows,
+    each at its own chunking: mean ms of 10 calls (CUDA events) in turns
+    binned, merge, merge, binned, the SM clock over each engine's turns,
+    and their top-k compared (engines_agree)."""
+    clock = ClockLog()
+    alpha = 0.9
+    try:
+        for f in ENGINE_WIDTHS:
+            torch.cuda.empty_cache()
+            xhat, xlam, q_all, ql_all = engine_corpus(dev, f)
+            width = xhat.shape[1]
+            for k in ENGINE_KS:
+                for bsz in ENGINE_BATCHES:
+                    q, ql = q_all[:bsz].contiguous(), ql_all[:bsz].contiguous()
+                    eng = br.BinnedTopK(xhat, xlam, alpha, k, prepared=True,
+                                        n=N)
+                    calls = {
+                        "binned": lambda: eng.step(q, ql),
+                        "merge": lambda: tk.fused_lambda_topk(
+                            q, ql, xhat, xlam, alpha, k=k, prepared=True,
+                            n_items=N)}
+                    ms = {"binned": [], "merge": []}
+                    spans = {"binned": [], "merge": []}
+                    for name in ("binned", "merge", "merge", "binned"):
+                        t0 = time.monotonic()
+                        ms[name].append(time_ms(calls[name], reps=10))
+                        spans[name].append((t0, time.monotonic()))
+                    s1, i1, flags, det = eng.step(q, ql)
+                    fl = flags.cpu().numpy()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rs, ri = eng.repair(q, ql, det, s1.cpu().numpy(),
+                                        i1.cpu().numpy(), fl)
+                    torch.cuda.synchronize()
+                    rep_ms = (time.perf_counter() - t0) * 1e3 \
+                        if fl.any() else 0.0
+                    got = (torch.as_tensor(rs), torch.as_tensor(ri))
+                    ref = calls["merge"]()
+                    flagged, same, gap = engines_agree(got, ref, flags)
+                    b_ms, m_ms = (sum(ms[n]) / 2 for n in ("binned",
+                                                             "merge"))
+                    route = ("wgmma" if bt.tf32_route(width, bsz)
+                             else "mma.sync")
+                    print(f"engines F={f} k={k} B={bsz}: binned (K1 "
+                          f"{route}) {ms['binned'][0]:.3f} / "
+                          f"{ms['binned'][1]:.3f} ms "
+                          f"[{clock.over(spans['binned'])}], repair "
+                          f"{rep_ms:.3f} ms host clock ({flagged} rows "
+                          f"flagged); merge (K3) {ms['merge'][0]:.3f} / "
+                          f"{ms['merge'][1]:.3f} ms "
+                          f"[{clock.over(spans['merge'])}]; merge / "
+                          f"binned {m_ms / b_ms:.3f}; unflagged rows "
+                          f"bitwise equal, flagged rows within near-ties: "
+                          f"{same}; flagged rows' score gap {gap:.3e}",
+                          flush=True)
+                    if not same or gap > 1e-5:
+                        raise SystemExit("engines: the binned and merge "
+                                         "engines disagree")
+                    del eng, calls, s1, i1, flags, det, got, ref
+            del xhat, xlam, q_all, ql_all
+    finally:
+        clock.stop()
+    torch.cuda.empty_cache()
+
+
 def energy_plane(dev, centred: bool):
     """(zq, qn, qlam, zx, xn, xlam) of the smoke's z-plane."""
     x, gen = clustered(dev, N, 128, seed=11)
@@ -1435,6 +1608,8 @@ def main() -> int:
         run_k3grid(build("k3tf32", CSRC, {"kernel": []}, "now")["kernel"],
                    build("k3mma", args.before.resolve(), {"kernel": []},
                          "mma", OLD_K3)["kernel"], dev)
+    if "engines" in kernels:
+        run_engines(dev)
     if "k3tf32" in kernels:
         runs = [("now", build("k3tf32", CSRC, K3TF32_VARIANTS, "now"))]
         if args.before is not None:
